@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Where the time goes on the PyTorch port's main path, on one NVIDIA GPU.
+
+    python3 scripts/profile_torch_path.py [--steps N] [--out build/profile_torch_path.json]
+
+At the full widths that `chip_smoke.py` drives (its `TWO_STAGE_CFG`, from
+`configs/sample_two_stage.yml`; bf16, seeded random weights with the
+zero-init kernels un-zeroed as the sample CLI does), times one stage-1
+denoise step at 64x128x128 and one stage-2 DDIM step at 256x256 and 512x512
+with CUDA events, then traces a few steps of each with torch.profiler and sums the
+kernels' device time by kind (convolution, flash_fwd, GroupNorm/elementwise,
+matmul, ...).  Prints one JSON line per step kind and writes them all to
+`--out`.  The device's idle share is 1 - (kernel time / step wall time).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from chip_smoke import TWO_STAGE_CFG  # noqa: E402
+from jointimagegeneration_torch.cli.sample import build_mask_sampler, build_slice_ldm, load_weights  # noqa: E402
+from jointimagegeneration_torch.core.runtime import configure_precision  # noqa: E402
+from jointimagegeneration_torch.diffusion.ddim import DDIMParams, ddim_step  # noqa: E402
+from jointimagegeneration_torch.diffusion.noise import NoiseSource  # noqa: E402
+from jointimagegeneration_torch.ops import flash_attention as flash  # noqa: E402
+from jointimagegeneration_torch.ops.cuda.build import build_all  # noqa: E402
+
+KINDS = [  # (kind, pattern on the kernel name), first match wins
+    ("flash_fwd", r"flash_fwd"),
+    ("conv", r"xmma_fprop|implicit_gemm|conv|cudnn"),
+    ("matmul", r"gemm|cutlass|cublas"),
+    ("norm_reduce", r"reduce_kernel|welford"),
+    ("copy_cast", r"copy_kernel|catarray|cat_batched"),
+    ("elementwise", r"elementwise|silu|softmax|index"),
+]
+
+S1, S2 = TWO_STAGE_CFG["stage1"], TWO_STAGE_CFG["stage2"]  # the widths chip_smoke.py drives
+NOISE = TWO_STAGE_CFG["fresh_init_noise"]
+
+
+def kind_of(name: str) -> str:
+    for kind, pat in KINDS:
+        if re.search(pat, name, re.IGNORECASE):
+            return kind
+    return "other"
+
+
+def measure(label: str, step, steps: int) -> dict:
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    flash.flash_forward.launches = 0
+    start.record()
+    for _ in range(steps):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / steps
+    launches = flash.flash_forward.launches / steps
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    by_kind, kernels = {}, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:  # operator rows repeat their kernels' time
+            continue
+        ms = e.self_device_time_total / steps / 1e3
+        kernels.append((ms, e.count // steps, e.key))
+        by_kind[kind_of(e.key)] = by_kind.get(kind_of(e.key), 0.0) + ms
+    kernel_ms = sum(by_kind.values())
+    kernels.sort(reverse=True)
+    row = {"step": label, "step_ms": step_ms, "kernel_ms": kernel_ms,
+           "device_idle_share": (1 - kernel_ms / step_ms) if kernel_ms else None,
+           "flash_launches_per_step": launches,
+           "kernel_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+           "top_kernels": [{"ms": ms, "calls": n, "name": name[:120]} for ms, n, name in kernels[:12]]}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--out", default="build/profile_torch_path.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_path: needs a CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"card: {card}; torch {torch.__version__}", flush=True)
+    configure_precision()
+    build_all([flash.FLASH_SOURCE])
+    rows = []
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ms = build_mask_sampler(S1, "cuda")
+        load_weights(ms.unet, None, NOISE, 1)
+        print(f"stage-1 model built in {time.perf_counter() - t0:.2f} s", flush=True)
+        noise = NoiseSource(0, "cuda")
+        shape = (1, 64, 128, 128)
+        xt = torch.nn.functional.one_hot(torch.randint(0, 12, shape, device="cuda"), 12).float()
+        cond = torch.zeros((*shape, 1), device="cuda")
+        t = torch.full((1,), 500, device="cuda")
+        rows.append(measure("stage1_denoise_64x128x128", lambda: ms.denoise_step(noise, xt, t, cond=cond),
+                            args.steps))
+        del ms, xt
+        torch.cuda.empty_cache()
+
+        ldm = build_slice_ldm(S2, "cuda")
+        load_weights(ldm.unet, None, NOISE, 2)
+        ddim = DDIMParams.create(ldm.diffusion, 50)
+        for size in (256, 512):
+            x = torch.randn(1, size, size, 1, device="cuda")
+            c = torch.rand(1, size, size, 2, device="cuda")
+            tb = torch.full((1,), int(ddim.timesteps[25]), device="cuda")
+
+            def step():
+                e = ldm.apply_model(x, tb, cond=c)
+                return ddim_step(ddim, noise, x, e.float(), 25)
+
+            rows.append(measure(f"stage2_ddim_step_{size}x{size}", step, args.steps))
+    for r in rows:
+        r["card"] = card
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(rows, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
