@@ -47,8 +47,9 @@ from ..utils.jax_weights import unet_state_dict_from_jax
 __all__ = ["build_mask_sampler", "build_slice_ldm", "load_weights", "run", "main"]
 
 
-def build_mask_sampler(cfg: dict, device, cond_channels: int = 1) -> MaskSampler:
-    """cfg keys mirror ccdm params.yml (unet_openai + diffusion sections)."""
+def build_mask_sampler(cfg: dict, device, cond_channels: int = 1, seed: int = 0) -> MaskSampler:
+    """cfg keys mirror ccdm params.yml (unet_openai + diffusion sections);
+    `seed` seeds the UNet's fresh init."""
     u = cfg.get("unet_openai", {})
     return MaskSampler.create(
         num_classes=cfg.get("num_classes", 12),
@@ -64,7 +65,7 @@ def build_mask_sampler(cfg: dict, device, cond_channels: int = 1) -> MaskSampler
         dtype=torch.bfloat16 if cfg.get("bf16", True) else torch.float32,
         step_T_sample=cfg.get("step_T_sample", "majority"),
         device=device,
-        seed=0,
+        seed=seed,
     )
 
 

@@ -44,6 +44,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
+
 namespace {
 
 constexpr int kBlockM = 64;    // q rows per block
@@ -53,24 +55,6 @@ constexpr int kPad = 8;        // bf16 elements of row padding (bank spread)
 constexpr int kF32BlockN = 32; // keys per shared-memory tile (fp32 kernel)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInit = -1e30f;  // running-max start, as the TPU kernel's _NEG_INF
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // Copy rows [row0, row0 + rows) x [0, d) of a (n_rows, d) bf16 matrix into a
 // (rows, HD + kPad) shared tile, zero-filling rows past n_rows and columns past
@@ -150,16 +134,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   stage_tile<HD, false>(sQ, qb, m0, kBlockM, tq, d, vec_ok);
   __syncthreads();
   uint32_t qf[KS][4];
-  {
-    const __nv_bfloat16* base = sQ + (warp * 16) * QS;
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      qf[ks][0] = lds32(base + g * QS + ks * 16 + t4 * 2);
-      qf[ks][1] = lds32(base + (g + 8) * QS + ks * 16 + t4 * 2);
-      qf[ks][2] = lds32(base + g * QS + ks * 16 + 8 + t4 * 2);
-      qf[ks][3] = lds32(base + (g + 8) * QS + ks * 16 + 8 + t4 * 2);
-    }
-  }
+  for (int ks = 0; ks < KS; ++ks) load_a_frag(qf[ks], sQ + (warp * 16) * QS, QS, ks, g, t4);
 
   float acc[DT][4];
 #pragma unroll
@@ -220,10 +196,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      pack_a_frag(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
         const __nv_bfloat16* vr = sVt + (dt * 8 + g) * VS + kk * 16 + t4 * 2;

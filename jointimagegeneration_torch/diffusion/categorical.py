@@ -38,6 +38,25 @@ class CategoricalDiffusion:
     def time_steps(self) -> int:
         return self.betas.shape[0]
 
+    def _gather_t(self, arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        """arr[t - 1] shaped to broadcast against a rank-`ndim` tensor."""
+        g = arr[t.long() - 1]
+        return g.reshape(g.shape + (1,) * (ndim - 1))
+
+    def q_xt_given_xtm1_probs(self, xtm1: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Single-step forward kernel probs: (1 - beta_t) x_{t-1} + beta_t / C."""
+        betas = self._gather_t(self.betas, t, xtm1.ndim)
+        return (1.0 - betas) * xtm1 + betas / self.num_classes
+
+    def q_xt_given_x0_probs(self, x0: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Marginal forward kernel probs: cumalpha_t x0 + (1 - cumalpha_t) / C."""
+        ca = self._gather_t(self.cumalphas, t, x0.ndim)
+        return ca * x0 + (1.0 - ca) / self.num_classes
+
+    def sample_q_xt_given_x0(self, noise: NoiseSource, x0: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """One-hot x_t ~ q(x_t | x0), one Gumbel draw of x0's shape."""
+        return sample_one_hot(noise, self.q_xt_given_x0_probs(x0, t))
+
     def _boundary_coeffs(self, t: torch.Tensor, ndim: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(alphas[t-1], cumalphas[t-2]) with the t == 1 overrides, shaped to
         broadcast against a rank-`ndim` tensor with batch leading."""

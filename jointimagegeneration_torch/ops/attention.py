@@ -3,9 +3,10 @@
 Counterpart of `jointimagegeneration_tpu/ops/attention.py`.  Public functions
 take channels-last sequences (B, T, C); heads are split as (B, H, T, D).
 Sites with T >= 512 whose shape the flash rule accepts go to
-`ops.flash_attention.flash_attention` (the Hopper kernel on CUDA tensors, its
-plain version on CPU tensors); the rest take the plain path, which scales q
-and k by d^-1/4 each and takes an fp32 softmax, as the reference does.
+`ops.flash_attention.flash_attention` (the Hopper kernels, forward and
+backward, on CUDA tensors; their plain versions on CPU tensors); the rest take
+the plain path, which scales q and k by d^-1/4 each and takes an fp32
+softmax, as the reference does.  Both differentiate on either device.
 """
 
 from __future__ import annotations

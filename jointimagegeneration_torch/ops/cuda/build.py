@@ -7,9 +7,10 @@ into a shared library with a plain C interface:
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in `build/kernels/` at the root of the checkout (listed in
-`.gitignore`).  Its file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded.  Nothing is
-imported or compiled when this module is imported.
+`.gitignore`).  Its file name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and a stale
+library is never loaded.  Nothing is imported or compiled when this module is
+imported.
 """
 
 from __future__ import annotations
@@ -46,9 +47,10 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # shared headers the source may include
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Sequence[str]) -> Dict[str, float]:

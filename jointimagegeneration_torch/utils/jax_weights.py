@@ -9,17 +9,21 @@ tree paths joined by '/'.  Layout changes:
   * flax `GroupNorm_0` wrappers are dropped, `scale` becomes `weight`;
   * ResBlock parameters keep their flat names (`norm1_scale`, `conv1_kernel`,
     `emb_kernel`, `skip_kernel`, ...), kernels re-laid as above.
+
+`train_state_from_jax` carries a whole JAX train state (params, EMA, an
+optax Adam / AdamW state) over as an `EMATrainState.state_dict()`, so a run
+started in the JAX package can continue in the port.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Mapping, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-__all__ = ["unet_state_dict_from_jax", "flatten_tree"]
+__all__ = ["unet_state_dict_from_jax", "flatten_tree", "train_state_from_jax"]
 
 
 def flatten_tree(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -61,3 +65,42 @@ def unet_state_dict_from_jax(params: Union[Mapping, str, Path]) -> Dict[str, tor
             leaf = "weight"
         state[".".join(path[:-1] + [leaf])] = torch.tensor(np.asarray(arr, np.float32))
     return state
+
+
+def _find_states(tree: Any, field: str) -> list:
+    """Every namedtuple in an optax state tree that has `field`, in order."""
+    if hasattr(tree, "_fields"):
+        found = [tree] if field in tree._fields else []
+        return found + [s for x in tree for s in _find_states(x, field)]
+    if isinstance(tree, (tuple, list)):
+        return [s for x in tree for s in _find_states(x, field)]
+    return []
+
+
+def train_state_from_jax(params: Mapping, ema_params: Mapping, opt_state: Any, step: Optional[int] = None,
+                         nonfinite_count: int = 0) -> Dict:
+    """An `EMATrainState.state_dict()` from numpy trees as
+    `jax.device_get(EMATrainState)` gives them: its `params`, `ema_params`
+    and the `opt_state` of the JAX package's Adam / AdamW chain (optionally
+    behind clip_by_global_norm).  Adam's mu / nu / count become torch's
+    exp_avg / exp_avg_sq / step (the UNet bridge's layout transposes applied),
+    and the schedule's count the port optimizer's `count`.  `step` defaults
+    to that count."""
+    adam = _find_states(opt_state, "mu")
+    if len(adam) != 1:
+        raise ValueError("train_state_from_jax carries an Adam / AdamW optax state (one "
+                         f"ScaleByAdamState); found {len(adam)}")
+    adam = adam[0]
+    schedule = [s for s in _find_states(opt_state, "count") if "mu" not in s._fields]
+    count = int(np.asarray(schedule[0].count if schedule else adam.count))
+    mu, nu = unet_state_dict_from_jax(adam.mu), unet_state_dict_from_jax(adam.nu)
+    adam_step = torch.tensor(float(np.asarray(adam.count)))
+    return {
+        "params": unet_state_dict_from_jax(params),
+        "ema": unet_state_dict_from_jax(ema_params),
+        "optimizer": {"count": count,
+                      "state": {n: {"step": adam_step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                                for n in mu}},
+        "step": count if step is None else int(step),
+        "nonfinite_count": int(nonfinite_count),
+    }

@@ -4,13 +4,16 @@
     python3 scripts/profile_torch_path.py [--steps N] [--out build/profile_torch_path.json]
 
 At the full widths that `chip_smoke.py` drives (its `TWO_STAGE_CFG`, from
-`configs/sample_two_stage.yml`; bf16, seeded random weights with the
-zero-init kernels un-zeroed as the sample CLI does), times one stage-1
-denoise step at 64x128x128 and one stage-2 DDIM step at 256x256 and 512x512
-with CUDA events, then traces a few steps of each with torch.profiler and sums the
-kernels' device time by kind (convolution, flash_fwd, GroupNorm/elementwise,
-matmul, ...).  Prints one JSON line per step kind and writes them all to
-`--out`.  The device's idle share is 1 - (kernel time / step wall time).
+`configs/sample_two_stage.yml`, and its `STAGE1_TRAIN_CFG`, from
+`configs/stage1_mask.yml`; bf16, seeded random weights with the zero-init
+kernels un-zeroed as the sample CLI does), times one stage-1 denoise step at
+64x128x128, one stage-2 DDIM step at 256x256 and 512x512, and one stage-1
+train step (forward, backward, AdamW, EMA) at 64x128x128 with CUDA events,
+then traces a few steps of each with torch.profiler and sums the kernels'
+device time by kind (convolution, flash_fwd, flash_bwd, GroupNorm/elementwise,
+optimizer, matmul, ...).  Prints one JSON line per step kind and writes them
+all to `--out`.  The device's idle share is 1 - (kernel time / step wall
+time); the train step's peak memory is torch.cuda.max_memory_allocated.
 """
 
 from __future__ import annotations
@@ -27,17 +30,23 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import TWO_STAGE_CFG  # noqa: E402
+from chip_smoke import STAGE1_TRAIN_CFG, TWO_STAGE_CFG  # noqa: E402
 from jointimagegeneration_torch.cli.sample import build_mask_sampler, build_slice_ldm, load_weights  # noqa: E402
 from jointimagegeneration_torch.core.runtime import configure_precision  # noqa: E402
+from jointimagegeneration_torch.data.datasets import SyntheticMaskDataset  # noqa: E402
 from jointimagegeneration_torch.diffusion.ddim import DDIMParams, ddim_step  # noqa: E402
 from jointimagegeneration_torch.diffusion.noise import NoiseSource  # noqa: E402
 from jointimagegeneration_torch.ops import flash_attention as flash  # noqa: E402
 from jointimagegeneration_torch.ops.cuda.build import build_all  # noqa: E402
+from jointimagegeneration_torch.train.optim import build_optimizer  # noqa: E402
+from jointimagegeneration_torch.train.state import EMATrainState  # noqa: E402
+from jointimagegeneration_torch.train.steps import make_mask_train_step  # noqa: E402
 
 KINDS = [  # (kind, pattern on the kernel name), first match wins
     ("flash_fwd", r"flash_fwd"),
-    ("conv", r"xmma_fprop|implicit_gemm|conv|cudnn"),
+    ("flash_bwd", r"flash_bwd"),
+    ("optimizer", r"multi_tensor_apply|foreach|adam"),
+    ("conv", r"xmma_fprop|implicit_gemm|conv|cudnn|wgrad|dgrad"),
     ("matmul", r"gemm|cutlass|cublas"),
     ("norm_reduce", r"reduce_kernel|welford"),
     ("copy_cast", r"copy_kernel|catarray|cat_batched"),
@@ -60,14 +69,18 @@ def measure(label: str, step, steps: int) -> dict:
         step()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    flash.flash_forward.launches = 0
+    counters = (flash.flash_forward, flash.flash_bwd_dkv, flash.flash_bwd_dq)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     start.record()
     for _ in range(steps):
         step()
     end.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / steps
-    launches = flash.flash_forward.launches / steps
+    launches = {c.__name__: c.launches / steps for c in counters}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -76,8 +89,8 @@ def measure(label: str, step, steps: int) -> dict:
         torch.cuda.synchronize()
     by_kind, kernels = {}, []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:  # operator rows repeat their kernels' time
-            continue
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue  # operator and annotated-range rows (Optimizer.step) repeat their kernels' time
         ms = e.self_device_time_total / steps / 1e3
         kernels.append((ms, e.count // steps, e.key))
         by_kind[kind_of(e.key)] = by_kind.get(kind_of(e.key), 0.0) + ms
@@ -85,7 +98,7 @@ def measure(label: str, step, steps: int) -> dict:
     kernels.sort(reverse=True)
     row = {"step": label, "step_ms": step_ms, "kernel_ms": kernel_ms,
            "device_idle_share": (1 - kernel_ms / step_ms) if kernel_ms else None,
-           "flash_launches_per_step": launches,
+           "launches_per_step": launches, "peak_gib": peak_gib,
            "kernel_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
            "top_kernels": [{"ms": ms, "calls": n, "name": name[:120]} for ms, n, name in kernels[:12]]}
     print(json.dumps(row), flush=True)
@@ -104,7 +117,7 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     configure_precision()
-    build_all([flash.FLASH_SOURCE])
+    build_all([flash.FLASH_SOURCE, flash.FLASH_BWD_SOURCE])
     rows = []
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -134,6 +147,18 @@ def main() -> int:
                 return ddim_step(ddim, noise, x, e.float(), 25)
 
             rows.append(measure(f"stage2_ddim_step_{size}x{size}", step, args.steps))
+        del ldm, x, c
+        torch.cuda.empty_cache()
+
+    model = build_mask_sampler(STAGE1_TRAIN_CFG, "cuda", seed=STAGE1_TRAIN_CFG["seed"])  # the CLI's init
+    opt = STAGE1_TRAIN_CFG["optim"]
+    state = EMATrainState(build_optimizer(list(model.unet.named_parameters()), opt["name"], opt["learning_rate"],
+                                          opt["lr_function"], opt["lr_params"], total_steps=100_000),
+                          ema_decay=STAGE1_TRAIN_CFG["polyak_alpha"])
+    item = SyntheticMaskDataset(1, tuple(STAGE1_TRAIN_CFG["dataset"]["volume_shape"]), 12)[0]
+    batch = {k: torch.from_numpy(item[k])[None].cuda() for k in ("mask", "image")}
+    train_step = make_mask_train_step(model, torch.ones(12, device="cuda"))
+    rows.append(measure("stage1_train_step_64x128x128", lambda: train_step(state, batch, noise), args.steps))
     for r in rows:
         r["card"] = card
     out = Path(args.out)

@@ -67,6 +67,7 @@ def test_entry_points_without_device_raise_on_a_cuda_less_machine():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is valid here")
     from jointimagegeneration_torch.cli.sample import run
+    from jointimagegeneration_torch.cli.train_mask import run as train_run
     from jointimagegeneration_torch.core.runtime import resolve_device
     from jointimagegeneration_torch.models.mask_sampler import MaskSampler
     from jointimagegeneration_torch.nn.unet import UNet
@@ -79,6 +80,8 @@ def test_entry_points_without_device_raise_on_a_cuda_less_machine():
         MaskSampler.create(num_classes=4, model_channels=8, channel_mult=(1,))
     with pytest.raises(RuntimeError, match="CUDA"):
         run({"stage": "two_stage", "output_path": "unused"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_run({"output_path": "unused"}, "exp")
     assert resolve_device("cpu") == torch.device("cpu")
 
 
