@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py        # from the root of a checkout, on a machine with a CUDA card
 
-Phases (any failure exits non-zero and prints no result line):
-  1. build: compiles every CUDA source of the main paths with nvcc, one nvcc
-     per source, all started together;
+Phases, in order (any failure exits non-zero and prints no result line):
+  1. build: compiles every CUDA source of the main paths with nvcc
+     (flash_fwd.cu, flash_bwd.cu, conv3d.cu), one nvcc per source, all
+     started together;
   2. kernels: each kernel against its plain PyTorch version on the card at the
      main paths' shapes (max abs error against a stated tolerance), timed as
      many calls in one CUDA graph (device time, host launch cost excluded;
@@ -13,25 +14,35 @@ Phases (any failure exits non-zero and prints no result line):
      plain version, one PyTorch library call computing the same function
      (`library_ms`) and the card's bound; then checked, not timed, at ragged
      and wide-head shapes off the main paths.  The flash forward, then the
-     flash backward (dkv and dq kernels) at the training shapes;
+     flash backward (dkv and dq kernels) at the training shapes, then the
+     3x3x3 conv kernel (`conv3d ...` lines) at the fused and pallas_conv
+     paths' shapes (library: F.conv3d) and its edge shapes;
   3. reference: a tiny two-stage pipeline on the card against the same
      pipeline on the CPU (same weights, same noise);
-  4. path: `cli.sample.run` on `configs/sample_two_stage.yml`'s full widths
+  4. fused reference: tiny fp32 fused MaskSamplers ('kernel' and 'xla') and
+     one fp32 fused ResBlock's forward and backward on the card against the
+     CPU (`fused reference ...` lines);
+  5. path: `cli.sample.run` on `configs/sample_two_stage.yml`'s full widths
      (stage 1 64x128x128 at base 64, stage 2 256x256 at base 128, bf16), with
      only the lengths cut: 4 mask steps, the full 128x256x256 handoff, and two
      chunks of 2 slices with the full DDIM-50 chain;
-  5. train reference: three fp32 stage-1 train steps of a small UNet (T = 512
+  6. fused path: the same stage-1 sampler built with
+     use_fused_resblock='kernel', 'xla' and use_pallas_conv=True, 4 steps
+     each beside the unfused model, same weights and draws: s/step, launch
+     counts (54 conv + 27 stats-reduce per step fused, 8 conv under
+     pallas_conv) and probabilities against an fp32 forward (`fused path ...`);
+  7. train reference: three fp32 stage-1 train steps of a small UNet (T = 512
      at its attention sites, so the card runs the kernels) on the card against
      the same steps on the CPU: loss, every gradient and the params after
      each step;
-  6. train path: `cli.train_mask.run` on `configs/stage1_mask.yml`'s full
+  8. train path: `cli.train_mask.run` on `configs/stage1_mask.yml`'s full
      widths (64x128x128, 12 classes, base 64, bf16, AdamW, EMA), with only the
      lengths cut: 6 steps with checkpoints at 3 and 6 and one validation at 6,
      then a resumed run to step 8.
-Before each main path (4, 6) every kernel launch counter is set to 0; after
-it the counts must equal what the path implies.  The last lines are a JSON
-line with the kernel numbers, the card's name and power limit, and
-`{"ok": true, "device": {...}}`.  Imports neither JAX nor PyYAML.
+Before each main path (5, 6 per variant, 8) every kernel launch counter is set
+to 0; after it the counts must equal what the path implies.  The last lines
+are the fused and train summaries, a JSON line with the kernel numbers, the
+card's name and power limit, and `{"ok": true, "device": {...}}`.  Imports neither JAX nor PyYAML.
 """
 
 from __future__ import annotations
@@ -351,6 +362,120 @@ def bwd_phase(flash) -> list:
     return rows
 
 
+# conv kernel (csrc/conv3d.cu) limits against its plain version: output max abs
+# error within this fraction of max |plain output|.  bf16: one bf16 rounding of
+# the output (2^-9 to 2^-8 of a value) plus fp32 summation in another order;
+# both versions round the prologue's t to bf16 the same way, so its
+# contribution is the rare t whose fp32 value lands on the other side of a
+# rounding tie.  fp32: summation order only.  Stats [sum, sumsq]: fp32 sums
+# of up to 10^6 voxels in another order, within 1e-4 of max |stats|.
+CONV_REL_TOL = {torch.bfloat16: 2**-7, torch.float32: 1e-4}
+CONV_STATS_TOL = 1e-4
+CONV_SHAPES = [  # (x shape, Cout, options, dtype, where the main paths run it)
+    ((1, 64, 128, 128, 64), 64, "affine bias stats", torch.bfloat16, "L0 conv1, mode A"),
+    ((1, 64, 128, 128, 64), 64, "affine bias residual", torch.bfloat16, "L0 conv2, mode A"),
+    ((1, 64, 128, 128, 192), 64, "affine bias stats", torch.bfloat16, "L0 up_0_0 conv1, mode A"),
+    ((1, 64, 128, 128, 64), 64, "bias stats", torch.bfloat16, "L0 conv1, mode 'xla'"),
+    ((1, 32, 64, 64, 128), 128, "", torch.bfloat16, "L1 conv3d_3x3_v2, the pallas_conv site"),
+    ((1, 32, 64, 64, 128), 128, "activate", torch.bfloat16, "L1 conv3d_3x3 with its SiLU epilogue"),
+    ((1, 4, 8, 8, 640), 320, "affine bias stats", torch.bfloat16, "L4 up_4_0 conv1, mode A"),
+    ((1, 32, 64, 64, 128), 128, "affine bias stats", torch.float32, "L1 fp32 torso, mode A"),
+]
+CONV_EDGE_SHAPES = [  # checked, not timed: W not a tile multiple, batch 2, Cin 4, ragged Cout
+    ((1, 3, 8, 10, 8), 12, "affine bias stats"),
+    ((2, 3, 8, 8, 16), 16, "activate"),
+    ((1, 2, 8, 8, 4), 8, "affine bias residual"),
+    ((1, 5, 16, 24, 40), 72, "bias residual stats"),
+]
+
+
+def _conv_inputs(g, shape, cout, opts, dtype):
+    cin = shape[-1]
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    k = torch.randn((3, 3, 3, cin, cout), generator=g, device="cuda") / math.sqrt(27 * cin)
+    kw = {"want_stats": "stats" in opts, "activate": "activate" in opts}
+    if "affine" in opts:
+        kw["scale"] = torch.rand(cin, generator=g, device="cuda") + 0.5
+        kw["shift"] = torch.randn(cin, generator=g, device="cuda") * 0.5
+    if "bias" in opts:
+        kw["bias"] = torch.randn(cout, generator=g, device="cuda") * 0.1
+    if "residual" in opts:
+        kw["residual"] = torch.randn((*shape[:4], cout), generator=g, device="cuda").to(dtype)
+    return x, k, kw
+
+
+def compare_conv(conv, x, k, kw, label: str) -> dict:
+    """Max abs error of the kernel (output, stats) against its plain version
+    on the same inputs; fails past CONV_REL_TOL / CONV_STATS_TOL."""
+    got = conv.conv3d_igemm(x, k, **kw)
+    torch.cuda.synchronize()
+    want = conv.conv3d_plain(x, k, **kw)
+    got, want = (got, want) if kw["want_stats"] else ((got, None), (want, None))
+    check(bool(torch.isfinite(got[0]).all()), f"conv3d output not finite at {label}")
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    tol = CONV_REL_TOL[x.dtype] * want[0].float().abs().max().item()
+    out = {"err": err, "tol": tol, "err_stats": None, "tol_stats": None}
+    if kw["want_stats"]:
+        out["err_stats"] = (got[1] - want[1]).abs().max().item()
+        out["tol_stats"] = CONV_STATS_TOL * want[1].abs().max().item()
+    check(err <= tol and (out["err_stats"] or 0.0) <= (out["tol_stats"] or 0.0),
+          f"conv3d disagrees at {label}: output {err} (tol {tol}), stats {out['err_stats']} "
+          f"(tol {out['tol_stats']})")
+    return out
+
+
+def conv_phase(conv) -> tuple:
+    """The conv kernel at the fused and pallas_conv paths' shapes: error, times
+    (graph-timed kernel, eager, plain, F.conv3d on the channels_last_3d view
+    as the library call), bound.  Bound: 2*V*27*Cin*Cout flops; bytes x,
+    the weight, the output and the residual once each."""
+    import torch.nn.functional as F
+    from jointimagegeneration_torch.core.runtime import configure_precision
+
+    configure_precision()  # the fp32 plain version runs in full fp32
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    rows = []
+    for shape, cout, opts, dtype, where in CONV_SHAPES:
+        x, k, kw = _conv_inputs(g, shape, cout, opts, dtype)
+        dname = str(dtype).replace("torch.", "")
+        label = f"{list(shape)}->{cout} [{opts}] {dname}"
+        errs = compare_conv(conv, x, k, kw, label)
+        ms, eager_ms = time_ms(lambda: conv.conv3d_igemm(x, k, **kw), 20)
+        plain_ms, _ = time_ms(lambda: conv.conv3d_plain(x, k, **kw), 3)
+        xl, wl = x.movedim(-1, 1), k.to(dtype).permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        library_ms, _ = time_ms(lambda: F.conv3d(xl, wl, padding=1), 20)
+        es = x.element_size()
+        flops = conv.conv_flops(shape, cout)
+        nbytes = (x.numel() + 27 * shape[-1] * cout + math.prod(shape[:4]) * cout
+                  * (2 if "residual" in opts else 1)) * es
+        f_ms, b_ms = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = {"shape": list(shape), "cout": cout, "options": opts, "dtype": dname, "where": where, **errs,
+               "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": max(f_ms, b_ms), "bound_by": "operations" if f_ms >= b_ms else "bytes",
+               "tflops": flops / ms / 1e9}
+        print(f"conv3d {label} ({where}): err {errs['err']:.3g} (tol {errs['tol']:.3g})"
+              + (f", stats {errs['err_stats']:.3g} (tol {errs['tol_stats']:.3g})" if kw["want_stats"] else "")
+              + f"; graph-timed kernel {ms:.4f} ms (eager {eager_ms:.4f}, {row['tflops']:.1f} TFLOP/s), "
+              f"plain {plain_ms:.4f} ms, F.conv3d {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {100 * row['bound_ms'] / ms:.1f}% of bound", flush=True)
+        rows.append(row)
+        del x, k, kw, xl, wl
+        torch.cuda.empty_cache()
+    edge = []
+    for shape, cout, opts in CONV_EDGE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, k, kw = _conv_inputs(g, shape, cout, opts, dtype)
+            dname = str(dtype).replace("torch.", "")
+            errs = compare_conv(conv, x, k, kw, f"{list(shape)}->{cout} [{opts}] {dname}")
+            edge.append({"shape": list(shape), "cout": cout, "options": opts, "dtype": dname, **errs})
+            print(f"conv3d {list(shape)}->{cout} [{opts}] {dname} (edge shape): err {errs['err']:.3g} "
+                  f"(tol {errs['tol']:.3g})" + (f", stats {errs['err_stats']:.3g} (tol {errs['tol_stats']:.3g})"
+                                                 if kw["want_stats"] else ""), flush=True)
+    return rows, edge
+
+
 class _CpuDrawnNoise:
     """Draws on the CPU from one seed and hands them to `device`, so a run on
     the card and a run on the CPU see the same numbers."""
@@ -440,8 +565,8 @@ def path_phase(flash, card: str) -> int:
     result = run(cfg, device="cuda")
     wall = time.perf_counter() - t0
     launches = flash.flash_forward.launches
-    check(flash.flash_bwd_dkv.launches == flash.flash_bwd_dq.launches == 0,
-          f"sampling launched backward kernels: {_counts(flash)}")
+    others = {k: v for k, v in _counts(flash).items() if k != "flash_fwd"}
+    check(not any(others.values()), f"sampling launched other kernels: {others}")
     ct, labels = result["ct"], result["labels"]
     check(ct.shape == (1, cfg["slices"], *cfg["volume_shape"][1:]), f"CT shape {ct.shape}")
     check(labels.shape == (1, *cfg["volume_shape"]), f"label shape {labels.shape}")
@@ -462,12 +587,209 @@ def path_phase(flash, card: str) -> int:
 
 
 def _counts(flash) -> dict:
+    from jointimagegeneration_torch.ops import conv3d as conv
+
     return {"flash_fwd": flash.flash_forward.launches, "flash_bwd_dkv": flash.flash_bwd_dkv.launches,
-            "flash_bwd_dq": flash.flash_bwd_dq.launches}
+            "flash_bwd_dq": flash.flash_bwd_dq.launches, "conv3d": conv.conv3d_igemm.launches,
+            "conv3d_stats_reduce": conv.channel_stats_reduce.launches}
 
 
 def _reset_counts(flash) -> None:
+    from jointimagegeneration_torch.ops import conv3d as conv
+
     flash.flash_forward.launches = flash.flash_bwd_dkv.launches = flash.flash_bwd_dq.launches = 0
+    conv.conv3d_igemm.launches = conv.channel_stats_reduce.launches = 0
+
+
+FUSED_REF_TOL = 1e-4  # card vs CPU, fp32: of each tensor's max |CPU value| (sums in another order)
+TINY_FUSED = dict(num_classes=4, time_steps=20, model_channels=8, channel_mult=(1, 2), attention_resolutions=(2,),
+                  num_res_blocks=1, num_head_channels=4)
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
+    return (got.cpu() - want).abs().max().item() / max(want.abs().max().item(), floor, 1e-30)
+
+
+def fused_reference_phase(flash) -> dict:
+    """Tiny fp32 fused MaskSamplers ('kernel' and 'xla'; 4x16x16, so every
+    ResBlock fuses) on the card against the CPU with the same weights and
+    draws: the UNet's probabilities and 3 sampling steps' labels.  Then the
+    forward and backward of one fp32 fused ResBlock (64 -> 64) on the card
+    against the CPU: the backward is the plain recompute, so this holds the
+    autograd wiring around the kernel."""
+    from jointimagegeneration_torch.core.runtime import configure_precision
+    from jointimagegeneration_torch.models.mask_sampler import MaskSampler
+    from jointimagegeneration_torch.nn.blocks import ResBlock
+
+    configure_precision()
+    shape, steps = (1, 4, 16, 16), 3
+    gen = torch.Generator().manual_seed(11)
+    xt = torch.nn.functional.one_hot(torch.randint(0, 4, shape, generator=gen), 4).float()
+    cond = torch.rand((*shape, 1), generator=gen)
+    t = torch.tensor([13.0])
+    out = {}
+    for mode in ("kernel", "xla"):
+        runs, init = [], None
+        for device in ("cpu", "cuda"):
+            ms = MaskSampler.create(cond_channels=1, use_fused_resblock=mode, device=device, **TINY_FUSED)
+            if init is None:
+                with torch.no_grad():
+                    for p in ms.unet.parameters():
+                        p.add_(0.05 * torch.randn(p.shape, generator=gen))  # un-zero every kernel
+                init = {k: v.clone() for k, v in ms.unet.state_dict().items()}
+            else:
+                ms.unet.load_state_dict(init)
+            before = _counts(flash)
+            with torch.inference_mode():
+                probs = ms.unet(xt.to(device), t.to(device), cond=cond.to(device))
+                labels = ms.sample_labels(_CpuDrawnNoise(3, device), shape, cond=cond.to(device),
+                                          num_steps=steps)
+            launched = {k: v - before[k] for k, v in _counts(flash).items()}
+            runs.append((probs.cpu(), labels.cpu(), launched))
+        (p_cpu, l_cpu, n_cpu), (p_gpu, l_gpu, n_gpu) = runs
+        n_blocks = 8  # 1 + 1 down, 2 mid, 2 + 2 up
+        want = {"conv3d": 2 * n_blocks * (1 + steps), "conv3d_stats_reduce": n_blocks * (1 + steps)}
+        check(not any(n_cpu.values()), f"fused reference ({mode}): kernel launches on the CPU {n_cpu}")
+        check(all(n_gpu[k] == v for k, v in want.items()),
+              f"fused reference ({mode}): launches on the card {n_gpu}, expected {want}")
+        err = _rel(p_gpu, p_cpu)
+        agree = float((l_gpu == l_cpu).float().mean())
+        print(f"fused reference ({mode}): tiny fp32 MaskSampler, card vs CPU: probabilities max rel diff "
+              f"{err:.3g} (tol {FUSED_REF_TOL}), labels after {steps} steps agree on {100 * agree:.2f}% of "
+              f"voxels; launches on the card {n_gpu}", flush=True)
+        check(err <= FUSED_REF_TOL and agree >= 0.999, f"fused reference ({mode}): card and CPU disagree")
+        out[mode] = err
+
+    x = torch.randn((1, 4, 16, 16, 64), generator=gen)
+    emb = torch.randn((1, 32), generator=gen)
+    w = torch.randn((1, 4, 16, 16, 64), generator=gen)
+    res, init = [], None
+    for device in ("cpu", "cuda"):
+        blk = ResBlock(64, 64, 32, 3, fused="kernel", device=device)
+        if init is None:
+            with torch.no_grad():
+                for p in blk.parameters():
+                    p.add_(0.1 * torch.randn(p.shape, generator=gen))
+            init = {k: v.clone() for k, v in blk.state_dict().items()}
+        else:
+            blk.load_state_dict(init)
+        xd = x.detach().to(device).requires_grad_()
+        before = _counts(flash)["conv3d"]
+        y = blk(xd, emb.to(device))
+        (y * w.to(device)).sum().backward()
+        grads = {n: q.grad.detach().cpu() for n, q in blk.named_parameters()}
+        grads["x"] = xd.grad.cpu()
+        res.append((y.detach().cpu(), grads, _counts(flash)["conv3d"] - before))
+    (y_cpu, g_cpu, n_cpu), (y_gpu, g_gpu, n_gpu) = res
+    top = max(v.abs().max().item() for v in g_cpu.values())
+    worst_g = max(_rel(g_gpu[n], g_cpu[n], 1e-3 * top) for n in g_cpu)
+    err_y = _rel(y_gpu, y_cpu)
+    print(f"fused reference: fp32 ResBlock 64->64 ('kernel'), card vs CPU: output max rel diff {err_y:.3g}, "
+          f"worst gradient {worst_g:.3g} of its max (tol {FUSED_REF_TOL}); conv launches cpu {n_cpu}, "
+          f"card {n_gpu}", flush=True)
+    check(n_cpu == 0 and n_gpu == 2, f"fused reference: ResBlock conv launches cpu {n_cpu}, card {n_gpu}")
+    check(err_y <= FUSED_REF_TOL and worst_g <= FUSED_REF_TOL, "fused reference: the ResBlock disagrees")
+    out["resblock_out"], out["resblock_grad"] = err_y, worst_g
+    return out
+
+
+def pallas_conv_sites(unet) -> int:
+    """Convs of one UNet forward that `_raw_conv` routes to the kernel under
+    `use_pallas_conv`: 3x3x3 at Cin = 128 and H >= 64 (H % 8 == 0), from each
+    ResBlock's level (H = input H / 2^level) and its conv inputs (in_ch for
+    conv1, out_ch for conv2)."""
+    from jointimagegeneration_torch.nn.blocks import ResBlock
+
+    h0, n = TWO_STAGE_CFG["stage1"]["dataset"]["volume_shape"][1], 0
+    for name, blk in unet.named_children():
+        if isinstance(blk, ResBlock):
+            level = len(unet.channel_mult) - 1 if name.startswith("mid") else int(name.split("_")[1])
+            h = h0 // 2 ** level
+            if h >= 64 and h % 8 == 0:
+                n += (blk.in_ch == 128) + (blk.out_ch == 128)
+    return n
+
+
+def fused_path_phase(flash, card: str) -> dict:
+    """The fused stage-1 path at `configs/sample_two_stage.yml`'s full width:
+    `MaskSampler.create(..., use_fused_resblock=mode)` for 'kernel' and 'xla',
+    and `use_pallas_conv=True`, each sampling 4 steps at 64x128x128 (bf16)
+    with the same weights (fresh init, zero-init kernels filled as the path
+    phase does) and the same draws as the unfused model in this call.  Checks
+    the exact launch counts; holds one forward's probabilities against an
+    fp32 unfused forward: each bf16 variant may be at most twice as far from
+    it as the bf16 unfused model is, plus 1e-3 (the variants round at other
+    places, and by as much)."""
+    from jointimagegeneration_torch.cli.sample import build_mask_sampler, load_weights
+    from jointimagegeneration_torch.diffusion.noise import NoiseSource
+    from jointimagegeneration_torch.nn.blocks import ResBlock
+
+    s1, steps, seed = TWO_STAGE_CFG["stage1"], 4, TWO_STAGE_CFG["seed"]
+    spatial = tuple(s1["dataset"]["volume_shape"])
+    shape = (1, *spatial)
+    base = build_mask_sampler(s1, "cuda")
+    load_weights(base.unet, None, TWO_STAGE_CFG["fresh_init_noise"], seed + 1)
+    state = base.unet.state_dict()
+    n_res = sum(isinstance(m, ResBlock) for m in base.unet.children())
+    sites = flash_sites(spatial, s1["unet_openai"], "channel_mult")
+    n_pallas = pallas_conv_sites(base.unet)
+    check(n_res == 27 and n_pallas == 8, f"fused path: {n_res} ResBlocks, {n_pallas} pallas_conv sites")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xt = torch.nn.functional.one_hot(torch.randint(0, 12, shape, generator=gen, device="cuda"), 12).float()
+    cond = torch.zeros((*shape, 1), device="cuda")
+    t = torch.full((1,), 500.0, device="cuda")
+    with torch.inference_mode():
+        ref = build_mask_sampler({**s1, "bf16": False}, "cuda")
+        ref.unet.load_state_dict(state)
+        p32 = ref.unet(xt, t, cond=cond).float()
+    del ref
+    torch.cuda.empty_cache()
+    variants = [("unfused", {}, 0, 0), ("kernel", {"use_fused_resblock": "kernel"}, 2 * n_res, n_res),
+                ("xla", {"use_fused_resblock": "xla"}, 2 * n_res, n_res),
+                ("pallas_conv", {"use_pallas_conv": True}, n_pallas, 0)]
+    rows, p_unfused, lab_unfused = {}, None, None
+    for name, opts, conv_per_step, reduce_per_step in variants:
+        ms = base if name == "unfused" else build_mask_sampler(s1, "cuda", **opts)
+        ms.unet.load_state_dict(state)
+        with torch.inference_mode():
+            probs = ms.unet(xt, t, cond=cond).float()  # also the warm-up
+            torch.cuda.synchronize()
+            _reset_counts(flash)
+            t0 = time.perf_counter()
+            labels = ms.sample_labels(NoiseSource(seed, "cuda"), shape, cond=cond, num_steps=steps)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        launches = _counts(flash)
+        expected = {"flash_fwd": steps * sites, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+                    "conv3d": steps * conv_per_step, "conv3d_stats_reduce": steps * reduce_per_step}
+        check(launches == expected, f"fused path ({name}): launches {launches}, expected {expected}")
+        check(tuple(labels.shape) == shape and int(labels.min()) >= 0 and int(labels.max()) < 12,
+              f"fused path ({name}): labels {tuple(labels.shape)} in [{labels.min()}, {labels.max()}]")
+        check(bool(torch.isfinite(probs).all()), f"fused path ({name}): non-finite probabilities")
+        e32 = (probs - p32).abs().max().item()
+        agree32 = float((probs.argmax(-1) == p32.argmax(-1)).float().mean())
+        if p_unfused is None:
+            p_unfused, lab_unfused, e_unfused, agree_unfused = probs, labels, e32, agree32
+        d_unfused = (probs - p_unfused).abs().max().item()
+        agree_u = float((probs.argmax(-1) == p_unfused.argmax(-1)).float().mean())
+        lab_agree = float((labels == lab_unfused).float().mean())
+        rows[name] = {"s_per_step": sec / steps, "launches": launches, "max_abs_vs_fp32": e32,
+                      "argmax_agree_fp32": agree32, "max_abs_vs_unfused": d_unfused,
+                      "argmax_agree_unfused": agree_u, "sampled_labels_agree_unfused": lab_agree}
+        print(f"fused path ({name}): 4 steps at 64x128x128, base 64, bf16: {sec / steps:.4f} s/step; probs "
+              f"max abs diff vs fp32 unfused {e32:.3g} (argmax agree {100 * agree32:.2f}%), vs bf16 unfused "
+              f"{d_unfused:.3g} (argmax agree {100 * agree_u:.2f}%); sampled labels agree with unfused on "
+              f"{100 * lab_agree:.2f}%; launches {launches} = expected; card {card}", flush=True)
+        if name != "unfused":
+            check(e32 <= 2 * e_unfused + 1e-3, f"fused path ({name}): {e32} from fp32, unfused bf16 {e_unfused}")
+            check(agree32 >= agree_unfused - 0.02,
+                  f"fused path ({name}): argmax agrees with fp32 on {agree32}, unfused bf16 {agree_unfused}")
+            del ms
+        torch.cuda.empty_cache()
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 def train_reference_phase(flash) -> float:
@@ -519,7 +841,8 @@ def train_reference_phase(flash) -> float:
         launched = {k: v - before[k] for k, v in _counts(flash).items()}
         runs.append((losses, grads, params, launched))
     (l_cpu, g_cpu, p_cpu, n_cpu), (l_gpu, g_gpu, p_gpu, n_gpu) = runs
-    check(not any(n_cpu.values()) and all(n_gpu.values()),
+    check(not any(n_cpu.values()) and all(n_gpu[k] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+          and n_gpu["conv3d"] == n_gpu["conv3d_stats_reduce"] == 0,
           f"train reference: kernel launches cpu {n_cpu}, card {n_gpu}")
     worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
     for i in range(3):
@@ -567,7 +890,8 @@ def train_path_phase(flash, card: str) -> dict:
     sites = flash_sites(cfg["dataset"]["volume_shape"], cfg["unet_openai"], "channel_mult")
     n_steps, n_eval = cfg["max_steps"], cfg["max_steps"] // cfg["validation_freq_steps"]
     expected = {"flash_fwd": sites * (n_steps + n_eval * cfg["eval_time_steps"]),
-                "flash_bwd_dkv": sites * n_steps, "flash_bwd_dq": sites * n_steps}
+                "flash_bwd_dkv": sites * n_steps, "flash_bwd_dq": sites * n_steps,
+                "conv3d": 0, "conv3d_stats_reduce": 0}  # training runs the unfused UNet
     torch.cuda.reset_peak_memory_stats()
     state, launches, wall, _ = _train_run(flash, cfg, "smoke")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -599,7 +923,7 @@ def train_path_phase(flash, card: str) -> dict:
     torch.cuda.empty_cache()
 
     cfg2 = dict(cfg, load_from=True, max_steps=n_steps + 2)
-    expected2 = {k: sites * 2 for k in expected}
+    expected2 = {k: sites * 2 if k.startswith("flash") else 0 for k in expected}
     state2, launches2, wall2, printed = _train_run(flash, cfg2, "smoke")
     check(f"resumed from step {n_steps}" in printed, "train path: the rerun did not resume from step 6")
     check(state2.step == n_steps + 2, f"train path: resumed run ended at step {state2.step}")
@@ -618,6 +942,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     try:
+        from jointimagegeneration_torch.ops import conv3d as conv
         from jointimagegeneration_torch.ops import flash_attention as flash
         from jointimagegeneration_torch.ops.cuda import build
     except ImportError as e:
@@ -627,13 +952,16 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    build_s = build.build_all([flash.FLASH_SOURCE, flash.FLASH_BWD_SOURCE])
+    build_s = build.build_all([flash.FLASH_SOURCE, flash.FLASH_BWD_SOURCE, conv.CONV3D_SOURCE])
     print(f"build: {build_s} ({time.perf_counter() - t0:.2f} s wall)", flush=True)
 
     rows = flash_phase(flash)
     bwd_rows = bwd_phase(flash)
+    conv_rows, conv_edge = conv_phase(conv)
     reference_phase(flash)
+    fused_ref = fused_reference_phase(flash)
     sample_launches = path_phase(flash, card)
+    fused = fused_path_phase(flash, card)
     train_reference_phase(flash)
     train = train_path_phase(flash, card)
 
@@ -672,6 +1000,34 @@ def main() -> int:
             "library_ms": train_row["library_ms"],  # SDPA's backward, all three gradients
             "shapes": bwd_rows,
         })
+    fused_rows = [r for r in conv_rows + conv_edge if "activate" not in r["options"] and r["options"]]
+    bare_rows = [r for r in conv_rows + conv_edge if "activate" in r["options"] or not r["options"]]
+    fused_launches = {f"fused_{m}_sampling": fused[m]["launches"]["conv3d"] for m in ("kernel", "xla")}
+    pallas_launches = {"pallas_conv_sampling": fused["pallas_conv"]["launches"]["conv3d"]}
+    for name, line, row, launches, errs in (
+            ("conv3d_fused_resblock", "fused_resblock.py:51", conv_rows[0], fused_launches, fused_rows),
+            ("conv3d_3x3", "conv3d.py:52", conv_rows[5], pallas_launches, bare_rows),
+            ("conv3d_3x3_v2", "conv3d.py:163", conv_rows[4], pallas_launches, bare_rows)):
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": "jointimagegeneration_torch/csrc/conv3d.cu",
+            "replaces": f"jointimagegeneration_tpu/ops/pallas/{line}",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(r["err"] for r in errs),
+            **{k: row[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        }
+        if name == "conv3d_fused_resblock":
+            entry["stats_reduce_launches"] = sum(fused[m]["launches"]["conv3d_stats_reduce"]
+                                                 for m in ("kernel", "xla"))
+            entry["shapes"] = conv_rows
+        if name == "conv3d_3x3":
+            entry["note"] = ("no model path calls conv3d_3x3 itself (nor does the JAX package's); it is "
+                             "the same function, entry point and kernel as conv3d_3x3_v2, whose launches "
+                             "on the pallas_conv path these are")
+        kernels.append(entry)
+    print(f"fused: {json.dumps({'reference': fused_ref, 'paths': fused})}")
     print(f"train: {json.dumps(train)}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

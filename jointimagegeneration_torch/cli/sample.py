@@ -47,9 +47,12 @@ from ..utils.jax_weights import unet_state_dict_from_jax
 __all__ = ["build_mask_sampler", "build_slice_ldm", "load_weights", "run", "main"]
 
 
-def build_mask_sampler(cfg: dict, device, cond_channels: int = 1, seed: int = 0) -> MaskSampler:
+def build_mask_sampler(cfg: dict, device, cond_channels: int = 1, seed: int = 0,
+                       **unet_options) -> MaskSampler:
     """cfg keys mirror ccdm params.yml (unet_openai + diffusion sections);
-    `seed` seeds the UNet's fresh init."""
+    `seed` seeds the UNet's fresh init.  `unet_options` (`use_fused_resblock`,
+    `use_pallas_conv`) go to `MaskSampler.create`; no config key sets them,
+    as in the JAX CLI."""
     u = cfg.get("unet_openai", {})
     return MaskSampler.create(
         num_classes=cfg.get("num_classes", 12),
@@ -66,6 +69,7 @@ def build_mask_sampler(cfg: dict, device, cond_channels: int = 1, seed: int = 0)
         step_T_sample=cfg.get("step_T_sample", "majority"),
         device=device,
         seed=seed,
+        **unet_options,
     )
 
 

@@ -55,8 +55,12 @@ class MaskSampler:
         step_T_sample: str = "majority",
         device=None,
         seed: int = 0,
+        use_fused_resblock=False,
+        use_pallas_conv: bool = False,
     ) -> "MaskSampler":
-        """UNet input = one-hot classes + `cond_channels` condition channels."""
+        """UNet input = one-hot classes + `cond_channels` condition channels.
+        `use_fused_resblock` / `use_pallas_conv` pick the UNet's opt-in conv
+        kernel paths (see `nn.unet.UNet`)."""
         if step_T_sample not in ("majority", "confidence"):
             raise ValueError(f"step_T_sample must be 'majority' or 'confidence', got {step_T_sample!r}")
         unet = UNet(
@@ -72,6 +76,8 @@ class MaskSampler:
             dtype=dtype,
             device=device,
             seed=seed,
+            use_fused_resblock=use_fused_resblock,
+            use_pallas_conv=use_pallas_conv,
         )
         device = next(unet.parameters()).device
         diffusion = CategoricalDiffusion.create(schedule, time_steps, num_classes, device=device)

@@ -1,7 +1,6 @@
 """UNet building blocks, channels-last (B, *spatial, C), 2D and 3D.
 
-Counterpart of `jointimagegeneration_tpu/nn/blocks.py` (the unfused paths).
-Activations stay channels-last between blocks, so GroupNorm and attention see
+Counterpart of `jointimagegeneration_tpu/nn/blocks.py`.  Activations stay channels-last between blocks, so GroupNorm and attention see
 the JAX package's layout; each convolution runs on a (B, C, *spatial) view of
 the same memory, which is PyTorch's channels_last / channels_last_3d format.
 
@@ -9,7 +8,13 @@ Parameters are fp32 and are cast to the activation dtype per op, as in the
 JAX package.  GroupNorm computes in fp32; the timestep projection inside
 ResBlock (`emb_out`) is fp32.  ResBlock keeps the JAX package's flat
 parameter names (`norm1_scale`, `conv1_kernel`, ...; kernels in PyTorch
-layout), so the weight bridge maps names one to one.
+layout), so the weight bridge maps names one to one, fused or not.
+
+ResBlock's opt-in kernel paths follow the JAX package's rules exactly:
+`fused` runs each half of the block as one conv kernel call
+(`ops.fused_resblock`) where the block is eligible, and `pallas_conv` routes
+single 3x3x3 convs at Cin = 128, H >= 64 to `ops.conv3d.conv3d_3x3_v2`
+(`_raw_conv`).
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_self_attention
+from ..ops.conv3d import conv3d_3x3_v2
+from ..ops.fused_resblock import (fused_affine_silu_conv3d, fused_conv3d, gn_affine_from_moments,
+                                  group_moments, moments_from_channel_sums)
 
 __all__ = [
     "timestep_embedding",
@@ -71,6 +79,20 @@ def conv_nd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                     None if bias is None else bias.to(x.dtype),
                     stride=stride, padding=weight.shape[-1] // 2)
     return y.movedim(1, -1).contiguous()
+
+
+def _raw_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+              pallas: bool = False) -> torch.Tensor:
+    """'SAME' conv of a ResBlock's unfused path (nn/blocks.py:97-112 in the
+    JAX package): with `pallas`, a 3D 3x3x3 conv at Cin = 128, H >= 64 and
+    H % 8 == 0 goes to the conv kernel (`conv3d_3x3_v2`, then + bias in x's
+    dtype), every other one to `conv_nd`."""
+    dims = x.ndim - 2
+    if (pallas and dims == 3 and weight.shape[-1] == 3 and x.shape[-1] == 128 and x.shape[2] >= 64
+            and x.shape[2] % 8 == 0):
+        y = conv3d_3x3_v2(x, weight.permute(2, 3, 4, 1, 0).to(x.dtype), 8, False)
+        return y if bias is None else y + bias.to(y.dtype)
+    return conv_nd(x, weight, bias)
 
 
 def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
@@ -149,14 +171,31 @@ class Downsample(nn.Module):
 class ResBlock(nn.Module):
     """GN -> SiLU -> conv, + timestep embedding (add, or FiLM scale-shift),
     GN -> SiLU -> conv, with a 1x1 skip projection on a channel change.
-    `up` / `down` resample inside the block (nearest 2x / 2x average pool)."""
+    `up` / `down` resample inside the block (nearest 2x / 2x average pool).
+
+    `fused` (False | 'xla' | 'kernel' | True) runs the block as two conv
+    kernel calls where `can_fuse` holds (3D, no up/down, batch 1, H % 8 == 0;
+    the port has no dropout, so the JAX rule's dropout clause always holds):
+      * 'kernel' / True: GN1's moments in one pass (`group_moments`) folded
+        into a per-channel affine that the kernel applies with SiLU to its
+        input; conv1's bias is b1 + emb_out in fp32 and its epilogue emits
+        GN2's per-channel sums; conv2 applies GN2 (+ FiLM) the same way and
+        adds the residual;
+      * 'xla': the name of the JAX package's mode, kept so that each has its
+        counterpart.  The prologues silu(GN(x)) and silu(y1 * a2 + s2) are
+        plain PyTorch ops (XLA fusions there), and the kernel runs without
+        its affine (`fused_conv3d`).
+    `pallas_conv` routes the unfused path's convs through `_raw_conv`."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_ch: int, dims: int,
                  use_scale_shift_norm: bool = False, up: bool = False, down: bool = False,
-                 device=None):
+                 pallas_conv: bool = False, fused=False, device=None):
         super().__init__()
-        self.in_ch, self.out_ch = in_ch, out_ch
+        if fused not in (False, True, "xla", "kernel"):
+            raise ValueError(f"ResBlock: fused must be False, 'xla', 'kernel' or True, got {fused!r}")
+        self.in_ch, self.out_ch, self.dims = in_ch, out_ch, dims
         self.use_scale_shift_norm, self.up, self.down = use_scale_shift_norm, up, down
+        self.pallas_conv, self.fused = pallas_conv, fused
         self.g1, self.g2 = math.gcd(in_ch, 32), math.gcd(out_ch, 32)
         k = (3,) * dims
         p = lambda *shape, fill=0.0: nn.Parameter(torch.full(shape, fill, device=device))
@@ -175,21 +214,58 @@ class ResBlock(nn.Module):
             self.skip_kernel = p(out_ch, in_ch, *(1,) * dims)
             self.skip_bias = p(out_ch)
 
+    def can_fuse(self, x: torch.Tensor) -> bool:
+        """The JAX package's eligibility rule (nn/blocks.py:217-224)."""
+        return bool(self.fused and self.dims == 3 and not (self.up or self.down) and x.shape[0] == 1
+                    and x.shape[2] % 8 == 0)
+
+    def _fused_forward(self, x: torch.Tensor, emb_out: torch.Tensor) -> torch.Tensor:
+        n = math.prod(x.shape[1:4])
+        dhwio = lambda w: w.permute(2, 3, 4, 1, 0)  # (O, I, 3, 3, 3) -> (3, 3, 3, I, O)
+        k1, k2 = dhwio(self.conv1_kernel), dhwio(self.conv2_kernel)
+        if self.use_scale_shift_norm:
+            film_scale, film_shift = emb_out[0].chunk(2)
+            bias1 = self.conv1_bias
+        else:
+            bias1 = self.conv1_bias + emb_out[0]  # fp32, where the unfused path adds emb in x's dtype
+        residual = x if self.in_ch == self.out_ch else conv_nd(x, self.skip_kernel, self.skip_bias)
+
+        def gn2_affine(st: torch.Tensor):
+            mean2, var2 = moments_from_channel_sums(st, n, self.g2)
+            a2, s2 = gn_affine_from_moments(mean2, var2, self.norm2_scale, self.norm2_bias, self.g2)
+            if self.use_scale_shift_norm:
+                a2, s2 = a2 * (1 + film_scale), s2 * (1 + film_scale) + film_shift
+            return a2, s2
+
+        if self.fused == "xla":
+            t1 = F.silu(group_norm(x, self.norm1_scale, self.norm1_bias, self.g1))
+            y1, st = fused_conv3d(t1, k1, bias1, None, True)
+            a2, s2 = gn2_affine(st)
+            t2 = F.silu(y1.float() * a2 + s2).to(y1.dtype)
+            return fused_conv3d(t2, k2, self.conv2_bias, residual, False)
+        mean1, var1 = group_moments(x, self.g1)
+        a1, s1 = gn_affine_from_moments(mean1, var1, self.norm1_scale, self.norm1_bias, self.g1)
+        y1, st = fused_affine_silu_conv3d(x, k1, a1, s1, bias1, None, True)
+        a2, s2 = gn2_affine(st)
+        return fused_affine_silu_conv3d(y1, k2, a2, s2, self.conv2_bias, residual, False)
+
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         emb_out = F.linear(F.silu(emb.float()), self.emb_kernel, self.emb_bias)  # fp32
+        if self.can_fuse(x):
+            return self._fused_forward(x, emb_out)
         h = F.silu(group_norm(x, self.norm1_scale, self.norm1_bias, self.g1))
         if self.up:
             h, x = _nearest_up2(h), _nearest_up2(x)
         elif self.down:
             h, x = _avg_pool2(h), _avg_pool2(x)
-        h = conv_nd(h, self.conv1_kernel, self.conv1_bias)
+        h = _raw_conv(h, self.conv1_kernel, self.conv1_bias, self.pallas_conv)
         eo = emb_out.to(h.dtype).reshape(emb_out.shape[:1] + (1,) * (h.ndim - 2) + emb_out.shape[1:])
         if self.use_scale_shift_norm:
             scale, shift = eo.chunk(2, dim=-1)
             h = group_norm(h, self.norm2_scale, self.norm2_bias, self.g2) * (1 + scale) + shift
         else:
             h = group_norm(h + eo, self.norm2_scale, self.norm2_bias, self.g2)
-        h = conv_nd(F.silu(h), self.conv2_kernel, self.conv2_bias)
+        h = _raw_conv(F.silu(h), self.conv2_kernel, self.conv2_bias, self.pallas_conv)
         if self.in_ch != self.out_ch:
             x = conv_nd(x, self.skip_kernel, self.skip_bias)
         return (x + h).to(h.dtype)

@@ -15,6 +15,10 @@ main path); an fp32 head.  Not ported here: cross-attention `context`, class
 ids `y`, `feature_cond` injection, rematerialisation, and the UNet-level
 `use_scale_shift_norm` / `resblock_updown` / `num_heads` options (ResBlock
 itself has scale-shift and up/down).
+
+`use_fused_resblock` (False | 'xla' | 'kernel' | True) and `use_pallas_conv`
+are the JAX UNet's opt-in kernel paths (nn/unet.py:91-94 there), passed to
+every ResBlock in 3D and ignored in 2D, as there; no config key turns them on.
 """
 
 from __future__ import annotations
@@ -73,6 +77,8 @@ class UNet(nn.Module):
         dtype: torch.dtype = torch.float32,
         device=None,
         seed: int = 0,
+        use_pallas_conv: bool = False,
+        use_fused_resblock=False,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -84,7 +90,8 @@ class UNet(nn.Module):
         self.dtype = dtype
         mc = model_channels
         emb_ch = mc * 4
-        res = dict(emb_ch=emb_ch, dims=dims, device=device)
+        res = dict(emb_ch=emb_ch, dims=dims, device=device, pallas_conv=use_pallas_conv and dims == 3,
+                   fused=use_fused_resblock if dims == 3 else False)
 
         def attn(ch: int) -> AttentionBlock:
             return AttentionBlock(ch, num_head_channels=num_head_channels, device=device)

@@ -7,10 +7,13 @@ At the full widths that `chip_smoke.py` drives (its `TWO_STAGE_CFG`, from
 `configs/sample_two_stage.yml`, and its `STAGE1_TRAIN_CFG`, from
 `configs/stage1_mask.yml`; bf16, seeded random weights with the zero-init
 kernels un-zeroed as the sample CLI does), times one stage-1 denoise step at
-64x128x128, one stage-2 DDIM step at 256x256 and 512x512, and one stage-1
+64x128x128 (the unfused UNet, then the same weights with
+use_fused_resblock='kernel', whose convs are `csrc/conv3d.cu`'s kernel), one
+stage-2 DDIM step at 256x256 and 512x512, and one stage-1
 train step (forward, backward, AdamW, EMA) at 64x128x128 with CUDA events,
 then traces a few steps of each with torch.profiler and sums the kernels'
-device time by kind (convolution, flash_fwd, flash_bwd, GroupNorm/elementwise,
+device time by kind (convolution by cuDNN, the port's conv3d kernel,
+flash_fwd, flash_bwd, GroupNorm/elementwise,
 optimizer, matmul, ...).  Prints one JSON line per step kind and writes them
 all to `--out`.  The device's idle share is 1 - (kernel time / step wall
 time); the train step's peak memory is torch.cuda.max_memory_allocated.
@@ -36,6 +39,7 @@ from jointimagegeneration_torch.core.runtime import configure_precision  # noqa:
 from jointimagegeneration_torch.data.datasets import SyntheticMaskDataset  # noqa: E402
 from jointimagegeneration_torch.diffusion.ddim import DDIMParams, ddim_step  # noqa: E402
 from jointimagegeneration_torch.diffusion.noise import NoiseSource  # noqa: E402
+from jointimagegeneration_torch.ops import conv3d as conv  # noqa: E402
 from jointimagegeneration_torch.ops import flash_attention as flash  # noqa: E402
 from jointimagegeneration_torch.ops.cuda.build import build_all  # noqa: E402
 from jointimagegeneration_torch.train.optim import build_optimizer  # noqa: E402
@@ -43,6 +47,7 @@ from jointimagegeneration_torch.train.state import EMATrainState  # noqa: E402
 from jointimagegeneration_torch.train.steps import make_mask_train_step  # noqa: E402
 
 KINDS = [  # (kind, pattern on the kernel name), first match wins
+    ("conv3d_kernel", r"conv3d_kernel|stats_reduce_kernel"),
     ("flash_fwd", r"flash_fwd"),
     ("flash_bwd", r"flash_bwd"),
     ("optimizer", r"multi_tensor_apply|foreach|adam"),
@@ -69,7 +74,8 @@ def measure(label: str, step, steps: int) -> dict:
         step()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    counters = (flash.flash_forward, flash.flash_bwd_dkv, flash.flash_bwd_dq)
+    counters = (flash.flash_forward, flash.flash_bwd_dkv, flash.flash_bwd_dq, conv.conv3d_igemm,
+                conv.channel_stats_reduce)
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -117,7 +123,7 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     configure_precision()
-    build_all([flash.FLASH_SOURCE, flash.FLASH_BWD_SOURCE])
+    build_all([flash.FLASH_SOURCE, flash.FLASH_BWD_SOURCE, conv.CONV3D_SOURCE])
     rows = []
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -131,7 +137,11 @@ def main() -> int:
         t = torch.full((1,), 500, device="cuda")
         rows.append(measure("stage1_denoise_64x128x128", lambda: ms.denoise_step(noise, xt, t, cond=cond),
                             args.steps))
-        del ms, xt
+        fused = build_mask_sampler(S1, "cuda", use_fused_resblock="kernel")
+        fused.unet.load_state_dict(ms.unet.state_dict())
+        rows.append(measure("stage1_denoise_fused_kernel_64x128x128",
+                            lambda: fused.denoise_step(noise, xt, t, cond=cond), args.steps))
+        del ms, fused, xt
         torch.cuda.empty_cache()
 
         ldm = build_slice_ldm(S2, "cuda")
