@@ -15,8 +15,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
      (`library_ms`) and the card's bound; then checked, not timed, at ragged
      and wide-head shapes off the main paths.  The flash forward, then the
      flash backward (dkv and dq kernels) at the training shapes, then the
-     3x3x3 conv kernel (`conv3d ...` lines) at the fused and pallas_conv
-     paths' shapes (library: F.conv3d) and its edge shapes;
+     3x3x3 conv kernel (`conv3d ...` lines: error, a bitwise repeat, the
+     launch plan taken) at the fused and pallas_conv paths' shapes (library:
+     F.conv3d), then checked at every distinct conv of the fused path and at
+     its edge shapes;
   3. reference: a tiny two-stage pipeline on the card against the same
      pipeline on the CPU (same weights, same noise);
   4. fused reference: tiny fp32 fused MaskSamplers ('kernel' and 'xla') and
@@ -29,8 +31,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
   6. fused path: the same stage-1 sampler built with
      use_fused_resblock='kernel', 'xla' and use_pallas_conv=True, 4 steps
      each beside the unfused model, same weights and draws: s/step, launch
-     counts (54 conv + 27 stats-reduce per step fused, 8 conv under
-     pallas_conv) and probabilities against an fp32 forward (`fused path ...`);
+     counts (per step fused: 54 conv, 27 stats-reduce and a split-K reduce
+     for each conv the launch planner splits; 8 conv under pallas_conv) and
+     probabilities against an fp32 forward (`fused path ...`);
   7. train reference: three fp32 stage-1 train steps of a small UNet (T = 512
      at its attention sites, so the card runs the kernels) on the card against
      the same steps on the CPU: loss, every gradient and the params after
@@ -380,13 +383,68 @@ CONV_SHAPES = [  # (x shape, Cout, options, dtype, where the main paths run it)
     ((1, 32, 64, 64, 128), 128, "activate", torch.bfloat16, "L1 conv3d_3x3 with its SiLU epilogue"),
     ((1, 4, 8, 8, 640), 320, "affine bias stats", torch.bfloat16, "L4 up_4_0 conv1, mode A"),
     ((1, 32, 64, 64, 128), 128, "affine bias stats", torch.float32, "L1 fp32 torso, mode A"),
+    ((1, 32, 64, 64, 128), 128, "affine bias stats", torch.bfloat16, "L1 conv1, mode A"),
+    ((1, 16, 32, 32, 384), 128, "affine bias stats", torch.bfloat16, "L2 up_2_0 conv1, mode A"),
+    ((1, 8, 16, 16, 576), 256, "affine bias stats", torch.bfloat16, "L3 up_3_0 conv1, mode A"),
 ]
-CONV_EDGE_SHAPES = [  # checked, not timed: W not a tile multiple, batch 2, Cin 4, ragged Cout
+CONV_EDGE_SHAPES = [  # checked, not timed: W not a tile multiple, batch 2, Cin 4, ragged Cout, no split
     ((1, 3, 8, 10, 8), 12, "affine bias stats"),
     ((2, 3, 8, 8, 16), 16, "activate"),
     ((1, 2, 8, 8, 4), 8, "affine bias residual"),
     ((1, 5, 16, 24, 40), 72, "bias residual stats"),
+    ((2, 9, 36, 40, 24), 72, "affine bias stats"),
 ]
+CONV_FLAGS = {"affine": 1, "bias": 2, "residual": 4, "stats": 8, "activate": 16}  # csrc/conv3d.cu's
+
+
+def conv_flags(opts: str) -> int:
+    return sum(CONV_FLAGS[o] for o in opts.split())
+
+
+def resblock_channels(unet_cfg: dict) -> list:
+    """(level, in_ch, out_ch) of each ResBlock of the stage-1 UNet in forward
+    order, by nn/unet.py's channel bookkeeping (mid blocks at the last level)."""
+    mc, mult, nrb = unet_cfg["base_channels"], unet_cfg["channel_mult"], unet_cfg.get("num_res_blocks", 2)
+    ch, skip, blocks = mc * mult[0], [mc * mult[0]], []
+    for level, m in enumerate(mult):
+        for _ in range(nrb):
+            blocks.append((level, ch, m * mc))
+            ch = m * mc
+            skip.append(ch)
+        if level != len(mult) - 1:
+            skip.append(ch)
+    blocks += [(len(mult) - 1, ch, ch)] * 2
+    for level, m in reversed(list(enumerate(mult))):
+        for _ in range(nrb + 1):
+            blocks.append((level, ch + skip.pop(), m * mc))
+            ch = m * mc
+    return blocks
+
+
+def fused_conv_calls(unet_cfg: dict, spatial, mode: str) -> list:
+    """(x shape, Cout, options) of each conv kernel call of one fused UNet
+    forward ('kernel': mode A, the prologue in the kernel; 'xla': mode B)."""
+    pro = "affine " if mode == "kernel" else ""
+    calls = []
+    for level, cin, cout in resblock_channels(unet_cfg):
+        sp = tuple(s // 2 ** level for s in spatial)
+        calls.append(((1, *sp, cin), cout, pro + "bias stats"))
+        calls.append(((1, *sp, cout), cout, pro + "bias residual"))
+    return calls
+
+
+def planned_launches(conv, calls) -> dict:
+    """Kernel launches of bf16 conv calls, by counter, from the launch planner."""
+    total = {"conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
+    for shape, cout, opts in calls:
+        for k, v in conv.plan_conv3d(*shape, cout, torch.bfloat16, conv_flags(opts)).launches.items():
+            total[k] += v
+    return total
+
+
+def plan_text(conv, shape, cout, opts, dtype) -> str:
+    p = conv.plan_conv3d(*shape, cout, dtype, conv_flags(opts))
+    return f"plan tile {'x'.join(map(str, p.tile))} bn {p.bn} splits {p.splits} grid {list(p.grid)}"
 
 
 def _conv_inputs(g, shape, cout, opts, dtype):
@@ -406,12 +464,17 @@ def _conv_inputs(g, shape, cout, opts, dtype):
 
 def compare_conv(conv, x, k, kw, label: str) -> dict:
     """Max abs error of the kernel (output, stats) against its plain version
-    on the same inputs; fails past CONV_REL_TOL / CONV_STATS_TOL."""
+    on the same inputs; fails past CONV_REL_TOL / CONV_STATS_TOL, and unless
+    a second call gives a bitwise-equal output (and stats): the kernel sums
+    in a fixed order, with no atomics."""
     got = conv.conv3d_igemm(x, k, **kw)
+    again = conv.conv3d_igemm(x, k, **kw)
     torch.cuda.synchronize()
     want = conv.conv3d_plain(x, k, **kw)
-    got, want = (got, want) if kw["want_stats"] else ((got, None), (want, None))
+    got, again, want = (got, again, want) if kw["want_stats"] else ((got, None), (again, None), (want, None))
     check(bool(torch.isfinite(got[0]).all()), f"conv3d output not finite at {label}")
+    check(torch.equal(got[0], again[0]) and (got[1] is None or torch.equal(got[1], again[1])),
+          f"conv3d: two calls differ at {label}")
     err = (got[0].float() - want[0].float()).abs().max().item()
     tol = CONV_REL_TOL[x.dtype] * want[0].float().abs().max().item()
     out = {"err": err, "tol": tol, "err_stats": None, "tol_stats": None}
@@ -424,11 +487,19 @@ def compare_conv(conv, x, k, kw, label: str) -> dict:
     return out
 
 
+def _err_text(errs: dict) -> str:
+    return f"err {errs['err']:.3g} (tol {errs['tol']:.3g})" + (
+        f", stats {errs['err_stats']:.3g} (tol {errs['tol_stats']:.3g})" if errs["err_stats"] is not None else "")
+
+
 def conv_phase(conv) -> tuple:
-    """The conv kernel at the fused and pallas_conv paths' shapes: error, times
-    (graph-timed kernel, eager, plain, F.conv3d on the channels_last_3d view
-    as the library call), bound.  Bound: 2*V*27*Cin*Cout flops; bytes x,
-    the weight, the output and the residual once each."""
+    """The conv kernel at the fused and pallas_conv paths' shapes: error, a
+    bitwise repeat, times (graph-timed kernel, eager, plain, F.conv3d on the
+    channels_last_3d view as the library call), bound, and the plan each
+    shape took.  Then checked, not timed: every distinct conv of the fused
+    'kernel' path and the edge shapes, in bf16 and fp32.  Bound:
+    2*V*27*Cin*Cout flops; bytes x, the weight, the output and the residual
+    once each."""
     import torch.nn.functional as F
     from jointimagegeneration_torch.core.runtime import configure_precision
 
@@ -451,28 +522,34 @@ def conv_phase(conv) -> tuple:
         nbytes = (x.numel() + 27 * shape[-1] * cout + math.prod(shape[:4]) * cout
                   * (2 if "residual" in opts else 1)) * es
         f_ms, b_ms = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+        plan = plan_text(conv, shape, cout, opts, dtype)
         row = {"shape": list(shape), "cout": cout, "options": opts, "dtype": dname, "where": where, **errs,
                "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": max(f_ms, b_ms), "bound_by": "operations" if f_ms >= b_ms else "bytes",
-               "tflops": flops / ms / 1e9}
-        print(f"conv3d {label} ({where}): err {errs['err']:.3g} (tol {errs['tol']:.3g})"
-              + (f", stats {errs['err_stats']:.3g} (tol {errs['tol_stats']:.3g})" if kw["want_stats"] else "")
-              + f"; graph-timed kernel {ms:.4f} ms (eager {eager_ms:.4f}, {row['tflops']:.1f} TFLOP/s), "
-              f"plain {plain_ms:.4f} ms, F.conv3d {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}), {100 * row['bound_ms'] / ms:.1f}% of bound", flush=True)
+               "tflops": flops / ms / 1e9, "plan": plan}
+        print(f"conv3d {label} ({where}): {_err_text(errs)}, repeat bitwise equal; graph-timed kernel "
+              f"{ms:.4f} ms (eager {eager_ms:.4f}, {row['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"F.conv3d {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{100 * row['bound_ms'] / ms:.1f}% of bound; {plan}", flush=True)
         rows.append(row)
         del x, k, kw, xl, wl
         torch.cuda.empty_cache()
     edge = []
-    for shape, cout, opts in CONV_EDGE_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
-            x, k, kw = _conv_inputs(g, shape, cout, opts, dtype)
-            dname = str(dtype).replace("torch.", "")
-            errs = compare_conv(conv, x, k, kw, f"{list(shape)}->{cout} [{opts}] {dname}")
-            edge.append({"shape": list(shape), "cout": cout, "options": opts, "dtype": dname, **errs})
-            print(f"conv3d {list(shape)}->{cout} [{opts}] {dname} (edge shape): err {errs['err']:.3g} "
-                  f"(tol {errs['tol']:.3g})" + (f", stats {errs['err_stats']:.3g} (tol {errs['tol_stats']:.3g})"
-                                                 if kw["want_stats"] else ""), flush=True)
+    spatial = TWO_STAGE_CFG["stage1"]["dataset"]["volume_shape"]
+    fused = sorted(set(fused_conv_calls(TWO_STAGE_CFG["stage1"]["unet_openai"], spatial, "kernel")),
+                   key=lambda c: (-c[0][1], c[0][-1], c[1], c[2]))
+    checks = [(shape, cout, opts, torch.bfloat16, "fused path") for shape, cout, opts in fused]
+    checks += [(shape, cout, opts, dtype, "edge shape") for shape, cout, opts in CONV_EDGE_SHAPES
+               for dtype in (torch.bfloat16, torch.float32)]
+    for shape, cout, opts, dtype, kind in checks:
+        x, k, kw = _conv_inputs(g, shape, cout, opts, dtype)
+        dname = str(dtype).replace("torch.", "")
+        errs = compare_conv(conv, x, k, kw, f"{list(shape)}->{cout} [{opts}] {dname}")
+        edge.append({"shape": list(shape), "cout": cout, "options": opts, "dtype": dname, "kind": kind, **errs})
+        print(f"conv3d {list(shape)}->{cout} [{opts}] {dname} ({kind}): {_err_text(errs)}, repeat bitwise "
+              f"equal; {plan_text(conv, shape, cout, opts, dtype)}", flush=True)
+        del x, k, kw
+    torch.cuda.empty_cache()
     return rows, edge
 
 
@@ -591,6 +668,7 @@ def _counts(flash) -> dict:
 
     return {"flash_fwd": flash.flash_forward.launches, "flash_bwd_dkv": flash.flash_bwd_dkv.launches,
             "flash_bwd_dq": flash.flash_bwd_dq.launches, "conv3d": conv.conv3d_igemm.launches,
+            "conv3d_splitk_reduce": conv.conv3d_igemm.splitk_launches,
             "conv3d_stats_reduce": conv.channel_stats_reduce.launches}
 
 
@@ -598,7 +676,7 @@ def _reset_counts(flash) -> None:
     from jointimagegeneration_torch.ops import conv3d as conv
 
     flash.flash_forward.launches = flash.flash_bwd_dkv.launches = flash.flash_bwd_dq.launches = 0
-    conv.conv3d_igemm.launches = conv.channel_stats_reduce.launches = 0
+    conv.conv3d_igemm.launches = conv.conv3d_igemm.splitk_launches = conv.channel_stats_reduce.launches = 0
 
 
 FUSED_REF_TOL = 1e-4  # card vs CPU, fp32: of each tensor's max |CPU value| (sums in another order)
@@ -648,7 +726,8 @@ def fused_reference_phase(flash) -> dict:
             runs.append((probs.cpu(), labels.cpu(), launched))
         (p_cpu, l_cpu, n_cpu), (p_gpu, l_gpu, n_gpu) = runs
         n_blocks = 8  # 1 + 1 down, 2 mid, 2 + 2 up
-        want = {"conv3d": 2 * n_blocks * (1 + steps), "conv3d_stats_reduce": n_blocks * (1 + steps)}
+        want = {"conv3d": 2 * n_blocks * (1 + steps), "conv3d_splitk_reduce": 0,  # fp32: never split
+                "conv3d_stats_reduce": n_blocks * (1 + steps)}
         check(not any(n_cpu.values()), f"fused reference ({mode}): kernel launches on the CPU {n_cpu}")
         check(all(n_gpu[k] == v for k, v in want.items()),
               f"fused reference ({mode}): launches on the card {n_gpu}, expected {want}")
@@ -716,13 +795,16 @@ def fused_path_phase(flash, card: str) -> dict:
     and `use_pallas_conv=True`, each sampling 4 steps at 64x128x128 (bf16)
     with the same weights (fresh init, zero-init kernels filled as the path
     phase does) and the same draws as the unfused model in this call.  Checks
-    the exact launch counts; holds one forward's probabilities against an
+    the exact launch counts, which the launch planner gives for each conv
+    call of a forward (`fused_conv_calls`, whose ResBlock channels are held
+    against the built UNet's); holds one forward's probabilities against an
     fp32 unfused forward: each bf16 variant may be at most twice as far from
     it as the bf16 unfused model is, plus 1e-3 (the variants round at other
     places, and by as much)."""
     from jointimagegeneration_torch.cli.sample import build_mask_sampler, load_weights
     from jointimagegeneration_torch.diffusion.noise import NoiseSource
     from jointimagegeneration_torch.nn.blocks import ResBlock
+    from jointimagegeneration_torch.ops import conv3d as conv
 
     s1, steps, seed = TWO_STAGE_CFG["stage1"], 4, TWO_STAGE_CFG["seed"]
     spatial = tuple(s1["dataset"]["volume_shape"])
@@ -734,6 +816,14 @@ def fused_path_phase(flash, card: str) -> dict:
     sites = flash_sites(spatial, s1["unet_openai"], "channel_mult")
     n_pallas = pallas_conv_sites(base.unet)
     check(n_res == 27 and n_pallas == 8, f"fused path: {n_res} ResBlocks, {n_pallas} pallas_conv sites")
+    built = [(b.in_ch, b.out_ch) for b in base.unet.children() if isinstance(b, ResBlock)]
+    check(built == [(i, o) for _, i, o in resblock_channels(s1["unet_openai"])],
+          f"fused path: the UNet's ResBlocks {built} are not resblock_channels'")
+    l1 = tuple(s // 2 for s in spatial)  # the pallas_conv sites: 128 -> 128 at level 1
+    per_step = {"unfused": {}, "pallas_conv": planned_launches(conv, [((1, *l1, 128), 128, "")] * n_pallas)}
+    for mode in ("kernel", "xla"):
+        per_step[mode] = planned_launches(conv, fused_conv_calls(s1["unet_openai"], spatial, mode))
+    print(f"fused path: planned launches per step {per_step}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(5)
     xt = torch.nn.functional.one_hot(torch.randint(0, 12, shape, generator=gen, device="cuda"), 12).float()
     cond = torch.zeros((*shape, 1), device="cuda")
@@ -744,11 +834,10 @@ def fused_path_phase(flash, card: str) -> dict:
         p32 = ref.unet(xt, t, cond=cond).float()
     del ref
     torch.cuda.empty_cache()
-    variants = [("unfused", {}, 0, 0), ("kernel", {"use_fused_resblock": "kernel"}, 2 * n_res, n_res),
-                ("xla", {"use_fused_resblock": "xla"}, 2 * n_res, n_res),
-                ("pallas_conv", {"use_pallas_conv": True}, n_pallas, 0)]
+    variants = [("unfused", {}), ("kernel", {"use_fused_resblock": "kernel"}), ("xla", {"use_fused_resblock": "xla"}),
+                ("pallas_conv", {"use_pallas_conv": True})]
     rows, p_unfused, lab_unfused = {}, None, None
-    for name, opts, conv_per_step, reduce_per_step in variants:
+    for name, opts in variants:
         ms = base if name == "unfused" else build_mask_sampler(s1, "cuda", **opts)
         ms.unet.load_state_dict(state)
         with torch.inference_mode():
@@ -761,7 +850,8 @@ def fused_path_phase(flash, card: str) -> dict:
             sec = time.perf_counter() - t0
         launches = _counts(flash)
         expected = {"flash_fwd": steps * sites, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
-                    "conv3d": steps * conv_per_step, "conv3d_stats_reduce": steps * reduce_per_step}
+                    **{k: steps * per_step[name].get(k, 0) for k in
+                       ("conv3d", "conv3d_splitk_reduce", "conv3d_stats_reduce")}}
         check(launches == expected, f"fused path ({name}): launches {launches}, expected {expected}")
         check(tuple(labels.shape) == shape and int(labels.min()) >= 0 and int(labels.max()) < 12,
               f"fused path ({name}): labels {tuple(labels.shape)} in [{labels.min()}, {labels.max()}]")
@@ -842,7 +932,7 @@ def train_reference_phase(flash) -> float:
         runs.append((losses, grads, params, launched))
     (l_cpu, g_cpu, p_cpu, n_cpu), (l_gpu, g_gpu, p_gpu, n_gpu) = runs
     check(not any(n_cpu.values()) and all(n_gpu[k] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
-          and n_gpu["conv3d"] == n_gpu["conv3d_stats_reduce"] == 0,
+          and n_gpu["conv3d"] == n_gpu["conv3d_splitk_reduce"] == n_gpu["conv3d_stats_reduce"] == 0,
           f"train reference: kernel launches cpu {n_cpu}, card {n_gpu}")
     worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
     for i in range(3):
@@ -891,7 +981,7 @@ def train_path_phase(flash, card: str) -> dict:
     n_steps, n_eval = cfg["max_steps"], cfg["max_steps"] // cfg["validation_freq_steps"]
     expected = {"flash_fwd": sites * (n_steps + n_eval * cfg["eval_time_steps"]),
                 "flash_bwd_dkv": sites * n_steps, "flash_bwd_dq": sites * n_steps,
-                "conv3d": 0, "conv3d_stats_reduce": 0}  # training runs the unfused UNet
+                "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}  # the unfused UNet
     torch.cuda.reset_peak_memory_stats()
     state, launches, wall, _ = _train_run(flash, cfg, "smoke")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1019,8 +1109,8 @@ def main() -> int:
             **{k: row[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         }
         if name == "conv3d_fused_resblock":
-            entry["stats_reduce_launches"] = sum(fused[m]["launches"]["conv3d_stats_reduce"]
-                                                 for m in ("kernel", "xla"))
+            for key in ("stats_reduce", "splitk_reduce"):
+                entry[f"{key}_launches"] = sum(fused[m]["launches"][f"conv3d_{key}"] for m in ("kernel", "xla"))
             entry["shapes"] = conv_rows
         if name == "conv3d_3x3":
             entry["note"] = ("no model path calls conv3d_3x3 itself (nor does the JAX package's); it is "

@@ -33,7 +33,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import STAGE1_TRAIN_CFG, TWO_STAGE_CFG  # noqa: E402
+from chip_smoke import STAGE1_TRAIN_CFG, TWO_STAGE_CFG, conv_flags, fused_conv_calls  # noqa: E402
 from jointimagegeneration_torch.cli.sample import build_mask_sampler, build_slice_ldm, load_weights  # noqa: E402
 from jointimagegeneration_torch.core.runtime import configure_precision  # noqa: E402
 from jointimagegeneration_torch.data.datasets import SyntheticMaskDataset  # noqa: E402
@@ -47,7 +47,7 @@ from jointimagegeneration_torch.train.state import EMATrainState  # noqa: E402
 from jointimagegeneration_torch.train.steps import make_mask_train_step  # noqa: E402
 
 KINDS = [  # (kind, pattern on the kernel name), first match wins
-    ("conv3d_kernel", r"conv3d_kernel|stats_reduce_kernel"),
+    ("conv3d_kernel", r"conv3d_wgmma_kernel|conv3d_ffma_kernel|splitk_reduce_kernel|stats_reduce_kernel"),
     ("flash_fwd", r"flash_fwd"),
     ("flash_bwd", r"flash_bwd"),
     ("optimizer", r"multi_tensor_apply|foreach|adam"),
@@ -69,7 +69,29 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def measure(label: str, step, steps: int) -> dict:
+def conv_ms_by_level(prof, steps: int) -> dict:
+    """Device ms per fused 'kernel' step of the conv kernels (conv, split-K
+    reduce, stats reduce) by UNet level: the trace's conv3d kernels in launch
+    order, matched to the launch planner's sequence for the forward's calls
+    (`chip_smoke.fused_conv_calls`).  Empty if the trace does not hold
+    `steps` times that sequence."""
+    spatial = S1["dataset"]["volume_shape"]
+    seq = []
+    for shape, cout, opts in fused_conv_calls(S1["unet_openai"], spatial, "kernel"):
+        level = (spatial[0] // shape[1]).bit_length() - 1
+        seq += [level] * conv.plan_conv3d(*shape, cout, torch.bfloat16, conv_flags(opts)).n_launches
+    evs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and kind_of(e.name) == "conv3d_kernel"), key=lambda e: e.time_range.start)
+    if len(evs) != steps * len(seq):
+        return {}
+    by_level = {}
+    for i, e in enumerate(evs):
+        lv = f"L{seq[i % len(seq)]}"
+        by_level[lv] = by_level.get(lv, 0.0) + e.time_range.elapsed_us() / steps / 1e3
+    return by_level
+
+
+def measure(label: str, step, steps: int, per_level: bool = False) -> dict:
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -78,6 +100,7 @@ def measure(label: str, step, steps: int) -> dict:
                 conv.channel_stats_reduce)
     for c in counters:
         c.launches = 0
+    conv.conv3d_igemm.splitk_launches = 0
     torch.cuda.reset_peak_memory_stats()
     start.record()
     for _ in range(steps):
@@ -86,6 +109,7 @@ def measure(label: str, step, steps: int) -> dict:
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / steps
     launches = {c.__name__: c.launches / steps for c in counters}
+    launches["conv3d_splitk_reduce"] = conv.conv3d_igemm.splitk_launches / steps
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -107,6 +131,8 @@ def measure(label: str, step, steps: int) -> dict:
            "launches_per_step": launches, "peak_gib": peak_gib,
            "kernel_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
            "top_kernels": [{"ms": ms, "calls": n, "name": name[:120]} for ms, n, name in kernels[:12]]}
+    if per_level:
+        row["conv3d_kernel_ms_by_level"] = conv_ms_by_level(prof, steps)
     print(json.dumps(row), flush=True)
     return row
 
@@ -140,7 +166,7 @@ def main() -> int:
         fused = build_mask_sampler(S1, "cuda", use_fused_resblock="kernel")
         fused.unet.load_state_dict(ms.unet.state_dict())
         rows.append(measure("stage1_denoise_fused_kernel_64x128x128",
-                            lambda: fused.denoise_step(noise, xt, t, cond=cond), args.steps))
+                            lambda: fused.denoise_step(noise, xt, t, cond=cond), args.steps, per_level=True))
         del ms, fused, xt
         torch.cuda.empty_cache()
 
