@@ -67,6 +67,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM: bf16 tensor cores; fp32 FMA
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+EX2_PER_CLK = 16 * 132  # H100 SXM: MUFU.EX2 results per clock, 16 per SM on 132 SMs
 # flash kernel tolerances against its plain version (max abs).  O's limit is
 # relative to the plain output's largest |O|: the kernel rounds O, and in bf16
 # also P before P.V, to the input dtype, so bf16 O differs by a bf16 ulp or two
@@ -165,6 +166,14 @@ def card_line() -> str:
                          capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (`nvidia-smi --query-gpu=clocks.max.sm`)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def time_ms(fn, iters: int, reps: int = 5) -> tuple:
@@ -276,13 +285,17 @@ def _attention_inputs(g, bh, tq, tk, d, dtype):
 
 def compare_bwd(flash, q, k, v, o, lse, do, label: str) -> dict:
     """Max abs error of dQ, dK, dV from the kernels against the plain version
-    on the same inputs; fails past BWD_REL_TOL of each gradient's max |plain|."""
+    on the same inputs; fails past BWD_REL_TOL of each gradient's max |plain|,
+    and unless a second call gives bitwise-equal gradients (both kernels sum
+    in a fixed order, with no atomics)."""
     got = flash.flash_backward(q, k, v, o, lse, do)
+    again = flash.flash_backward(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     want = flash.flash_backward_plain(q, k, v, o, lse, do)
     out = {}
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+    for name, a, a2, b in zip(("dq", "dk", "dv"), got, again, want):
         check(bool(torch.isfinite(a).all()), f"flash backward {name} not finite at {label}")
+        check(torch.equal(a, a2), f"flash backward {name}: two calls differ at {label}")
         err = (a.float() - b.float()).abs().max().item()
         tol = BWD_REL_TOL[q.dtype] * b.float().abs().max().item()
         check(err <= tol, f"flash backward {name} disagrees at {label}: {err} (tol {tol})")
@@ -291,19 +304,25 @@ def compare_bwd(flash, q, k, v, o, lse, do, label: str) -> dict:
 
 
 def bwd_phase(flash) -> list:
-    """The backward kernels at the training shapes: error, times, bounds.
+    """The backward kernels at the training shapes: error, a bitwise repeat,
+    times, bounds, and the launch plan taken.
 
-    Per shape: `dkv_ms` / `dq_ms` are each kernel alone, `ms` the whole
-    backward (delta + both kernels, as `flash_backward` runs it), all
-    graph-timed; `library_ms` is the backward of
-    `F.scaled_dot_product_attention` on the same inputs, timed as its
+    Per shape: `dq_ms` (the dq kernel, which also computes delta) and
+    `dkv_ms` are each kernel alone, `ms` the whole backward as
+    `flash_backward` runs it, all graph-timed; `library_ms` is the backward
+    of `F.scaled_dot_product_attention` on the same inputs, timed as its
     forward + backward in one captured graph less its forward alone (the port
-    never calls it).  Bounds: the whole backward does 5 products (S, dP, dV,
-    dK, dQ: 10*BH*T^2*D flops) and moves q, k, v, O, dO in, dQ, dK, dV out
-    and LSE, delta; dkv alone needs S, dP, dV, dK (8*BH*T^2*D) and dq alone
-    S, dP, dQ (6*BH*T^2*D), each with its own inputs and outputs."""
+    never calls it).  Bounds, each the largest of three times: the products
+    on the tensor cores (`tensor_bound_ms`; the whole backward 5 of
+    2*BH*T^2*D flops: S, dP, dV, dK, dQ; dkv alone S, dP, dV, dK; dq alone S,
+    dP, dQ), the BH*T^2 exponentials at EX2_PER_CLK per clock of the card's
+    maximum SM clock (`exp_bound_ms`; once for the whole backward, once in
+    each kernel), and the bytes: the whole backward reads q, k, v, O, dO and
+    LSE and writes dQ, dK, dV; dq reads q, k, v, O, dO, LSE and writes dQ and
+    delta; dkv reads q, k, v, dO, LSE, delta and writes dK, dV."""
     import torch.nn.functional as F
 
+    ex2_per_s = EX2_PER_CLK * max_sm_clock_hz()
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
     rows = []
@@ -312,10 +331,11 @@ def bwd_phase(flash) -> list:
         o, lse = flash.flash_forward(q, k, v)
         dname = str(dtype).replace("torch.", "")
         errs = compare_bwd(flash, q, k, v, o, lse, do, f"{(bh, t, d)} {dname}")
-        delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+        plan = flash.plan_flash_bwd(bh, t, t, d, dtype)
+        _, delta = flash.flash_bwd_dq(q, k, v, o, do, lse)
         ms, eager_ms = time_ms(lambda: flash.flash_backward(q, k, v, o, lse, do), 20)
+        dq_ms, _ = time_ms(lambda: flash.flash_bwd_dq(q, k, v, o, do, lse), 20)
         dkv_ms, _ = time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta), 20)
-        dq_ms, _ = time_ms(lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta), 20)
         plain_ms, _ = time_ms(lambda: flash.flash_backward_plain(q, k, v, o, lse, do), 5)
         q4, k4, v4, do4 = (x[None].detach().requires_grad_() for x in (q, k, v, do))
 
@@ -325,28 +345,34 @@ def bwd_phase(flash) -> list:
 
         lib_fwd_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0), 20)
         lib_both_ms, _ = time_ms(sdpa_fwd_bwd, 20)
-        es, flops_unit = q.element_size(), 2.0 * bh * t * t * d
+        es, flops_unit, rowbytes = q.element_size(), 2.0 * bh * t * t * d, bh * t * 4
         io = bh * t * d * es
+        exp_ms = bh * t * t / ex2_per_s * 1e3
 
-        def bound(flops, nbytes):
-            f_ms, b_ms = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
-            return max(f_ms, b_ms), "operations" if f_ms >= b_ms else "bytes"
+        def bound(n_products, nbytes):
+            t_ms, b_ms = n_products * flops_unit / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+            return {"bound_ms": max(t_ms, exp_ms, b_ms), "tensor_bound_ms": t_ms, "exp_bound_ms": exp_ms,
+                    "bound_by": "bytes" if b_ms > max(t_ms, exp_ms) else "operations",
+                    "limit": "bytes" if b_ms > max(t_ms, exp_ms) else ("ex2" if exp_ms > t_ms else "tensor")}
 
-        bound_ms, bound_by = bound(5 * flops_unit, 8 * io + 2 * bh * t * 4)
-        dkv_bound, dkv_by = bound(4 * flops_unit, 6 * io + 2 * bh * t * 4)
-        dq_bound, dq_by = bound(3 * flops_unit, 5 * io + 2 * bh * t * 4)
+        whole = bound(5, 8 * io + rowbytes)
+        dkv_b, dq_b = bound(4, 6 * io + 2 * rowbytes), bound(3, 6 * io + 2 * rowbytes)
         row = {"shape": [bh, t, t, d], "dtype": dname, "where": where, **errs,
                "ms": ms, "eager_ms": eager_ms, "dkv_ms": dkv_ms, "dq_ms": dq_ms, "plain_ms": plain_ms,
-               "library_ms": lib_both_ms - lib_fwd_ms, "library_fwd_bwd_ms": lib_both_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "dkv_bound_ms": dkv_bound,
-               "dkv_bound_by": dkv_by, "dq_bound_ms": dq_bound, "dq_bound_by": dq_by}
+               "library_ms": lib_both_ms - lib_fwd_ms, "library_fwd_bwd_ms": lib_both_ms, **whole,
+               **{f"dkv_{key}": val for key, val in dkv_b.items()}, **{f"dq_{key}": val for key, val in dq_b.items()},
+               "plan": {"dkv": [plan.dkv.warpgroups, plan.dkv.smem_bytes],
+                        "dq": [plan.dq.warpgroups, plan.dq.smem_bytes]}}
         print(f"flash_bwd {row['shape']} {dname} ({where}): err dQ {errs['err_dq']:.3g} "
               f"(tol {errs['tol_dq']:.3g}) dK {errs['err_dk']:.3g} (tol {errs['tol_dk']:.3g}) "
-              f"dV {errs['err_dv']:.3g} (tol {errs['tol_dv']:.3g}); graph-timed backward {ms:.4f} ms "
-              f"(eager {eager_ms:.4f}) = dkv {dkv_ms:.4f} + dq {dq_ms:.4f} + delta; plain "
+              f"dV {errs['err_dv']:.3g} (tol {errs['tol_dv']:.3g}), repeat bitwise equal; graph-timed backward "
+              f"{ms:.4f} ms (eager {eager_ms:.4f}) = dq {dq_ms:.4f} (with delta) + dkv {dkv_ms:.4f}; plain "
               f"{plain_ms:.4f} ms; sdpa backward {row['library_ms']:.4f} ms (fwd+bwd {lib_both_ms:.4f}); "
-              f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of bound; "
-              f"dkv bound {dkv_bound:.4f} ({dkv_by}), dq bound {dq_bound:.4f} ({dq_by})", flush=True)
+              f"bound {whole['bound_ms']:.4f} ms ({whole['limit']}; tensor {whole['tensor_bound_ms']:.4f}, ex2 "
+              f"{exp_ms:.4f}), {100 * whole['bound_ms'] / ms:.1f}% of bound; dkv bound {dkv_b['bound_ms']:.4f} "
+              f"({dkv_b['limit']}, tensor {dkv_b['tensor_bound_ms']:.4f}), dq bound {dq_b['bound_ms']:.4f} "
+              f"({dq_b['limit']}, tensor {dq_b['tensor_bound_ms']:.4f}); plan (warpgroups, smem bytes) "
+              f"dkv {row['plan']['dkv']} dq {row['plan']['dq']}", flush=True)
         rows.append(row)
         del q, k, v, do, o, lse, delta, q4, k4, v4, do4
         torch.cuda.empty_cache()
@@ -360,8 +386,8 @@ def bwd_phase(flash) -> list:
         dname = str(dtype).replace("torch.", "")
         errs = compare_bwd(flash, q, k, v, o, lse, do, f"{(bh, tq, tk, d)} {dname}")
         print(f"flash_bwd {[bh, tq, tk, d]} {dname} (edge shape): " +
-              " ".join(f"{n} {errs['err_' + n]:.3g} (tol {errs['tol_' + n]:.3g})" for n in ("dq", "dk", "dv")),
-              flush=True)
+              " ".join(f"{n} {errs['err_' + n]:.3g} (tol {errs['tol_' + n]:.3g})" for n in ("dq", "dk", "dv")) +
+              ", repeat bitwise equal", flush=True)
     return rows
 
 
@@ -1087,6 +1113,8 @@ def main() -> int:
             "plain_ms": train_row["plain_ms"],  # the plain backward computes dq, dk and dv together
             "bound_ms": train_row[f"{part}_bound_ms"],
             "bound_by": train_row[f"{part}_bound_by"],
+            "tensor_bound_ms": train_row[f"{part}_tensor_bound_ms"],
+            "exp_bound_ms": train_row[f"{part}_exp_bound_ms"],
             "library_ms": train_row["library_ms"],  # SDPA's backward, all three gradients
             "shapes": bwd_rows,
         })

@@ -2,64 +2,96 @@
 //
 // Replaces the two TPU kernels of jointimagegeneration_tpu/ops/pallas/
 // flash_attention.py's `_flash_backward`: `_bwd_dkv_kernel` (dK, dV) and
-// `_bwd_dq_kernel` (dQ).  Over (BH, T, D) row-major tensors, q already scaled
-// by 1/sqrt(D), with the forward's fp32 LSE and delta = rowsum(dO * O) (fp32,
-// computed by the caller):
+// `_bwd_dq_kernel` (dQ), and the rowsum that function leaves to XLA.  Over
+// (BH, T, D) row-major tensors, q already scaled by 1/sqrt(D), with the
+// forward's O and fp32 LSE:
 //
-//   P  = exp(q k^T - LSE)            dP = dO v^T        dS = P * (dP - delta)
+//   delta = rowsum(dO * O)   P = exp(q k^T - LSE)   dP = dO v^T   dS = P * (dP - delta)
 //   dV = P^T dO      dK = dS^T q      dQ = dS k
 //
 // As the TPU kernels do, P is rounded to dO's dtype before P^T dO and dS to
-// q's (k's) dtype before dS^T q (dS k); P, dP, dS and every accumulator are
-// fp32; dQ, dK, dV are written in the input dtype.
+// q's (k's) dtype before dS^T q (dS k); delta, P, dP, dS and every
+// accumulator are fp32; dQ, dK, dV are written in the input dtype.  The dq
+// kernel runs first and writes delta (fp32) for the dkv kernel.
 //
 // Bound on an H100 SXM.  The function does five products of 2*BH*Tq*Tk*D
-// flops each (S, dP, dV, dK, dQ) on the tensor cores and one exp per (q, key)
-// pair; at the training shapes' D = 32 that is 10*BH*T^2*32 / 989 TFLOP/s
-// (e.g. 0.17 ms at (16, 4096, 32)), several times the HBM time.  The split
-// into two kernels recomputes S and dP in each (7 products instead of 5),
-// the price of writing every gradient once with no atomics.
+// flops each (S, dP, dV, dK, dQ) on the tensor cores and one exponential per
+// (q, key) pair on the MUFU (16 per clock per SM).  At the training shapes'
+// D = 32 the two are of one size: at (8, 2048, 32) dkv's four products take
+// 8.7 us at 989 TFLOP/s and its 3.4e7 exponentials 8.0 us at 1.98 GHz, and
+// dq (three products) is bound by its exponentials; HBM traffic is several
+// times smaller.  The split into two kernels recomputes S, dP and P in each (7
+// products, 2 exponential passes, instead of 5 and 1), the price of writing
+// every gradient once with no float atomics.
 //
-// Design (simple and correct first; no wgmma, TMA or warp specialisation):
-//   * dkv (bf16): one block of 4 warps per (bh, 64-key tile, head-column
-//     chunk); each warp owns 16 keys and loops over 64-row q tiles staged in
-//     shared memory.  S^T = K Q^T and dP^T = V dO^T run on mma.sync.m16n8k16
-//     with K/V rows as the A operand, so the fp32 accumulators hold P^T and
-//     dS^T with keys as rows and are re-packed in registers as the A operand
-//     of dV += P^T dO and dK += dS^T Q (Q and dO are staged a second time,
-//     transposed, for those B operands).  LSE and delta broadcast along the
-//     accumulator columns, from shared memory.
-//   * dq (bf16): one block per (bh, 64-row q tile, chunk); each warp owns 16
-//     q rows and loops over 64-key tiles.  S = Q K^T and dP = dO V^T, then
-//     dQ += dS K with K staged transposed.  LSE and delta are per-row
-//     registers.
-//   * Head columns: the output accumulators cover at most 64 head columns;
-//     for D > 64 the grid gets one block per 64-column chunk, each of which
-//     recomputes S and dP over the full D.  That keeps registers bounded at
-//     every head width the forward takes (D <= 256).
-//   * fp32: one thread per key (dkv) or q row (dq), plain FMA over fp32 tiles
-//     in shared memory (broadcast reads) with expf; tensor cores would round
-//     through TF32.
-//   * Ragged shapes: q rows past Tq get P = 0 (LSE = +inf in the dkv tile),
-//     keys past Tk get P = 0 in dq and are never written in dkv, D is padded
-//     with zeros to the kernel's head width (16/32/64/128/256).
-//
-// Launches on the caller's stream, allocates nothing, writes every output
-// element exactly once (deterministic), and returns cudaGetLastError() so the
-// Python wrapper can raise on a refused launch.
+// bf16 design (`flash_bwd_dkv_wgmma_kernel`, `flash_bwd_dq_wgmma_kernel`):
+//   * Every product is a wgmma (hopper.cuh).  dkv: a block owns 64 keys of
+//     one head-column chunk; per streamed 64-row q tile a warpgroup computes
+//     S^T = K Q^T and dP^T = V dO^T (A = the block's K or V, B = the Q or dO
+//     tile, K-major), turns them into P^T and dS^T in registers, re-packs
+//     those as bf16 A fragments and adds dV += P^T dO and dK += dS^T Q in the
+//     RS form, reading the same dO and Q tiles MN-major through the
+//     transpose-B bit.  dq: a block owns 64 q rows; per streamed 64-key tile
+//     S = Q K^T and dP = dO V^T, then dQ += dS K (RS, K read MN-major).  No
+//     tile is stored twice or transposed.  Up to D = 64 the block's own tiles
+//     enter S and dP as register fragments loaded once (RS form); above, by
+//     descriptor (SS form).
+//   * Tiles live in shared memory in the hardware's swizzle: rows of 32, 64
+//     or 128 bytes at D = 16, 32 and >= 64 (64-column atoms), 1024-byte
+//     aligned.  TMA copies them (and dkv's LSE and delta rows), one thread
+//     issuing a tile's copies, which complete on an mbarrier and zero-fill
+//     past T and D.  Each warpgroup streams its tiles (Q, dO, LSE, delta in
+//     dkv; K, V in dq) through its own ring of two stages: after the
+//     warpgroup's barrier says stage j - 1 is consumed, its thread 0 refills
+//     it, so tile j + 1 loads under tile j's products.  (Copies issued
+//     by all 128 threads with cp.async cost 45% of each iteration in issue
+//     stalls alone; `scripts/bench_flash_bwd.py --trace` reads the phases.)
+//   * Warpgroups: one per block (dkv: three blocks on an SM up to D = 32, two
+//     above; dq: up to four), so that one warpgroup's exponentials overlap
+//     another's wgmma.  Where dq blocks are few, two warpgroups split the
+//     block's key loop, each with its own accumulator, summed once at the
+//     end through shared memory, warpgroup 0's plus warpgroup 1's: the same
+//     order every call.  The host-side planner (`ops/flash_attention.py`
+//     `plan_flash_bwd`) chooses; the kernel checks its shared-memory size
+//     against the plan's.
+//   * Exponentials: P = 2^(S * log2e - LSE * log2e), one FFMA and one
+//     MUFU.EX2 per element, LSE and delta read per tile as float2 pairs of
+//     the columns (dkv) or held per row in registers (dq).
+//   * Ragged shapes: q rows past Tq get LSE = +inf (P = 0) in dkv and are not
+//     written by dq; keys past Tk get P = 0 in dq and are not written by dkv;
+//     D is padded with zeros to the head width (16/32/64/128/256).  Output
+//     head columns are chunked at 64 (one block per chunk, each recomputing
+//     S and dP over all of D), which bounds the accumulators at D = 256.
+//     TMA wants d % 8 == 0, tq % 4 == 0 and 16-byte aligned tensors; the
+//     wrapper pads with zero columns and rows where they are not.
+//   * delta: each dq block sums dO * O over its 64 rows in fp32 from device
+//     memory while its first tiles load, and block (row tile, chunk 0) writes
+//     them to the (BH, Tq) buffer dkv reads.
 
+// fp32 (`flash_bwd_dkv_f32_kernel`, `flash_bwd_dq_f32_kernel`): one thread per
+// key (dkv) or q row (dq), plain FMA over fp32 tiles in shared memory
+// (broadcast reads) with expf; tensor cores would round through TF32.  The fp32
+// dq entry computes delta with `delta_f32_kernel` first.
+//
+// Launches on the caller's stream, allocates nothing, uses no float atomics,
+// writes every output element once (results are the same call to call), and
+// returns cudaGetLastError() so the Python wrapper can raise on a refused
+// launch.
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "flash_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kTile = 64;      // rows a block owns, and rows per inner tile
-constexpr int kThreads = 128;  // 4 warps x 16 rows
-constexpr int kPad = 8;        // bf16 elements of row padding (bank spread)
+constexpr int kTile = 64;      // keys (dkv) or q rows (dq) of a block, rows per streamed tile
 constexpr int kMaxChunk = 64;  // head columns of output per block
 constexpr int kF32Tile = 32;   // rows per shared-memory tile (fp32 kernels)
 constexpr float kLog2e = 1.4426950408889634f;
@@ -69,59 +101,55 @@ __host__ __device__ constexpr int chunk_cols() {
   return HD < kMaxChunk ? HD : kMaxChunk;
 }
 
-// Copy rows [row0, row0 + kTile) x columns [col0, col0 + COLS) of an
-// (n_rows, d) bf16 matrix into shared memory, zero-filling outside it.
-// Row-major: element (r, c) at dst[r * (COLS + kPad) + c]; transposed: at
-// dst[c * (kTile + kPad) + r].
-template <int COLS, bool kTranspose>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
-                                      int n_rows, int col0, int d, bool vec_ok) {
-  constexpr int kChunk = 8;
-  constexpr int kPerRow = COLS / kChunk;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int c = threadIdx.x; c < kTile * kPerRow; c += kThreads) {
-    const int r = c / kPerRow;
-    const int cc = (c % kPerRow) * kChunk;
-    const int gr = row0 + r;
-    const int gc = col0 + cc;
-    __nv_bfloat16 vals[kChunk];
-    if (gr < n_rows && vec_ok && gc + kChunk <= d) {
-      const uint4 u = *reinterpret_cast<const uint4*>(src + (size_t)gr * d + gc);
-      const __nv_bfloat16* pv = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-      for (int i = 0; i < kChunk; ++i) vals[i] = pv[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < kChunk; ++i)
-        vals[i] = (gr < n_rows && gc + i < d) ? src[(size_t)gr * d + gc + i] : zero;
-    }
-    if (kTranspose) {
-#pragma unroll
-      for (int i = 0; i < kChunk; ++i) dst[(cc + i) * (kTile + kPad) + r] = vals[i];
-    } else {
-      uint4 u;
-      __nv_bfloat16* pu = reinterpret_cast<__nv_bfloat16*>(&u);
-#pragma unroll
-      for (int i = 0; i < kChunk; ++i) pu[i] = vals[i];
-      *reinterpret_cast<uint4*>(dst + r * (COLS + kPad) + cc) = u;
-    }
-  }
+// A (64, HD) bf16 tile in shared memory: HD / AC atoms of 64 rows x RB bytes,
+// each swizzled (hopper.cuh); an atom holds one output chunk's AC columns.
+template <int HD>
+struct Tile {
+  static constexpr int AC = chunk_cols<HD>();  // columns per atom
+  static constexpr int RB = 2 * AC;            // bytes per atom row: the swizzle, 32, 64 or 128
+  static constexpr int ATOM = kTile * RB;      // bytes per atom
+  static constexpr int BYTES = kTile * HD * 2;
+  static_assert(HD % 16 == 0 && HD % AC == 0, "head width of 16, 32, 64, 128 or 256");
+};
+
+// K-major descriptor of k-step ks (head columns 16ks ... 16ks + 15) of a tile
+template <int HD>
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int ks) {
+  using T = Tile<HD>;
+  return kmajor_desc<T::RB>(tile + (ks * 16 / T::AC) * T::ATOM + (ks * 16 % T::AC) * 2);
+}
+// MN-major descriptor of rows 16kk ... 16kk + 15 (K) and the columns of chunk ch (N) of a tile
+template <int HD>
+__device__ __forceinline__ uint64_t mndesc(uint32_t tile, int ch, int kk) {
+  using T = Tile<HD>;
+  return mnmajor_desc<T::RB>(tile + ch * T::ATOM + kk * 16 * T::RB, T::ATOM);
 }
 
-// Write rows g and g + 8 of a warp's (16, DC) fp32 accumulator to out[row0 +
-// ...][col0 + ...] in bf16, skipping rows past n_rows and columns past d.
-template <int DT>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[DT][4],
-                                           int row0, int n_rows, int col0, int d, int g, int t4) {
+// Rows [row0, row0 + 64) of head bh of a (bh, T, d) bf16 tensor into the tile
+// at dst: one TMA copy per atom (the tensor map's boxes are AC columns x 64
+// rows, swizzled as the atoms are), completing on barrier bar; rows past T and
+// columns past d arrive as zeros.  Issued by one thread.
+template <int HD>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap& map, int row0, int bh, uint32_t bar) {
+  using T = Tile<HD>;
+#pragma unroll
+  for (int a = 0; a < HD / T::AC; ++a) tma_load_3d(dst + a * T::ATOM, &map, a * T::AC, row0, bh, bar);
+}
+
+// Rows g and g + 8 of each warp's 16 of a (64, DC) wgmma accumulator, in bf16,
+// to out[row0 + ...][col0 + ...], skipping rows past n_rows and columns past d.
+template <int DC>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)[DC / 2], int row0, int n_rows,
+                                          int col0, int d, int g, int t4) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= n_rows) continue;
     __nv_bfloat16* orow = out + (size_t)row * d;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      const int col = col0 + dt * 8 + t4 * 2;
-      const float v0 = acc[dt][2 * r], v1 = acc[dt][2 * r + 1];
+    for (int j = 0; j < DC / 8; ++j) {
+      const int col = col0 + j * 8 + t4 * 2;
+      const float v0 = acc[4 * j + 2 * r], v1 = acc[4 * j + 2 * r + 1];
       if (col + 1 < d) {
         if (d % 2 == 0) {
           *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v0, v1);
@@ -136,245 +164,415 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc
   }
 }
 
-template <int HD>
-constexpr int dkv_smem_bytes() {
-  return (4 * kTile * (HD + kPad) + 2 * chunk_cols<HD>() * (kTile + kPad)) * 2 + 2 * kTile * 4;
+// bf16 A fragments of the four k16 steps of a (64, 64) fp32 accumulator: its
+// 8-column tiles 2kk and 2kk + 1 (hopper.cuh)
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4], const float (&acc)[32]) {
+  const auto& tiles = reinterpret_cast<const float(&)[8][4]>(acc);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) pack_a_frag(a[kk], tiles[2 * kk], tiles[2 * kk + 1]);
 }
 
-template <int HD>
-constexpr int dq_smem_bytes() {
-  return (4 * kTile * (HD + kPad) + chunk_cols<HD>() * (kTile + kPad)) * 2;
+// Warpgroup 1's accumulator to warpgroup 0's through the shared scratch `red`
+// (warpgroup 1's consumed ring): warpgroup 0 adds it to its own, in that
+// order; returns false for warpgroup 1, which then has nothing to store.
+template <int N>
+__device__ __forceinline__ bool sum_warpgroups(float (&a)[N], float* red, int wg, int t) {
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) red[i * 128 + t] = a[i];
+  }
+  __syncthreads();
+  if (wg == 1) return false;
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] += red[i * 128 + t];
+  return true;
 }
 
+struct BwdParams {
+  // bf16 kernels: TMA maps of q, k, v, dO as (d, T, bh) with boxes (AC, 64, 1),
+  // and of LSE and delta as (bh * tq) fp32 with boxes of 64 (dkv only)
+  CUtensorMap q_map, k_map, v_map, do_map, lse_map, delta_map;
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;  // (bh, tq)
+  float* delta;      // (bh, tq): written by dq, read by dkv
+  void *out0, *out1; // dkv: dk, dv; dq: dq
+  int tq, tk, d;
+};
+
+// Profiling builds only (`scripts/bench_flash_bwd.py --trace`, JIG_FLASH_BWD_TRACE
+// = 1): thread 0 of each warpgroup sums the SM clocks of the k loop's phases
+// (`Phases::mark`) and stores them to the (blocks * warpgroups, kPhases)
+// buffer jig_flash_bwd_trace names.  A no-op in every build the port loads.
+#ifndef JIG_FLASH_BWD_TRACE
+#define JIG_FLASH_BWD_TRACE 0
+#endif
+constexpr int kPhases = 7;
+#if JIG_FLASH_BWD_TRACE
+__device__ long long* g_trace;
+#endif
+struct Phases {
+  long long last = 0, sum[kPhases] = {};
+  __device__ __forceinline__ void mark(int i) {
+#if JIG_FLASH_BWD_TRACE
+    const long long now = clock64();
+    if (i >= 0) sum[i] += now - last;
+    last = now;
+#endif
+  }
+  __device__ __forceinline__ void store(int slot, bool leader) {
+#if JIG_FLASH_BWD_TRACE
+    if (leader)
+      for (int i = 0; i < kPhases; ++i) g_trace[(long long)slot * kPhases + i] = sum[i];
+#endif
+  }
+};
+
+// A fragments (hopper.cuh) of this warp's 16 rows of a tile, every k16 step of
+// the head dim, by ldmatrix from the swizzled layout
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int tq,
-                          int tk, int d) {
-  static_assert(HD % 16 == 0, "head width must be a multiple of 16");
-  constexpr int DC = chunk_cols<HD>();  // output head columns of this block
-  constexpr int NCH = HD / DC;
-  constexpr int RS = HD + kPad;        // row stride of row-major tiles
-  constexpr int TS = kTile + kPad;     // row stride of transposed tiles
-  constexpr int NT = kTile / 8;        // n-tiles of 8 q rows in S^T
-  constexpr int KS = HD / 16;          // k-steps over the head dim in K Q^T, V dO^T
-  constexpr int DT = DC / 8;           // n-tiles of 8 head columns in dK, dV
+__device__ __forceinline__ void load_frags(uint32_t (&f)[HD / 16][4], uint32_t tile, int warp, int lane) {
+  using T = Tile<HD>;
+  const int r = warp * 16 + (lane & 15);
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const int c = 2 * ks + (lane >> 4);
+    ldmatrix_x4(f[ks], tile + (c / (T::AC / 8)) * T::ATOM + swizzle_off<T::RB>(r, c % (T::AC / 8)));
+  }
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kTile * RS;
-  __nv_bfloat16* sQ = sV + kTile * RS;
-  __nv_bfloat16* sdO = sQ + kTile * RS;
-  __nv_bfloat16* sQt = sdO + kTile * RS;
-  __nv_bfloat16* sdOt = sQt + DC * TS;
-  float* sLse = reinterpret_cast<float*>(sdOt + DC * TS);
-  float* sDelta = sLse + kTile;
+// Up to D = 64 the block's own tiles (K, V in dkv; Q, dO in dq) enter S and dP
+// as register fragments, loaded once (the RS form: wgmma reads only the
+// streamed tile from shared memory); above, 2 * D / 4 registers a thread would
+// be too many, and both operands come by descriptor (the SS form).
+template <int HD>
+constexpr bool kFragA = HD <= 64;
+template <int HD>
+constexpr int kFrags = kFragA<HD> ? HD / 16 : 1;
 
+// D (64 x 64, fp32) = A B^T over the head dim: A the block's tile (fragments
+// `af`, or the tile at a_tile), B the streamed tile at b_tile, both K-major
+template <int HD>
+__device__ __forceinline__ void product_over_d(float (&d)[32], const uint32_t (&af)[kFrags<HD>][4], uint32_t a_tile,
+                                               uint32_t b_tile) {
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    if constexpr (kFragA<HD>) {
+      wgmma_rs<64>(d, af[ks], kdesc<HD>(b_tile, ks), ks);
+    } else {
+      wgmma_ss64(d, kdesc<HD>(a_tile, ks), kdesc<HD>(b_tile, ks), ks);
+    }
+  }
+}
+
+// Stages in each warpgroup's ring: tile j + 1 loads while tile j is used (a
+// third stage measured no faster at the training shapes)
+constexpr int kStages = 2;
+
+// Shared memory of a block: 1024 bytes of slack for aligning the base, then a
+// 1024-byte control slot (the mbarriers; dq also keeps its 64 rows' delta
+// there, at byte 512), the block's own two tiles (K and V in dkv, Q and dO in
+// dq), then per warpgroup a ring of kStages stages: dkv (Q tile, dO tile, 64
+// LSE and 64 delta in a 1024-byte slot); dq (K tile, V tile).
+template <bool kDkv, int HD, int NWG>
+struct Smem {
+  static constexpr int kStage = 2 * Tile<HD>::BYTES + (kDkv ? 1024 : 0);
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kOwn = 1024;                          // the block's own tiles, after the control slot
+  static constexpr int kRings = kOwn + 2 * Tile<HD>::BYTES;  // the first warpgroup's ring
+  static constexpr int kBytes = 1024 + kRings + NWG * kRing;
+  static_assert((kDkv ? 2 : 1) * 64 * Tile<HD>::AC * 4 <= kRing, "the reduction scratch fits in a ring");
+  static_assert(8 * (1 + NWG * kStages) <= 512, "the barriers fit in the control slot");
+};
+// control slot: barrier 0 is the block's own tiles', barrier 1 + w * kStages + s warpgroup w's stage s's
+__device__ __forceinline__ uint32_t bar_addr(uint32_t base, int i) { return base + 8 * i; }
+
+// One thread's share of a block's start: initialises the barriers and has TMA
+// bring the block's own two tiles (rows row0 ... row0 + 63 of head bh)
+template <int HD, int NWG>
+__device__ __forceinline__ void start_block(uint32_t base, const CUtensorMap& a, const CUtensorMap& b, int row0,
+                                            int bh) {
+  for (int i = 0; i < 1 + NWG * kStages; ++i) mbar_init(bar_addr(base, i), 1);
+  fence_mbar_init();
+  prefetch_tensormap(&a);
+  prefetch_tensormap(&b);
+  mbar_expect_tx(bar_addr(base, 0), 2 * Tile<HD>::BYTES);
+  tma_tile<HD>(base + 1024, a, row0, bh, bar_addr(base, 0));
+  tma_tile<HD>(base + 1024 + Tile<HD>::BYTES, b, row0, bh, bar_addr(base, 0));
+}
+
+// One warpgroup per block, three blocks on an SM up to D = 32 (at most 170
+// registers, which the D = 64 instance could only meet by spilling), else two.
+// (Two warpgroups splitting the q loop measured slower at every training shape.)
+template <int HD>
+__global__ void __launch_bounds__(128, HD <= 32 ? 3 : 2)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ BwdParams p) {
+  using T = Tile<HD>;
+  using S = Smem<true, HD, 1>;
+  constexpr int DC = T::AC, NCH = HD / DC;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  const uint32_t raw = smem_u32(smem_tiles);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const sm = smem_tiles + (base - raw);
+  const uint32_t sK = base + S::kOwn, sV = sK + T::BYTES;
+
+  const int tq = p.tq, tk = p.tk, d = p.d;
   const int n_tiles = (tk + kTile - 1) / kTile;
   const int chunk = blockIdx.x % NCH;
   const int n0 = ((blockIdx.x / NCH) % n_tiles) * kTile;
   const int bh = blockIdx.x / NCH / n_tiles;
-  const int dc0 = chunk * DC;
-  const __nv_bfloat16* qb = q + (size_t)bh * tq * d;
-  const __nv_bfloat16* dob = dout + (size_t)bh * tq * d;
-  const __nv_bfloat16* kb = k + (size_t)bh * tk * d;
-  const __nv_bfloat16* vb = v + (size_t)bh * tk * d;
-  const float* lseb = lse + (size_t)bh * tq;
-  const float* deltab = delta + (size_t)bh * tq;
-  const bool vec_ok = (d % 8 == 0) &&
-      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16 == 0);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-
-  stage<HD, false>(sK, kb, n0, tk, 0, d, vec_ok);
-  stage<HD, false>(sV, vb, n0, tk, 0, d, vec_ok);
-  const __nv_bfloat16* kw = sK + warp * 16 * RS;  // this warp's 16 keys
-  const __nv_bfloat16* vw = sV + warp * 16 * RS;
-
-  float dk_acc[DT][4], dv_acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-
-  for (int m0 = 0; m0 < tq; m0 += kTile) {
-    __syncthreads();  // the previous q tile is consumed
-    stage<HD, false>(sQ, qb, m0, tq, 0, d, vec_ok);
-    stage<HD, false>(sdO, dob, m0, tq, 0, d, vec_ok);
-    stage<DC, true>(sQt, qb, m0, tq, dc0, d, vec_ok);
-    stage<DC, true>(sdOt, dob, m0, tq, dc0, d, vec_ok);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool ok = m0 + i < tq;
-      sLse[i] = ok ? lseb[m0 + i] : INFINITY;  // padded q rows: P = exp(-inf) = 0
-      sDelta[i] = ok ? deltab[m0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T and dP^T: this warp's 16 keys x 64 q rows
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t ka[4], va[4];
-      load_a_frag(ka, kw, RS, ks, g, t4);
-      load_a_frag(va, vw, RS, ks, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* qr = sQ + (nt * 8 + g) * RS + ks * 16 + t4 * 2;
-        mma_16816(s[nt], ka, lds32(qr), lds32(qr + 8));
-        const __nv_bfloat16* orow = sdO + (nt * 8 + g) * RS + ks * 16 + t4 * 2;
-        mma_16816(dp[nt], va, lds32(orow), lds32(orow + 8));
-      }
-    }
-    // P^T in s, dS^T in dp; LSE and delta vary along the columns (q rows)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = nt * 8 + t4 * 2;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = col + (e & 1);
-        const float p = exp2f((s[nt][e] - sLse[c]) * kLog2e);
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - sDelta[c]);
-      }
-    }
-    // dV += P^T dO, dK += dS^T Q over the tile's 64 q rows
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      pack_a_frag(pa, s[2 * kk], s[2 * kk + 1]);
-      pack_a_frag(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const __nv_bfloat16* ot = sdOt + (dt * 8 + g) * TS + kk * 16 + t4 * 2;
-        mma_16816(dv_acc[dt], pa, lds32(ot), lds32(ot + 8));
-        const __nv_bfloat16* qt = sQt + (dt * 8 + g) * TS + kk * 16 + t4 * 2;
-        mma_16816(dk_acc[dt], da, lds32(qt), lds32(qt + 8));
-      }
-    }
+  // the q tiles, through the ring, each stage filled by TMA (issued by thread 0) on the stage's barrier
+  const int n_q = (tq + kTile - 1) / kTile;
+  auto load_stage = [&](int j) {
+    const int m0 = j * kTile, off = S::kRings + (j % kStages) * S::kStage;
+    const uint32_t bar = bar_addr(base, 1 + j % kStages);
+    mbar_expect_tx(bar, 2 * T::BYTES + 2 * 256);
+    tma_tile<HD>(base + off, p.q_map, m0, bh, bar);
+    tma_tile<HD>(base + off + T::BYTES, p.do_map, m0, bh, bar);
+    tma_load_1d(base + off + 2 * T::BYTES, &p.lse_map, bh * tq + m0, bar);  // rows past tq: masked below
+    tma_load_1d(base + off + 2 * T::BYTES + 256, &p.delta_map, bh * tq + m0, bar);
+  };
+  if (t == 0) {
+    start_block<HD, 1>(base, p.k_map, p.v_map, n0, bh);
+    prefetch_tensormap(&p.q_map);
+    prefetch_tensormap(&p.do_map);
+    prefetch_tensormap(&p.lse_map);
+    prefetch_tensormap(&p.delta_map);
+  }
+  __syncthreads();  // the barriers are initialised
+  if (t == 0) {
+    for (int j = 0; j < kStages - 1 && j < n_q; ++j) load_stage(j);
+  }
+  mbar_wait(bar_addr(base, 0), 0);  // K and V have landed
+  uint32_t kf[kFrags<HD>][4], vf[kFrags<HD>][4];
+  if constexpr (kFragA<HD>) {
+    load_frags<HD>(kf, sK, warp, lane);
+    load_frags<HD>(vf, sV, warp, lane);
   }
 
+  float dk_acc[DC / 2], dv_acc[DC / 2];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  Phases ph;  // 0 stage wait, 1 barrier and refill issue, 2 S, 3 P, 4 dV issue and dP, 5 dS, 6 dK and the wait
+  ph.mark(-1);
+  for (int j = 0; j < n_q; ++j) {
+    __syncthreads();  // the warpgroup is done with stage j - 1: it may be refilled
+    if (t == 0 && j + kStages - 1 < n_q) load_stage(j + kStages - 1);
+    ph.mark(1);
+    mbar_wait(bar_addr(base, 1 + j % kStages), (j / kStages) & 1);
+    ph.mark(0);
+
+    const int m0 = j * kTile, off = S::kRings + (j % kStages) * S::kStage;
+    const uint32_t sQ = base + off, sdO = sQ + T::BYTES;
+    const float2* sL = reinterpret_cast<const float2*>(sm + off + 2 * T::BYTES);  // (LSE, delta) pairs
+    const float2* sD = sL + 32;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys (this warp's 16) x 64 q rows
+    float s[32], dp[32];
+    wgmma_fence();
+    product_over_d<HD>(s, kf, sK, sQ);
+    wgmma_commit();
+    product_over_d<HD>(dp, vf, sV, sdO);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(s);
+    ph.mark(2);
+    // P^T: the columns are q rows; rows past tq get LSE = +inf, so P = 0
+    const int valid = tq - m0;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      const int c = 8 * jn + 2 * t4;
+      const float2 l = sL[4 * jn + t4];
+      const float l0 = c < valid ? l.x * kLog2e : INFINITY;
+      const float l1 = c + 1 < valid ? l.y * kLog2e : INFINITY;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[4 * jn + e] = ex2_approx(fmaf(s[4 * jn + e], kLog2e, -((e & 1) ? l1 : l0)));
+    }
+    ph.mark(3);
+    // dV += P^T dO (dO read MN-major) runs while dS is computed
+    uint32_t pa[4][4], da[4][4];
+    pack_frags(pa, s);
+    fence_operands(dv_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DC, true>(dv_acc, pa[kk], mndesc<HD>(sdO, chunk, kk));
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T is done
+    fence_operands(dp);
+    ph.mark(4);
+    // dS^T; delta of rows past tq is finite (the next head's, or 0) and meets P = 0
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      const float2 dl = sD[4 * jn + t4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[4 * jn + e] = s[4 * jn + e] * (dp[4 * jn + e] - ((e & 1) ? dl.y : dl.x));
+    }
+    // dK += dS^T Q over the tile's 64 q rows, Q read MN-major
+    pack_frags(da, dp);
+    ph.mark(5);
+    fence_operands(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DC, true>(dk_acc, da[kk], mndesc<HD>(sQ, chunk, kk));
+    wgmma_commit();
+    wgmma_wait<0>();  // the stage is free once the whole warpgroup passes the next barrier
+    fence_operands(dv_acc);
+    fence_operands(dk_acc);
+    ph.mark(6);
+  }
+  ph.store(blockIdx.x, t == 0);
+
   const int row0 = n0 + warp * 16;
-  store_rows<DT>(dk + (size_t)bh * tk * d, dk_acc, row0, tk, dc0, d, g, t4);
-  store_rows<DT>(dv + (size_t)bh * tk * d, dv_acc, row0, tk, dc0, d, g, t4);
+  store_acc<DC>(static_cast<__nv_bfloat16*>(p.out0) + (size_t)bh * tk * d, dk_acc, row0, tk, chunk * DC, d, g, t4);
+  store_acc<DC>(static_cast<__nv_bfloat16*>(p.out1) + (size_t)bh * tk * d, dv_acc, row0, tk, chunk * DC, d, g, t4);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int tq, int tk, int d) {
-  static_assert(HD % 16 == 0, "head width must be a multiple of 16");
-  constexpr int DC = chunk_cols<HD>();
-  constexpr int NCH = HD / DC;
-  constexpr int RS = HD + kPad;
-  constexpr int TS = kTile + kPad;
-  constexpr int NT = kTile / 8;        // n-tiles of 8 keys in S
-  constexpr int KS = HD / 16;
-  constexpr int DT = DC / 8;
+template <int HD, int NWG>
+__global__ void __launch_bounds__(128 * NWG, NWG == 1 ? 2 : 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdParams p) {
+  using T = Tile<HD>;
+  using S = Smem<false, HD, NWG>;
+  constexpr int DC = T::AC, NCH = HD / DC;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  const uint32_t raw = smem_u32(smem_tiles);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const sm = smem_tiles + (base - raw);
+  float* const sDelta = reinterpret_cast<float*>(sm + 512);
+  const uint32_t sQ = base + S::kOwn, sdO = sQ + T::BYTES;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdO = sQ + kTile * RS;
-  __nv_bfloat16* sK = sdO + kTile * RS;
-  __nv_bfloat16* sV = sK + kTile * RS;
-  __nv_bfloat16* sKt = sV + kTile * RS;
-
+  const int tq = p.tq, tk = p.tk, d = p.d;
   const int n_tiles = (tq + kTile - 1) / kTile;
   const int chunk = blockIdx.x % NCH;
   const int m0 = ((blockIdx.x / NCH) % n_tiles) * kTile;
   const int bh = blockIdx.x / NCH / n_tiles;
-  const int dc0 = chunk * DC;
-  const __nv_bfloat16* qb = q + (size_t)bh * tq * d;
-  const __nv_bfloat16* dob = dout + (size_t)bh * tq * d;
-  const __nv_bfloat16* kb = k + (size_t)bh * tk * d;
-  const __nv_bfloat16* vb = v + (size_t)bh * tk * d;
-  const bool vec_ok = (d % 8 == 0) &&
-      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16 == 0);
+  const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(p.dout) + (size_t)bh * tq * d;
+  const __nv_bfloat16* ob = static_cast<const __nv_bfloat16*>(p.o) + (size_t)bh * tq * d;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = t >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
+  // this warpgroup's key tiles wg, wg + NWG, ..., through its ring
+  const int n_local = ((tk + kTile - 1) / kTile - wg + NWG - 1) / NWG;
+  const int ring_off = S::kRings + wg * S::kRing;
+  auto load_stage = [&](int j) {
+    const int n0 = (wg + j * NWG) * kTile, off = ring_off + (j % kStages) * S::kStage;
+    const uint32_t bar = bar_addr(base, 1 + wg * kStages + j % kStages);
+    mbar_expect_tx(bar, 2 * T::BYTES);
+    tma_tile<HD>(base + off, p.k_map, n0, bh, bar);
+    tma_tile<HD>(base + off + T::BYTES, p.v_map, n0, bh, bar);
+  };
+  if (tid == 0) start_block<HD, NWG>(base, p.q_map, p.do_map, m0, bh);
+  if (t == 0) {
+    prefetch_tensormap(&p.k_map);
+    prefetch_tensormap(&p.v_map);
+  }
+  __syncthreads();  // the barriers are initialised
+  if (t == 0) {
+    for (int j = 0; j < kStages - 1 && j < n_local; ++j) load_stage(j);
+  }
 
-  stage<HD, false>(sQ, qb, m0, tq, 0, d, vec_ok);
-  stage<HD, false>(sdO, dob, m0, tq, 0, d, vec_ok);
-  const __nv_bfloat16* qw = sQ + warp * 16 * RS;  // this warp's 16 q rows
-  const __nv_bfloat16* ow = sdO + warp * 16 * RS;
-  float lse_r[2], delta_r[2];  // rows g and g + 8; padded rows are never written
+  // delta = rowsum(dO * O) in fp32 for the block's 64 rows, TPR adjacent lanes per row, while the tiles load
+  {
+    constexpr int TPR = 2 * NWG;
+    const int r = tid / TPR, part = tid % TPR, row = m0 + r;
+    float acc = 0.f;
+    if (row < tq) {
+      const __nv_bfloat16* orow = ob + (size_t)row * d;
+      const __nv_bfloat16* drow = dob + (size_t)row * d;
+      for (int c = part * 8; c < d; c += TPR * 8) {  // d % 8 == 0, rows 16-byte aligned
+        const uint4 uo = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 ud = *reinterpret_cast<const uint4*>(drow + c);
+        const __nv_bfloat16* po = reinterpret_cast<const __nv_bfloat16*>(&uo);
+        const __nv_bfloat16* pd = reinterpret_cast<const __nv_bfloat16*>(&ud);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc += __bfloat162float(pd[i]) * __bfloat162float(po[i]);
+      }
+    }
+#pragma unroll
+    for (int o = TPR / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (part == 0) {
+      sDelta[r] = acc;
+      if (chunk == 0 && row < tq) p.delta[(size_t)bh * tq + row] = acc;
+    }
+  }
+  mbar_wait(bar_addr(base, 0), 0);  // Q and dO have landed
+  __syncthreads();                  // and delta is in shared memory
+  uint32_t qf[kFrags<HD>][4], of[kFrags<HD>][4];
+  if constexpr (kFragA<HD>) {
+    load_frags<HD>(qf, sQ, warp, lane);
+    load_frags<HD>(of, sdO, warp, lane);
+  }
+
+  // this thread's rows warp * 16 + g and + 8: scaled LSE and delta; padded rows are never written
+  float lse_s[2], delta_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = m0 + warp * 16 + g + 8 * r;
-    lse_r[r] = row < tq ? lse[(size_t)bh * tq + row] : 0.f;
-    delta_r[r] = row < tq ? delta[(size_t)bh * tq + row] : 0.f;
+    const int rr = warp * 16 + g + 8 * r;
+    lse_s[r] = m0 + rr < tq ? p.lse[(size_t)bh * tq + m0 + rr] * kLog2e : 0.f;
+    delta_r[r] = sDelta[rr];
   }
+  float dq_acc[DC / 2];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) dq_acc[i] = 0.f;
 
-  float dq_acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[dt][e] = 0.f;
+  Phases ph;  // 0 stage wait, 1 barrier and refill issue, 2 S, 3 P, 4 dP, 5 dS, 6 dQ and the wait
+  ph.mark(-1);
+  for (int j = 0; j < n_local; ++j) {
+    if (wg == 0) named_barrier_sync<1, 128>();
+    else named_barrier_sync<2, 128>();
+    if (t == 0 && j + kStages - 1 < n_local) load_stage(j + kStages - 1);
+    ph.mark(1);
+    mbar_wait(bar_addr(base, 1 + wg * kStages + j % kStages), (j / kStages) & 1);
+    ph.mark(0);
 
-  for (int n0 = 0; n0 < tk; n0 += kTile) {
-    __syncthreads();  // the previous key tile is consumed (and Q/dO staged on the first pass)
-    stage<HD, false>(sK, kb, n0, tk, 0, d, vec_ok);
-    stage<HD, false>(sV, vb, n0, tk, 0, d, vec_ok);
-    stage<DC, true>(sKt, kb, n0, tk, dc0, d, vec_ok);
-    __syncthreads();
+    const int n0 = (wg + j * NWG) * kTile, off = ring_off + (j % kStages) * S::kStage;
+    const uint32_t sK = base + off, sV = sK + T::BYTES;
 
-    float s[NT][4], dp[NT][4];
+    // S = Q K^T and dP = dO V^T: 64 q rows (this warp's 16) x 64 keys
+    float s[32], dp[32];
+    wgmma_fence();
+    product_over_d<HD>(s, qf, sQ, sK);
+    wgmma_commit();
+    product_over_d<HD>(dp, of, sdO, sV);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(s);
+    ph.mark(2);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int i = 0; i < 32; ++i) s[i] = ex2_approx(fmaf(s[i], kLog2e, -lse_s[(i >> 1) & 1]));
+    if (n0 + kTile > tk) {  // keys past tk: P = 0
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qa[4], oa[4];
-      load_a_frag(qa, qw, RS, ks, g, t4);
-      load_a_frag(oa, ow, RS, ks, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* kr = sK + (nt * 8 + g) * RS + ks * 16 + t4 * 2;
-        mma_16816(s[nt], qa, lds32(kr), lds32(kr + 8));
-        const __nv_bfloat16* vr = sV + (nt * 8 + g) * RS + ks * 16 + t4 * 2;
-        mma_16816(dp[nt], oa, lds32(vr), lds32(vr + 8));
-      }
+      for (int i = 0; i < 32; ++i)
+        if (n0 + 8 * (i >> 2) + 2 * t4 + (i & 1) >= tk) s[i] = 0.f;
     }
-    // dS in dp; LSE and delta vary along the rows; keys past tk get P = 0
+    ph.mark(3);
+    wgmma_wait<0>();
+    fence_operands(dp);
+    ph.mark(4);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int key = n0 + nt * 8 + t4 * 2;
+    for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - delta_r[(i >> 1) & 1]);
+    // dQ += dS K over the tile's 64 keys, K read MN-major
+    uint32_t da[4][4];
+    pack_frags(da, dp);
+    ph.mark(5);
+    fence_operands(dq_acc);
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float p = (key + (e & 1) < tk) ? exp2f((s[nt][e] - lse_r[r]) * kLog2e) : 0.f;
-        dp[nt][e] = p * (dp[nt][e] - delta_r[r]);
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t da[4];
-      pack_a_frag(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const __nv_bfloat16* kt = sKt + (dt * 8 + g) * TS + kk * 16 + t4 * 2;
-        mma_16816(dq_acc[dt], da, lds32(kt), lds32(kt + 8));
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DC, true>(dq_acc, da[kk], mndesc<HD>(sK, chunk, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dq_acc);
+    ph.mark(6);
   }
+  ph.store(blockIdx.x * NWG + wg, t == 0);
 
-  store_rows<DT>(dq + (size_t)bh * tq * d, dq_acc, m0 + warp * 16, tq, dc0, d, g, t4);
+  if constexpr (NWG == 2) {
+    if (!sum_warpgroups(dq_acc, reinterpret_cast<float*>(sm + S::kRings + S::kRing), wg, t)) return;
+  }
+  store_acc<DC>(static_cast<__nv_bfloat16*>(p.out0) + (size_t)bh * tq * d, dq_acc, m0 + warp * 16, tq, chunk * DC,
+                d, g, t4);
 }
 
 template <int HD>
@@ -519,98 +717,230 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-struct Args {
-  const void *q, *k, *v, *dout, *lse, *delta;
-  void *out0, *out1;  // dkv: dk, dv; dq: dq
-  int bh, tq, tk, d;
+// fp32 delta = rowsum(dO * O): one warp per row, lanes over the columns, then
+// a butterfly sum (a fixed order)
+__global__ void __launch_bounds__(256) delta_f32_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+                                                        float* __restrict__ delta, int rows, int d) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32) acc += dout[(size_t)row * d + c] * o[(size_t)row * d + c];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// The launch as the plan gives it: warpgroups and the shared memory
+// size, checked against the kernel's own.
+struct Launch {
+  int bh, nwg, smem_bytes;
   cudaStream_t stream;
 };
 
-template <int HD>
-cudaError_t launch_dkv(const Args& a, bool is_f32) {
-  cudaError_t err;
-  const int tiles = (a.tk + kTile - 1) / kTile;
-  if (is_f32) {
-    constexpr int smem = f32_smem_bytes<HD>();
-    if ((err = allow_smem(flash_bwd_dkv_f32_kernel<HD>, smem)) != cudaSuccess) return err;
-    flash_bwd_dkv_f32_kernel<HD><<<tiles * a.bh, kTile, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.tq, a.tk, a.d);
-  } else {
-    constexpr int smem = dkv_smem_bytes<HD>();
-    constexpr int nch = HD / chunk_cols<HD>();
-    if ((err = allow_smem(flash_bwd_dkv_bf16_kernel<HD>, smem)) != cudaSuccess) return err;
-    flash_bwd_dkv_bf16_kernel<HD><<<tiles * a.bh * nch, kThreads, smem, a.stream>>>(
-        static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<__nv_bfloat16*>(a.out0), static_cast<__nv_bfloat16*>(a.out1), a.tq, a.tk, a.d);
-  }
+template <bool kDkv, int HD, int NWG>
+cudaError_t launch_wgmma_as(const BwdParams& p, const Launch& l) {
+  constexpr int smem = Smem<kDkv, HD, NWG>::kBytes;
+  if (l.smem_bytes != smem) return cudaErrorInvalidValue;  // the planner disagrees
+  auto kernel = kDkv ? flash_bwd_dkv_wgmma_kernel<HD> : flash_bwd_dq_wgmma_kernel<HD, NWG>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = ((kDkv ? p.tk : p.tq) + kTile - 1) / kTile;
+  kernel<<<tiles * l.bh * (HD / chunk_cols<HD>()), 128 * NWG, smem, l.stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch_dq(const Args& a, bool is_f32) {
-  cudaError_t err;
-  const int tiles = (a.tq + kTile - 1) / kTile;
-  if (is_f32) {
-    constexpr int smem = 2 * kF32Tile * HD * 4;
-    if ((err = allow_smem(flash_bwd_dq_f32_kernel<HD>, smem)) != cudaSuccess) return err;
-    flash_bwd_dq_f32_kernel<HD><<<tiles * a.bh, kTile, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.out0), a.tq, a.tk, a.d);
-  } else {
-    constexpr int smem = dq_smem_bytes<HD>();
-    constexpr int nch = HD / chunk_cols<HD>();
-    if ((err = allow_smem(flash_bwd_dq_bf16_kernel<HD>, smem)) != cudaSuccess) return err;
-    flash_bwd_dq_bf16_kernel<HD><<<tiles * a.bh * nch, kThreads, smem, a.stream>>>(
-        static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<__nv_bfloat16*>(a.out0), a.tq, a.tk, a.d);
-  }
-  return cudaGetLastError();
-}
-
-// Dispatch on the padded head width; `rows` is the dimension the kernel
-// tiles its grid over (tk for dkv, tq for dq).
+// the (head width, warpgroups) combinations the planner chooses from: dkv one
+// warpgroup per block, dq one or two (two only below D = 256)
 template <bool kDkv>
-int dispatch(const Args& a, int dtype, int rows) {
-  if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.d < 1 || a.d > 256 || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if ((long long)((rows + kTile - 1) / kTile) * a.bh * 4 > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  const bool f32 = dtype == 1;
+cudaError_t launch_wgmma(const BwdParams& p, const Launch& l, int hd) {
+  if (l.nwg != 1 && (kDkv || l.nwg != 2 || hd == 256)) return cudaErrorInvalidValue;
+  switch (hd * 10 + l.nwg) {
+    case 161: return launch_wgmma_as<kDkv, 16, 1>(p, l);
+    case 162: return launch_wgmma_as<kDkv, 16, 2>(p, l);
+    case 321: return launch_wgmma_as<kDkv, 32, 1>(p, l);
+    case 322: return launch_wgmma_as<kDkv, 32, 2>(p, l);
+    case 641: return launch_wgmma_as<kDkv, 64, 1>(p, l);
+    case 642: return launch_wgmma_as<kDkv, 64, 2>(p, l);
+    case 1281: return launch_wgmma_as<kDkv, 128, 1>(p, l);
+    case 1282: return launch_wgmma_as<kDkv, 128, 2>(p, l);
+    case 2561: return launch_wgmma_as<kDkv, 256, 1>(p, l);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int HD>
+cudaError_t launch_f32(const BwdParams& p, const Launch& l, bool dkv) {
   cudaError_t err;
-  if (a.d <= 16) err = kDkv ? launch_dkv<16>(a, f32) : launch_dq<16>(a, f32);
-  else if (a.d <= 32) err = kDkv ? launch_dkv<32>(a, f32) : launch_dq<32>(a, f32);
-  else if (a.d <= 64) err = kDkv ? launch_dkv<64>(a, f32) : launch_dq<64>(a, f32);
-  else if (a.d <= 128) err = kDkv ? launch_dkv<128>(a, f32) : launch_dq<128>(a, f32);
-  else err = kDkv ? launch_dkv<256>(a, f32) : launch_dq<256>(a, f32);
+  const int tiles = ((dkv ? p.tk : p.tq) + kTile - 1) / kTile;
+  const float *q = static_cast<const float*>(p.q), *k = static_cast<const float*>(p.k),
+              *v = static_cast<const float*>(p.v), *dout = static_cast<const float*>(p.dout);
+  if (dkv) {
+    constexpr int smem = f32_smem_bytes<HD>();
+    if (l.smem_bytes != smem) return cudaErrorInvalidValue;
+    if ((err = allow_smem(flash_bwd_dkv_f32_kernel<HD>, smem)) != cudaSuccess) return err;
+    flash_bwd_dkv_f32_kernel<HD><<<tiles * l.bh, kTile, smem, l.stream>>>(
+        q, k, v, dout, p.lse, p.delta, static_cast<float*>(p.out0), static_cast<float*>(p.out1), p.tq, p.tk, p.d);
+  } else {
+    constexpr int smem = 2 * kF32Tile * HD * 4;
+    if (l.smem_bytes != smem) return cudaErrorInvalidValue;
+    if ((err = allow_smem(flash_bwd_dq_f32_kernel<HD>, smem)) != cudaSuccess) return err;
+    const int rows = l.bh * p.tq;
+    delta_f32_kernel<<<(rows + 7) / 8, 256, 0, l.stream>>>(static_cast<const float*>(p.o), dout, p.delta, rows,
+                                                           p.d);
+    flash_bwd_dq_f32_kernel<HD><<<tiles * l.bh, kTile, smem, l.stream>>>(
+        q, k, v, dout, p.lse, p.delta, static_cast<float*>(p.out0), p.tq, p.tk, p.d);
+  }
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// A (bh, t, d) bf16 tensor as TMA sees it, (d, t, bh) with boxes of (ac, 64, 1)
+// in the swizzle of ac-column rows; a (n,) fp32 vector with boxes of 64
+bool tile_map(CUtensorMap* m, const void* ptr, int bh, int t, int d, int ac) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)ac, (cuuint32_t)kTile, 1u}, step[3] = {1u, 1u, 1u};
+  const CUtensorMapSwizzle sw =
+      ac == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : (ac == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
+  const EncodeTiled encode = encode_tiled();
+  return encode && encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, step,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+bool row_map(CUtensorMap* m, const void* ptr, long long n) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n}, strides[1] = {4};
+  const cuuint32_t box[1] = {(cuuint32_t)kTile}, step[1] = {1u};
+  const EncodeTiled encode = encode_tiled();
+  return encode && encode(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides, box, step,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map is a pure function of (address, shape, box), so the last 64
+// encoded are kept: a call on tensors PyTorch's allocator has handed out
+// before skips encoding it again.
+bool cached_map(CUtensorMap* m, const void* ptr, int bh, int t, int d, int ac) {
+  struct Entry {
+    const void* ptr;
+    int bh, t, d, ac;
+    CUtensorMap map;
+  };
+  static Entry cache[64];
+  static int used = 0, next = 0;
+  static std::mutex mu;
+  const std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.ptr == ptr && e.bh == bh && e.t == t && e.d == d && e.ac == ac) {
+      *m = e.map;
+      return true;
+    }
+  }
+  if (!(ac > 0 ? tile_map(m, ptr, bh, t, d, ac) : row_map(m, ptr, (long long)bh * t))) return false;
+  cache[next] = Entry{ptr, bh, t, d, ac, *m};
+  next = (next + 1) % 64;
+  used = used < 64 ? used + 1 : 64;
+  return true;
+}
+
+// Dispatch on the padded head width.  bf16 wants d % 8 == 0, tq % 4 == 0 (the
+// LSE and delta rows dkv copies start on 16 bytes) and 16-byte aligned
+// tensors: what TMA takes (the wrapper pads otherwise).
+template <bool kDkv>
+int dispatch(BwdParams& p, const Launch& l, int dtype) {
+  if (l.bh < 1 || p.tq < 1 || p.tk < 1 || p.d < 1 || p.d > 256 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)(((kDkv ? p.tk : p.tq) + kTile - 1) / kTile) * l.bh * 4 > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int hd = p.d <= 16 ? 16 : p.d <= 32 ? 32 : p.d <= 64 ? 64 : p.d <= 128 ? 128 : 256;
+  if (dtype == 0) {
+    const int ac = hd < kMaxChunk ? hd : kMaxChunk;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.k) |
+                        reinterpret_cast<uintptr_t>(p.v) | reinterpret_cast<uintptr_t>(p.o) |
+                        reinterpret_cast<uintptr_t>(p.dout) | reinterpret_cast<uintptr_t>(p.lse) |
+                        reinterpret_cast<uintptr_t>(p.delta);
+    if (p.d % 8 != 0 || (kDkv && p.tq % 4 != 0) || a % 16 != 0 || !cached_map(&p.q_map, p.q, l.bh, p.tq, p.d, ac) ||
+        !cached_map(&p.k_map, p.k, l.bh, p.tk, p.d, ac) || !cached_map(&p.v_map, p.v, l.bh, p.tk, p.d, ac) ||
+        !cached_map(&p.do_map, p.dout, l.bh, p.tq, p.d, ac) ||
+        (kDkv && (!cached_map(&p.lse_map, p.lse, l.bh, p.tq, 1, 0) ||
+                  !cached_map(&p.delta_map, p.delta, l.bh, p.tq, 1, 0))))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_wgmma<kDkv>(p, l, hd));
+  }
+  if (l.nwg != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (hd == 16) err = launch_f32<16>(p, l, kDkv);
+  else if (hd == 32) err = launch_f32<32>(p, l, kDkv);
+  else if (hd == 64) err = launch_f32<64>(p, l, kDkv);
+  else if (hd == 128) err = launch_f32<128>(p, l, kDkv);
+  else err = launch_f32<256>(p, l, kDkv);
   return static_cast<int>(err);
+}
+
+BwdParams params(const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
+                 void* delta, void* out0, void* out1, int tq, int tk, int d) {
+  BwdParams p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  p.out0 = out0;
+  p.out1 = out1;
+  p.tq = tq;
+  p.tk = tk;
+  p.d = d;
+  return p;
 }
 
 }  // namespace
 
-// q, dout: (bh, tq, d); k, v: (bh, tk, d); lse, delta: (bh, tq) fp32; dk, dv:
-// (bh, tk, d) in the input dtype.  All contiguous.  dtype: 0 = bf16, 1 = fp32.
-// Returns a cudaError_t (0 = launched).
-extern "C" int jig_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, void* dk, void* dv, int bh,
-                                 int tq, int tk, int d, int dtype, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(a, dtype, tk);
+// q, dout: (bh, tq, d); k, v: (bh, tk, d); lse, delta: (bh, tq) fp32 (delta as
+// written by jig_flash_bwd_dq); dk, dv: (bh, tk, d) in the input dtype.  All
+// contiguous; bf16 wants d % 8 == 0, tq % 4 == 0 and 16-byte aligned
+// tensors.  dtype: 0 =
+// bf16, 1 = fp32.  nwg, smem_bytes: the launch plan (`ops/flash_attention.py`
+// `plan_flash_bwd`: warpgroups per block, 0 for the fp32 kernels; shared
+// memory bytes), checked against the kernels'.  Returns a cudaError_t (0 =
+// launched).
+extern "C" int jig_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                                 const void* delta, void* dk, void* dv, int bh, int tq, int tk, int d, int dtype,
+                                 int nwg, int smem_bytes, void* stream) {
+  BwdParams p = params(q, k, v, q, dout, lse, const_cast<void*>(delta), dk, dv, tq, tk, d);
+  return dispatch<true>(p, Launch{bh, nwg, smem_bytes, static_cast<cudaStream_t>(stream)}, dtype);
 }
 
-// As jig_flash_bwd_dkv; dq: (bh, tq, d) in the input dtype.
-extern "C" int jig_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                                const void* lse, const void* delta, void* dq, int bh, int tq,
-                                int tk, int d, int dtype, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dq, nullptr, bh, tq, tk, d,
-               static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(a, dtype, tq);
+// As jig_flash_bwd_dkv, plus o: (bh, tq, d) in the input dtype; writes delta
+// (bh, tq) fp32 and dq: (bh, tq, d) in the input dtype.
+extern "C" int jig_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                                const void* lse, void* delta, void* dq, int bh, int tq, int tk, int d, int dtype,
+                                int nwg, int smem_bytes, void* stream) {
+  BwdParams p = params(q, k, v, o, dout, lse, delta, dq, nullptr, tq, tk, d);
+  return dispatch<false>(p, Launch{bh, nwg, smem_bytes, static_cast<cudaStream_t>(stream)}, dtype);
 }
+
+#if JIG_FLASH_BWD_TRACE
+// Profiling builds: the (blocks * warpgroups, 7) int64 device buffer the next
+// launches write their phase clocks to.  Returns a cudaError_t.
+extern "C" int jig_flash_bwd_trace(void* buf) {
+  long long* p = static_cast<long long*>(buf);
+  return static_cast<int>(cudaMemcpyToSymbol(g_trace, &p, sizeof(p)));
+}
+#endif

@@ -6,11 +6,13 @@ Counterpart of `jointimagegeneration_tpu/ops/pallas/flash_attention.py`.
     file's forward kernels (`_flash_kernel_unrolled`, `_flash_kernel`,
     `_flash_kernel_pipelined`, entered through `_flash_forward`): O =
     softmax(q.k^T).v with an online softmax in fp32, plus the fp32 logsumexp.
-  * Backward (`csrc/flash_bwd.cu`, wrappers `flash_bwd_dkv` and `flash_bwd_dq`,
+  * Backward (`csrc/flash_bwd.cu`, wrappers `flash_bwd_dq` and `flash_bwd_dkv`,
     joined by `flash_backward`) replaces `_bwd_dkv_kernel` and
     `_bwd_dq_kernel` (entered through `_flash_backward`): dK, dV and dQ
-    recomputed from the saved LSE, with delta = rowsum(dO * O) computed
-    outside the kernels.
+    recomputed from the saved LSE.  The dq kernel runs first and also
+    computes delta = rowsum(dO * O), which the dkv kernel reads.  How each
+    runs on the card (warpgroups per block, shared memory) is
+    decided on the host by `plan_flash_bwd`, a pure function of the shapes.
   * `FlashAttention` is the `torch.autograd.Function` that takes the place of
     the custom_vjp `_flash`.
 The sources' comments give each kernel's bound and design.
@@ -27,7 +29,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,7 +38,7 @@ from .cuda.build import load_library
 
 __all__ = ["flash_forward", "flash_attention_plain", "flash_backward", "flash_backward_plain",
            "flash_bwd_dkv", "flash_bwd_dq", "FlashAttention", "flash_attention", "flash_eligible",
-           "FLASH_SOURCE", "FLASH_BWD_SOURCE"]
+           "FLASH_SOURCE", "FLASH_BWD_SOURCE", "BwdKernelPlan", "FlashBwdPlan", "plan_flash_bwd"]
 
 FLASH_SOURCE = "flash_fwd"
 FLASH_BWD_SOURCE = "flash_bwd"
@@ -94,18 +97,106 @@ def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: t
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# C entry point -> (source under csrc/, number of pointer arguments); each also
-# takes (bh, tq, tk, d, dtype code) as ints and the stream as a pointer
-_ENTRY_POINTS = {"jig_flash_fwd": (FLASH_SOURCE, 5), "jig_flash_bwd_dkv": (FLASH_BWD_SOURCE, 8),
-                 "jig_flash_bwd_dq": (FLASH_BWD_SOURCE, 7)}
+# The card the backward plans are made for (H100 SXM) and the kernels' fixed
+# shapes; csrc/flash_bwd.cu holds the same numbers and checks the shared memory.
+SMS = 132
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (227 KB)
+TILE = 64             # keys (dkv) or q rows (dq) per block, rows per streamed tile
+STAGES = 2            # stages in each warpgroup's ring of streamed tiles
+_F32_TILE = 32        # rows per shared-memory tile of the fp32 kernels
+
+
+@dataclass(frozen=True)
+class BwdKernelPlan:
+    """One backward kernel's launch (`plan_flash_bwd`): `warpgroups` of 128
+    threads per block (0 for the fp32 kernel, one thread per row), `threads`
+    and `smem_bytes` per block, and `grid` blocks: one per (bh, 64-row tile,
+    head-column chunk)."""
+
+    warpgroups: int
+    threads: int
+    smem_bytes: int
+    grid: int
+
+
+@dataclass(frozen=True)
+class FlashBwdPlan:
+    """How one backward call runs on the card: the head width `head_width`
+    D is padded to (16, 32, 64, 128 or 256), the output head columns
+    `chunk` of one block (and of one swizzle atom), the bytes `swizzle` of a
+    swizzled tile row (bf16: 32, 64 or 128; fp32: 0), and the two kernels'
+    launches, dq first."""
+
+    head_width: int
+    chunk: int
+    swizzle: int
+    dkv: BwdKernelPlan
+    dq: BwdKernelPlan
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _bwd_smem(kernel: str, hd: int, warpgroups: int) -> int:
+    """csrc/flash_bwd.cu's `Smem`: 1024 bytes of alignment slack, a 1024-byte
+    control slot (the mbarriers, and dq's delta), the block's own two tiles
+    (dkv: K, V; dq: Q, dO), then per warpgroup a ring of STAGES stages of (Q
+    tile, dO tile, a 1024-byte LSE and delta slot) in dkv, of (K tile, V
+    tile) in dq.  A tile is 64 x hd bf16."""
+    tile = TILE * hd * 2
+    return 2048 + 2 * tile + warpgroups * STAGES * (2 * tile + (1024 if kernel == "dkv" else 0))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_flash_bwd(bh: int, tq: int, tk: int, d: int, dtype: torch.dtype) -> FlashBwdPlan:
+    """The launch plan of one backward call of (bh, tq, d) queries against
+    (bh, tk, d) keys.  A pure function of its arguments (cached).
+
+    bf16: D is padded to the next of 16, 32, 64, 128, 256; tiles are
+    swizzled in rows of min(D, 64) columns; one block per 64-key (dkv) or
+    64-row (dq) tile and 64-column output chunk, with a ring of STAGES
+    stages per warpgroup.  dkv takes one warpgroup per block (three blocks
+    share an SM up to D = 32, two above).  dq takes two, splitting the
+    block's key tiles, where one-warpgroup blocks would number at most two
+    per SM (SMS * 2): that doubles the warpgroups in flight, which the
+    latency of each warpgroup's serial chain (products, exponentials,
+    products) needs; at more blocks two warpgroups per block only add a
+    reduction.  (Measured on an H100 at the training shapes,
+    `scripts/bench_flash_bwd.py`: two warpgroups ran dq 8-10% faster at
+    (8, 2048, 32) and (16, 1024, 32) and 5% slower at (20, 1024, 32); dkv
+    17-37% slower at every shape, so its kernel has one warpgroup.)"""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"plan_flash_bwd: bf16 or fp32, got {dtype}")
+    if min(bh, tq, tk, d) < 1 or d > _MAX_D:
+        raise ValueError(f"plan_flash_bwd: unsupported shape bh={bh} tq={tq} tk={tk} d={d}")
+    hd = next(w for w in (16, 32, 64, 128, 256) if d <= w)
+    chunk = min(hd, 64)
+    nch = hd // chunk
+    if dtype == torch.float32:
+        fp32 = lambda rows, smem: BwdKernelPlan(0, TILE, smem, _cdiv(rows, TILE) * bh)
+        return FlashBwdPlan(hd, hd, 0, dkv=fp32(tk, 2 * _F32_TILE * hd * 4 + 2 * _F32_TILE * 4),
+                            dq=fp32(tq, 2 * _F32_TILE * hd * 4))
+    plans = {}
+    for kernel, rows in (("dkv", tk), ("dq", tq)):
+        blocks = _cdiv(rows, TILE) * bh * nch
+        wg = 2 if kernel == "dq" and hd < 256 and blocks <= 2 * SMS else 1
+        plans[kernel] = BwdKernelPlan(wg, 128 * wg, _bwd_smem(kernel, hd, wg), blocks)
+    return FlashBwdPlan(hd, chunk, 2 * chunk, dkv=plans["dkv"], dq=plans["dq"])
+
+
+# C entry point -> (source under csrc/, pointer arguments, int arguments); each
+# also takes the stream as a pointer
+_ENTRY_POINTS = {"jig_flash_fwd": (FLASH_SOURCE, 5, 5), "jig_flash_bwd_dkv": (FLASH_BWD_SOURCE, 8, 7),
+                 "jig_flash_bwd_dq": (FLASH_BWD_SOURCE, 8, 7)}
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(name: str):
     """A C entry point of csrc/flash_{fwd,bwd}.cu, built on first use."""
-    source, n_ptr = _ENTRY_POINTS[name]
+    source, n_ptr, n_int = _ENTRY_POINTS[name]
     fn = getattr(load_library(source), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -138,12 +229,13 @@ def _check_cuda(who: str, *tensors: torch.Tensor) -> None:
                          f"{[tuple(t.shape) for t in tensors]}")
 
 
-def _launch(name: str, tensors, q: torch.Tensor, k: torch.Tensor) -> None:
+def _launch(name: str, tensors, q: torch.Tensor, k: torch.Tensor, plan: Optional[BwdKernelPlan] = None) -> None:
     bh, tq, d = q.shape
+    extra = () if plan is None else (plan.warpgroups, plan.smem_bytes)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel_fn(name)(*(t.data_ptr() for t in tensors), bh, tq, k.shape[1], d,
-                               _DTYPE_CODES[q.dtype], stream)
+                               _DTYPE_CODES[q.dtype], *extra, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err} at "
                            f"q={tuple(q.shape)} k={tuple(k.shape)} {q.dtype}")
@@ -170,32 +262,53 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 flash_forward.launches = 0
 
 
+def _bwd_plan(q: torch.Tensor, k: torch.Tensor, plan: Optional[FlashBwdPlan]) -> FlashBwdPlan:
+    return plan_flash_bwd(q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.dtype) if plan is None else plan
+
+
+def _check_tma(who: str, *tensors: torch.Tensor) -> None:
+    """The bf16 kernels load their tiles by TMA: rows of a multiple of 16
+    bytes (D % 8 == 0), LSE and delta rows starting on 16 bytes (Tq % 4 ==
+    0), 16-byte aligned tensors (`flash_backward` pads where they are not)."""
+    q = tensors[0]
+    if q.dtype == torch.bfloat16 and (q.shape[2] % 8 or q.shape[1] % 4 or any(t.data_ptr() % 16 for t in tensors)):
+        raise ValueError(f"{who}: bf16 kernels want D % 8 == 0, Tq % 4 == 0 and 16-byte aligned tensors, got "
+                         f"q {tuple(q.shape)}")
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
+                 lse: torch.Tensor, plan: Optional[FlashBwdPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dq, delta) from the dq kernel (CUDA tensors only; counts its launches
+    in `flash_bwd_dq.launches`): delta = rowsum(dO * O) (BH, Tq, 1) fp32, as
+    the kernel computes it for the dkv kernel.  lse: (BH, Tq, 1) fp32.
+    `plan` defaults to `plan_flash_bwd`'s."""
+    _check_cuda("flash_bwd_dq", q, k, v, o, do, lse)
+    _check_tma("flash_bwd_dq", q, k, v, o, do, lse)
+    dq = torch.empty_like(q)
+    delta = torch.empty((q.shape[0], q.shape[1], 1), dtype=torch.float32, device=q.device)
+    _launch("jig_flash_bwd_dq", (q, k, v, o, do, lse, delta, dq), q, k, _bwd_plan(q, k, plan).dq)
+    flash_bwd_dq.launches += 1
+    return dq, delta
+
+
+flash_bwd_dq.launches = 0
+
+
 def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-                  lse: torch.Tensor, delta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) from the dkv kernel (CUDA tensors only; counts its launches in
-    `flash_bwd_dkv.launches`).  lse, delta: (BH, Tq, 1) fp32."""
+                  lse: torch.Tensor, delta: torch.Tensor, plan: Optional[FlashBwdPlan] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) from the dkv kernel (CUDA tensors only; counts its launches
+    in `flash_bwd_dkv.launches`).  lse, delta: (BH, Tq, 1) fp32, delta from
+    `flash_bwd_dq`."""
     _check_cuda("flash_bwd_dkv", q, k, v, do, lse, delta)
+    _check_tma("flash_bwd_dkv", q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("jig_flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q, k)
+    _launch("jig_flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q, k, _bwd_plan(q, k, plan).dkv)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
-
-
-def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-                 lse: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    """dq from the dq kernel (CUDA tensors only; counts its launches in
-    `flash_bwd_dq.launches`)."""
-    _check_cuda("flash_bwd_dq", q, k, v, do, lse, delta)
-    dq = torch.empty_like(q)
-    _launch("jig_flash_bwd_dq", (q, k, v, do, lse, delta, dq), q, k)
-    flash_bwd_dq.launches += 1
-    return dq
-
-
-flash_bwd_dq.launches = 0
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -204,9 +317,13 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
     """(dq, dk, dv) of the pre-scaled attention, from the forward's O and LSE
     and the output gradient dO (BH, Tq, D).
 
-    On CUDA tensors: delta = rowsum(dO * O) in fp32 (two torch ops, as
-    flash_attention.py:315 leaves it outside the kernels), then the dkv and dq
-    kernels; on CPU tensors: the plain version."""
+    On CUDA tensors: the dq kernel (which also writes delta = rowsum(dO * O),
+    the rowsum flash_attention.py:315 leaves to XLA), then the dkv kernel,
+    both on one `plan_flash_bwd` plan.  In bf16 where D % 8 or Tq % 4 is not
+    0 (or a view is misaligned) they run on copies padded with zero columns
+    and zero q rows (with dO, O and LSE rows 0): a zero column adds nothing
+    to any product, and a zero q row has dP = delta = 0, so dS = 0, and its
+    dQ row is dropped.  On CPU tensors: the plain version."""
     _check(q, k, v, "flash_backward")
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"flash_backward: o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} "
@@ -217,9 +334,17 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, o, lse, do)
     _check_cuda("flash_backward", q, k, v, o, lse, do)
-    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta)
+    tq, d = q.shape[1], q.shape[2]
+    if q.dtype == torch.bfloat16 and (d % 8 or tq % 4 or any(t.data_ptr() % 16 for t in (q, k, v, o, do, lse))):
+        pad = torch.nn.functional.pad
+        q, o, do = (pad(t, (0, -d % 8, 0, -tq % 4)) for t in (q, o, do))
+        k, v = (pad(t, (0, -d % 8)) for t in (k, v))
+        lse = pad(lse, (0, 0, 0, -tq % 4))
+    plan = _bwd_plan(q, k, None)
+    dq, delta = flash_bwd_dq(q, k, v, o, do, lse, plan)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, plan)
+    if q.shape[1:] != (tq, d):
+        dq, dk, dv = dq[:, :tq, :d].contiguous(), dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dq, dk, dv
 
 

@@ -122,13 +122,14 @@ def test_backward_wrappers_check_inputs():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,tq,tk,d,dtype", [
-    (8, 2048, 2048, 32, torch.bfloat16), (16, 1024, 1024, 32, torch.bfloat16),
+    (8, 2048, 2048, 32, torch.bfloat16), (16, 1024, 1024, 32, torch.bfloat16), (16, 4096, 4096, 32, torch.bfloat16),
     (3, 100, 77, 40, torch.bfloat16), (2, 130, 200, 256, torch.bfloat16),
     (4, 512, 512, 32, torch.float32), (3, 100, 77, 40, torch.float32)])
 def test_backward_kernels_match_plain_on_cuda(bh, tq, tk, d, dtype):
     """The two Hopper kernels against the plain version on the card, with
     chip_smoke.py's limits: each of dQ, dK, dV within 2^-6 (bf16) or 1e-4
-    (fp32) of its max |plain|; one launch of each kernel."""
+    (fp32) of its max |plain|; one launch of each kernel; a second call
+    bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs the same check on one")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -141,6 +142,8 @@ def test_backward_kernels_match_plain_on_cuda(bh, tq, tk, d, dtype):
     torch.cuda.synchronize()
     assert (tflash.flash_bwd_dkv.launches, tflash.flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
     want = tflash.flash_backward_plain(q, k, v, o, lse, do)
+    again = tflash.flash_backward(q, k, v, o, lse, do)
     rel = 2**-6 if dtype == torch.bfloat16 else 1e-4
-    for a, b in zip(got, want):
+    for a, a2, b in zip(got, again, want):
         assert (a.float() - b.float()).abs().max().item() <= rel * b.float().abs().max().item()
+        assert torch.equal(a, a2)
