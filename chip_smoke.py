@@ -13,7 +13,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
      the eager back-to-back time is kept beside it as `eager_ms`) beside the
      plain version, one PyTorch library call computing the same function
      (`library_ms`) and the card's bound; then checked, not timed, at ragged
-     and wide-head shapes off the main paths.  The flash forward, then the
+     and wide-head shapes off the main paths.  The flash forward (error, a
+     bitwise repeat, the launch plan taken), then the
      flash backward (dkv and dq kernels) at the training shapes, then the
      3x3x3 conv kernel (`conv3d ...` lines: error, a bitwise repeat, the
      launch plan taken) at the fused and pallas_conv paths' shapes (library:
@@ -81,6 +82,19 @@ LSE_TOL = 1e-4
 # does, but sum in another order, and one rounding of a product of order the
 # gradient's scale moves the bf16 result by an ulp (2^-8 to 2^-7 of a value).
 BWD_REL_TOL = {torch.bfloat16: 2**-6, torch.float32: 1e-4}
+FWD_SHAPES = [  # (BH, T, D), dtype, where the main paths run it
+    ((8, 2048, 32), torch.bfloat16, "stage 1 ds8, 64x128x128"),
+    ((16, 1024, 32), torch.bfloat16, "stage 2 ds8, 256x256"),
+    ((16, 4096, 32), torch.bfloat16, "stage 2 ds8, 512x512"),
+    ((8, 2048, 32), torch.float32, "fp32 torso"),
+    ((20, 1024, 32), torch.bfloat16, "stage 2 ds16, 512x512"),
+]
+FWD_EDGE_SHAPES = [  # (BH, Tq, Tk, D), dtype: ragged T, Tq != Tk, every head width, D padded
+    ((3, 100, 77, 40), torch.bfloat16), ((2, 130, 200, 256), torch.bfloat16), ((2, 1088, 1088, 16), torch.bfloat16),
+    ((3, 100, 77, 40), torch.float32), ((2, 130, 70, 256), torch.float32), ((1, 7, 3, 5), torch.float32),
+    ((2, 130, 40, 40), torch.bfloat16),  # Tk <= 64: two warpgroups, one of which sees no key
+    ((1, 7, 3, 5), torch.bfloat16), ((2, 300, 200, 64), torch.bfloat16), ((1, 64, 64, 128), torch.bfloat16),
+]
 BWD_SHAPES = [  # (BH, T, D), dtype, where training runs it
     ((8, 2048, 32), torch.bfloat16, "stage 1 ds8, 64x128x128"),
     ((16, 1024, 32), torch.bfloat16, "stage 2 ds8, 256x256"),
@@ -211,9 +225,13 @@ def time_ms(fn, iters: int, reps: int = 5) -> tuple:
 
 def compare(flash, q, k, v, label: str) -> tuple:
     """Max abs error of the kernel against its plain version on the same
-    inputs, (O, LSE); fails past the stated tolerances."""
+    inputs, (O, LSE); fails past the stated tolerances, and unless a second
+    call gives bitwise-equal O and LSE (no atomics, a fixed merge order)."""
     o, lse = flash.flash_forward(q, k, v)
+    o2, lse2 = flash.flash_forward(q, k, v)
     torch.cuda.synchronize()
+    check(torch.equal(o, o2) and torch.equal(lse, lse2), f"flash_fwd: two calls differ at {label}")
+    check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()), f"flash_fwd: not finite at {label}")
     po, plse = flash.flash_attention_plain(q, k, v)
     err_o = (o.float() - po.float()).abs().max().item()
     err_lse = (lse - plse).abs().max().item()
@@ -224,53 +242,58 @@ def compare(flash, q, k, v, label: str) -> tuple:
 
 
 def flash_phase(flash) -> list:
-    """The flash kernel at the main path's shapes: error, times, bound."""
+    """The flash forward at the main paths' shapes: error, a bitwise repeat,
+    times (graph-timed, eager, plain, SDPA) and bounds, the largest of three
+    times: the products on the tensor cores (`tensor_bound_ms`, 4*BH*T^2*D
+    flops; fp32 on the FMA pipes), the BH*T^2 exponentials at EX2_PER_CLK per
+    clock of the card's maximum SM clock (`exp_bound_ms`), and the bytes (q,
+    k, v read, O and LSE written once).  Then checked, not timed, at the
+    edge shapes."""
     import torch.nn.functional as F
 
-    shapes = [  # (BH, T, D), dtype, where the main path runs it
-        ((8, 2048, 32), torch.bfloat16, "stage 1 ds8, 64x128x128"),
-        ((16, 1024, 32), torch.bfloat16, "stage 2 ds8, 256x256"),
-        ((16, 4096, 32), torch.bfloat16, "stage 2 ds8, 512x512"),
-        ((8, 2048, 32), torch.float32, "fp32 torso"),
-    ]
+    ex2_per_s = EX2_PER_CLK * max_sm_clock_hz()
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     rows = []
-    for (bh, t, d), dtype, where in shapes:
+    for (bh, t, d), dtype, where in FWD_SHAPES:
         q = (torch.randn(bh, t, d, generator=g, device="cuda") / math.sqrt(d)).to(dtype)
         k = torch.randn(bh, t, d, generator=g, device="cuda").to(dtype)
         v = torch.randn(bh, t, d, generator=g, device="cuda").to(dtype)
         dname = str(dtype).replace("torch.", "")
         err_o, err_lse, tol_o = compare(flash, q, k, v, f"{(bh, t, d)} {dname}")
+        plan = flash.plan_flash_fwd(bh, t, t, d, dtype)
         ms, eager_ms = time_ms(lambda: flash.flash_forward(q, k, v), 50)
         plain_ms, _ = time_ms(lambda: flash.flash_attention_plain(q, k, v), 10)
         q4, k4, v4 = q[None], k[None], v[None]
         library_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0), 50)
-        flops = 4.0 * bh * t * t * d
-        nbytes = 4 * bh * t * d * q.element_size() + bh * t * 4
-        bound_ms = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES) * 1e3
+        t_ms = 4.0 * bh * t * t * d / PEAK_FLOPS[dtype] * 1e3
+        exp_ms = bh * t * t / ex2_per_s * 1e3
+        b_ms = (4 * bh * t * d * q.element_size() + bh * t * 4) / PEAK_BYTES * 1e3
+        bound_ms = max(t_ms, exp_ms, b_ms)
+        limit = "bytes" if b_ms == bound_ms else ("ex2" if exp_ms > t_ms else "tensor")
         row = {"shape": [bh, t, t, d], "dtype": dname, "where": where,
                "err_o": err_o, "tol_o": tol_o, "err_lse": err_lse, "ms": ms, "eager_ms": eager_ms,
-               "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": "operations" if flops / PEAK_FLOPS[dtype] >= nbytes / PEAK_BYTES else "bytes"}
+               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes" if limit == "bytes" else "operations", "limit": limit,
+               "tensor_bound_ms": t_ms, "exp_bound_ms": exp_ms, "plan": [plan.warpgroups, plan.smem_bytes]}
         print(f"flash_fwd {row['shape']} {dname} ({where}): err O {err_o:.3g} (tol {tol_o:.3g}) "
-              f"LSE {err_lse:.3g}; graph-timed kernel {ms:.4f} ms (eager {eager_ms:.4f}), "
-              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({row['bound_by']}), {100 * bound_ms / ms:.1f}% of bound", flush=True)
+              f"LSE {err_lse:.3g}, repeat bitwise equal; graph-timed kernel {ms:.4f} ms (eager {eager_ms:.4f}), "
+              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({limit}; "
+              f"{'tensor' if dtype == torch.bfloat16 else 'fma'} {t_ms:.4f}, ex2 {exp_ms:.4f}), "
+              f"{100 * bound_ms / ms:.1f}% of bound; plan (warpgroups, smem bytes) {row['plan']}", flush=True)
         rows.append(row)
+        del q, k, v, q4, k4, v4
+        torch.cuda.empty_cache()
     # correctness only: shapes the eligibility rule admits off the main path
-    # (ragged T, Tq != Tk, D padded up to the kernel's head width)
-    for (bh, tq, tk, d), dtype in [((3, 100, 77, 40), torch.bfloat16), ((2, 130, 200, 256), torch.bfloat16),
-                                   ((2, 1088, 1088, 16), torch.bfloat16), ((3, 100, 77, 40), torch.float32),
-                                   ((2, 130, 70, 256), torch.float32), ((1, 7, 3, 5), torch.float32)]:
+    for (bh, tq, tk, d), dtype in FWD_EDGE_SHAPES:
         q = (torch.randn(bh, tq, d, generator=g, device="cuda") / math.sqrt(d)).to(dtype)
         k = torch.randn(bh, tk, d, generator=g, device="cuda").to(dtype)
         v = torch.randn(bh, tk, d, generator=g, device="cuda").to(dtype)
         dname = str(dtype).replace("torch.", "")
         err_o, err_lse, tol_o = compare(flash, q, k, v, f"{(bh, tq, tk, d)} {dname}")
-        print(f"flash_fwd {[bh, tq, tk, d]} {dname} (edge shape): "
-              f"err O {err_o:.3g} (tol {tol_o:.3g}) LSE {err_lse:.3g}", flush=True)
+        plan = flash.plan_flash_fwd(bh, tq, tk, d, dtype)
+        print(f"flash_fwd {[bh, tq, tk, d]} {dname} (edge shape): err O {err_o:.3g} (tol {tol_o:.3g}) "
+              f"LSE {err_lse:.3g}, repeat bitwise equal; plan {[plan.warpgroups, plan.smem_bytes]}", flush=True)
     return rows
 
 
@@ -380,7 +403,8 @@ def bwd_phase(flash) -> list:
     for (bh, tq, tk, d), dtype in [((3, 100, 77, 40), torch.bfloat16), ((2, 130, 200, 256), torch.bfloat16),
                                    ((2, 1088, 1088, 16), torch.bfloat16), ((1, 64, 64, 128), torch.bfloat16),
                                    ((3, 100, 77, 40), torch.float32), ((2, 130, 70, 256), torch.float32),
-                                   ((1, 7, 3, 5), torch.float32), ((2, 600, 600, 64), torch.float32)]:
+                                   ((1, 7, 3, 5), torch.float32), ((2, 600, 600, 64), torch.float32),
+                                   ((2, 300, 200, 64), torch.bfloat16)]:
         q, k, v, do = _attention_inputs(g, bh, tq, tk, d, dtype)
         o, lse = flash.flash_forward(q, k, v)
         dname = str(dtype).replace("torch.", "")
@@ -1096,6 +1120,8 @@ def main() -> int:
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
+        "tensor_bound_ms": main_row["tensor_bound_ms"],
+        "exp_bound_ms": main_row["exp_bound_ms"],
         "library_ms": main_row["library_ms"],
         "shapes": rows,
     }]

@@ -33,9 +33,11 @@
 //     RS form, reading the same dO and Q tiles MN-major through the
 //     transpose-B bit.  dq: a block owns 64 q rows; per streamed 64-key tile
 //     S = Q K^T and dP = dO V^T, then dQ += dS K (RS, K read MN-major).  No
-//     tile is stored twice or transposed.  Up to D = 64 the block's own tiles
+//     tile is stored twice or transposed.  Up to D = 32 the block's own tiles
 //     enter S and dP as register fragments loaded once (RS form); above, by
-//     descriptor (SS form).
+//     descriptor (SS form).  The tile layout, its TMA copies and descriptors
+//     and the host's tensor maps are in flash_common.cuh, shared with the
+//     forward.
 //   * Tiles live in shared memory in the hardware's swizzle: rows of 32, 64
 //     or 128 bytes at D = 16, 32 and >= 64 (64-column atoms), 1024-byte
 //     aligned.  TMA copies them (and dkv's LSE and delta rows), one thread
@@ -84,93 +86,11 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <mutex>
-
-#include "flash_mma.cuh"
-#include "hopper.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kTile = 64;      // keys (dkv) or q rows (dq) of a block, rows per streamed tile
-constexpr int kMaxChunk = 64;  // head columns of output per block
-constexpr int kF32Tile = 32;   // rows per shared-memory tile (fp32 kernels)
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <int HD>
-__host__ __device__ constexpr int chunk_cols() {
-  return HD < kMaxChunk ? HD : kMaxChunk;
-}
-
-// A (64, HD) bf16 tile in shared memory: HD / AC atoms of 64 rows x RB bytes,
-// each swizzled (hopper.cuh); an atom holds one output chunk's AC columns.
-template <int HD>
-struct Tile {
-  static constexpr int AC = chunk_cols<HD>();  // columns per atom
-  static constexpr int RB = 2 * AC;            // bytes per atom row: the swizzle, 32, 64 or 128
-  static constexpr int ATOM = kTile * RB;      // bytes per atom
-  static constexpr int BYTES = kTile * HD * 2;
-  static_assert(HD % 16 == 0 && HD % AC == 0, "head width of 16, 32, 64, 128 or 256");
-};
-
-// K-major descriptor of k-step ks (head columns 16ks ... 16ks + 15) of a tile
-template <int HD>
-__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int ks) {
-  using T = Tile<HD>;
-  return kmajor_desc<T::RB>(tile + (ks * 16 / T::AC) * T::ATOM + (ks * 16 % T::AC) * 2);
-}
-// MN-major descriptor of rows 16kk ... 16kk + 15 (K) and the columns of chunk ch (N) of a tile
-template <int HD>
-__device__ __forceinline__ uint64_t mndesc(uint32_t tile, int ch, int kk) {
-  using T = Tile<HD>;
-  return mnmajor_desc<T::RB>(tile + ch * T::ATOM + kk * 16 * T::RB, T::ATOM);
-}
-
-// Rows [row0, row0 + 64) of head bh of a (bh, T, d) bf16 tensor into the tile
-// at dst: one TMA copy per atom (the tensor map's boxes are AC columns x 64
-// rows, swizzled as the atoms are), completing on barrier bar; rows past T and
-// columns past d arrive as zeros.  Issued by one thread.
-template <int HD>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap& map, int row0, int bh, uint32_t bar) {
-  using T = Tile<HD>;
-#pragma unroll
-  for (int a = 0; a < HD / T::AC; ++a) tma_load_3d(dst + a * T::ATOM, &map, a * T::AC, row0, bh, bar);
-}
-
-// Rows g and g + 8 of each warp's 16 of a (64, DC) wgmma accumulator, in bf16,
-// to out[row0 + ...][col0 + ...], skipping rows past n_rows and columns past d.
-template <int DC>
-__device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)[DC / 2], int row0, int n_rows,
-                                          int col0, int d, int g, int t4) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= n_rows) continue;
-    __nv_bfloat16* orow = out + (size_t)row * d;
-#pragma unroll
-    for (int j = 0; j < DC / 8; ++j) {
-      const int col = col0 + j * 8 + t4 * 2;
-      const float v0 = acc[4 * j + 2 * r], v1 = acc[4 * j + 2 * r + 1];
-      if (col + 1 < d) {
-        if (d % 2 == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          orow[col] = __float2bfloat16(v0);
-          orow[col + 1] = __float2bfloat16(v1);
-        }
-      } else if (col < d) {
-        orow[col] = __float2bfloat16(v0);
-      }
-    }
-  }
-}
-
-// bf16 A fragments of the four k16 steps of a (64, 64) fp32 accumulator: its
-// 8-column tiles 2kk and 2kk + 1 (hopper.cuh)
-__device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4], const float (&acc)[32]) {
-  const auto& tiles = reinterpret_cast<const float(&)[8][4]>(acc);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) pack_a_frag(a[kk], tiles[2 * kk], tiles[2 * kk + 1]);
-}
+constexpr int kF32Tile = 32;  // rows per shared-memory tile (fp32 kernels)
 
 // Warpgroup 1's accumulator to warpgroup 0's through the shared scratch `red`
 // (warpgroup 1's consumed ring): warpgroup 0 adds it to its own, in that
@@ -199,75 +119,6 @@ struct BwdParams {
   int tq, tk, d;
 };
 
-// Profiling builds only (`scripts/bench_flash_bwd.py --trace`, JIG_FLASH_BWD_TRACE
-// = 1): thread 0 of each warpgroup sums the SM clocks of the k loop's phases
-// (`Phases::mark`) and stores them to the (blocks * warpgroups, kPhases)
-// buffer jig_flash_bwd_trace names.  A no-op in every build the port loads.
-#ifndef JIG_FLASH_BWD_TRACE
-#define JIG_FLASH_BWD_TRACE 0
-#endif
-constexpr int kPhases = 7;
-#if JIG_FLASH_BWD_TRACE
-__device__ long long* g_trace;
-#endif
-struct Phases {
-  long long last = 0, sum[kPhases] = {};
-  __device__ __forceinline__ void mark(int i) {
-#if JIG_FLASH_BWD_TRACE
-    const long long now = clock64();
-    if (i >= 0) sum[i] += now - last;
-    last = now;
-#endif
-  }
-  __device__ __forceinline__ void store(int slot, bool leader) {
-#if JIG_FLASH_BWD_TRACE
-    if (leader)
-      for (int i = 0; i < kPhases; ++i) g_trace[(long long)slot * kPhases + i] = sum[i];
-#endif
-  }
-};
-
-// A fragments (hopper.cuh) of this warp's 16 rows of a tile, every k16 step of
-// the head dim, by ldmatrix from the swizzled layout
-template <int HD>
-__device__ __forceinline__ void load_frags(uint32_t (&f)[HD / 16][4], uint32_t tile, int warp, int lane) {
-  using T = Tile<HD>;
-  const int r = warp * 16 + (lane & 15);
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const int c = 2 * ks + (lane >> 4);
-    ldmatrix_x4(f[ks], tile + (c / (T::AC / 8)) * T::ATOM + swizzle_off<T::RB>(r, c % (T::AC / 8)));
-  }
-}
-
-// Up to D = 64 the block's own tiles (K, V in dkv; Q, dO in dq) enter S and dP
-// as register fragments, loaded once (the RS form: wgmma reads only the
-// streamed tile from shared memory); above, 2 * D / 4 registers a thread would
-// be too many, and both operands come by descriptor (the SS form).
-template <int HD>
-constexpr bool kFragA = HD <= 64;
-template <int HD>
-constexpr int kFrags = kFragA<HD> ? HD / 16 : 1;
-
-// D (64 x 64, fp32) = A B^T over the head dim: A the block's tile (fragments
-// `af`, or the tile at a_tile), B the streamed tile at b_tile, both K-major
-template <int HD>
-__device__ __forceinline__ void product_over_d(float (&d)[32], const uint32_t (&af)[kFrags<HD>][4], uint32_t a_tile,
-                                               uint32_t b_tile) {
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    if constexpr (kFragA<HD>) {
-      wgmma_rs<64>(d, af[ks], kdesc<HD>(b_tile, ks), ks);
-    } else {
-      wgmma_ss64(d, kdesc<HD>(a_tile, ks), kdesc<HD>(b_tile, ks), ks);
-    }
-  }
-}
-
-// Stages in each warpgroup's ring: tile j + 1 loads while tile j is used (a
-// third stage measured no faster at the training shapes)
-constexpr int kStages = 2;
-
 // Shared memory of a block: 1024 bytes of slack for aligning the base, then a
 // 1024-byte control slot (the mbarriers; dq also keeps its 64 rows' delta
 // there, at byte 512), the block's own two tiles (K and V in dkv, Q and dO in
@@ -283,23 +134,6 @@ struct Smem {
   static_assert((kDkv ? 2 : 1) * 64 * Tile<HD>::AC * 4 <= kRing, "the reduction scratch fits in a ring");
   static_assert(8 * (1 + NWG * kStages) <= 512, "the barriers fit in the control slot");
 };
-// control slot: barrier 0 is the block's own tiles', barrier 1 + w * kStages + s warpgroup w's stage s's
-__device__ __forceinline__ uint32_t bar_addr(uint32_t base, int i) { return base + 8 * i; }
-
-// One thread's share of a block's start: initialises the barriers and has TMA
-// bring the block's own two tiles (rows row0 ... row0 + 63 of head bh)
-template <int HD, int NWG>
-__device__ __forceinline__ void start_block(uint32_t base, const CUtensorMap& a, const CUtensorMap& b, int row0,
-                                            int bh) {
-  for (int i = 0; i < 1 + NWG * kStages; ++i) mbar_init(bar_addr(base, i), 1);
-  fence_mbar_init();
-  prefetch_tensormap(&a);
-  prefetch_tensormap(&b);
-  mbar_expect_tx(bar_addr(base, 0), 2 * Tile<HD>::BYTES);
-  tma_tile<HD>(base + 1024, a, row0, bh, bar_addr(base, 0));
-  tma_tile<HD>(base + 1024 + Tile<HD>::BYTES, b, row0, bh, bar_addr(base, 0));
-}
-
 // One warpgroup per block, three blocks on an SM up to D = 32 (at most 170
 // registers, which the D = 64 instance could only meet by spilling), else two.
 // (Two warpgroups splitting the q loop measured slower at every training shape.)
@@ -335,7 +169,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ BwdParams p) {
     tma_load_1d(base + off + 2 * T::BYTES + 256, &p.delta_map, bh * tq + m0, bar);
   };
   if (t == 0) {
-    start_block<HD, 1>(base, p.k_map, p.v_map, n0, bh);
+    start_block<HD, 1>(base, &p.k_map, &p.v_map, n0, bh);
     prefetch_tensormap(&p.q_map);
     prefetch_tensormap(&p.do_map);
     prefetch_tensormap(&p.lse_map);
@@ -463,7 +297,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdParams p) {
     tma_tile<HD>(base + off, p.k_map, n0, bh, bar);
     tma_tile<HD>(base + off + T::BYTES, p.v_map, n0, bh, bar);
   };
-  if (tid == 0) start_block<HD, NWG>(base, p.q_map, p.do_map, m0, bh);
+  if (tid == 0) start_block<HD, NWG>(base, &p.q_map, &p.do_map, m0, bh);
   if (t == 0) {
     prefetch_tensormap(&p.k_map);
     prefetch_tensormap(&p.v_map);
@@ -711,12 +545,6 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     if (c < d) dq[((size_t)bh * tq + row) * d + c] = dqr[c];
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 // fp32 delta = rowsum(dO * O): one warp per row, lanes over the columns, then
 // a butterfly sum (a fixed order)
 __global__ void __launch_bounds__(256) delta_f32_kernel(const float* __restrict__ o, const float* __restrict__ dout,
@@ -793,71 +621,6 @@ cudaError_t launch_f32(const BwdParams& p, const Launch& l, bool dkv) {
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (no link to libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// A (bh, t, d) bf16 tensor as TMA sees it, (d, t, bh) with boxes of (ac, 64, 1)
-// in the swizzle of ac-column rows; a (n,) fp32 vector with boxes of 64
-bool tile_map(CUtensorMap* m, const void* ptr, int bh, int t, int d, int ac) {
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)ac, (cuuint32_t)kTile, 1u}, step[3] = {1u, 1u, 1u};
-  const CUtensorMapSwizzle sw =
-      ac == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : (ac == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
-  const EncodeTiled encode = encode_tiled();
-  return encode && encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, step,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-bool row_map(CUtensorMap* m, const void* ptr, long long n) {
-  const cuuint64_t dims[1] = {(cuuint64_t)n}, strides[1] = {4};
-  const cuuint32_t box[1] = {(cuuint32_t)kTile}, step[1] = {1u};
-  const EncodeTiled encode = encode_tiled();
-  return encode && encode(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides, box, step,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// A tensor map is a pure function of (address, shape, box), so the last 64
-// encoded are kept: a call on tensors PyTorch's allocator has handed out
-// before skips encoding it again.
-bool cached_map(CUtensorMap* m, const void* ptr, int bh, int t, int d, int ac) {
-  struct Entry {
-    const void* ptr;
-    int bh, t, d, ac;
-    CUtensorMap map;
-  };
-  static Entry cache[64];
-  static int used = 0, next = 0;
-  static std::mutex mu;
-  const std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i) {
-    const Entry& e = cache[i];
-    if (e.ptr == ptr && e.bh == bh && e.t == t && e.d == d && e.ac == ac) {
-      *m = e.map;
-      return true;
-    }
-  }
-  if (!(ac > 0 ? tile_map(m, ptr, bh, t, d, ac) : row_map(m, ptr, (long long)bh * t))) return false;
-  cache[next] = Entry{ptr, bh, t, d, ac, *m};
-  next = (next + 1) % 64;
-  used = used < 64 ? used + 1 : 64;
-  return true;
-}
-
 // Dispatch on the padded head width.  bf16 wants d % 8 == 0, tq % 4 == 0 (the
 // LSE and delta rows dkv copies start on 16 bytes) and 16-byte aligned
 // tensors: what TMA takes (the wrapper pads otherwise).
@@ -867,7 +630,7 @@ int dispatch(BwdParams& p, const Launch& l, int dtype) {
     return static_cast<int>(cudaErrorInvalidValue);
   if ((long long)(((kDkv ? p.tk : p.tq) + kTile - 1) / kTile) * l.bh * 4 > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int hd = p.d <= 16 ? 16 : p.d <= 32 ? 32 : p.d <= 64 ? 64 : p.d <= 128 ? 128 : 256;
+  const int hd = head_width(p.d);
   if (dtype == 0) {
     const int ac = hd < kMaxChunk ? hd : kMaxChunk;
     const uintptr_t a = reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.k) |
@@ -936,7 +699,7 @@ extern "C" int jig_flash_bwd_dq(const void* q, const void* k, const void* v, con
   return dispatch<false>(p, Launch{bh, nwg, smem_bytes, static_cast<cudaStream_t>(stream)}, dtype);
 }
 
-#if JIG_FLASH_BWD_TRACE
+#if JIG_FLASH_TRACE
 // Profiling builds: the (blocks * warpgroups, 7) int64 device buffer the next
 // launches write their phase clocks to.  Returns a cudaError_t.
 extern "C" int jig_flash_bwd_trace(void* buf) {

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) primitives shared by the port's kernels (conv3d.cu,
-// flash_bwd.cu): asynchronous copies (cp.async, and TMA tensor copies that
+// flash_fwd.cu, flash_bwd.cu): asynchronous copies (cp.async, and TMA tensor copies that
 // complete on an mbarrier), proxy fences, named barriers, ldmatrix, the MUFU
 // exponential, and warpgroup matrix multiplies (wgmma) with their
 // shared-memory matrix descriptors.
@@ -25,7 +25,7 @@
 // row g + 8 * ((i >> 1) & 1), column 8 * (i >> 2) + 2 * t4 + (i & 1), the
 // mma.sync C layout per 8-column tile; the RS form's A fragment (16 x 16 per
 // warp) is mma.sync's A layout, so two accumulator tiles re-pack into one A
-// fragment in registers (flash_mma.cuh `pack_a_frag`).
+// fragment in registers (flash_common.cuh `pack_frags`).
 
 #pragma once
 

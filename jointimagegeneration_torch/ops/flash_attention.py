@@ -6,6 +6,8 @@ Counterpart of `jointimagegeneration_tpu/ops/pallas/flash_attention.py`.
     file's forward kernels (`_flash_kernel_unrolled`, `_flash_kernel`,
     `_flash_kernel_pipelined`, entered through `_flash_forward`): O =
     softmax(q.k^T).v with an online softmax in fp32, plus the fp32 logsumexp.
+    How it runs on the card (head width, warpgroups per block, shared
+    memory) is decided on the host by `plan_flash_fwd`.
   * Backward (`csrc/flash_bwd.cu`, wrappers `flash_bwd_dq` and `flash_bwd_dkv`,
     joined by `flash_backward`) replaces `_bwd_dkv_kernel` and
     `_bwd_dq_kernel` (entered through `_flash_backward`): dK, dV and dQ
@@ -38,7 +40,8 @@ from .cuda.build import load_library
 
 __all__ = ["flash_forward", "flash_attention_plain", "flash_backward", "flash_backward_plain",
            "flash_bwd_dkv", "flash_bwd_dq", "FlashAttention", "flash_attention", "flash_eligible",
-           "FLASH_SOURCE", "FLASH_BWD_SOURCE", "BwdKernelPlan", "FlashBwdPlan", "plan_flash_bwd"]
+           "FLASH_SOURCE", "FLASH_BWD_SOURCE", "FlashFwdPlan", "plan_flash_fwd", "BwdKernelPlan",
+           "FlashBwdPlan", "plan_flash_bwd"]
 
 FLASH_SOURCE = "flash_fwd"
 FLASH_BWD_SOURCE = "flash_bwd"
@@ -97,13 +100,74 @@ def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: t
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# The card the backward plans are made for (H100 SXM) and the kernels' fixed
-# shapes; csrc/flash_bwd.cu holds the same numbers and checks the shared memory.
+# The card the plans are made for (H100 SXM) and the kernels' fixed shapes;
+# csrc/flash_{fwd,bwd}.cu and csrc/flash_common.cuh hold the same numbers, and
+# the kernels check the plans' shared memory.
 SMS = 132
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (227 KB)
-TILE = 64             # keys (dkv) or q rows (dq) per block, rows per streamed tile
+TILE = 64             # q rows (forward, dq) or keys (dkv) per block, rows per streamed tile
 STAGES = 2            # stages in each warpgroup's ring of streamed tiles
 _F32_TILE = 32        # rows per shared-memory tile of the fp32 kernels
+_HEAD_WIDTHS = (16, 32, 64, 128, 256)
+
+
+def _head_width(d: int) -> int:
+    return next(w for w in _HEAD_WIDTHS if d <= w)
+
+
+@dataclass(frozen=True)
+class FlashFwdPlan:
+    """How one forward call runs on the card: the head width `head_width` D
+    is padded to (16, 32, 64, 128 or 256), the output head columns `chunk` of
+    one block (and of one swizzle atom), the bytes `swizzle` of a swizzled
+    tile row (bf16: 32, 64 or 128; fp32: 0), `warpgroups` of 128 threads per
+    block (0 for the fp32 kernel, one thread per q row), `threads` and
+    `smem_bytes` per block, and `grid` blocks: one per (bh, 64-row q tile,
+    head-column chunk)."""
+
+    head_width: int
+    chunk: int
+    swizzle: int
+    warpgroups: int
+    threads: int
+    smem_bytes: int
+    grid: int
+
+
+def _fwd_smem(hd: int, warpgroups: int) -> int:
+    """csrc/flash_fwd.cu's `FwdSmem`: 1024 bytes of alignment slack, the
+    1024-byte barrier slot, the Q tile (64 x hd bf16), then per warpgroup a
+    ring of STAGES stages of (K tile, the V tile's 64 x min(hd, 64) chunk)."""
+    tile, atom = TILE * hd * 2, TILE * min(hd, 64) * 2
+    return 2048 + tile + warpgroups * STAGES * (tile + atom)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_flash_fwd(bh: int, tq: int, tk: int, d: int, dtype: torch.dtype) -> FlashFwdPlan:
+    """The launch plan of one forward call of (bh, tq, d) queries against
+    (bh, tk, d) keys.  A pure function of its arguments (cached).
+
+    bf16: D is padded to the next of 16, 32, 64, 128, 256; tiles are
+    swizzled in rows of min(D, 64) columns; one block per 64-row q tile and
+    64-column output chunk.  Two warpgroups, splitting the block's key tiles,
+    where one-warpgroup blocks would number at most two per SM (SMS * 2) and
+    D < 256: as for the backward's dq, that doubles the warpgroups in flight
+    whose exponentials and products interleave; at more blocks a second
+    warpgroup per block only adds the merge.  fp32: one thread per q row, 64
+    a block, two buffers of K and V tiles of 32 keys and the scores in shared
+    memory."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"plan_flash_fwd: bf16 or fp32, got {dtype}")
+    if min(bh, tq, tk, d) < 1 or d > _MAX_D:
+        raise ValueError(f"plan_flash_fwd: unsupported shape bh={bh} tq={tq} tk={tk} d={d}")
+    hd = _head_width(d)
+    if dtype == torch.float32:
+        return FlashFwdPlan(hd, hd, 0, 0, TILE, 4 * _F32_TILE * hd * 4 + _F32_TILE * TILE * 4,
+                            _cdiv(tq, TILE) * bh)
+    chunk = min(hd, 64)
+    blocks = _cdiv(tq, TILE) * bh * (hd // chunk)
+    wg = 2 if hd < 256 and blocks <= 2 * SMS else 1
+    return FlashFwdPlan(hd, chunk, 2 * chunk, wg, 128 * wg, _fwd_smem(hd, wg), blocks)
 
 
 @dataclass(frozen=True)
@@ -170,7 +234,7 @@ def plan_flash_bwd(bh: int, tq: int, tk: int, d: int, dtype: torch.dtype) -> Fla
         raise TypeError(f"plan_flash_bwd: bf16 or fp32, got {dtype}")
     if min(bh, tq, tk, d) < 1 or d > _MAX_D:
         raise ValueError(f"plan_flash_bwd: unsupported shape bh={bh} tq={tq} tk={tk} d={d}")
-    hd = next(w for w in (16, 32, 64, 128, 256) if d <= w)
+    hd = _head_width(d)
     chunk = min(hd, 64)
     nch = hd // chunk
     if dtype == torch.float32:
@@ -187,7 +251,7 @@ def plan_flash_bwd(bh: int, tq: int, tk: int, d: int, dtype: torch.dtype) -> Fla
 
 # C entry point -> (source under csrc/, pointer arguments, int arguments); each
 # also takes the stream as a pointer
-_ENTRY_POINTS = {"jig_flash_fwd": (FLASH_SOURCE, 5, 5), "jig_flash_bwd_dkv": (FLASH_BWD_SOURCE, 8, 7),
+_ENTRY_POINTS = {"jig_flash_fwd": (FLASH_SOURCE, 5, 7), "jig_flash_bwd_dkv": (FLASH_BWD_SOURCE, 8, 7),
                  "jig_flash_bwd_dq": (FLASH_BWD_SOURCE, 8, 7)}
 
 
@@ -229,34 +293,71 @@ def _check_cuda(who: str, *tensors: torch.Tensor) -> None:
                          f"{[tuple(t.shape) for t in tensors]}")
 
 
-def _launch(name: str, tensors, q: torch.Tensor, k: torch.Tensor, plan: Optional[BwdKernelPlan] = None) -> None:
+@functools.lru_cache(maxsize=None)
+def _cuda_bindings():
+    """(current device index, device index -> raw handle of its current
+    stream): the bindings PyTorch's own generated kernels call, where they
+    exist (no Stream object is made), else the public API."""
+    device = getattr(torch._C, "_cuda_getDevice", torch.cuda.current_device)
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return device, raw if raw is not None else (lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+def _launch(name: str, tensors, q: torch.Tensor, k: torch.Tensor, plan) -> None:
+    """Calls the C entry point `name` with the tensors' pointers, the shape,
+    the dtype code and the plan's (warpgroups, smem_bytes), on the current
+    stream of q's device (made the current device where it is not)."""
     bh, tq, d = q.shape
-    extra = () if plan is None else (plan.warpgroups, plan.smem_bytes)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel_fn(name)(*(t.data_ptr() for t in tensors), bh, tq, k.shape[1], d,
-                               _DTYPE_CODES[q.dtype], *extra, stream)
+    args = (*(t.data_ptr() for t in tensors), bh, tq, k.shape[1], d, _DTYPE_CODES[q.dtype],
+            plan.warpgroups, plan.smem_bytes)
+    index, (current_device, raw_stream) = q.device.index, _cuda_bindings()
+    if index == current_device():
+        err = _kernel_fn(name)(*args, raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = _kernel_fn(name)(*args, raw_stream(index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err} at "
                            f"q={tuple(q.shape)} k={tuple(k.shape)} {q.dtype}")
+
+
+def _tma_padded(forward, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """forward(q, k, v) where the bf16 kernel's TMA loads take the tensors:
+    rows of a multiple of 16 bytes (D % 8 == 0) and 16-byte aligned
+    tensors.  Elsewhere it runs on copies padded with zero head columns (a
+    zero column adds nothing to q.k^T, and P.V's extra columns are dropped)
+    and O is sliced back; LSE is the same."""
+    d = q.shape[2]
+    if q.dtype != torch.bfloat16 or not (d % 8 or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16):
+        return forward(q, k, v)
+    o, lse = forward(*(torch.nn.functional.pad(t, (0, -d % 8)) for t in (q, k, v)))
+    return o[..., :d].contiguous(), lse
+
+
+def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    plan = plan_flash_fwd(q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.dtype)
+    o = torch.empty_like(q)
+    lse = torch.empty((q.shape[0], q.shape[1], 1), dtype=torch.float32, device=q.device)
+    _launch("jig_flash_fwd", (q, k, v, o, lse), q, k, plan)
+    flash_forward.launches += 1
+    return o, lse
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(BH, Tq, D) x (BH, Tk, D) -> (O, LSE (BH, Tq, 1) fp32); q pre-scaled.
 
-    On a CUDA tensor this launches the Hopper kernel (and counts the launch in
-    `flash_forward.launches`) or raises; on a CPU tensor it computes the plain
+    On a CUDA tensor this launches the Hopper kernel on `plan_flash_fwd`'s
+    plan (and counts the launch in `flash_forward.launches`) or raises; in
+    bf16 where D % 8 != 0 (or a view is misaligned) it runs on copies padded
+    with zero columns (`_tma_padded`).  On a CPU tensor it computes the plain
     version."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     _check_cuda("flash_forward", q, k, v)
-    o = torch.empty_like(q)
-    lse = torch.empty((q.shape[0], q.shape[1], 1), dtype=torch.float32, device=q.device)
-    _launch("jig_flash_fwd", (q, k, v, o, lse), q, k)
-    flash_forward.launches += 1
-    return o, lse
+    return _tma_padded(_forward_kernel, q, k, v)
 
 
 flash_forward.launches = 0

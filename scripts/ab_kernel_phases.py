@@ -3,16 +3,19 @@
 card: the way to compare a change with its parent inside one call.
 
     git archive <parent> | tar -x -C build/parent     # a git-ignored directory
-    python3 scripts/ab_kernel_phases.py build/parent [--phases bwd conv]
+    python3 scripts/ab_kernel_phases.py build/parent [--phases fwd bwd conv]
 
 Builds both checkouts' kernels (one nvcc per source, all started together),
-then runs `chip_smoke.bwd_phase` and/or `chip_smoke.conv_phase` of the parent,
-this checkout, this checkout again and the parent (each turn a process of its
-own whose working directory is the checkout, so its package, kernels and
-phase code are the ones that run), and prints each row's graph-timed times
-per turn: the backward's `dq_ms`, `dkv_ms` and `ms`, and the conv's `ms`.
-The phases check every kernel against its plain version as chip_smoke.py
-does, so a turn that disagrees fails.  Imports nothing of JAX.
+then runs `chip_smoke.flash_phase`, `chip_smoke.bwd_phase` and/or
+`chip_smoke.conv_phase` of the parent, this checkout, this checkout again and
+the parent (each turn a process of its own whose working directory is the
+checkout, so its package, kernels and phase code are the ones that run), and
+prints each row's times per turn: the forward's graph-timed `ms` and its
+`eager_ms`, the backward's `dq_ms`, `dkv_ms` and `ms`, and the conv's `ms`.
+Rows are matched by their shape, dtype and options, so a row that only one
+tree has is printed as such.  The phases check every kernel against its
+plain version as chip_smoke.py does, so a turn that disagrees fails.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ sys.path.insert(0, ".")
 import chip_smoke as c
 from jointimagegeneration_torch.ops import conv3d, flash_attention
 out = {}
+if "fwd" in sys.argv[1:]:
+    out["fwd"] = [{k: r[k] for k in ("shape", "dtype", "ms", "eager_ms")} for r in c.flash_phase(flash_attention)]
 if "bwd" in sys.argv[1:]:
     out["bwd"] = [{k: r[k] for k in ("shape", "dtype", "ms", "dq_ms", "dkv_ms")} for r in c.bwd_phase(flash_attention)]
 if "conv" in sys.argv[1:]:
@@ -57,7 +62,7 @@ def run_turn(tree: Path, phases) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("parent", type=Path, help="a checkout of the parent commit")
-    ap.add_argument("--phases", nargs="+", default=["bwd", "conv"], choices=["bwd", "conv"])
+    ap.add_argument("--phases", nargs="+", default=["fwd", "bwd", "conv"], choices=["fwd", "bwd", "conv"])
     args = ap.parse_args()
     trees = {"parent": args.parent.resolve(), "change": ROOT}
     builds = [subprocess.Popen([sys.executable, "-c", BUILD], cwd=t) for t in trees.values()]
@@ -68,13 +73,20 @@ def main() -> int:
     order = ["parent", "change", "change", "parent"]
     results = [run_turn(trees[name], args.phases) for name in order]
     print(f"turns {order} on {card}")
-    for phase, keys in (("bwd", ("dq_ms", "dkv_ms", "ms")), ("conv", ("ms",))):
+    for phase, keys in (("fwd", ("ms", "eager_ms")), ("bwd", ("dq_ms", "dkv_ms", "ms")), ("conv", ("ms",))):
         if phase not in args.phases:
             continue
-        for i, row in enumerate(results[0][phase]):
-            label = json.dumps({k: row[k] for k in row if not k.endswith("ms")})
+        turns = [{json.dumps({k: v for k, v in row.items() if not k.endswith("ms")}): row for row in r[phase]}
+                 for r in results]
+        labels = list(turns[0]) + [lab for lab in turns[1] if lab not in turns[0]]
+        for label in labels:
             for key in keys:
-                vals = [r[phase][i][key] for r in results]
+                vals = [t[label][key] if label in t else None for t in turns]
+                if None in vals:
+                    have = " / ".join("-" if v is None else f"{v:.4f}" for v in vals)
+                    print(f"{phase} {label} {key}: {have} ms (parent, change, change, parent); "
+                          f"in one tree only", flush=True)
+                    continue
                 p, c = (vals[0] + vals[3]) / 2, (vals[1] + vals[2]) / 2
                 print(f"{phase} {label} {key}: " + " / ".join(f"{v:.4f}" for v in vals)
                       + f" ms (parent, change, change, parent); parent/change {p / c:.3f}", flush=True)

@@ -10,7 +10,7 @@ Plan variants: at every bf16 row of `chip_smoke.BWD_SHAPES`, the dq kernel
 has one, beside it), each variant's gradients checked against the plain
 version (chip_smoke's BWD_REL_TOL) and graph-timed as chip_smoke does.
 
-Trace: csrc/flash_bwd.cu is built with JIG_FLASH_BWD_TRACE = 1, whose
+Trace: csrc/flash_bwd.cu is built with JIG_FLASH_TRACE = 1, whose
 kernels sum, in thread 0 of each warpgroup, the SM clocks (clock64) spent in
 each phase of their k loop; one launch of each kernel at the planner's plans
 at (8, 2048, 32) and (16, 4096, 32) prints the mean clocks per loop iteration
@@ -50,25 +50,26 @@ PHASES = {"dq": ["stage wait", "barrier and refill issue", "S", "P", "dP", "dS",
           "dkv": ["stage wait", "barrier and refill issue", "S", "P", "dV issue and dP", "dS", "dK and wait"]}
 
 
-def profiling_builds(defines: dict) -> dict:
+def profiling_builds(defines: dict, source: str = flash.FLASH_BWD_SOURCE) -> dict:
     """{label: (ctypes library, {entry name: ctypes function})} of
-    csrc/flash_bwd.cu built with each label's -D define, into build/probe/,
+    csrc/<source>.cu built with each label's -D define, into build/probe/,
     one nvcc per build, all started together."""
     out_dir = ROOT / "build" / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for label, define in defines.items():
-        lib = out_dir / f"flash_bwd_{label}.so"
+        lib = out_dir / f"{source}_{label}.so"
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, f"-D{define}", "-o", str(lib),
-               str(build.CSRC_DIR / "flash_bwd.cu")]
+               str(build.CSRC_DIR / f"{source}.cu")]
         procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     out = {}
     for label, (proc, lib) in procs.items():
         log, _ = proc.communicate()
         smoke.check(proc.returncode == 0, f"nvcc failed for the {label} build:\n{log}")
         cdll, table = ctypes.CDLL(str(lib)), {}
-        for name in ("jig_flash_bwd_dkv", "jig_flash_bwd_dq"):
-            _, n_ptr, n_int = flash._ENTRY_POINTS[name]
+        for name, (src, n_ptr, n_int) in flash._ENTRY_POINTS.items():
+            if src != source:
+                continue
             fn = getattr(cdll, name)
             fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -78,7 +79,7 @@ def profiling_builds(defines: dict) -> dict:
 
 
 def trace(card: str) -> None:
-    cdll, table = profiling_builds({"trace": "JIG_FLASH_BWD_TRACE=1"})["trace"]
+    cdll, table = profiling_builds({"trace": "JIG_FLASH_TRACE=1"})["trace"]
     set_trace = cdll.jig_flash_bwd_trace
     set_trace.argtypes = [ctypes.c_void_p]
     real = flash._kernel_fn

@@ -103,12 +103,14 @@ def test_plain_attention_matches_jax_xla():
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,tq,tk,d,dtype", [
     (8, 2048, 2048, 32, torch.bfloat16), (16, 1024, 1024, 32, torch.bfloat16),
-    (3, 100, 77, 40, torch.bfloat16), (2, 130, 200, 256, torch.bfloat16),
+    (16, 4096, 4096, 32, torch.bfloat16), (20, 1024, 1024, 32, torch.bfloat16),
+    (3, 100, 77, 40, torch.bfloat16), (2, 130, 200, 256, torch.bfloat16), (2, 130, 40, 40, torch.bfloat16),
     (4, 512, 512, 32, torch.float32), (3, 100, 77, 40, torch.float32)])
 def test_kernel_matches_plain_on_cuda(bh, tq, tk, d, dtype):
     """The Hopper kernel against its plain version on the card, with
     chip_smoke.py's limits: O within 2^-6 (bf16: four bf16 ulps at the top of
-    a binade) or 1e-4 (fp32) of the plain output's max |O|; LSE within 1e-4."""
+    a binade) or 1e-4 (fp32) of the plain output's max |O|; LSE within 1e-4;
+    a second call bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs the same check on one")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -117,8 +119,10 @@ def test_kernel_matches_plain_on_cuda(bh, tq, tk, d, dtype):
     v = torch.randn(bh, tk, d, generator=g, device="cuda").to(dtype)
     before = tflash.flash_forward.launches
     o, lse = tflash.flash_forward(q, k, v)
+    o2, lse2 = tflash.flash_forward(q, k, v)
     torch.cuda.synchronize()
-    assert tflash.flash_forward.launches == before + 1
+    assert tflash.flash_forward.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     po, plse = tflash.flash_attention_plain(q, k, v)
     tol_o = (4 * 2**-8 if dtype == torch.bfloat16 else 1e-4) * po.float().abs().max().item()
     assert (o.float() - po.float()).abs().max().item() <= tol_o

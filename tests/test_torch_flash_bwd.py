@@ -123,7 +123,7 @@ def test_backward_wrappers_check_inputs():
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,tq,tk,d,dtype", [
     (8, 2048, 2048, 32, torch.bfloat16), (16, 1024, 1024, 32, torch.bfloat16), (16, 4096, 4096, 32, torch.bfloat16),
-    (3, 100, 77, 40, torch.bfloat16), (2, 130, 200, 256, torch.bfloat16),
+    (3, 100, 77, 40, torch.bfloat16), (2, 130, 200, 256, torch.bfloat16), (2, 300, 200, 64, torch.bfloat16),
     (4, 512, 512, 32, torch.float32), (3, 100, 77, 40, torch.float32)])
 def test_backward_kernels_match_plain_on_cuda(bh, tq, tk, d, dtype):
     """The two Hopper kernels against the plain version on the card, with
