@@ -42,11 +42,21 @@ Phases, in order (any failure exits non-zero and prints no result line):
   8. train path: `cli.train_mask.run` on `configs/stage1_mask.yml`'s full
      widths (64x128x128, 12 classes, base 64, bf16, AdamW, EMA), with only the
      lengths cut: 6 steps with checkpoints at 3 and 6 and one validation at 6,
-     then a resumed run to step 8.
-Before each main path (5, 6 per variant, 8) every kernel launch counter is set
-to 0; after it the counts must equal what the path implies.  The last lines
-are the fused and train summaries, a JSON line with the kernel numbers, the
-card's name and power limit, and `{"ok": true, "device": {...}}`.  Imports neither JAX nor PyYAML.
+     then a resumed run to step 8;
+  9. ldm train reference: three fp32 stage-2 train steps of a small 2D
+     SliceLDM with a learned logvar (T = 1024 at its attention sites, so the
+     card runs the flash kernels) on the card against the same steps on the
+     CPU: loss, every gradient and the params after each step;
+ 10. ldm train path: `cli.train_ldm.run` on `configs/stage2_ldm.yml`'s full
+     widths (512x512 slices, base 128, mult (1,2,4,4,5), bf16, AdamW, LitEma
+     EMA), with only the lengths cut: 6 steps with checkpoints at 3 and 6 and
+     one validation (the val loss of 2 slices at t = T/2) at 6, then a resumed
+     run to step 8; its ~2.8 GB checkpoints are deleted at the end.
+Before each main path (5, 6 per variant, 8, 10) every kernel launch counter is
+set to 0; after it the counts must equal what the path implies.  The last
+lines are the fused and train summaries, a JSON line with the kernel numbers,
+the card's name and power limit, and `{"ok": true, "device": {...}}`.  Imports
+neither JAX nor PyYAML.
 """
 
 from __future__ import annotations
@@ -88,6 +98,8 @@ FWD_SHAPES = [  # (BH, T, D), dtype, where the main paths run it
     ((16, 4096, 32), torch.bfloat16, "stage 2 ds8, 512x512"),
     ((8, 2048, 32), torch.float32, "fp32 torso"),
     ((20, 1024, 32), torch.bfloat16, "stage 2 ds16, 512x512"),
+    ((32, 4096, 32), torch.bfloat16, "stage 2 ds8, 512x512 validation, b = 2"),
+    ((40, 1024, 32), torch.bfloat16, "stage 2 ds16, 512x512 validation, b = 2"),
 ]
 FWD_EDGE_SHAPES = [  # (BH, Tq, Tk, D), dtype: ragged T, Tq != Tk, every head width, D padded
     ((3, 100, 77, 40), torch.bfloat16), ((2, 130, 200, 256), torch.bfloat16), ((2, 1088, 1088, 16), torch.bfloat16),
@@ -158,6 +170,35 @@ STAGE1_TRAIN_CFG = {  # configs/stage1_mask.yml, lengths cut
     "feature_cond_encoder": {"type": "none"},
     "dataset": {"kind": "synthetic", "volume_shape": [64, 128, 128], "num_cases": 16},
 }
+STAGE2_TRAIN_CFG = {  # configs/stage2_ldm.yml, lengths cut
+    "seed": 0,
+    "scale_lr": True,
+    "batch_size": 1,
+    "accumulate_grad_batches": 1,
+    "max_steps": 6,
+    "save_freq": 3,
+    "display_freq": 1,
+    "eval_every": 6,
+    "n_log_images": 2,
+    "model": {
+        "base_learning_rate": 2.0e-06,
+        "timesteps": 1000,
+        "beta_schedule": "linear",
+        "linear_start": 0.0015,
+        "linear_end": 0.0195,
+        "channels": 1,
+        "cond_channels": 2,
+        "bf16": True,
+        "unet_config": {"params": {"model_channels": 128, "channel_mult": [1, 2, 4, 4, 5],
+                                   "attention_resolutions": [32, 16, 8], "num_res_blocks": 2,
+                                   "num_head_channels": 32}},
+    },
+    "dataset": {"kind": "synthetic", "slice_shape": [512, 512], "depth": 16, "num_cases": 16},
+}
+# the small 2D UNet of the ldm train reference phase (base 64 for the reason
+# below; a 32x32 image puts T = 1024 at its ds-1 and mid attention sites)
+LDM_REF_UNET = {"model_channels": 64, "channel_mult": [1], "attention_resolutions": [1], "num_res_blocks": 1,
+                "num_head_channels": 16}
 # the small UNet of the train reference phase: at base <= 32 every GroupNorm
 # group holds one channel, and the bias added before such a norm has a
 # gradient of exactly zero, whose rounding noise has no relative error to hold
@@ -618,6 +659,9 @@ class _CpuDrawnNoise:
     def gumbel(self, shape):
         return self.src.gumbel(shape).to(self.device)
 
+    def randint(self, low, high, shape):
+        return self.src.randint(low, high, shape).to(self.device)
+
 
 def reference_phase(flash) -> float:
     """A tiny fp32 two-stage pipeline (attention sites at T >= 512, so the card
@@ -932,6 +976,59 @@ def fused_path_phase(flash, card: str) -> dict:
     return rows
 
 
+def _reference_steps(flash, label: str, device: str, named, step, batches) -> tuple:
+    """Run `step` (SGD 1e-2, EMA 0.9) on `batches` in turn, recording each
+    step's gradients as apply_gradients receives them: (losses, gradients,
+    params after each step, kernel launches)."""
+    from jointimagegeneration_torch.train.optim import build_optimizer
+    from jointimagegeneration_torch.train.state import EMATrainState
+
+    state = EMATrainState(build_optimizer(named, "SGD", 1e-2), ema_decay=0.9)
+    grads, apply = [], state.apply_gradients
+
+    def record(g, apply=apply, grads=grads):  # keep each step's gradients, then apply them
+        grads.append({k: v.detach().cpu() for k, v in g.items()})
+        return apply(g)
+
+    state.apply_gradients = record
+    noise = _CpuDrawnNoise(9, device)
+    before = _counts(flash)
+    losses, params = [], []
+    for batch in batches:
+        metrics = step(state, {k: v.to(device) for k, v in batch.items()}, noise)
+        check(float(metrics["grad_finite"]) == 1.0, f"{label}: non-finite gradients on {device}")
+        losses.append(float(metrics["loss"]))
+        params.append({n: p.detach().cpu().clone() for n, p in zip(state.names, state.params)})
+    return losses, grads, params, {k: v - before[k] for k, v in _counts(flash).items()}
+
+
+def _compare_reference_steps(runs, label: str) -> dict:
+    """Worst relative card-vs-CPU difference of the losses, gradients and
+    params of `_reference_steps`' two runs; fails past TRAIN_REF_TOL."""
+    (l_cpu, g_cpu, p_cpu, _), (l_gpu, g_gpu, p_gpu, _) = runs
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    for i in range(len(l_cpu)):
+        worst["loss"] = max(worst["loss"], abs(l_gpu[i] - l_cpu[i]) / abs(l_cpu[i]))
+        for kind, got, want in (("grad", g_gpu[i], g_cpu[i]), ("param", p_gpu[i], p_cpu[i])):
+            for n, w in want.items():
+                rel = (got[n] - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                worst[kind] = max(worst[kind], rel)
+                check(rel <= TRAIN_REF_TOL, f"{label}: step {i + 1} {kind} {n} differs by {rel:.3g} "
+                                            f"of its max (tol {TRAIN_REF_TOL})")
+    check(worst["loss"] <= TRAIN_REF_TOL, f"{label}: losses {l_gpu} vs {l_cpu}")
+    return worst
+
+
+def _check_flash_only(runs, label: str) -> dict:
+    """The card's run launched all three flash kernels and no conv kernel;
+    the CPU's launched nothing."""
+    n_cpu, n_gpu = runs[0][3], runs[1][3]
+    check(not any(n_cpu.values()) and all(n_gpu[k] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+          and n_gpu["conv3d"] == n_gpu["conv3d_splitk_reduce"] == n_gpu["conv3d_stats_reduce"] == 0,
+          f"{label}: kernel launches cpu {n_cpu}, card {n_gpu}")
+    return n_gpu
+
+
 def train_reference_phase(flash) -> float:
     """Three fp32 train steps (make_mask_train_step) on the card against the
     same steps on the CPU: same weights, same data, same draws.  Returns the
@@ -941,8 +1038,6 @@ def train_reference_phase(flash) -> float:
     from jointimagegeneration_torch.cli.sample import build_mask_sampler
     from jointimagegeneration_torch.core.runtime import configure_precision
     from jointimagegeneration_torch.data.datasets import SyntheticMaskDataset
-    from jointimagegeneration_torch.train.optim import build_optimizer
-    from jointimagegeneration_torch.train.state import EMATrainState
     from jointimagegeneration_torch.train.steps import make_mask_train_step
 
     configure_precision()
@@ -950,6 +1045,7 @@ def train_reference_phase(flash) -> float:
     ds = SyntheticMaskDataset(3, (8, 8, 8), 4)
     gen = torch.Generator().manual_seed(5)
     conds = [torch.rand((1, 8, 8, 8, 1), generator=gen) for _ in range(3)]
+    batches = [{"mask": torch.from_numpy(ds[i]["mask"])[None], "image": conds[i]} for i in range(3)]
     runs, init = [], None
     for device in ("cpu", "cuda"):
         model = build_mask_sampler(cfg, device)
@@ -960,51 +1056,60 @@ def train_reference_phase(flash) -> float:
             init = {k: v.clone() for k, v in model.unet.state_dict().items()}  # training moves the CPU params
         else:
             model.unet.load_state_dict(init)
-        state = EMATrainState(build_optimizer(list(model.unet.named_parameters()), "SGD", 1e-2), ema_decay=0.9)
-        grads, apply = [], state.apply_gradients
-
-        def record(g, apply=apply, grads=grads):  # keep each step's gradients, then apply them
-            grads.append({k: v.detach().cpu() for k, v in g.items()})
-            return apply(g)
-
-        state.apply_gradients = record
         step = make_mask_train_step(model, torch.ones(4, device=device))
-        noise = _CpuDrawnNoise(9, device)
-        before = _counts(flash)
-        losses, params = [], []
-        for i in range(3):
-            batch = {"mask": torch.from_numpy(ds[i]["mask"])[None].to(device), "image": conds[i].to(device)}
-            metrics = step(state, batch, noise)
-            check(float(metrics["grad_finite"]) == 1.0, f"train reference: non-finite gradients on {device}")
-            losses.append(float(metrics["loss"]))
-            params.append({n: p.detach().cpu().clone() for n, p in zip(state.names, state.params)})
-        launched = {k: v - before[k] for k, v in _counts(flash).items()}
-        runs.append((losses, grads, params, launched))
-    (l_cpu, g_cpu, p_cpu, n_cpu), (l_gpu, g_gpu, p_gpu, n_gpu) = runs
-    check(not any(n_cpu.values()) and all(n_gpu[k] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
-          and n_gpu["conv3d"] == n_gpu["conv3d_splitk_reduce"] == n_gpu["conv3d_stats_reduce"] == 0,
-          f"train reference: kernel launches cpu {n_cpu}, card {n_gpu}")
-    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
-    for i in range(3):
-        worst["loss"] = max(worst["loss"], abs(l_gpu[i] - l_cpu[i]) / abs(l_cpu[i]))
-        for kind, got, want in (("grad", g_gpu[i], g_cpu[i]), ("param", p_gpu[i], p_cpu[i])):
-            for n, w in want.items():
-                rel = (got[n] - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
-                worst[kind] = max(worst[kind], rel)
-                check(rel <= TRAIN_REF_TOL, f"train reference: step {i + 1} {kind} {n} differs by {rel:.3g} "
-                                            f"of its max (tol {TRAIN_REF_TOL})")
-    check(worst["loss"] <= TRAIN_REF_TOL, f"train reference: losses {l_gpu} vs {l_cpu}")
+        named = list(model.unet.named_parameters())
+        runs.append(_reference_steps(flash, "train reference", device, named, step, batches))
+    n_gpu = _check_flash_only(runs, "train reference")
+    worst = _compare_reference_steps(runs, "train reference")
     print(f"train reference: 3 fp32 steps (base 64, T = 512 at the attention sites), card vs CPU: worst "
           f"relative diff loss {worst['loss']:.3g}, gradient {worst['grad']:.3g}, params {worst['param']:.3g} "
           f"(tol {TRAIN_REF_TOL}); launches on the card {n_gpu}", flush=True)
     return max(worst.values())
 
 
-def _train_run(flash, cfg: dict, exp: str) -> tuple:
-    """One `cli.train_mask.run` with the launch counts zeroed before it:
-    (state, launches, wall seconds, stdout)."""
-    from jointimagegeneration_torch.cli.train_mask import run
+def ldm_train_reference_phase(flash) -> float:
+    """Three fp32 stage-2 train steps (make_ldm_train_step, with a learned
+    logvar and the elbo term) of a small 2D SliceLDM on the card against the
+    same steps on the CPU: same weights, same slices, same draws (t, then the
+    noise).  Every parameter, logvar included, is un-zeroed first: a fresh
+    UNet's zero output conv would block every upstream gradient.  SGD, for
+    the reason train_reference_phase gives.  Returns the worst relative
+    difference."""
+    from jointimagegeneration_torch.cli.sample import build_slice_ldm
+    from jointimagegeneration_torch.core.runtime import configure_precision
+    from jointimagegeneration_torch.data.datasets import SyntheticSliceDataset
+    from jointimagegeneration_torch.train.steps import make_ldm_train_step
 
+    configure_precision()
+    cfg = {"bf16": False, "unet_config": {"params": LDM_REF_UNET}}
+    ds = SyntheticSliceDataset(3, (32, 32), depth=4)
+    batches = [{k: torch.from_numpy(item[k])[None] for k in ("image", "cond")} for item in (ds[i] for i in range(3))]
+    gen = torch.Generator().manual_seed(6)
+    runs, init = [], None
+    for device in ("cpu", "cuda"):
+        model = build_slice_ldm(cfg, device, learn_logvar=True)
+        named = model.named_parameters()
+        with torch.no_grad():
+            if init is None:
+                for _, p in named:
+                    p.add_(0.02 * torch.randn(p.shape, generator=gen))  # un-zero every kernel
+                init = {n: p.detach().clone() for n, p in named}  # training moves the CPU params
+            else:
+                for n, p in named:
+                    p.copy_(init[n])
+        step = make_ldm_train_step(model, elbo_weight=0.25)
+        runs.append(_reference_steps(flash, "ldm train reference", device, named, step, batches))
+    n_gpu = _check_flash_only(runs, "ldm train reference")
+    worst = _compare_reference_steps(runs, "ldm train reference")
+    print(f"ldm train reference: 3 fp32 stage-2 steps (base 64, learned logvar, T = 1024 at the attention "
+          f"sites), card vs CPU: worst relative diff loss {worst['loss']:.3g}, gradient {worst['grad']:.3g}, "
+          f"params {worst['param']:.3g} (tol {TRAIN_REF_TOL}); launches on the card {n_gpu}", flush=True)
+    return max(worst.values())
+
+
+def _train_run(flash, run, cfg: dict, exp: str) -> tuple:
+    """One trainer `run` (`cli.train_mask.run` or `cli.train_ldm.run`) with the
+    launch counts zeroed before it: (state, launches, wall seconds, stdout)."""
     out = io.StringIO()
     _reset_counts(flash)
     t0 = time.perf_counter()
@@ -1021,6 +1126,7 @@ def train_path_phase(flash, card: str) -> dict:
     """Stage-1 training at full width through `cli.train_mask.run`, then a
     resumed run; returns the first run's launch counts and numbers."""
     from jointimagegeneration_torch.cli.sample import build_mask_sampler
+    from jointimagegeneration_torch.cli.train_mask import run
     from jointimagegeneration_torch.core.checkpoint import CheckpointManager
 
     cfg = json.loads(json.dumps(STAGE1_TRAIN_CFG))
@@ -1033,7 +1139,7 @@ def train_path_phase(flash, card: str) -> dict:
                 "flash_bwd_dkv": sites * n_steps, "flash_bwd_dq": sites * n_steps,
                 "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}  # the unfused UNet
     torch.cuda.reset_peak_memory_stats()
-    state, launches, wall, _ = _train_run(flash, cfg, "smoke")
+    state, launches, wall, _ = _train_run(flash, run, cfg, "smoke")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(launches == expected, f"train path: launches {launches}, expected {expected}")
     recs = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
@@ -1064,7 +1170,7 @@ def train_path_phase(flash, card: str) -> dict:
 
     cfg2 = dict(cfg, load_from=True, max_steps=n_steps + 2)
     expected2 = {k: sites * 2 if k.startswith("flash") else 0 for k in expected}
-    state2, launches2, wall2, printed = _train_run(flash, cfg2, "smoke")
+    state2, launches2, wall2, printed = _train_run(flash, run, cfg2, "smoke")
     check(f"resumed from step {n_steps}" in printed, "train path: the rerun did not resume from step 6")
     check(state2.step == n_steps + 2, f"train path: resumed run ended at step {state2.step}")
     check(launches2 == expected2, f"train path (resumed): launches {launches2}, expected {expected2}")
@@ -1074,6 +1180,77 @@ def train_path_phase(flash, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "s_per_step": s_per_step, "peak_gib": peak_gib, "val_dice": dice[0]}
+
+
+def ldm_train_path_phase(flash, card: str) -> dict:
+    """Stage-2 training at full width through `cli.train_ldm.run`, then a
+    resumed run; returns the first run's launch counts and numbers.  The
+    checkpoints (params, EMA and AdamW's two moments in fp32: ~2.8 GB each)
+    are deleted at the end."""
+    from jointimagegeneration_torch.cli.sample import build_slice_ldm
+    from jointimagegeneration_torch.cli.train_ldm import run
+    from jointimagegeneration_torch.core.checkpoint import CheckpointManager
+
+    cfg = json.loads(json.dumps(STAGE2_TRAIN_CFG))
+    out_dir = ROOT / "build" / "chip_smoke" / "train_ldm"
+    cfg["output_path"] = str(out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    logdir = out_dir / "smoke"
+    sites = flash_sites(cfg["dataset"]["slice_shape"], cfg["model"]["unet_config"]["params"], "channel_mult")
+    n_steps, n_eval = cfg["max_steps"], cfg["max_steps"] // cfg["eval_every"]
+    expected = {"flash_fwd": sites * (n_steps + n_eval), "flash_bwd_dkv": sites * n_steps,
+                "flash_bwd_dq": sites * n_steps,  # validation: one forward of its batch
+                "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}  # a 2D UNet
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        state, launches, wall, _ = _train_run(flash, run, cfg, "smoke")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check(launches == expected, f"ldm train path: launches {launches}, expected {expected}")
+        recs = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+        train = [r for r in recs if "train/loss" in r]
+        check([r["step"] for r in train] == list(range(1, n_steps + 1)), f"ldm train path: logged steps {train}")
+        check(all(math.isfinite(r["train/loss"]) for r in train), "ldm train path: a logged loss is not finite")
+        check(all(r["train/grad_finite"] == 1.0 and r["train/nonfinite_skipped"] == 0.0 for r in train),
+              "ldm train path: a step had non-finite gradients")
+        val = [(r["step"], r["val/loss_simple"]) for r in recs if "val/loss_simple" in r]
+        check(len(val) == 1 and val[0][0] == n_steps and math.isfinite(val[0][1]) and val[0][1] > 0,
+              f"ldm train path: val/loss_simple {val}")
+        steps = CheckpointManager(logdir / "checkpoints").all_steps()
+        check(steps["rolling"] == [3, 6] and steps["best"] == [6], f"ldm train path: checkpoints {steps}")
+        ckpt_gb = (logdir / "checkpoints" / "6.pt").stat().st_size / 1e9
+        fresh = build_slice_ldm(cfg["model"], "cuda", seed=cfg["seed"]).unet
+        moved = [(p - p0).abs().max().item() > 0 for p, p0 in zip(state.params, fresh.parameters())]
+        check(sum(moved) > 0.9 * len(moved), f"ldm train path: only {sum(moved)} of {len(moved)} params moved")
+        ema_off = max((e - p).abs().max().item() for e, p in zip(state.ema, state.params))
+        check(ema_off > 0, "ldm train path: the EMA equals the params")
+        n_params = sum(p.numel() for p in state.params)
+        sec = sorted(r["train/step_seconds"] for r in train[1:])  # step 1 carries cuDNN's first-call setup
+        s_per_step = sec[len(sec) // 2]
+        print(f"ldm train path: stage 2 (512x512, base 128, {n_params / 1e6:.1f}M params, bf16, AdamW + EMA) "
+              f"{n_steps} steps, warmed {s_per_step:.4f} s/step (median of steps 2-{n_steps}; step 1 "
+              f"{train[0]['train/step_seconds']:.3f} s), losses {[round(r['train/loss'], 4) for r in train]}, "
+              f"val/loss_simple {val[0][1]:.4f}, peak torch.cuda.max_memory_allocated {peak_gib:.2f} GiB, "
+              f"checkpoint {ckpt_gb:.2f} GB, run() wall {wall:.2f} s (incl. model init, data, validation and "
+              f"three checkpoint writes); launches {launches} = expected; card {card}", flush=True)
+        del state, fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg2 = dict(cfg, resume=True, max_steps=n_steps + 2)
+        expected2 = {k: sites * 2 if k.startswith("flash") else 0 for k in expected}
+        state2, launches2, wall2, printed = _train_run(flash, run, cfg2, "smoke")
+        check(f"resumed from step {n_steps}" in printed, "ldm train path: the rerun did not resume from step 6")
+        check(state2.step == n_steps + 2, f"ldm train path: resumed run ended at step {state2.step}")
+        check(launches2 == expected2, f"ldm train path (resumed): launches {launches2}, expected {expected2}")
+        print(f"ldm train path: resumed from step {n_steps} to {state2.step} in {wall2:.2f} s; launches "
+              f"{launches2} = expected", flush=True)
+        del state2
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": launches, "launches_resumed": launches2, "s_per_step": s_per_step, "peak_gib": peak_gib,
+            "run_wall_s": wall, "val_loss_simple": val[0][1], "checkpoint_gb": ckpt_gb}
 
 
 def main() -> int:
@@ -1104,9 +1281,12 @@ def main() -> int:
     fused = fused_path_phase(flash, card)
     train_reference_phase(flash)
     train = train_path_phase(flash, card)
+    ldm_train_reference_phase(flash)
+    ldm_train = ldm_train_path_phase(flash, card)
 
     main_row = rows[1]  # (16, 1024, 32): the stage-2 site, most of the sampling path's launches
-    fwd_launches = {"two_stage_sampling": sample_launches, "stage1_training": train["launches"]["flash_fwd"]}
+    fwd_launches = {"two_stage_sampling": sample_launches, "stage1_training": train["launches"]["flash_fwd"],
+                    "stage2_training": ldm_train["launches"]["flash_fwd"]}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -1128,12 +1308,14 @@ def main() -> int:
     train_row = bwd_rows[0]  # (8, 2048, 32) bf16: the stage-1 training site
     for name, line, grads in (("flash_bwd_dkv", 250, ("dk", "dv")), ("flash_bwd_dq", 282, ("dq",))):
         part = name.rsplit("_", 1)[1]
+        bwd_launches = {"stage1_training": train["launches"][name], "stage2_training": ldm_train["launches"][name]}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "jointimagegeneration_torch/csrc/flash_bwd.cu",
             "replaces": f"jointimagegeneration_tpu/ops/pallas/flash_attention.py:{line}",
-            "launches": train["launches"][name],
+            "launches": sum(bwd_launches.values()),
+            "launches_by_path": bwd_launches,
             "max_abs_err": max(r[f"err_{g}"] for r in bwd_rows for g in grads),
             "ms": train_row[f"{part}_ms"],
             "plain_ms": train_row["plain_ms"],  # the plain backward computes dq, dk and dv together
@@ -1173,6 +1355,7 @@ def main() -> int:
         kernels.append(entry)
     print(f"fused: {json.dumps({'reference': fused_ref, 'paths': fused})}")
     print(f"train: {json.dumps(train)}")
+    print(f"ldm train: {json.dumps(ldm_train)}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

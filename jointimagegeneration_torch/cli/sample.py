@@ -73,8 +73,10 @@ def build_mask_sampler(cfg: dict, device, cond_channels: int = 1, seed: int = 0,
     )
 
 
-def build_slice_ldm(cfg: dict, device) -> SliceLDM:
-    """cfg keys mirror the LDM yaml model.params section."""
+def build_slice_ldm(cfg: dict, device, seed: int = 1, **options) -> SliceLDM:
+    """cfg keys mirror the LDM yaml model.params section; `seed` seeds the
+    UNet's fresh init (1 for sampling, the run's seed for training), and
+    `options` (`learn_logvar`, `logvar_init`) go to `SliceLDM.create`."""
     u = cfg.get("unet_config", {}).get("params", cfg.get("unet", {}))
     return SliceLDM.create(
         image_channels=cfg.get("channels", 1),
@@ -90,7 +92,8 @@ def build_slice_ldm(cfg: dict, device) -> SliceLDM:
         num_head_channels=u.get("num_head_channels", 32),
         dtype=torch.bfloat16 if cfg.get("bf16", True) else torch.float32,
         device=device,
-        seed=1,
+        seed=seed,
+        **options,
     )
 
 

@@ -1,9 +1,11 @@
 """The one source of random draws for the samplers.
 
-Every random number the sampling path uses comes from a `NoiseSource`:
-standard normals (DDIM x_T) and standard Gumbels (categorical draws, as
-argmax(logits + Gumbel)).  The draws come in a fixed order, so a test can
-hand the samplers a source that replays another implementation's numbers.
+Every random number the samplers and the train steps use comes from a
+`NoiseSource`: standard normals (DDIM x_T, the stage-2 training noise),
+standard Gumbels (categorical draws, as argmax(logits + Gumbel)) and uniform
+integers (the stage-2 training timesteps).  The draws come in a fixed order,
+so a test can hand the samplers and steps a source that replays another
+implementation's numbers.
 """
 
 from __future__ import annotations
@@ -31,3 +33,7 @@ class NoiseSource:
         u = torch.rand(tuple(shape), generator=self.generator, device=self.device)
         u = u.clamp_min(torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
+
+    def randint(self, low: int, high: int, shape: Sequence[int]) -> torch.Tensor:
+        """Integers uniform in [low, high), int64."""
+        return torch.randint(low, high, tuple(shape), generator=self.generator, device=self.device)

@@ -3,15 +3,18 @@
 Counterpart of `jointimagegeneration_tpu/models/slice_ldm.py` on its plain
 DDIM path: each slice runs a DDIM chain from pure noise with the concat
 condition [previous generated slice | mask slice], is min-max normalised
-(eps 1e-8 over H, W, C) and becomes the next slice's condition.  Not ported
-here: warm start, the PLMS / DPM-Solver samplers, classifier-free guidance
-and patch tiling.
+(eps 1e-8 over H, W, C) and becomes the next slice's condition.  For
+training, `create(learn_logvar=True)` adds the learned per-timestep
+log-variance, an fp32 (T,) parameter that `named_parameters()` lists beside
+the UNet's under the name `logvar` (the JAX params tree's sibling leaf).
+Not ported here: warm start, the PLMS / DPM-Solver samplers, classifier-free
+guidance, patch tiling and the `log_images` panels.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,6 +39,7 @@ class SliceLDM:
     diffusion: GaussianDiffusion
     channels: int = 1  # generated image channels
     cond_channels: int = 2  # [previous slice, mask slice]
+    logvar: Optional[torch.nn.Parameter] = None  # (T,) fp32, with learn_logvar
 
     @classmethod
     def create(
@@ -51,6 +55,9 @@ class SliceLDM:
         attention_resolutions: Sequence[int] = (32, 16, 8),
         num_res_blocks: int = 2,
         num_head_channels: int = 32,
+        parameterization: str = "eps",
+        learn_logvar: bool = False,
+        logvar_init: float = 0.0,
         dtype: torch.dtype = torch.float32,
         device=None,
         seed: int = 1,
@@ -70,9 +77,18 @@ class SliceLDM:
             seed=seed,
         )
         diffusion = GaussianDiffusion.create(beta_schedule, timesteps, linear_start=linear_start,
-                                             linear_end=linear_end)
+                                             linear_end=linear_end, parameterization=parameterization)
+        logvar = None
+        if learn_logvar:
+            device = next(unet.parameters()).device
+            logvar = torch.nn.Parameter(torch.full((timesteps,), float(logvar_init), device=device))
         return cls(unet=unet, diffusion=diffusion, channels=image_channels,
-                   cond_channels=cond_channels)
+                   cond_channels=cond_channels, logvar=logvar)
+
+    def named_parameters(self) -> List[Tuple[str, torch.nn.Parameter]]:
+        """The trainable parameters by name: the UNet's, then `logvar`."""
+        named = list(self.unet.named_parameters())
+        return named if self.logvar is None else named + [("logvar", self.logvar)]
 
     def apply_model(self, x: torch.Tensor, t: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """eps prediction with 'concat' conditioning."""

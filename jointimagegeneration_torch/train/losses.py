@@ -1,10 +1,12 @@
-"""Stage-1 training loss and timestep draw.
+"""Training losses for both stages, and the stage-1 timestep draw.
 
-Counterpart of `jointimagegeneration_tpu/train/losses.py` (the categorical
-part; the Gaussian loss comes with stage-2 training): per-voxel KL(theta_post
-(x_t, x0) || theta_post_prob(x_t, x0_pred)) summed over classes and weighted
-by the true class's weight, plus unweighted CE on the x0 prediction; both
-summed and divided by the batch size.
+Counterpart of `jointimagegeneration_tpu/train/losses.py`:
+  * stage 1 (categorical): per-voxel KL(theta_post(x_t, x0) ||
+    theta_post_prob(x_t, x0_pred)) summed over classes and weighted by the
+    true class's weight, plus unweighted CE on the x0 prediction; both summed
+    and divided by the batch size;
+  * stage 2 (Gaussian): l1 / l2 on eps (or x0), its per-example mean, with
+    the optional learned logvar[t] scaling and the lvlb (elbo) term.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 from ..diffusion.noise import NoiseSource
 
-__all__ = ["sample_train_timesteps", "categorical_diffusion_loss"]
+__all__ = ["sample_train_timesteps", "categorical_diffusion_loss", "gaussian_diffusion_loss"]
 
 _EPS = 1e-12
 
@@ -44,3 +46,29 @@ def categorical_diffusion_loss(theta_post_true: torch.Tensor, theta_post_pred: t
     loss_ce = ce.sum() / b
     loss = loss_kl + loss_ce
     return loss, {"loss": loss, "loss_kl": loss_kl, "loss_ce": loss_ce}
+
+
+def gaussian_diffusion_loss(model_out: torch.Tensor, target: torch.Tensor, t: torch.Tensor,
+                            lvlb_weights: torch.Tensor, loss_type: str = "l2",
+                            logvar: Optional[torch.Tensor] = None, l_simple_weight: float = 1.0,
+                            elbo_weight: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {"loss", "loss_simple", "loss_vlb"}): the per-example mean error
+    (B,), its batch mean, l_simple_weight x that mean (divided by exp(logvar[t])
+    plus logvar[t] when a (T,) `logvar` is given) + elbo_weight x the
+    lvlb_weights[t]-weighted mean."""
+    if loss_type == "l2":
+        err = (model_out - target) ** 2
+    elif loss_type == "l1":
+        err = (model_out - target).abs()
+    else:
+        raise ValueError(loss_type)
+    per_ex = err.mean(dim=tuple(range(1, err.ndim)))
+    loss_simple = per_ex.mean()
+    if logvar is not None:
+        lv = logvar[t]
+        loss_gamma = (per_ex / torch.exp(lv) + lv).mean()
+    else:
+        loss_gamma = loss_simple
+    loss_vlb = (lvlb_weights[t] * per_ex).mean()
+    loss = l_simple_weight * loss_gamma + elbo_weight * loss_vlb
+    return loss, {"loss": loss, "loss_simple": loss_simple, "loss_vlb": loss_vlb}

@@ -13,7 +13,12 @@ behave as the JAX package's optax chains do:
     only when norm >= max_norm (torch's clip_grad_norm_ adds 1e-6 and differs);
   * the schedule reads the optimizer's own count of applied updates, as
     optax's scale_by_schedule does: a step skipped for non-finite gradients
-    (train/state.py) advances neither the count nor the lr.
+    (train/state.py) advances neither the count nor the lr;
+  * `accumulate_steps` k > 1: optax.MultiSteps (mean over k micro-steps) —
+    each call folds its gradients into a running mean (acc += (g - acc) /
+    (n + 1), n the micro-step), and every k-th call hands the mean to the
+    clip and the update above and zeroes it; the other calls change no
+    parameter, and the count advances on applied updates only.
 """
 
 from __future__ import annotations
@@ -173,23 +178,40 @@ def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float) -> torch
 
 
 class Optimizer:
-    """A torch optimizer over named parameters, its lr schedule and an
-    optional global-norm clip.  `count` is the number of updates applied; the
-    schedule is evaluated at it before each update.  `state_dict` keys the
-    per-parameter state by parameter name."""
+    """A torch optimizer over named parameters, its lr schedule, an optional
+    global-norm clip and gradient accumulation over `accumulate_steps`
+    micro-steps.  `count` is the number of updates applied; the schedule is
+    evaluated at it before each update.  `state_dict` keys the per-parameter
+    state (and the accumulated gradients) by parameter name."""
 
     def __init__(self, named_params: Sequence[Tuple[str, torch.nn.Parameter]],
                  make: Callable[[list], torch.optim.Optimizer], schedule: Schedule,
-                 grad_clip: Optional[float] = None):
+                 grad_clip: Optional[float] = None, accumulate_steps: int = 1):
         self.named_params = list(named_params)
         self.torch_opt = make([p for _, p in self.named_params])
         self.schedule = schedule
         self.grad_clip = grad_clip
         self.count = 0
+        self.accumulate_steps = accumulate_steps
+        self.mini_step = 0  # micro-steps folded into acc_grads since the last update
+        self.acc_grads = [torch.zeros_like(p) for _, p in self.named_params] if accumulate_steps > 1 else None
 
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        """Apply one update from `grads` (in `named_params` order)."""
+        """Apply one update from `grads` (in `named_params` order); with
+        accumulate_steps k > 1, fold them into the running mean instead and
+        apply the mean on the k-th micro-step."""
         grads = list(grads)
+        if self.acc_grads is None:
+            self._update(grads)
+            return
+        n = self.mini_step
+        torch._foreach_add_(self.acc_grads, torch._foreach_div(torch._foreach_sub(grads, self.acc_grads), n + 1))
+        self.mini_step = (n + 1) % self.accumulate_steps
+        if self.mini_step == 0:
+            self._update(self.acc_grads)
+            torch._foreach_zero_(self.acc_grads)
+
+    def _update(self, grads: list) -> None:
         if self.grad_clip is not None:
             clip_by_global_norm(grads, self.grad_clip)
         for (_, p), g in zip(self.named_params, grads):
@@ -203,11 +225,37 @@ class Optimizer:
 
     def state_dict(self) -> dict:
         state = self.torch_opt.state
-        return {"count": self.count,
-                "state": {n: dict(state[p]) for n, p in self.named_params if p in state}}
+        sd = {"count": self.count,
+              "state": {n: dict(state[p]) for n, p in self.named_params if p in state}}
+        if self.acc_grads is not None:  # a resume inside an accumulation continues it
+            sd["accumulate_steps"] = self.accumulate_steps
+            sd["mini_step"] = self.mini_step
+            sd["acc_grads"] = {n: a for (n, _), a in zip(self.named_params, self.acc_grads)}
+        return sd
 
     def load_state_dict(self, sd: dict) -> None:
+        """Raises ValueError on a state inside an accumulation (mini_step > 0)
+        that this optimizer cannot continue: saved with another
+        accumulate_steps, or with fewer accumulated gradients than parameters.
+        A state without `accumulate_steps` (one bridged from optax.MultiSteps,
+        which does not record it) is taken to match where its mini_step fits."""
+        pending, saved_k = int(sd.get("mini_step", 0)), sd.get("accumulate_steps")
+        acc = sd.get("acc_grads", {})
+        if pending and (pending >= self.accumulate_steps
+                        or (saved_k is not None and int(saved_k) != self.accumulate_steps)
+                        or any(n not in acc for n, _ in self.named_params)):
+            raise ValueError(f"the optimizer state is {pending} micro-steps into an accumulation (accumulate_steps "
+                             f"{saved_k}, {len(acc)} accumulated gradients); this optimizer accumulates over "
+                             f"{self.accumulate_steps} micro-steps and {len(self.named_params)} parameters")
         self.count = int(sd["count"])
+        if self.acc_grads is not None:
+            self.mini_step = pending
+            with torch.no_grad():
+                for (n, _), a in zip(self.named_params, self.acc_grads):
+                    if n in acc:
+                        a.copy_(acc[n])
+                    else:
+                        a.zero_()
         self.torch_opt.state.clear()
         for n, p in self.named_params:
             if n in sd["state"]:
@@ -225,9 +273,8 @@ def build_optimizer(named_params: Sequence[Tuple[str, torch.nn.Parameter]], name
                     lr_restart_vals=1.0) -> Optimizer:
     """The JAX package's build_optimizer over `named_params`
     (`module.named_parameters()`): SGD wd 5e-4 momentum 0.9; Adam; AdamW wd
-    0.01.  Numbers that arrive as YAML strings ("1e-3") are coerced."""
-    if accumulate_steps > 1:
-        raise NotImplementedError("accumulate_steps > 1 (optax.MultiSteps) is not ported yet")
+    0.01; `accumulate_steps` > 1 wraps it as optax.MultiSteps does.  Numbers
+    that arrive as YAML strings ("1e-3") are coerced."""
     learning_rate = float(learning_rate)
     grad_clip = None if grad_clip is None else float(grad_clip)
     b1, b2 = (float(b) for b in betas)
@@ -244,4 +291,4 @@ def build_optimizer(named_params: Sequence[Tuple[str, torch.nn.Parameter]], name
                                             weight_decay=0.01 if wd is None else wd)
     else:
         raise ValueError(f"optimizer {name!r} not recognized")
-    return Optimizer(named_params, make, sched, grad_clip)
+    return Optimizer(named_params, make, sched, grad_clip, int(accumulate_steps))

@@ -8,6 +8,11 @@ state (and so its count) and EMA stay as they were, while `step` and
 `nonfinite_count` advance (optax.apply_if_finite's semantics), so a debug
 checkpoint taken after a NaN is the last good state.
 
+Under gradient accumulation (the optimizer's `accumulate_steps` > 1) every
+call is a micro-step, as in the JAX state: `step` advances on each, the EMA
+moves toward the params on each finite one (which change only on every k-th),
+and a non-finite one leaves the accumulated gradients as they were.
+
 The parameters (the module's, as the optimizer holds them) are updated in
 place; the EMA tensors are separate fp32 tensors on their device.
 """

@@ -8,11 +8,14 @@ tree paths joined by '/'.  Layout changes:
   * Dense kernels (in, out) -> Linear weights (out, in);
   * flax `GroupNorm_0` wrappers are dropped, `scale` becomes `weight`;
   * ResBlock parameters keep their flat names (`norm1_scale`, `conv1_kernel`,
-    `emb_kernel`, `skip_kernel`, ...), kernels re-laid as above.
+    `emb_kernel`, `skip_kernel`, ...), kernels re-laid as above;
+  * a stage-2 tree with a learned logvar, {"unet": <UNet tree>, "logvar":
+    (T,)}, gives the UNet's keys and `logvar` as it is.
 
 `train_state_from_jax` carries a whole JAX train state (params, EMA, an
-optax Adam / AdamW state) over as an `EMATrainState.state_dict()`, so a run
-started in the JAX package can continue in the port.
+optax Adam / AdamW state, optionally inside optax.MultiSteps) over as an
+`EMATrainState.state_dict()`, so a run started in the JAX package can
+continue in the port.
 """
 
 from __future__ import annotations
@@ -56,6 +59,8 @@ def unet_state_dict_from_jax(params: Union[Mapping, str, Path]) -> Dict[str, tor
     state = {}
     for path, arr in flat.items():
         path = [p for p in path if p != "GroupNorm_0"]
+        if path[0] == "unet" and len(path) > 1:  # {"unet": ..., "logvar": ...}
+            path = path[1:]
         if path[0] == "params":
             path = path[1:]
         leaf = path[-1]
@@ -82,10 +87,11 @@ def train_state_from_jax(params: Mapping, ema_params: Mapping, opt_state: Any, s
     """An `EMATrainState.state_dict()` from numpy trees as
     `jax.device_get(EMATrainState)` gives them: its `params`, `ema_params`
     and the `opt_state` of the JAX package's Adam / AdamW chain (optionally
-    behind clip_by_global_norm).  Adam's mu / nu / count become torch's
-    exp_avg / exp_avg_sq / step (the UNet bridge's layout transposes applied),
-    and the schedule's count the port optimizer's `count`.  `step` defaults
-    to that count."""
+    behind clip_by_global_norm, optionally inside optax.MultiSteps).  Adam's
+    mu / nu / count become torch's exp_avg / exp_avg_sq / step (the UNet
+    bridge's layout transposes applied), the schedule's count the port
+    optimizer's `count`, and MultiSteps' mini_step / acc_grads its
+    accumulation.  `step` defaults to that count."""
     adam = _find_states(opt_state, "mu")
     if len(adam) != 1:
         raise ValueError("train_state_from_jax carries an Adam / AdamW optax state (one "
@@ -95,12 +101,15 @@ def train_state_from_jax(params: Mapping, ema_params: Mapping, opt_state: Any, s
     count = int(np.asarray(schedule[0].count if schedule else adam.count))
     mu, nu = unet_state_dict_from_jax(adam.mu), unet_state_dict_from_jax(adam.nu)
     adam_step = torch.tensor(float(np.asarray(adam.count)))
+    optimizer = {"count": count,
+                 "state": {n: {"step": adam_step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]} for n in mu}}
+    for multi in _find_states(opt_state, "mini_step"):
+        optimizer["mini_step"] = int(np.asarray(multi.mini_step))
+        optimizer["acc_grads"] = unet_state_dict_from_jax(multi.acc_grads)
     return {
         "params": unet_state_dict_from_jax(params),
         "ema": unet_state_dict_from_jax(ema_params),
-        "optimizer": {"count": count,
-                      "state": {n: {"step": adam_step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
-                                for n in mu}},
+        "optimizer": optimizer,
         "step": count if step is None else int(step),
         "nonfinite_count": int(nonfinite_count),
     }

@@ -4,13 +4,15 @@
     python3 scripts/profile_torch_path.py [--steps N] [--out build/profile_torch_path.json]
 
 At the full widths that `chip_smoke.py` drives (its `TWO_STAGE_CFG`, from
-`configs/sample_two_stage.yml`, and its `STAGE1_TRAIN_CFG`, from
-`configs/stage1_mask.yml`; bf16, seeded random weights with the zero-init
+`configs/sample_two_stage.yml`, its `STAGE1_TRAIN_CFG`, from
+`configs/stage1_mask.yml`, and its `STAGE2_TRAIN_CFG`, from
+`configs/stage2_ldm.yml`; bf16, seeded random weights with the zero-init
 kernels un-zeroed as the sample CLI does), times one stage-1 denoise step at
 64x128x128 (the unfused UNet, then the same weights with
 use_fused_resblock='kernel', whose convs are `csrc/conv3d.cu`'s kernel), one
-stage-2 DDIM step at 256x256 and 512x512, and one stage-1
-train step (forward, backward, AdamW, EMA) at 64x128x128 with CUDA events,
+stage-2 DDIM step at 256x256 and 512x512, one stage-1 train step (forward,
+backward, AdamW, EMA) at 64x128x128 and one stage-2 train step (b = 1, AdamW,
+LitEma warmup EMA; the trainer's fresh init) at 512x512 with CUDA events,
 then traces a few steps of each with torch.profiler and sums the kernels'
 device time by kind (convolution by cuDNN, the port's conv3d kernel,
 flash_fwd, flash_bwd, GroupNorm/elementwise,
@@ -33,10 +35,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import STAGE1_TRAIN_CFG, TWO_STAGE_CFG, conv_flags, fused_conv_calls  # noqa: E402
+from chip_smoke import STAGE1_TRAIN_CFG, STAGE2_TRAIN_CFG, TWO_STAGE_CFG, conv_flags, fused_conv_calls  # noqa: E402
 from jointimagegeneration_torch.cli.sample import build_mask_sampler, build_slice_ldm, load_weights  # noqa: E402
 from jointimagegeneration_torch.core.runtime import configure_precision  # noqa: E402
-from jointimagegeneration_torch.data.datasets import SyntheticMaskDataset  # noqa: E402
+from jointimagegeneration_torch.data.datasets import SyntheticMaskDataset, SyntheticSliceDataset  # noqa: E402
 from jointimagegeneration_torch.diffusion.ddim import DDIMParams, ddim_step  # noqa: E402
 from jointimagegeneration_torch.diffusion.noise import NoiseSource  # noqa: E402
 from jointimagegeneration_torch.ops import conv3d as conv  # noqa: E402
@@ -44,7 +46,7 @@ from jointimagegeneration_torch.ops import flash_attention as flash  # noqa: E40
 from jointimagegeneration_torch.ops.cuda.build import build_all  # noqa: E402
 from jointimagegeneration_torch.train.optim import build_optimizer  # noqa: E402
 from jointimagegeneration_torch.train.state import EMATrainState  # noqa: E402
-from jointimagegeneration_torch.train.steps import make_mask_train_step  # noqa: E402
+from jointimagegeneration_torch.train.steps import make_ldm_train_step, make_mask_train_step  # noqa: E402
 
 KINDS = [  # (kind, pattern on the kernel name), first match wins
     ("conv3d_kernel", r"conv3d_wgmma_kernel|conv3d_ffma_kernel|splitk_reduce_kernel|stats_reduce_kernel"),
@@ -195,6 +197,18 @@ def main() -> int:
     batch = {k: torch.from_numpy(item[k])[None].cuda() for k in ("mask", "image")}
     train_step = make_mask_train_step(model, torch.ones(12, device="cuda"))
     rows.append(measure("stage1_train_step_64x128x128", lambda: train_step(state, batch, noise), args.steps))
+    del model, state, batch, train_step
+    torch.cuda.empty_cache()
+
+    cfg2 = STAGE2_TRAIN_CFG
+    ldm = build_slice_ldm(cfg2["model"], "cuda", seed=cfg2["seed"])  # the CLI's init
+    lr = cfg2["accumulate_grad_batches"] * cfg2["batch_size"] * cfg2["model"]["base_learning_rate"]
+    state = EMATrainState(build_optimizer(ldm.named_parameters(), "AdamW", lr, total_steps=100_000),
+                          ema_decay=0.9999, ema_warmup=True)
+    item = SyntheticSliceDataset(1, tuple(cfg2["dataset"]["slice_shape"]), cfg2["dataset"]["depth"])[0]
+    batch = {k: torch.from_numpy(item[k])[None].cuda() for k in ("image", "cond")}
+    ldm_step = make_ldm_train_step(ldm)
+    rows.append(measure("stage2_train_step_512x512", lambda: ldm_step(state, batch, noise), args.steps))
     for r in rows:
         r["card"] = card
     out = Path(args.out)

@@ -23,7 +23,8 @@ import torch
 
 from jointimagegeneration_torch.ops import flash_attention as tflash
 
-MAIN = [(8, 2048, 2048, 32), (16, 1024, 1024, 32), (16, 4096, 4096, 32), (20, 1024, 1024, 32)]
+MAIN = [(8, 2048, 2048, 32), (16, 1024, 1024, 32), (16, 4096, 4096, 32), (20, 1024, 1024, 32),
+        (32, 4096, 4096, 32), (40, 1024, 1024, 32)]  # the last two: the 512x512 stage-2 validation batch
 EDGE = [(3, 100, 77, 40), (2, 130, 200, 256), (2, 1088, 1088, 16), (1, 64, 64, 128), (2, 130, 70, 256),
         (1, 7, 3, 5), (2, 130, 40, 40)]
 CASES = ([pytest.param(s, torch.bfloat16, id="bf16-" + "x".join(map(str, s))) for s in MAIN + EDGE]

@@ -412,10 +412,24 @@ def test_cli_halts_on_non_finite_and_rejects_unported(tmp_path):
         tcli.run(cfg, "nan")
     assert CheckpointManager(tmp_path / "r" / "nan" / "checkpoints").all_steps()["rolling"] == [2]
     for bad in ({"remat": True}, {"init_from": {"path": "x"}}, {"dataset": {"kind": "ruijin"}},
-                {"feature_cond_encoder": {"type": "selfattn"}}, {"profile_steps": 2},
-                {"optim": {"name": "AdamW", "accumulate_steps": 2}}):
+                {"feature_cond_encoder": {"type": "selfattn"}}, {"profile_steps": 2}):
         with pytest.raises(NotImplementedError):
             tcli.run(_tiny_cfg(tmp_path / "x", **bad), "bad")
+
+
+def test_cli_trains_with_gradient_accumulation(tmp_path):
+    """optim.accumulate_steps 2: four micro-steps apply two updates, the EMA
+    moves on each, and the checkpoint at step 3 holds the pending gradients."""
+    cfg = _tiny_cfg(tmp_path / "a", max_steps=4, save_freq=3, validate=False)
+    cfg["optim"] = {**cfg["optim"], "accumulate_steps": 2}
+    state = tcli.run(cfg, "acc")
+    assert state.step == 4 and state.optimizer.count == 2 and state.optimizer.mini_step == 0
+    recs = [json.loads(line) for line in (tmp_path / "a" / "acc" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["train/grad_finite"] for r in recs] == [1.0] * 4
+    saved = CheckpointManager(tmp_path / "a" / "acc" / "checkpoints").restore(3)
+    assert saved["optimizer"]["count"] == 1 and saved["optimizer"]["mini_step"] == 1
+    assert any(float(g.abs().max()) > 0 for g in saved["optimizer"]["acc_grads"].values())
+    assert max((e - p).abs().max().item() for e, p in zip(state.ema, state.params)) > 0
 
 
 def test_trainer_signals_weight_snapshots_and_empty_loader(tmp_path):

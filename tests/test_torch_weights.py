@@ -83,6 +83,13 @@ class ReplayNoise:
     def gumbel(self, shape):
         return self._next("gumbel", shape)
 
+    def randint(self, low, high, shape):
+        assert self.draws, f"no draw left for randint{tuple(shape)}"
+        k, arr = self.draws.pop(0)
+        assert k == "randint" and tuple(arr.shape) == tuple(shape), (k, arr.shape, tuple(shape))
+        assert low <= arr.min() and arr.max() < high, (arr, low, high)
+        return torch.from_numpy(np.asarray(arr, np.int64))
+
 
 def jax_mask_draws(key, shape, num_classes, n_steps):
     """The gumbel draws of MaskSampler.sample (mask_sampler.py:211-222;
