@@ -22,41 +22,55 @@ Phases, in order (any failure exits non-zero and prints no result line):
      its edge shapes;
   3. reference: a tiny two-stage pipeline on the card against the same
      pipeline on the CPU (same weights, same noise);
-  4. fused reference: tiny fp32 fused MaskSamplers ('kernel' and 'xla') and
+  4. sampler reference: the stage-2 sampler routes of a tiny fp32 SliceLDM
+     (32x32 slices, T = 1024 at its attention sites) on the card against the
+     CPU (`sampler reference (...)` lines): DPM and PLMS volumes with and
+     without warm start, DDIM with guidance, inpaint, outpaint, a tiled
+     48x48 slice, and at T = 20 p_sample_loop, progressive_denoising and
+     log_images; then stream_volume against sample_volume, bit for bit;
+  5. fused reference: tiny fp32 fused MaskSamplers ('kernel' and 'xla') and
      one fp32 fused ResBlock's forward and backward on the card against the
      CPU (`fused reference ...` lines);
-  5. path: `cli.sample.run` on `configs/sample_two_stage.yml`'s full widths
+  6. path: `cli.sample.run` on `configs/sample_two_stage.yml`'s full widths
      (stage 1 64x128x128 at base 64, stage 2 256x256 at base 128, bf16), with
      only the lengths cut: 4 mask steps, the full 128x256x256 handoff, and two
      chunks of 2 slices with the full DDIM-50 chain;
-  6. fused path: the same stage-1 sampler built with
+     fast path: the path's run again (warm), then `cli.sample.run` on
+     `configs/sample_two_stage_fast.yml`, cut only in slices (25 mask steps,
+     4 slices in one chunk, DPM-Solver++(2M) at 20 uniform-lambda nodes),
+     then the variant with PLMS, warm start 0.4 and guidance 2.0; stage-2
+     s/slice beside the DDIM-50 path's;
+     tiled path: `SliceLDM.sample_volume` at 512x512, tiled in 256x256
+     windows at stride 128 (9 windows), one slice, DDIM-4;
+  7. fused path: the same stage-1 sampler built with
      use_fused_resblock='kernel', 'xla' and use_pallas_conv=True, 4 steps
      each beside the unfused model, same weights and draws: s/step, launch
      counts (per step fused: 54 conv, 27 stats-reduce and a split-K reduce
      for each conv the launch planner splits; 8 conv under pallas_conv) and
      probabilities against an fp32 forward (`fused path ...`);
-  7. train reference: three fp32 stage-1 train steps of a small UNet (T = 512
+  8. train reference: three fp32 stage-1 train steps of a small UNet (T = 512
      at its attention sites, so the card runs the kernels) on the card against
      the same steps on the CPU: loss, every gradient and the params after
      each step;
-  8. train path: `cli.train_mask.run` on `configs/stage1_mask.yml`'s full
+  9. train path: `cli.train_mask.run` on `configs/stage1_mask.yml`'s full
      widths (64x128x128, 12 classes, base 64, bf16, AdamW, EMA), with only the
      lengths cut: 6 steps with checkpoints at 3 and 6 and one validation at 6,
      then a resumed run to step 8;
-  9. ldm train reference: three fp32 stage-2 train steps of a small 2D
+ 10. ldm train reference: three fp32 stage-2 train steps of a small 2D
      SliceLDM with a learned logvar (T = 1024 at its attention sites, so the
      card runs the flash kernels) on the card against the same steps on the
      CPU: loss, every gradient and the params after each step;
- 10. ldm train path: `cli.train_ldm.run` on `configs/stage2_ldm.yml`'s full
+ 11. ldm train path: `cli.train_ldm.run` on `configs/stage2_ldm.yml`'s full
      widths (512x512 slices, base 128, mult (1,2,4,4,5), bf16, AdamW, LitEma
      EMA), with only the lengths cut: 6 steps with checkpoints at 3 and 6 and
-     one validation (the val loss of 2 slices at t = T/2) at 6, then a resumed
-     run to step 8; its ~2.8 GB checkpoints are deleted at the end.
-Before each main path (5, 6 per variant, 8, 10) every kernel launch counter is
-set to 0; after it the counts must equal what the path implies.  The last
-lines are the fused and train summaries, a JSON line with the kernel numbers,
-the card's name and power limit, and `{"ok": true, "device": {...}}`.  Imports
-neither JAX nor PyYAML.
+     one validation at 6 (the panels of 2 slices: three DDIM-20 chains,
+     written as PNGs; then the val loss at t = T/2), then a resumed run to
+     step 8; its ~2.8 GB checkpoints are deleted at the end.
+Before each main path (6 per run, 7 per variant, 9, 11) every kernel launch
+counter is set to 0; after it the counts must equal what the path implies.
+The last lines are the sampling, fused and train summaries, a JSON line with
+the kernel numbers, the card's name and power limit, and `{"ok": true,
+"device": {...}}`.  Imports neither JAX nor PyYAML.
 """
 
 from __future__ import annotations
@@ -147,6 +161,17 @@ TWO_STAGE_CFG = {  # configs/sample_two_stage.yml, lengths cut
                                    "attention_resolutions": [32, 16, 8], "num_head_channels": 32}},
     },
 }
+
+FAST_CFG = {  # configs/sample_two_stage_fast.yml (DPM-Solver++(2M), 20 uniform-lambda nodes), slices cut
+    **TWO_STAGE_CFG,
+    "mask_steps": 25,
+    "ddim_steps": 20,
+    "ddim_discretize": "uniform_lambda",
+    "sampler": "dpm",
+    "chunk": 4,  # one chunk: warm start carries across all the slices
+    "slices": 4,
+}
+FAST_VARIANT = {"sampler": "plms", "warm_start": 0.4, "guidance_scale": 2.0}
 
 STAGE1_TRAIN_CFG = {  # configs/stage1_mask.yml, lengths cut
     "seed": 0,
@@ -707,6 +732,97 @@ def reference_phase(flash) -> float:
     return err
 
 
+SAMPLER_REF_TOL = 1e-3  # card vs CPU, fp32, max abs: the reference phase's limit
+
+
+def sampler_reference_phase(flash) -> dict:
+    """The stage-2 sampler routes on a tiny fp32 SliceLDM (LDM_REF_UNET at
+    32x32 slices: T = 1024 at its 4 attention sites, so the card runs the
+    kernel) on the card against the CPU, same weights, same draws: DPM and
+    PLMS volumes with and without warm start 0.5, DDIM with guidance 2.0,
+    inpaint and outpaint, a 48x48 slice tiled in 32x32 windows, and at T = 20
+    p_sample_loop, progressive_denoising and log_images.  Each within
+    SAMPLER_REF_TOL, its launches 4 x its UNet calls on the card and 0 on the
+    CPU; then stream_volume equals sample_volume bit for bit on the card.
+    Returns the launches and errors by route."""
+    from jointimagegeneration_torch.cli.sample import build_slice_ldm
+    from jointimagegeneration_torch.core.runtime import configure_precision
+    from jointimagegeneration_torch.diffusion.ddim import DDIMParams
+
+    configure_precision()
+    gen = torch.Generator().manual_seed(8)
+    mask = (torch.randint(0, 12, (1, 3, 32, 32, 1), generator=gen) / 11.0)
+    wide = (torch.randint(0, 12, (1, 1, 48, 48, 1), generator=gen) / 11.0)
+    image, prev = torch.rand((2, 32, 32, 1), generator=gen), torch.rand((2, 32, 32, 1), generator=gen)
+    cond = torch.cat([prev, mask[0, :2]], dim=-1)
+    keep = torch.zeros((2, 32, 32, 1))
+    keep[:, :, :16] = 1.0
+    routes = {  # route -> (model, fn(SliceLDM, noise, DDIMParams, to_device) -> one tensor of its outputs)
+        "dpm": ("t100", lambda m, n, d, c: m.sample_volume(n, c(mask), d, sampler="dpm")),
+        "dpm warm 0.5": ("t100", lambda m, n, d, c: m.sample_volume(n, c(mask), d, sampler="dpm", warm_start=0.5)),
+        "plms": ("t100", lambda m, n, d, c: m.sample_volume(n, c(mask), d, sampler="plms")),
+        "plms warm 0.5": ("t100", lambda m, n, d, c: m.sample_volume(n, c(mask), d, sampler="plms",
+                                                                      warm_start=0.5)),
+        "ddim guidance 2.0": ("t100", lambda m, n, d, c: m.sample_volume(n, c(mask), d, guidance_scale=2.0)),
+        "inpaint": ("t100", lambda m, n, d, c: m.sample_slice(n, c(cond), d, inpaint_mask=c(keep),
+                                                              inpaint_x0=c(image))),
+        "outpaint": ("t100", lambda m, n, d, c: m.sample_slice(n, c(cond), d, inpaint_mask=c(1.0 - keep),
+                                                               inpaint_x0=c(image))),
+        "tile 32/16 on 48x48": ("t100", lambda m, n, d, c: m.sample_volume(n, c(wide), d, tile=((32, 32), (16, 16)))),
+        "p_sample_loop": ("t20", lambda m, n, d, c: torch.cat([r.flatten() for r in m.p_sample_loop(
+            n, c(cond), return_intermediates=True)])),
+        "progressive_denoising": ("t20", lambda m, n, d, c: torch.cat(
+            [r.flatten() for r in m.progressive_denoising(n, c(cond))])),
+        "log_images": ("t20", lambda m, n, d, c: torch.cat([torch.from_numpy(v).flatten() for v in m.log_images(
+            n, {"image": c(image), "cond": c(cond)}, d, progressive=True).values()])),
+    }
+    models, init = {}, {}
+    for device in ("cpu", "cuda"):
+        for name, timesteps, steps in (("t100", 100, 10), ("t20", 20, 5)):
+            ldm = build_slice_ldm({"bf16": False, "timesteps": timesteps, "unet_config": {"params": LDM_REF_UNET}},
+                                  device)
+            if name not in init:
+                with torch.no_grad():
+                    for p in ldm.unet.parameters():
+                        p.add_(0.02 * torch.randn(p.shape, generator=gen))  # un-zero every kernel
+                init[name] = ldm.unet.state_dict()
+            else:
+                ldm.unet.load_state_dict(init[name])
+            models[device, name] = (ldm, DDIMParams.create(ldm.diffusion, steps, method="uniform_lambda"))
+    sites = flash_sites([32, 32], LDM_REF_UNET, "channel_mult")
+    out = {}
+    for route, (name, fn) in routes.items():
+        res = []
+        for device in ("cpu", "cuda"):
+            ldm, ddim = models[device, name]
+            calls = []
+            hook = ldm.unet.register_forward_pre_hook(lambda *_: calls.append(1))
+            before = flash.flash_forward.launches
+            with torch.inference_mode():
+                y = fn(ldm, _CpuDrawnNoise(4, device), ddim, lambda t: t.to(device))
+            hook.remove()
+            res.append((y.float().cpu(), flash.flash_forward.launches - before, len(calls)))
+        (y_cpu, n_cpu, calls_cpu), (y_gpu, n_gpu, calls_gpu) = res
+        err = (y_gpu - y_cpu).abs().max().item()
+        print(f"sampler reference ({route}): tiny fp32 SliceLDM, card vs CPU max abs diff {err:.3g} "
+              f"(tol {SAMPLER_REF_TOL}); {calls_gpu} UNet calls, flash_fwd launches cpu {n_cpu}, card {n_gpu}",
+              flush=True)
+        check(bool(torch.isfinite(y_gpu).all()) and y_gpu.shape == y_cpu.shape, f"sampler reference ({route}): output")
+        check(calls_cpu == calls_gpu > 0 and n_cpu == 0 and n_gpu == sites * calls_gpu,
+              f"sampler reference ({route}): launches cpu {n_cpu}, card {n_gpu}, UNet calls {calls_gpu}")
+        check(err <= SAMPLER_REF_TOL, f"sampler reference ({route}): card and CPU disagree by {err}")
+        out[route] = {"max_abs_err": err, "launches": n_gpu}
+    ldm, ddim = models["cuda", "t100"]
+    kw = {"sampler": "dpm", "warm_start": 0.5, "guidance_scale": 2.0}
+    with torch.inference_mode():
+        streamed = torch.stack(list(ldm.stream_volume(_CpuDrawnNoise(5, "cuda"), mask.cuda(), ddim, **kw)), dim=1)
+        whole = ldm.sample_volume(_CpuDrawnNoise(5, "cuda"), mask.cuda(), ddim, **kw)
+    check(torch.equal(streamed, whole), "sampler reference: stream_volume differs from sample_volume on the card")
+    print("sampler reference: stream_volume equals sample_volume bit for bit on the card (dpm, warm 0.5, "
+          "guidance 2.0)", flush=True)
+    return out
+
+
 def flash_sites(spatial, cfg_unet: dict, mult_key: str) -> int:
     """Attention sites of one UNet forward that take the flash kernel (T >= 512)."""
     from jointimagegeneration_torch.ops.attention import FLASH_MIN_SEQ
@@ -722,39 +838,124 @@ def flash_sites(spatial, cfg_unet: dict, mult_key: str) -> int:
     return n + (math.prod(s // mid_ds for s in spatial) >= FLASH_MIN_SEQ)
 
 
-def path_phase(flash, card: str) -> int:
+def stage2_calls(cfg: dict) -> int:
+    """UNet calls of `cli.sample.run`'s stage 2 under `cfg`: per slice S nodes
+    (DDIM, DPM) or S + 1 (PLMS's Heun step); under warm_start f a slice after
+    each chunk's first runs k = max(1, min(S, round(f * S))) nodes
+    (SliceLDM.warm_start_index); guidance (a scale other than 1) doubles
+    every call."""
+    s = cfg["ddim_steps"]
+    plms = cfg.get("sampler", "ddim") == "plms"
+    f = cfg.get("warm_start")
+    k = s if f is None else max(1, min(s, int(round(f * s))))
+    n_chunks = cfg["slices"] // cfg.get("chunk", cfg["slices"])
+    per_chunk = (s + plms) + (cfg.get("chunk", cfg["slices"]) - 1) * (k + plms)
+    return n_chunks * per_chunk * (2 if float(cfg.get("guidance_scale", 1.0)) != 1.0 else 1)
+
+
+def sampling_run(flash, cfg: dict, label: str, card: str) -> dict:
+    """`cli.sample.run(cfg)` on the card with the launch counts zeroed before
+    it; checks the outputs, the files and that flash_fwd (and no other
+    kernel) launched mask_steps x stage-1 sites + stage2_calls x stage-2
+    sites times.  Returns the launches and stage-2 s/slice."""
     from jointimagegeneration_torch.cli.sample import run
 
-    cfg = json.loads(json.dumps(TWO_STAGE_CFG))
-    cfg["output_path"] = str(ROOT / "build" / "chip_smoke" / "samples")
     s1, s2 = cfg["stage1"], cfg["stage2"]
     u2 = s2["unet_config"]["params"]
     expected = (cfg["mask_steps"] * flash_sites(s1["dataset"]["volume_shape"], s1["unet_openai"], "channel_mult")
-                + cfg["slices"] * cfg["ddim_steps"] * flash_sites([s2["slice_size"]] * 2, u2, "channel_mult"))
+                + stage2_calls(cfg) * flash_sites([s2["slice_size"]] * 2, u2, "channel_mult"))
     _reset_counts(flash)
     t0 = time.perf_counter()
     result = run(cfg, device="cuda")
     wall = time.perf_counter() - t0
     launches = flash.flash_forward.launches
     others = {k: v for k, v in _counts(flash).items() if k != "flash_fwd"}
-    check(not any(others.values()), f"sampling launched other kernels: {others}")
+    check(not any(others.values()), f"{label}: sampling launched other kernels: {others}")
     ct, labels = result["ct"], result["labels"]
-    check(ct.shape == (1, cfg["slices"], *cfg["volume_shape"][1:]), f"CT shape {ct.shape}")
-    check(labels.shape == (1, *cfg["volume_shape"]), f"label shape {labels.shape}")
-    check(bool(np.isfinite(ct).all()), "CT has non-finite values")
-    check(float(ct.min()) >= 0.0 and float(ct.max()) <= 1.0, f"CT outside [0, 1]: {ct.min()} {ct.max()}")
-    check(int(labels.min()) >= 0 and int(labels.max()) < s1["num_classes"], "labels outside [0, 12)")
+    check(ct.shape == (1, cfg["slices"], *cfg["volume_shape"][1:]), f"{label}: CT shape {ct.shape}")
+    check(labels.shape == (1, *cfg["volume_shape"]), f"{label}: label shape {labels.shape}")
+    check(bool(np.isfinite(ct).all()), f"{label}: CT has non-finite values")
+    check(float(ct.min()) >= 0.0 and float(ct.max()) <= 1.0, f"{label}: CT outside [0, 1]: {ct.min()} {ct.max()}")
+    check(int(labels.min()) >= 0 and int(labels.max()) < s1["num_classes"], f"{label}: labels outside [0, 12)")
     for name in ("image.nii.gz", "pred.nii.gz"):
-        check((Path(cfg["output_path"]) / "case_0000" / name).stat().st_size > 352, f"{name} not written")
-    check(launches == expected, f"flash_fwd launched {launches} times on the main path, expected {expected}")
+        check((Path(cfg["output_path"]) / "case_0000" / name).stat().st_size > 352, f"{label}: {name} not written")
+    check(launches == expected, f"{label}: flash_fwd launched {launches} times, expected {expected}")
     sec = result["seconds"]
-    print(f"path: stage 1 ({cfg['mask_steps']} steps at 64x128x128, base 64, bf16) {sec['stage1']:.3f} s, "
+    route = ", ".join(f"{k} {cfg[k]}" for k in ("ddim_discretize", "warm_start", "guidance_scale") if k in cfg)
+    s_slice = sec["stage2"] / cfg["slices"]
+    print(f"{label}: stage 1 ({cfg['mask_steps']} steps at 64x128x128, base 64, bf16) {sec['stage1']:.3f} s, "
           f"{sec['stage1'] / cfg['mask_steps']:.4f} s/step; stage 2 ({cfg['slices']} slices x "
-          f"{cfg['ddim_steps']} DDIM steps at 256x256, base 128, bf16) {sec['stage2']:.3f} s, "
-          f"{sec['stage2'] / (cfg['slices'] * cfg['ddim_steps']):.4f} s/step; run() wall {wall:.3f} s "
-          f"(incl. model init and NIfTI writes); flash_fwd launches {launches} = expected {expected}; "
-          f"classes present {np.unique(labels).size}; card {card}", flush=True)
-    return launches
+          f"{cfg['ddim_steps']} {cfg.get('sampler', 'ddim')} nodes{', ' + route if route else ''}, at 256x256, "
+          f"base 128, bf16; {stage2_calls(cfg)} UNet calls) {sec['stage2']:.3f} s, {s_slice:.4f} s/slice, "
+          f"{sec['stage2'] / stage2_calls(cfg):.4f} s/call; run() wall {wall:.3f} s (incl. model init and NIfTI "
+          f"writes); flash_fwd launches {launches} = expected {expected}; classes present "
+          f"{np.unique(labels).size}; card {card}", flush=True)
+    return {"launches": launches, "s_per_slice": s_slice, "stage2_s": sec["stage2"], "stage1_s": sec["stage1"],
+            "stage2_calls": stage2_calls(cfg)}
+
+
+def path_phase(flash, card: str) -> dict:
+    cfg = json.loads(json.dumps(TWO_STAGE_CFG))
+    cfg["output_path"] = str(ROOT / "build" / "chip_smoke" / "samples")
+    return sampling_run(flash, cfg, "path", card)
+
+
+def fast_path_phase(flash, card: str, ddim_path: dict) -> dict:
+    """`cli.sample.run` on `configs/sample_two_stage.yml` again (the path
+    phase's run, now with the stage-2 UNet warm), on
+    `configs/sample_two_stage_fast.yml` (FAST_CFG), then on its variant (PLMS,
+    warm start 0.4, guidance 2.0): stage-2 s/slice of DPM-20 beside DDIM-50's,
+    warm and as the path phase read it."""
+    out = {}
+    for name, base, extra in (("ddim path, warm", TWO_STAGE_CFG, {}), ("fast path", FAST_CFG, {}),
+                              ("fast path variant", FAST_CFG, FAST_VARIANT)):
+        cfg = json.loads(json.dumps({**base, **extra}))
+        cfg["output_path"] = str(ROOT / "build" / "chip_smoke" / name.replace(" ", "_").replace(",", ""))
+        out[name] = sampling_run(flash, cfg, name, card)
+    fast, warm = out["fast path"]["s_per_slice"], out["ddim path, warm"]["s_per_slice"]
+    print(f"fast path: stage 2 {fast:.4f} s/slice (DPM-{FAST_CFG['ddim_steps']}) against "
+          f"DDIM-{TWO_STAGE_CFG['ddim_steps']}'s {warm:.4f} warm ({warm / fast:.2f}x) "
+          f"and {ddim_path['s_per_slice']:.4f} in the path phase, the process's first 256x256 stage-2 calls "
+          f"({ddim_path['s_per_slice'] / fast:.2f}x); variant {out['fast path variant']['s_per_slice']:.4f} s/slice; "
+          f"card {card}", flush=True)
+    return out
+
+
+def tiled_path_phase(flash, card: str) -> dict:
+    """`SliceLDM.sample_volume` at 512x512 with `configs/sample_two_stage.yml`'s
+    stage-2 UNet, patch-tiled 256x256 at stride 128 (9 windows, each at the
+    256x256 sites), one slice, DDIM-4: launches = windows x steps x sites."""
+    from jointimagegeneration_torch.cli.sample import build_slice_ldm, load_weights
+    from jointimagegeneration_torch.diffusion.ddim import DDIMParams
+    from jointimagegeneration_torch.diffusion.noise import NoiseSource
+    from jointimagegeneration_torch.ops.tiling import _offsets
+
+    s2, seed, steps, size, tile = TWO_STAGE_CFG["stage2"], TWO_STAGE_CFG["seed"], 4, 512, ((256, 256), (128, 128))
+    ldm = build_slice_ldm(s2, "cuda")
+    load_weights(ldm.unet, None, TWO_STAGE_CFG["fresh_init_noise"], seed + 2)
+    ddim = DDIMParams.create(ldm.diffusion, steps)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    labels = torch.randint(0, 12, (1, 1, size // 8, size // 8), generator=gen, device="cuda")
+    mask = (labels.repeat_interleave(8, 2).repeat_interleave(8, 3) / 11.0)[..., None]  # 8x8 label blocks
+    windows = len(_offsets(size, tile[0][0], tile[1][0])) * len(_offsets(size, tile[0][1], tile[1][1]))
+    expected = windows * steps * flash_sites(list(tile[0]), s2["unet_config"]["params"], "channel_mult")
+    _reset_counts(flash)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        vol = ldm.sample_volume(NoiseSource(seed, "cuda"), mask, ddim, tile=tile)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = _counts(flash)
+    check(launches == {**{k: 0 for k in launches}, "flash_fwd": expected},
+          f"tiled path: launches {launches}, expected {expected} flash_fwd")
+    check(tuple(vol.shape) == (1, 1, size, size, 1) and bool(torch.isfinite(vol).all())
+          and float(vol.min()) >= 0.0 and float(vol.max()) <= 1.0, f"tiled path: volume {tuple(vol.shape)}")
+    print(f"tiled path: 1 slice at {size}x{size}, tile {tile} ({windows} windows), DDIM-{steps}, base 128, bf16: "
+          f"{sec:.3f} s, {sec / (windows * steps):.4f} s per window call; flash_fwd launches {expected} = expected; "
+          f"card {card}", flush=True)
+    del ldm, vol
+    torch.cuda.empty_cache()
+    return {"launches": expected, "seconds": sec, "windows": windows}
 
 
 def _counts(flash) -> dict:
@@ -1198,8 +1399,12 @@ def ldm_train_path_phase(flash, card: str) -> dict:
     logdir = out_dir / "smoke"
     sites = flash_sites(cfg["dataset"]["slice_shape"], cfg["model"]["unet_config"]["params"], "channel_mult")
     n_steps, n_eval = cfg["max_steps"], cfg["max_steps"] // cfg["eval_every"]
-    expected = {"flash_fwd": sites * (n_steps + n_eval), "flash_bwd_dkv": sites * n_steps,
-                "flash_bwd_dq": sites * n_steps,  # validation: one forward of its batch
+    # a validation: the panels' three DDIM chains (samples, inpaint, outpaint)
+    # of log_ddim_steps (20, at most T/2) forwards each, then one forward of
+    # its batch for val/loss_simple
+    panel_calls = 3 * min(cfg.get("log_ddim_steps", 20), cfg["model"]["timesteps"] // 2)
+    expected = {"flash_fwd": sites * (n_steps + n_eval * (1 + panel_calls)), "flash_bwd_dkv": sites * n_steps,
+                "flash_bwd_dq": sites * n_steps,
                 "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}  # a 2D UNet
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -1213,8 +1418,13 @@ def ldm_train_path_phase(flash, card: str) -> dict:
         check(all(r["train/grad_finite"] == 1.0 and r["train/nonfinite_skipped"] == 0.0 for r in train),
               "ldm train path: a step had non-finite gradients")
         val = [(r["step"], r["val/loss_simple"]) for r in recs if "val/loss_simple" in r]
+        panel_s = [r["val/panel_seconds"] for r in recs if "val/panel_seconds" in r]
         check(len(val) == 1 and val[0][0] == n_steps and math.isfinite(val[0][1]) and val[0][1] > 0,
               f"ldm train path: val/loss_simple {val}")
+        pngs = sorted(p.name for p in (logdir / "images").glob("*.png"))
+        check(pngs == sorted(f"val_{n}_gs-{n_steps:06d}.png" for n in
+                             ("inputs", "samples", "inpaint", "outpaint", "denoise_row", "overlay")),
+              f"ldm train path: panels {pngs}")
         steps = CheckpointManager(logdir / "checkpoints").all_steps()
         check(steps["rolling"] == [3, 6] and steps["best"] == [6], f"ldm train path: checkpoints {steps}")
         ckpt_gb = (logdir / "checkpoints" / "6.pt").stat().st_size / 1e9
@@ -1229,9 +1439,11 @@ def ldm_train_path_phase(flash, card: str) -> dict:
         print(f"ldm train path: stage 2 (512x512, base 128, {n_params / 1e6:.1f}M params, bf16, AdamW + EMA) "
               f"{n_steps} steps, warmed {s_per_step:.4f} s/step (median of steps 2-{n_steps}; step 1 "
               f"{train[0]['train/step_seconds']:.3f} s), losses {[round(r['train/loss'], 4) for r in train]}, "
-              f"val/loss_simple {val[0][1]:.4f}, peak torch.cuda.max_memory_allocated {peak_gib:.2f} GiB, "
-              f"checkpoint {ckpt_gb:.2f} GB, run() wall {wall:.2f} s (incl. model init, data, validation and "
-              f"three checkpoint writes); launches {launches} = expected; card {card}", flush=True)
+              f"val/loss_simple {val[0][1]:.4f}, {len(pngs)} panel PNGs in {panel_s[0]:.3f} s "
+              f"({panel_s[0] / panel_calls:.4f} s per b = 2 forward), peak torch.cuda.max_memory_allocated "
+              f"{peak_gib:.2f} GiB, checkpoint {ckpt_gb:.2f} GB, run() wall {wall:.2f} s (incl. model init, data, "
+              f"validation with its {panel_calls} panel forwards and three checkpoint writes); launches {launches} "
+              f"= expected; card {card}", flush=True)
         del state, fresh
         gc.collect()
         torch.cuda.empty_cache()
@@ -1250,7 +1462,7 @@ def ldm_train_path_phase(flash, card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return {"launches": launches, "launches_resumed": launches2, "s_per_step": s_per_step, "peak_gib": peak_gib,
-            "run_wall_s": wall, "val_loss_simple": val[0][1], "checkpoint_gb": ckpt_gb}
+            "run_wall_s": wall, "val_loss_simple": val[0][1], "panel_seconds": panel_s[0], "checkpoint_gb": ckpt_gb}
 
 
 def main() -> int:
@@ -1276,8 +1488,11 @@ def main() -> int:
     bwd_rows = bwd_phase(flash)
     conv_rows, conv_edge = conv_phase(conv)
     reference_phase(flash)
+    sampler_ref = sampler_reference_phase(flash)
     fused_ref = fused_reference_phase(flash)
-    sample_launches = path_phase(flash, card)
+    ddim_path = path_phase(flash, card)
+    fast = fast_path_phase(flash, card, ddim_path)
+    tiled = tiled_path_phase(flash, card)
     fused = fused_path_phase(flash, card)
     train_reference_phase(flash)
     train = train_path_phase(flash, card)
@@ -1285,7 +1500,11 @@ def main() -> int:
     ldm_train = ldm_train_path_phase(flash, card)
 
     main_row = rows[1]  # (16, 1024, 32): the stage-2 site, most of the sampling path's launches
-    fwd_launches = {"two_stage_sampling": sample_launches, "stage1_training": train["launches"]["flash_fwd"],
+    fwd_launches = {"two_stage_sampling": ddim_path["launches"], "fast_sampling": fast["fast path"]["launches"],
+                    "fast_sampling_variant": fast["fast path variant"]["launches"],
+                    "tiled_sampling": tiled["launches"],
+                    "sampler_reference": sum(r["launches"] for r in sampler_ref.values()),
+                    "stage1_training": train["launches"]["flash_fwd"],
                     "stage2_training": ldm_train["launches"]["flash_fwd"]}
     kernels = [{
         "name": "flash_fwd",
@@ -1353,6 +1572,7 @@ def main() -> int:
                              "the same function, entry point and kernel as conv3d_3x3_v2, whose launches "
                              "on the pallas_conv path these are")
         kernels.append(entry)
+    print(f"sampling: {json.dumps({'reference': sampler_ref, 'ddim_path': ddim_path, **fast, 'tiled': tiled})}")
     print(f"fused: {json.dumps({'reference': fused_ref, 'paths': fused})}")
     print(f"train: {json.dumps(train)}")
     print(f"ldm train: {json.dumps(ldm_train)}")

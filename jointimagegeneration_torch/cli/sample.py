@@ -16,11 +16,17 @@ Keys beyond the JAX CLI's:
     weights with N(0, s^2), so that every layer of a random network carries
     signal (smoke runs; checkpoints are unaffected).
 
+The stage-2 options of the JAX CLI, read at the top level or under `stage2`:
+`sampler` (ddim, plms or dpm), `warm_start`, `guidance_scale` and
+`ddim_discretize` (uniform, quad or uniform_lambda); so the serving preset
+`configs/sample_two_stage_fast.yml` (DPM-Solver++(2M) at 20 uniform-lambda
+nodes) runs as it is.
+
 Weights come from a flat `.npz` of the JAX UNet parameter tree ('/'-joined
 keys) given as `stage1.checkpoint` / `stage2.checkpoint`; without one the
 sampler uses a seeded fresh init and says so.  Not ported here: stages other
-than `two_stage`, the latent first stage, text context, samplers other than
-DDIM, warm start, classifier-free guidance and tiling; asking for them raises.
+than `two_stage`, the latent first stage, text context, stage-2 context or
+class conditioning, and `tile` (a `stage: ct` key); asking for them raises.
 """
 
 from __future__ import annotations
@@ -111,14 +117,8 @@ def _reject_unported(cfg: dict, s1: dict, s2: dict) -> None:
     u2 = s2.get("unet_config", {}).get("params", s2.get("unet", {}))
     if u2.get("context_dim") is not None or u2.get("num_classes", s2.get("adm_classes")) is not None:
         bad("stage-2 context / class conditioning")
-    if cfg.get("sampler", s2.get("sampler", "ddim")) != "ddim":
-        bad(f"sampler {cfg.get('sampler', s2.get('sampler'))!r}")
-    if cfg.get("warm_start", s2.get("warm_start")) is not None:
-        bad("warm_start")
-    if float(cfg.get("guidance_scale", s2.get("guidance_scale", 1.0))) != 1.0:
-        bad("guidance_scale != 1")
     if cfg.get("tile") or s2.get("tile"):
-        bad("tile")
+        bad("tile (a `stage: ct` key)")
 
 
 def load_weights(unet: UNet, ckpt: Optional[str], fresh_init_noise: float, seed: int) -> None:
@@ -173,6 +173,9 @@ def run(cfg: dict, device=None) -> dict:
     ddim = DDIMParams.create(ldm.diffusion, int(cfg.get("ddim_steps", 50)),
                              method=cfg.get("ddim_discretize", s2.get("ddim_discretize", "uniform")),
                              eta=float(cfg.get("ddim_eta", 0.0)))
+    sampler = cfg.get("sampler", s2.get("sampler", "ddim"))
+    sample_kw = {"sampler": sampler, "warm_start": cfg.get("warm_start", s2.get("warm_start")),
+                 "guidance_scale": float(cfg.get("guidance_scale", s2.get("guidance_scale", 1.0)))}
     noise = NoiseSource(seed, device)
     bs = max(1, min(int(cfg.get("batch_size", 1)), n_cases))
     cts, labels_all = [], []
@@ -184,7 +187,7 @@ def run(cfg: dict, device=None) -> dict:
             cond = torch.zeros((b, *spatial, 1), device=device)
             mask_program, chunk_program = make_chunked_two_stage_programs(
                 ms, ldm, mask_shape=(b, *spatial), volume_shape=vshape, ddim=ddim, chunk=chunk,
-                mask_steps=cfg.get("mask_steps", 250), cond=cond)
+                mask_steps=cfg.get("mask_steps", 250), cond=cond, **sample_kw)
             t0 = time.perf_counter()
             labels, mask_channel = mask_program(noise)
             synchronize(device)
@@ -206,7 +209,7 @@ def run(cfg: dict, device=None) -> dict:
             cts.append(ct)
             labels_all.append(labels)
     print(f"{n_cases} case(s): stage 1 {seconds['stage1']:.2f}s, stage 2 {seconds['stage2']:.2f}s "
-          f"({n_slices} slices x {ddim.num_steps} DDIM steps) on {device}")
+          f"({n_slices} slices x {ddim.num_steps} {sampler} nodes) on {device}")
     return {"ct": np.concatenate(cts), "labels": np.concatenate(labels_all), "seconds": seconds,
             "output_path": outdir}
 

@@ -14,13 +14,18 @@ base_learning_rate (unless `scale_lr: false`), `model.scheduler` as the lr
 schedule, `accumulate_grad_batches` as gradient accumulation, the LitEma
 warmup EMA (0.9999), the learned per-timestep logvar with
 `model.learn_logvar`, and the loss keys `loss_type`, `l_simple_weight`,
-`original_elbo_weight`.  Validation scores the EMA weights: the l2 loss at t
-= T/2 on the first `n_log_images` validation items as one batch, logged as
-`val/loss_simple`; its negation ranks the best checkpoints.
+`original_elbo_weight`.  Validation runs on the EMA weights and the first
+`n_log_images` validation items as one batch: the `SliceLDM.log_images`
+panels (DDIM-`log_ddim_steps`, default 20, at most T/2; `log_progressive`
+adds the full-T progression) written as PNGs under `<logdir>/images/`
+(inputs, samples, inpaint, outpaint, denoise_row, progressive_row, and with a
+2-channel cond one mask overlay per sample), drawn from the noise stream
+seeded for (seed, step), their host seconds logged as `val/panel_seconds`;
+then the l2 loss at t = T/2, logged as `val/loss_simple`, with the noise from
+the stream seeded for (seed, step + 1); its negation ranks the best
+checkpoints.
 
-Not ported here: the validation image panels (samples, denoise row, inpaint,
-outpaint, mask overlay), which need the inpaint / outpaint samplers.  Rejected
-with NotImplementedError: the latent route (`first_stage`, `cond_stage`,
+Rejected with NotImplementedError: the latent route (`first_stage`, `cond_stage`,
 `scale_by_std`), `init_from` and `ckpt_path`, `model.remat`, datasets other
 than `synthetic`, cross-attention `context_dim` and class conditioning (the
 UNet's `num_classes`), and `profile_steps`.
@@ -29,6 +34,7 @@ UNet's `num_classes`), and `profile_steps`.
 from __future__ import annotations
 
 import sys
+import time
 from typing import Optional
 
 import numpy as np
@@ -37,8 +43,11 @@ import torch
 from ..core.config import load_yaml_config
 from ..core.runtime import configure_precision, resolve_device
 from ..data.datasets import SyntheticSliceDataset
+from ..data.classes import NUM_CLASSES
 from ..data.loader import DataLoader
+from ..diffusion.ddim import DDIMParams
 from ..diffusion.noise import NoiseSource
+from ..eval.writers import image_volume_to_grid, make_grid, overlay_mask_on_image
 from ..train.optim import build_optimizer
 from ..train.state import EMATrainState
 from ..train.steps import make_ldm_train_step
@@ -106,19 +115,40 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
                                   l_simple_weight=float(model_cfg.get("l_simple_weight", 1.0)),
                                   elbo_weight=float(model_cfg.get("original_elbo_weight", 0.0)))
     val_ds = build_slice_dataset(cfg, "val")
+    diff = model.diffusion
+    # at most T/2 steps: the +1 subset offset would index alphas_cumprod[T]
+    log_ddim = DDIMParams.create(diff, min(int(cfg.get("log_ddim_steps", 20)), max(1, diff.num_timesteps // 2)),
+                                 eta=float(cfg.get("ddim_eta", 0.0)))
+    num_classes = int(cfg.get("num_classes", cfg.get("dataset", {}).get("num_classes", NUM_CLASSES)))
+
+    def log_panels(logger, step: int, panels: dict, cond: torch.Tensor) -> None:
+        for name in ("inputs", "samples", "inpaint", "outpaint"):
+            logger.image(step, f"val/{name}", image_volume_to_grid(panels[name][..., 0]))
+        for row in ("denoise_row", "progressive_row"):
+            if row in panels:
+                logger.image(step, f"val/{row}", image_volume_to_grid(panels[row][:, 0, ..., 0]))
+        if cond.shape[-1] == 2:  # [previous slice, mask slice]: the mask is labels / (C - 1)
+            labels = np.rint(cond[..., 1].float().cpu().numpy() * (num_classes - 1)).astype(np.int64)
+            samples = np.clip(panels["samples"][..., 0], 0, 1)
+            logger.image(step, "val/overlay", make_grid(
+                [overlay_mask_on_image(samples[i], labels[i]) for i in range(samples.shape[0])]))
 
     def eval_fn(state: EMATrainState, step: int, logger) -> float:
         items = [val_ds[i] for i in range(min(len(val_ds), int(cfg.get("n_log_images", 2))))]
         x0, cond = (torch.from_numpy(np.stack([it[k] for it in items])).to(device) for k in ("image", "cond"))
-        diff = model.diffusion
         t = torch.full((x0.shape[0],), diff.num_timesteps // 2, dtype=torch.int64, device=device)
         eps = NoiseSource(noise_seed(seed, step + 1), device).normal(x0.shape)
         with torch.no_grad(), state.ema_applied():
+            t0 = time.perf_counter()
+            panels = model.log_images(NoiseSource(noise_seed(seed, step), device), {"image": x0, "cond": cond},
+                                      log_ddim, progressive=bool(cfg.get("log_progressive", False)))
+            panel_seconds = time.perf_counter() - t0  # log_images returns host arrays: the device is done
             out = model.apply_model(diff.q_sample(x0, t, eps), t, cond=cond)
         target = eps if diff.parameterization == "eps" else x0
         val_loss = float(((out - target) ** 2).mean())
         if logger:
-            logger.scalars(step, {"loss_simple": val_loss}, prefix="val/")
+            log_panels(logger, step, panels, cond)
+            logger.scalars(step, {"loss_simple": val_loss, "panel_seconds": panel_seconds}, prefix="val/")
         return -val_loss  # higher is better for the best-k checkpoints
 
     trainer = Trainer(

@@ -1,10 +1,11 @@
-"""Training metrics: JSONL scalars, a throughput counter, device memory.
+"""Training metrics: JSONL scalars, PNG panels, a throughput counter, device memory.
 
 Counterpart of `jointimagegeneration_tpu/core/logging.py` for what the
 trainer logs: `MetricLogger.scalars` appends one JSON record per call to
-`<logdir>/metrics.jsonl`, `Throughput` counts images per second, and
-`hbm_stats` reads the card's memory watermarks.  Image grids, tensorboard and
-wandb are not ported.
+`<logdir>/metrics.jsonl`, `MetricLogger.image` writes a panel to
+`<logdir>/images/` and keeps the newest 30 there, `Throughput` counts images
+per second, and `hbm_stats` reads the card's memory watermarks.  Tensorboard
+and wandb are not ported.
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import numpy as np
 import torch
+
+from ..eval.writers import save_grid_png
 
 __all__ = ["MetricLogger", "Throughput", "hbm_stats"]
 
@@ -24,11 +28,28 @@ class MetricLogger:
         self.logdir = Path(logdir)
         self.logdir.mkdir(parents=True, exist_ok=True)
         self._jsonl = open(self.logdir / "metrics.jsonl", "a")
+        # the PNG trail, oldest first (equal times by name, so by step within
+        # a panel), seeded from disk so that the bound holds per run
+        # directory across resumes
+        self._pngs = sorted((self.logdir / "images").glob("*.png"), key=lambda p: (p.stat().st_mtime, p.name))
+
+    max_images = 30  # PNGs kept under images/; the oldest is unlinked
 
     def scalars(self, step: int, values: Dict[str, float], prefix: str = "") -> None:
         rec = {"step": int(step), **{f"{prefix}{k}": float(v) for k, v in values.items()}}
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
+
+    def image(self, step: int, name: str, img: np.ndarray) -> None:
+        """Write `img` ((H, W, 3) uint8) as `images/<name>_gs-<step>.png`, '/'
+        in the name as '_'; past `max_images` files the oldest goes."""
+        path = self.logdir / "images" / f"{name.replace('/', '_')}_gs-{int(step):06d}.png"
+        save_grid_png(path, img)
+        if path in self._pngs:  # the same (name, step) again overwrote one file
+            self._pngs.remove(path)
+        self._pngs.append(path)
+        while len(self._pngs) > self.max_images:
+            self._pngs.pop(0).unlink(missing_ok=True)
 
     def close(self) -> None:
         self._jsonl.close()

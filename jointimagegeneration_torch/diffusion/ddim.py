@@ -59,10 +59,11 @@ class DDIMParams:
 
 
 def ddim_step(params: DDIMParams, noise: NoiseSource, x: torch.Tensor, e_t: torch.Tensor,
-              index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+              index: int, temperature: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """One DDIM update x_t -> x_{t-1} from the eps prediction e_t at subset
     position `index`.  Returns (x_prev, pred_x0).  With sigma = 0 (eta = 0)
-    the update is deterministic and draws no noise."""
+    the update is deterministic and draws no noise; otherwise the drawn noise
+    is scaled by sigma, then by `temperature`."""
     a_prev = params.alphas_prev[index]
     sigma = params.sigmas[index]
     # scalar coefficients in float32, as the JAX package computes them
@@ -70,5 +71,5 @@ def ddim_step(params: DDIMParams, noise: NoiseSource, x: torch.Tensor, e_t: torc
     dir_coef = np.sqrt(np.maximum(np.float32(1.0) - a_prev - sigma * sigma, np.float32(0.0)))
     x_prev = float(np.sqrt(a_prev)) * pred_x0 + float(dir_coef) * e_t
     if sigma != 0:
-        x_prev = x_prev + float(sigma) * noise.normal(x.shape).to(x.dtype)
+        x_prev = x_prev + float(sigma) * noise.normal(x.shape).to(x.dtype) * temperature
     return x_prev, pred_x0

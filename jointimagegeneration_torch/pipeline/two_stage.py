@@ -2,9 +2,15 @@
 
 Counterpart of `jointimagegeneration_tpu/pipeline/two_stage.py`: stage-1
 labels -> nearest-neighbour upsample to the CT grid -> the mask channel
-labels / (C - 1) -> the autoregressive stage-2 volume.  The chunked programs
-split the z loop into chunks, each seeded with the previous chunk's last
-slice, which keeps the autoregressive semantics exactly.
+labels / (C - 1) -> the autoregressive stage-2 volume, with the stage-2
+options `guidance_scale`, `warm_start` and `sampler` passed through to
+`SliceLDM.sample_volume`.  The chunked programs split the z loop into chunks,
+each seeded with the previous chunk's last slice, which keeps the
+autoregressive semantics exactly, except that under `warm_start` each chunk's
+first slice runs the full chain (a chunk carries only `init_slice`, as the JAX
+chunked programs do).  With one chunk over all the slices (`cli.sample`'s
+default), the chunked programs give the JAX CLI's unchunked
+`TwoStagePipeline`.
 """
 
 from __future__ import annotations
@@ -46,13 +52,15 @@ class TwoStagePipeline:
 
     def __call__(self, noise: NoiseSource, *, mask_shape: Tuple[int, int, int, int],
                  volume_shape: Tuple[int, int, int], ddim: DDIMParams,
-                 mask_steps: Optional[int] = None, cond: Optional[torch.Tensor] = None
+                 mask_steps: Optional[int] = None, cond: Optional[torch.Tensor] = None,
+                 guidance_scale: float = 1.0, warm_start: Optional[float] = None, sampler: str = "ddim"
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (ct volume (B, D', H', W', C), labels (B, D', H', W'))."""
         labels = self.mask_sampler.sample_labels(noise, mask_shape, cond=cond, num_steps=mask_steps)
         labels_up = upsample_labels(labels, volume_shape)
         mask_channel = normalize_mask_channel(labels_up, self.mask_sampler.num_classes)
-        ct = self.slice_ldm.sample_volume(noise, mask_channel, ddim)
+        ct = self.slice_ldm.sample_volume(noise, mask_channel, ddim, guidance_scale=guidance_scale,
+                                          warm_start=warm_start, sampler=sampler)
         return ct, labels_up
 
 
@@ -61,7 +69,7 @@ def make_chunked_two_stage_programs(mask_sampler: MaskSampler, slice_ldm: SliceL
                                     volume_shape: Tuple[int, int, int],
                                     ddim: DDIMParams, chunk: int,
                                     mask_steps: Optional[int] = None,
-                                    cond: Optional[torch.Tensor] = None):
+                                    cond: Optional[torch.Tensor] = None, **sample_kw):
     """The two-stage pipeline as two callables:
 
       mask_program(noise) -> (labels (B, D', H', W'), mask channel (B, D', H', W', 1))
@@ -69,7 +77,9 @@ def make_chunked_two_stage_programs(mask_sampler: MaskSampler, slice_ldm: SliceL
 
     Driving chunk_program over consecutive `chunk`-slice windows of the mask
     channel, each with the previous call's last slice as `init_slice`, gives
-    the same volume as one sample_volume call."""
+    the same volume as one sample_volume call (under `warm_start`, up to each
+    chunk's first slice, which runs the full chain).  `sample_kw`
+    (`guidance_scale`, `warm_start`, `sampler`) go to sample_volume."""
     d = volume_shape[0]
     if d % chunk != 0:
         raise ValueError(f"volume depth {d} must divide by chunk {chunk}")
@@ -82,7 +92,7 @@ def make_chunked_two_stage_programs(mask_sampler: MaskSampler, slice_ldm: SliceL
     def chunk_program(noise: NoiseSource, mask_chunk: torch.Tensor, init_slice: Optional[torch.Tensor]):
         if mask_chunk.shape[1] != chunk:
             raise ValueError(f"mask chunk has {mask_chunk.shape[1]} slices, expected {chunk}")
-        vol = slice_ldm.sample_volume(noise, mask_chunk, ddim, init_slice=init_slice)
+        vol = slice_ldm.sample_volume(noise, mask_chunk, ddim, init_slice=init_slice, **sample_kw)
         return vol, vol[:, -1]
 
     return mask_program, chunk_program

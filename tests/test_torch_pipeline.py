@@ -130,8 +130,9 @@ def test_cli_writes_nifti_on_cpu(tmp_path, capsys):
 
 
 def test_cli_checkpoint_and_unported_keys(tmp_path, slice_models):
-    """Weights load from a flat .npz of the JAX tree ('/'-joined keys); keys
-    this slice does not cover raise."""
+    """Weights load from a flat .npz of the JAX tree ('/'-joined keys); the
+    stage-2 sampler options give the pipeline's volume; keys the port does
+    not cover raise."""
     from jointimagegeneration_torch.utils.jax_weights import flatten_tree
 
     _, (pm, ps), tpipe = slice_models
@@ -151,8 +152,14 @@ def test_cli_checkpoint_and_unported_keys(tmp_path, slice_models):
                 cond=torch.zeros((*MASK_SHAPE, 1)))
     np.testing.assert_array_equal(out["labels"], ref[1].numpy())
     np.testing.assert_allclose(out["ct"], to_numpy(ref[0])[:, :3, ..., 0], atol=1e-6)
-    for bad in ({"sampler": "dpm"}, {"warm_start": 0.4}, {"guidance_scale": 3.0}, {"stage": "mask"},
-                {"text": {"features_npz": "x.npz"}}, {"stage2": {**cfg["stage2"], "first_stage": {"ch": 8}}}):
+    for opt in ({"sampler": "dpm"}, {"warm_start": 0.4}, {"guidance_scale": 3.0}):
+        got = tcli.run({**cfg, **opt})["ct"]
+        ref = tpipe(NoiseSource(3, "cpu"), mask_shape=MASK_SHAPE, volume_shape=VOLUME,
+                    ddim=TDDIM.create(tpipe.slice_ldm.diffusion, 4), mask_steps=4,
+                    cond=torch.zeros((*MASK_SHAPE, 1)), **opt)[0]
+        np.testing.assert_allclose(got, to_numpy(ref)[:, :3, ..., 0], atol=1e-6, err_msg=str(opt))
+    for bad in ({"stage": "mask"}, {"text": {"features_npz": "x.npz"}}, {"tile": {"patch": [8, 8]}},
+                {"stage2": {**cfg["stage2"], "first_stage": {"ch": 8}}}):
         with pytest.raises(NotImplementedError):
             tcli.run({**cfg, **bad})
     with pytest.raises(ValueError):

@@ -152,9 +152,15 @@ def test_slice_ldm_volume_replayed():
     got = to_numpy(ts.sample_volume(noise, to_torch(mask), TDDIM.create(ts.diffusion, 4), init_slice=to_torch(init)))
     assert not noise.draws and got.shape == want.shape == (1, 3, 16, 16, 1)
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
-    for kw_bad in ({"warm_start": 0.5}, {"sampler": "dpm"}, {"guidance_scale": 2.0}, {"tile": ((8, 8), (4, 4))}):
-        with pytest.raises(NotImplementedError):
-            ts.sample_volume(noise, to_torch(mask), TDDIM.create(ts.diffusion, 4), **kw_bad)
+    # the routes beyond plain DDIM, each against JAX with the same draws
+    for kw_opt in ({"warm_start": 0.5}, {"sampler": "dpm"}, {"guidance_scale": 2.0}, {"tile": ((8, 8), (4, 4))}):
+        want = np.asarray(js.sample_volume({"params": p}, key, jnp.asarray(mask), jdd, init_slice=jnp.asarray(init),
+                                           **kw_opt))
+        noise = ReplayNoise(jax_volume_draws(key, 1, 3, 16, 16, 1))
+        got = to_numpy(ts.sample_volume(noise, to_torch(mask), TDDIM.create(ts.diffusion, 4),
+                                        init_slice=to_torch(init), **kw_opt))
+        assert not noise.draws
+        np.testing.assert_allclose(got, want, atol=2e-4, rtol=0, err_msg=str(kw_opt))
 
 
 @pytest.mark.parametrize("src,dst", [((4, 6, 6), (6, 16, 16)), ((6, 8, 8), (9, 12, 12)), ((3, 4, 4), (6, 8, 8))])

@@ -104,14 +104,53 @@ def jax_mask_draws(key, shape, num_classes, n_steps):
 
 
 def jax_volume_draws(key, b, d, h, w, c):
-    """The x_T draws of SliceLDM.sample_volume (slice_ldm.py:549, :180-182);
-    eta = 0 leaves no other noise."""
+    """The x_T draws of SliceLDM.sample_volume (slice_ldm.py:549, :180-182),
+    one per slice, for every sampler (the multistep ones draw x_T alike,
+    :348-350).  Under warm start a later slice draws the q-noise of the
+    previous raw slice instead, from the same key (:603-605), so the list
+    is the same; guidance and tiling draw nothing; eta = 0 leaves no other
+    noise."""
     draws = []
     for _ in range(d):
         key, sub = jax.random.split(key)
         _, sub2 = jax.random.split(sub)
         draws.append(("normal", np.asarray(jax.random.normal(sub2, (b, h, w, c)))))
     return draws
+
+
+def jax_slice_draws(key, shape, n_steps, inpaint=False, eta=False):
+    """The draws of one SliceLDM.sample_slice chain (slice_ldm.py:180-182,
+    :205-211, ddim.py:99) in the port's order: x_T, then per step the
+    inpainting noise before the model call and, with eta > 0, the DDIM noise
+    after it."""
+    key, sub = jax.random.split(key)
+    draws = [("normal", np.asarray(jax.random.normal(sub, shape)))]
+    for _ in range(n_steps):
+        key, sub, sub2 = jax.random.split(key, 3)
+        draws += [("normal", np.asarray(jax.random.normal(k, shape))) for k, on in ((sub2, inpaint), (sub, eta)) if on]
+    return draws
+
+
+def jax_ancestral_draws(key, shape, T):
+    """The draws of SliceLDM._ancestral_loop (slice_ldm.py:260-276): x_T, then
+    one normal per step for t = T-1 ... 0, t = 0 included."""
+    key, sub = jax.random.split(key)
+    draws = [("normal", np.asarray(jax.random.normal(sub, shape)))]
+    for _ in range(T):
+        key, sub = jax.random.split(key)
+        draws.append(("normal", np.asarray(jax.random.normal(sub, shape))))
+    return draws
+
+
+def jax_log_images_draws(key, shape, n_steps, T, progressive=False):
+    """The draws of SliceLDM.log_images (slice_ldm.py:417-446) from its five
+    keys in order: the sample chain, inpaint, outpaint, the diffusion row's
+    min(6, T) q_sample noises, and the progressive chain."""
+    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
+    draws = jax_slice_draws(k1, shape, n_steps)
+    draws += jax_slice_draws(k2, shape, n_steps, inpaint=True) + jax_slice_draws(k3, shape, n_steps, inpaint=True)
+    draws += [("normal", np.asarray(jax.random.normal(k, shape))) for k in jax.random.split(k4, min(6, T))]
+    return draws + (jax_ancestral_draws(k5, shape, T) if progressive else [])
 
 
 # ------------------------------------------------------------------ tests --
