@@ -28,6 +28,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
      without warm start, DDIM with guidance, inpaint, outpaint, a tiled
      48x48 slice, and at T = 20 p_sample_loop, progressive_denoising and
      log_images; then stream_volume against sample_volume, bit for bit;
+     latent reference: the latent `_ae` route on a tiny fp32 LatentSliceLDM
+     (KL-VAEs at 64x64, a 32x32x4 latent, T = 1024 at the UNet's sites) on
+     the card against the CPU (`latent reference (...)` lines): DDIM, DPM
+     with warm start, DDIM with guidance, a latent two-stage run in chunks,
+     stream against sample; then an AE whose mid attention has one head of
+     288 (past the flash rule's 256): card against CPU, no flash launch;
   5. fused reference: tiny fp32 fused MaskSamplers ('kernel' and 'xla') and
      one fp32 fused ResBlock's forward and backward on the card against the
      CPU (`fused reference ...` lines);
@@ -42,6 +48,11 @@ Phases, in order (any failure exits non-zero and prints no result line):
      s/slice beside the DDIM-50 path's;
      tiled path: `SliceLDM.sample_volume` at 512x512, tiled in 256x256
      windows at stride 128 (9 windows), one slice, DDIM-4;
+     latent path: `cli.sample.run` on `configs/sample_ct_ae.yml`'s full
+     widths (KL-VAEs ch 128 / 96 at 512x512 in fp32, the base-160 UNet in
+     bf16 on the 64x64x4 latent, DDIM-50), cut to 4 slices: 1,000 flash
+     launches (its five ds-2 sites), s/slice by cond encode, chain and
+     decode, the AEs' TFLOP and rate, peak GiB, LPIPS in metrics.json;
   7. fused path: the same stage-1 sampler built with
      use_fused_resblock='kernel', 'xla' and use_pallas_conv=True, 4 steps
      each beside the unfused model, same weights and draws: s/step, launch
@@ -66,11 +77,11 @@ Phases, in order (any failure exits non-zero and prints no result line):
      one validation at 6 (the panels of 2 slices: three DDIM-20 chains,
      written as PNGs; then the val loss at t = T/2), then a resumed run to
      step 8; its ~2.8 GB checkpoints are deleted at the end.
-Before each main path (6 per run, 7 per variant, 9, 11) every kernel launch
-counter is set to 0; after it the counts must equal what the path implies.
-The last lines are the sampling, fused and train summaries, a JSON line with
-the kernel numbers, the card's name and power limit, and `{"ok": true,
-"device": {...}}`.  Imports neither JAX nor PyYAML.
+Before each main path (6 per run and the latent path, 7 per variant, 9, 11)
+every kernel launch counter is set to 0; after it the counts must equal what
+the path implies.  The last lines are the sampling, latent, fused and train
+summaries, a JSON line with the kernel numbers, the card's name and power
+limit, and `{"ok": true, "device": {...}}`.  Imports neither JAX nor PyYAML.
 """
 
 from __future__ import annotations
@@ -114,6 +125,7 @@ FWD_SHAPES = [  # (BH, T, D), dtype, where the main paths run it
     ((20, 1024, 32), torch.bfloat16, "stage 2 ds16, 512x512"),
     ((32, 4096, 32), torch.bfloat16, "stage 2 ds8, 512x512 validation, b = 2"),
     ((40, 1024, 32), torch.bfloat16, "stage 2 ds16, 512x512 validation, b = 2"),
+    ((10, 1024, 32), torch.bfloat16, "latent stage 2 ds2, 64x64 latent (configs/sample_ct_ae.yml)"),
 ]
 FWD_EDGE_SHAPES = [  # (BH, Tq, Tk, D), dtype: ragged T, Tq != Tk, every head width, D padded
     ((3, 100, 77, 40), torch.bfloat16), ((2, 130, 200, 256), torch.bfloat16), ((2, 1088, 1088, 16), torch.bfloat16),
@@ -220,6 +232,37 @@ STAGE2_TRAIN_CFG = {  # configs/stage2_ldm.yml, lengths cut
     },
     "dataset": {"kind": "synthetic", "slice_shape": [512, 512], "depth": 16, "num_cases": 16},
 }
+LATENT_CT_CFG = {  # configs/sample_ct_ae.yml, depth cut to 4 slices
+    "stage": "ct",
+    "seed": 1024,
+    "n_cases": 1,
+    "ddim_steps": 50,
+    "fresh_init_noise": 0.02,
+    "stage2": {
+        "slice_size": 512,
+        "timesteps": 1000,
+        "beta_schedule": "linear",
+        "linear_start": 0.0015,
+        "linear_end": 0.0195,
+        "channels": 4,
+        "cond_channels": 4,
+        "bf16": True,
+        "unet_config": {"params": {"model_channels": 160, "channel_mult": [1, 2, 4, 4, 5],
+                                   "attention_resolutions": [8, 4, 2], "num_res_blocks": 2,
+                                   "num_head_channels": 32}},
+        "first_stage": {"embed_dim": 4, "ddconfig": {"ch": 128, "ch_mult": [1, 2, 4, 4], "num_res_blocks": 2,
+                                                     "attn_resolutions": [16, 8], "z_channels": 4, "in_channels": 1,
+                                                     "out_ch": 1, "resolution": 512}},
+        "cond_stage": {"embed_dim": 4, "ddconfig": {"ch": 96, "ch_mult": [1, 2, 4, 4], "num_res_blocks": 2,
+                                                    "attn_resolutions": [16, 8], "z_channels": 4, "in_channels": 2,
+                                                    "out_ch": 2, "resolution": 512}},
+        "dataset": {"kind": "synthetic", "slice_shape": [512, 512], "depth": 4, "num_cases": 2},
+    },
+}
+# the tiny KL-VAEs of the latent reference phase: 64x64 pixels, a 32x32
+# latent, one 'vanilla' attention placed at resolution 32 besides the mid one
+LATENT_REF_AE = {"embed_dim": 4, "ddconfig": {"ch": 8, "ch_mult": [1, 2], "num_res_blocks": 1,
+                                              "attn_resolutions": [32], "z_channels": 4, "resolution": 64}}
 # the small 2D UNet of the ldm train reference phase (base 64 for the reason
 # below; a 32x32 image puts T = 1024 at its ds-1 and mid attention sites)
 LDM_REF_UNET = {"model_channels": 64, "channel_mult": [1], "attention_resolutions": [1], "num_res_blocks": 1,
@@ -823,6 +866,149 @@ def sampler_reference_phase(flash) -> dict:
     return out
 
 
+def _flash_attention_calls(modules, calls: list) -> list:
+    """Forward pre-hooks on every AttentionBlock of `modules` that append 1 per
+    call whose sequence the flash rule takes (T >= FLASH_MIN_SEQ, eligible
+    shape); returns the hook handles."""
+    from jointimagegeneration_torch.nn.blocks import AttentionBlock
+    from jointimagegeneration_torch.ops.attention import FLASH_MIN_SEQ
+    from jointimagegeneration_torch.ops.flash_attention import flash_eligible
+
+    def hook(block, args):
+        x = args[0]
+        t, d = math.prod(x.shape[1:-1]), x.shape[-1] // block.heads
+        if t >= FLASH_MIN_SEQ and flash_eligible(t, t, d):
+            calls.append(1)
+
+    return [m.register_forward_pre_hook(hook) for mod in modules for m in mod.modules()
+            if isinstance(m, AttentionBlock)]
+
+
+def latent_reference_phase(flash) -> dict:
+    """The latent `_ae` route on a tiny fp32 LatentSliceLDM on the card against
+    the CPU, same weights, same draws: KL-VAE first and cond stages
+    (LATENT_REF_AE at 64x64, every parameter perturbed, proj_out included)
+    around LDM_REF_UNET on the 32x32x4 latent (T = 1024 at its 4 attention
+    sites): a DDIM volume, DPM with warm start 0.5, DDIM with guidance 2.0
+    and a latent two-stage run in two chunks of 2 slices, each within
+    SAMPLER_REF_TOL; its launches on the card 4 x the UNet's calls plus the
+    AEs' attention calls at T >= 512 (the tiny AEs' heads are 8 and 16 wide),
+    none on the CPU; then stream_volume equals sample_volume bit for bit on
+    the card.  Last, an AE at 64x64 whose mid attention holds 1,024 tokens of
+    one 288-wide head, beyond the flash rule's 256: encode and decode card
+    against CPU within 1e-4 of their max, and no flash launch."""
+    from jointimagegeneration_torch.cli.common import build_autoencoder
+    from jointimagegeneration_torch.cli.sample import build_mask_sampler, build_slice_ldm
+    from jointimagegeneration_torch.core.runtime import configure_precision
+    from jointimagegeneration_torch.diffusion.ddim import DDIMParams
+    from jointimagegeneration_torch.models.latent_ldm import LatentSliceLDM
+    from jointimagegeneration_torch.pipeline.two_stage import make_chunked_two_stage_programs
+
+    configure_precision()
+    gen = torch.Generator().manual_seed(10)
+    mask = torch.randint(0, 12, (1, 3, 64, 64, 1), generator=gen) / 11.0
+    dd = LATENT_REF_AE["ddconfig"]
+    s1 = {"num_classes": 4, "time_steps": 20, "bf16": False,
+          "unet_openai": {"base_channels": 8, "channel_mult": [1, 2], "attention_resolutions": [1],
+                          "num_head_channels": 4}}
+    s2 = {"bf16": False, "timesteps": 100, "channels": 4, "cond_channels": 4, "unet_config": {"params": LDM_REF_UNET}}
+    models, init = {}, None
+    for device in ("cpu", "cuda"):
+        ae = build_autoencoder({**LATENT_REF_AE, "ddconfig": {**dd, "in_channels": 1, "out_ch": 1}}, device, 3)
+        cae = build_autoencoder({**LATENT_REF_AE, "ddconfig": {**dd, "in_channels": 2, "out_ch": 2}}, device, 5)
+        ldm, ms = build_slice_ldm(s2, device), build_mask_sampler(s1, device)
+        mods = (ae, cae, ldm.unet, ms.unet)
+        if init is None:
+            with torch.no_grad():
+                for m in mods:
+                    for p in m.parameters():
+                        p.add_(0.02 * torch.randn(p.shape, generator=gen))  # un-zero every kernel
+            init = [m.state_dict() for m in mods]
+        else:
+            for m, sd in zip(mods, init):
+                m.load_state_dict(sd)
+        latent = LatentSliceLDM(inner=ldm, first_stage=ae.eval(), cond_stage=cae.eval(), scale_factor=0.7)
+        models[device] = (latent, ms, DDIMParams.create(ldm.diffusion, 6, method="uniform_lambda"))
+
+    def two_stage(latent, ms, n, d, c):
+        mask_program, chunk_program = make_chunked_two_stage_programs(
+            ms, latent, mask_shape=(1, 4, 8, 8), volume_shape=(4, 64, 64), ddim=d, chunk=2, mask_steps=3,
+            cond=c(torch.zeros((1, 4, 8, 8, 1))), sampler="dpm", guidance_scale=2.0)
+        labels, channel = mask_program(n)
+        v0, last = chunk_program(n, channel[:, :2], None)
+        v1, _ = chunk_program(n, channel[:, 2:], last)
+        return torch.cat([labels.float().flatten(), v0.flatten(), v1.flatten()])
+
+    routes = {  # route -> fn(LatentSliceLDM, MaskSampler, noise, DDIMParams, to_device) -> one tensor
+        "ddim": lambda m, s, n, d, c: m.sample_volume(n, c(mask), d),
+        "dpm warm 0.5": lambda m, s, n, d, c: m.sample_volume(n, c(mask), d, sampler="dpm", warm_start=0.5),
+        "ddim guidance 2.0": lambda m, s, n, d, c: m.sample_volume(n, c(mask), d, guidance_scale=2.0),
+        "two_stage chunked (dpm, guidance 2.0)": two_stage,
+    }
+    sites = flash_sites([32, 32], LDM_REF_UNET, "channel_mult")
+    out = {}
+    for route, fn in routes.items():
+        res = []
+        for device in ("cpu", "cuda"):
+            latent, ms, ddim = models[device]
+            calls, ae_calls = [], []
+            hooks = [latent.unet.register_forward_pre_hook(lambda *_: calls.append(1))]
+            hooks += _flash_attention_calls((latent.first_stage, latent.cond_stage), ae_calls)
+            before = flash.flash_forward.launches
+            with torch.inference_mode():
+                y = fn(latent, ms, _CpuDrawnNoise(4, device), ddim, lambda t: t.to(device))
+            for h in hooks:
+                h.remove()
+            res.append((y.float().cpu(), flash.flash_forward.launches - before, len(calls), len(ae_calls)))
+        (y_cpu, n_cpu, calls_cpu, ae_cpu), (y_gpu, n_gpu, calls_gpu, ae_gpu) = res
+        err = (y_gpu - y_cpu).abs().max().item()
+        expected = sites * calls_gpu + ae_gpu
+        print(f"latent reference ({route}): tiny fp32 LatentSliceLDM, card vs CPU max abs diff {err:.3g} "
+              f"(tol {SAMPLER_REF_TOL}); {calls_gpu} UNet calls, {ae_gpu} AE attention calls at T >= 512; "
+              f"flash_fwd launches cpu {n_cpu}, card {n_gpu} = {sites} x {calls_gpu} + {ae_gpu}", flush=True)
+        check(bool(torch.isfinite(y_gpu).all()) and y_gpu.shape == y_cpu.shape, f"latent reference ({route}): output")
+        check(calls_cpu == calls_gpu > 0 and ae_cpu == ae_gpu > 0 and n_cpu == 0 and n_gpu == expected,
+              f"latent reference ({route}): launches cpu {n_cpu}, card {n_gpu}, expected {expected}")
+        check(err <= SAMPLER_REF_TOL, f"latent reference ({route}): card and CPU disagree by {err}")
+        out[route] = {"max_abs_err": err, "launches": n_gpu, "unet_calls": calls_gpu, "ae_flash_calls": ae_gpu}
+    latent, _, ddim = models["cuda"]
+    kw = {"sampler": "dpm", "warm_start": 0.5, "guidance_scale": 2.0}
+    with torch.inference_mode():
+        streamed = torch.stack(list(latent.stream_volume(_CpuDrawnNoise(5, "cuda"), mask.cuda(), ddim, **kw)), dim=1)
+        whole = latent.sample_volume(_CpuDrawnNoise(5, "cuda"), mask.cuda(), ddim, **kw)
+    check(torch.equal(streamed, whole), "latent reference: stream_volume differs from sample_volume on the card")
+    print("latent reference: stream_volume equals sample_volume bit for bit on the card (dpm, warm 0.5, "
+          "guidance 2.0)", flush=True)
+    # the plain attention beyond the flash rule: one head of 288 over 1,024 tokens
+    wide = {"embed_dim": 4, "ddconfig": {"ch": 144, "ch_mult": [1, 2], "num_res_blocks": 1, "z_channels": 4,
+                                         "in_channels": 1, "out_ch": 1, "resolution": 64}}
+    x = torch.rand((2, 64, 64, 1), generator=gen)
+    res, state = [], None
+    for device in ("cpu", "cuda"):
+        ae = build_autoencoder(wide, device, 3).eval()
+        if state is None:
+            with torch.no_grad():
+                for p in ae.parameters():
+                    p.add_(0.02 * torch.randn(p.shape, generator=gen))
+            state = ae.state_dict()
+        else:
+            ae.load_state_dict(state)
+        before = flash.flash_forward.launches
+        with torch.inference_mode():
+            post = ae.encode(x.to(device))
+            rec = ae.decode(post.mode())
+        res.append((post.mean.cpu(), rec.float().cpu(), flash.flash_forward.launches - before))
+    (m_cpu, r_cpu, _), (m_gpu, r_gpu, n_gpu) = res
+    errs = [(g - c).abs().max().item() / c.abs().max().item() for g, c in ((m_gpu, m_cpu), (r_gpu, r_cpu))]
+    print(f"latent reference (AE, mid attention 1 x 288 over 1024 tokens): card vs CPU encode {errs[0]:.3g}, "
+          f"decode {errs[1]:.3g} of their max (tol {TRAIN_REF_TOL}); flash_fwd launches {n_gpu}", flush=True)
+    check(n_gpu == 0 and max(errs) <= TRAIN_REF_TOL, f"latent reference (AE): errors {errs}, launches {n_gpu}")
+    out["ae_wide_head"] = {"max_rel_err": max(errs), "launches": n_gpu}
+    del models, latent
+    torch.cuda.empty_cache()
+    return out
+
+
 def flash_sites(spatial, cfg_unet: dict, mult_key: str) -> int:
     """Attention sites of one UNet forward that take the flash kernel (T >= 512)."""
     from jointimagegeneration_torch.ops.attention import FLASH_MIN_SEQ
@@ -956,6 +1142,107 @@ def tiled_path_phase(flash, card: str) -> dict:
     del ldm, vol
     torch.cuda.empty_cache()
     return {"launches": expected, "seconds": sec, "windows": windows}
+
+
+def latent_path_phase(flash, card: str) -> dict:
+    """`cli.sample.run` on `configs/sample_ct_ae.yml`'s full widths (LATENT_CT_CFG:
+    KL-VAEs ch 128 / 96 at 512x512 in fp32, z 4; the UNet base 160, mult
+    (1,2,4,4,5), attention at ds {8,4,2}, head 32, bf16; DDIM-50), cut only in
+    depth (4 slices), fresh-init weights.  The launch counts zeroed before it:
+    flash_fwd must launch 5 x 50 x 4 times (the five ds-2 sites, 32x32 = 1,024
+    tokens) and no other kernel; the CT finite in [0, 1], its three files, a
+    finite LPIPS in metrics.json.  Prints s/slice split into the cond encode,
+    the latent chain and the decode (each encode and decode between two
+    synchronizes), s per UNet call, the peak GiB, and the encode's and
+    decode's operations (the convs' 2 x outputs x Cin x taps and the
+    attention's 4 T^2 C + 8 T C^2, counted by forward hooks on this run's
+    modules) with the rate they ran at."""
+    from jointimagegeneration_torch.cli.sample import run
+    from jointimagegeneration_torch.models.latent_ldm import LatentSliceLDM
+    from jointimagegeneration_torch.nn.blocks import AttentionBlock, Conv
+    from jointimagegeneration_torch.nn.unet import UNet
+
+    cfg = json.loads(json.dumps(LATENT_CT_CFG))
+    cfg["output_path"] = str(ROOT / "build" / "chip_smoke" / "latent_ct")
+    s2 = cfg["stage2"]
+    depth, size = s2["dataset"]["depth"], s2["slice_size"]
+    lat = size // 2 ** (len(s2["first_stage"]["ddconfig"]["ch_mult"]) - 1)
+    calls = cfg["ddim_steps"] * depth
+    expected = calls * flash_sites([lat, lat], s2["unet_config"]["params"], "channel_mult")
+    seconds = {"encode_cond": 0.0, "decode": 0.0}
+    flops = dict.fromkeys(seconds, 0.0)
+    originals = {name: getattr(LatentSliceLDM, name) for name in seconds}
+    active = []
+
+    def timed(name):
+        def wrapper(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            active.append(name)
+            y = originals[name](self, *args, **kw)
+            active.pop()
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - t0
+            return y
+
+        return wrapper
+
+    def count_ops(m, args, y):
+        if active and isinstance(m, Conv):
+            flops[active[-1]] += 2.0 * y.numel() * m.weight[0].numel()
+        elif active and isinstance(m, AttentionBlock):
+            b, t, c = args[0].shape[0], math.prod(args[0].shape[1:-1]), args[0].shape[-1]
+            flops[active[-1]] += 4.0 * b * t * t * c + 8.0 * b * t * c * c
+
+    unet_calls = []
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda m, _: unet_calls.append(1) if isinstance(m, UNet) else None)
+    op_hook = torch.nn.modules.module.register_module_forward_hook(count_ops)
+    _reset_counts(flash)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for name in seconds:
+            setattr(LatentSliceLDM, name, timed(name))
+        t0 = time.perf_counter()
+        result = run(cfg, device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(LatentSliceLDM, name, fn)
+        hook.remove()
+        op_hook.remove()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = _counts(flash)
+    check(counts == {**{k: 0 for k in counts}, "flash_fwd": expected},
+          f"latent path: launches {counts}, expected {expected} flash_fwd and nothing else")
+    check(len(unet_calls) == calls, f"latent path: {len(unet_calls)} UNet calls, expected {calls}")
+    ct = result["ct"]
+    check(ct.shape == (1, depth, size, size) and bool(np.isfinite(ct).all()), f"latent path: CT {ct.shape}")
+    check(float(ct.min()) >= 0.0 and float(ct.max()) <= 1.0, f"latent path: CT outside [0, 1]: {ct.min()} {ct.max()}")
+    case = Path(cfg["output_path"]) / "case_0000"
+    for name in ("image.nii.gz", "image.png", "overlay.png"):
+        check((case / name).stat().st_size > 352, f"latent path: {name} not written")
+    metrics = json.loads((Path(cfg["output_path"]) / "metrics.json").read_text())
+    lpips = metrics["lpips_three_view_mean"]
+    check(math.isfinite(lpips) and lpips > 0, f"latent path: LPIPS {lpips}")
+    stage2 = result["seconds"]["stage2"]
+    enc, dec = seconds["encode_cond"], seconds["decode"]
+    chain = stage2 - enc - dec
+    print(f"latent path: {depth} slices at {size}x{size} (latent {lat}x{lat}x4), DDIM-{cfg['ddim_steps']}, UNet base "
+          f"160 bf16, KL-VAEs fp32: {stage2 / depth:.4f} s/slice = cond encode {enc / depth:.4f} + latent chain "
+          f"{chain / depth:.4f} + decode {dec / depth:.4f} (+ min-max); {chain / calls:.4f} s per UNet call "
+          f"({calls} calls); peak {peak:.2f} GiB; run() wall {wall:.3f} s (incl. model init, NIfTI, PNGs, LPIPS); "
+          f"lpips_3view {lpips:.4f} (uncalibrated VGG, random weights); flash_fwd launches {expected} = expected; "
+          f"card {card}", flush=True)
+    print(f"latent path: fp32 AEs per slice: cond encode {flops['encode_cond'] / depth / 1e12:.3f} TFLOP at "
+          f"{flops['encode_cond'] / enc / 1e12:.1f} TFLOP/s, decode {flops['decode'] / depth / 1e12:.3f} TFLOP at "
+          f"{flops['decode'] / dec / 1e12:.1f} TFLOP/s (TF32 off; fp32 peak {PEAK_FLOPS[torch.float32] / 1e12:.0f})",
+          flush=True)
+    torch.cuda.empty_cache()
+    return {"launches": expected, "s_per_slice": stage2 / depth, "encode_s_per_slice": enc / depth,
+            "chain_s_per_slice": chain / depth, "decode_s_per_slice": dec / depth, "s_per_unet_call": chain / calls,
+            "encode_tflop": flops["encode_cond"] / depth / 1e12, "decode_tflop": flops["decode"] / depth / 1e12,
+            "peak_gib": peak, "wall_s": wall, "lpips_three_view": lpips}
 
 
 def _counts(flash) -> dict:
@@ -1489,10 +1776,12 @@ def main() -> int:
     conv_rows, conv_edge = conv_phase(conv)
     reference_phase(flash)
     sampler_ref = sampler_reference_phase(flash)
+    latent_ref = latent_reference_phase(flash)
     fused_ref = fused_reference_phase(flash)
     ddim_path = path_phase(flash, card)
     fast = fast_path_phase(flash, card, ddim_path)
     tiled = tiled_path_phase(flash, card)
+    latent = latent_path_phase(flash, card)
     fused = fused_path_phase(flash, card)
     train_reference_phase(flash)
     train = train_path_phase(flash, card)
@@ -1504,6 +1793,8 @@ def main() -> int:
                     "fast_sampling_variant": fast["fast path variant"]["launches"],
                     "tiled_sampling": tiled["launches"],
                     "sampler_reference": sum(r["launches"] for r in sampler_ref.values()),
+                    "latent_reference": sum(r["launches"] for r in latent_ref.values()),
+                    "latent_ct_sampling": latent["launches"],
                     "stage1_training": train["launches"]["flash_fwd"],
                     "stage2_training": ldm_train["launches"]["flash_fwd"]}
     kernels = [{
@@ -1573,6 +1864,7 @@ def main() -> int:
                              "on the pallas_conv path these are")
         kernels.append(entry)
     print(f"sampling: {json.dumps({'reference': sampler_ref, 'ddim_path': ddim_path, **fast, 'tiled': tiled})}")
+    print(f"latent: {json.dumps({'reference': latent_ref, 'path': latent})}")
     print(f"fused: {json.dumps({'reference': fused_ref, 'paths': fused})}")
     print(f"train: {json.dumps(train)}")
     print(f"ldm train: {json.dumps(ldm_train)}")

@@ -42,7 +42,6 @@ import torch
 
 from ..core.config import load_yaml_config
 from ..core.runtime import configure_precision, resolve_device
-from ..data.datasets import SyntheticSliceDataset
 from ..data.classes import NUM_CLASSES
 from ..data.loader import DataLoader
 from ..diffusion.ddim import DDIMParams
@@ -52,6 +51,7 @@ from ..train.optim import build_optimizer
 from ..train.state import EMATrainState
 from ..train.steps import make_ldm_train_step
 from ..train.trainer import Trainer, TrainerConfig, noise_seed
+from .common import build_slice_dataset
 from .sample import build_slice_ldm
 
 __all__ = ["build_slice_dataset", "run", "main"]
@@ -77,15 +77,6 @@ def _reject_unported(cfg: dict, model_cfg: dict) -> None:
         bad("cross-attention context (context_dim)")
     if u.get("num_classes", model_cfg.get("adm_classes")) is not None:
         bad("class conditioning (num_classes)")
-
-
-def build_slice_dataset(cfg: dict, split: str) -> SyntheticSliceDataset:
-    """The synthetic branch of the JAX CLI's `build_slice_dataset`; splits
-    other than 'train' carry the whole volumes."""
-    d = cfg.get("dataset", {})
-    return SyntheticSliceDataset(num_cases=d.get("num_cases", 16),
-                                 slice_shape=tuple(d.get("slice_shape", (512, 512))),
-                                 depth=d.get("depth", 8), include_volumes=split != "train")
 
 
 def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:

@@ -2,7 +2,7 @@
 
 The port's own copy of the grid functions of `jointimagegeneration_tpu/eval/
 writers.py` (`make_grid`, `image_volume_to_grid`, `labels_to_grid`,
-`overlay_mask_on_image`), all numpy, and `save_grid_png`, which encodes the
+`overlay_mask_on_image`, `overlay_volume_to_grid`), all numpy, and `save_grid_png`, which encodes the
 PNG with the standard library's zlib and struct (8-bit grey or RGB, no
 filter), so it needs no imaging package.
 """
@@ -18,8 +18,8 @@ import numpy as np
 
 from ..data.classes import NUM_CLASSES, class_color_map, labels_to_colors
 
-__all__ = ["make_grid", "image_volume_to_grid", "labels_to_grid", "overlay_mask_on_image", "encode_png",
-           "save_grid_png"]
+__all__ = ["make_grid", "image_volume_to_grid", "labels_to_grid", "overlay_mask_on_image",
+           "overlay_volume_to_grid", "encode_png", "save_grid_png"]
 
 
 def make_grid(images: Sequence[np.ndarray], ncols: int = 8, pad: int = 2) -> np.ndarray:
@@ -85,6 +85,19 @@ def overlay_mask_on_image(image: np.ndarray, labels: np.ndarray, overlay_coef: f
             bmap = np.where((mag > 0) & (bmap == 0), i, bmap)
         out = np.where((bmap > 0)[..., None], colors[bmap], out)
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def overlay_volume_to_grid(image: np.ndarray, labels: np.ndarray, every: int = 4,
+                           overlay_coef: float = 0.2) -> np.ndarray:
+    """(D, H, W) CT and labels -> a grid of every `every`-th overlaid slice;
+    (H, W) renders as one panel.  The boundaries come from the whole volume
+    (the z axis must be a real one), so an organ at z = 0 or D - 1 shows its
+    edge slice's cross-section solid."""
+    image, labels = np.asarray(image), np.asarray(labels)
+    if image.ndim == 2:
+        image, labels = image[None], labels[None]
+    rgb = overlay_mask_on_image(image, labels, overlay_coef=overlay_coef)
+    return make_grid([rgb[z] for z in range(0, rgb.shape[0], every)])
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:

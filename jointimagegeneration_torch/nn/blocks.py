@@ -71,13 +71,14 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups:
 
 
 def conv_nd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-            stride: int = 1) -> torch.Tensor:
-    """Zero-padded ('SAME' for stride 1) convolution of a channels-last tensor
-    with a (O, I, *k) kernel; computes in x's dtype."""
+            stride: int = 1, padding: Optional[int] = None) -> torch.Tensor:
+    """Zero-padded convolution of a channels-last tensor with a (O, I, *k)
+    kernel, k//2 on every side unless `padding` says ('SAME' for stride 1);
+    computes in x's dtype."""
     dims = x.ndim - 2
     y = _CONV[dims](x.movedim(-1, 1), weight.to(x.dtype),
                     None if bias is None else bias.to(x.dtype),
-                    stride=stride, padding=weight.shape[-1] // 2)
+                    stride=stride, padding=weight.shape[-1] // 2 if padding is None else padding)
     return y.movedim(1, -1).contiguous()
 
 
@@ -125,18 +126,18 @@ class GroupNorm32(nn.Module):
 
 
 class Conv(nn.Module):
-    """Convolution with an odd kernel and k//2 zero padding on channels-last
-    input; params fp32, compute in the input dtype."""
+    """Convolution with an odd kernel and k//2 zero padding (or `padding`) on
+    channels-last input; params fp32, compute in the input dtype."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, dims: int, stride: int = 1,
-                 device=None):
+                 padding: Optional[int] = None, use_bias: bool = True, device=None):
         super().__init__()
-        self.stride = stride
+        self.stride, self.padding = stride, padding
         self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, *(kernel,) * dims, device=device))
-        self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_ch, device=device)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_nd(x, self.weight, self.bias, self.stride)
+        return conv_nd(x, self.weight, self.bias, self.stride, self.padding)
 
 
 class Linear(nn.Linear):
@@ -273,13 +274,14 @@ class ResBlock(nn.Module):
 
 class AttentionBlock(nn.Module):
     """Self-attention over the flattened spatial sequence: GN -> qkv ->
-    multi-head attention -> proj_out, residual."""
+    multi-head attention -> proj_out, residual.  `eps` is the GroupNorm's:
+    1e-5 at UNet sites, 1e-6 at VAE sites (`nn.vae.make_attn`)."""
 
     def __init__(self, channels: int, num_heads: int = 1, num_head_channels: int = -1,
-                 device=None):
+                 eps: float = 1e-5, device=None):
         super().__init__()
         self.heads = num_heads if num_head_channels == -1 else max(1, channels // num_head_channels)
-        self.norm = GroupNorm32(channels, device=device)
+        self.norm = GroupNorm32(channels, eps=eps, device=device)
         self.qkv = Linear(channels, 3 * channels, device=device)
         self.proj_out = Linear(channels, channels, device=device)
 

@@ -4,7 +4,11 @@ Counterpart of `jointimagegeneration_tpu/pipeline/two_stage.py`: stage-1
 labels -> nearest-neighbour upsample to the CT grid -> the mask channel
 labels / (C - 1) -> the autoregressive stage-2 volume, with the stage-2
 options `guidance_scale`, `warm_start` and `sampler` passed through to
-`SliceLDM.sample_volume`.  The chunked programs split the z loop into chunks,
+`SliceLDM.sample_volume`.  Stage 2 may be a `LatentSliceLDM` (the `_ae`
+route): its volume encodes each [previous slice | mask slice] pair, runs the
+chain in latent space and decodes, so a chunk's `init_slice` is a pixel slice
+of `first_stage.out_ch` channels; without a first stage it raises.  The
+chunked programs split the z loop into chunks,
 each seeded with the previous chunk's last slice, which keeps the
 autoregressive semantics exactly, except that under `warm_start` each chunk's
 first slice runs the full chain (a chunk carries only `init_slice`, as the JAX
@@ -16,13 +20,14 @@ default), the chunked programs give the JAX CLI's unchunked
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from ..diffusion.ddim import DDIMParams
 from ..diffusion.noise import NoiseSource
+from ..models.latent_ldm import LatentSliceLDM
 from ..models.mask_sampler import MaskSampler
 from ..models.slice_ldm import SliceLDM
 
@@ -45,10 +50,18 @@ def normalize_mask_channel(labels: torch.Tensor, num_classes: int) -> torch.Tens
     return labels.float()[..., None] / max(num_classes - 1, 1)
 
 
+def _check_stage2(slice_ldm) -> None:
+    if isinstance(slice_ldm, LatentSliceLDM) and slice_ldm.first_stage is None:
+        raise ValueError("latent two-stage pipeline needs the first-stage AE (its weights)")
+
+
 @dataclass(frozen=True)
 class TwoStagePipeline:
     mask_sampler: MaskSampler
-    slice_ldm: SliceLDM
+    slice_ldm: Union[SliceLDM, LatentSliceLDM]
+
+    def __post_init__(self):
+        _check_stage2(self.slice_ldm)
 
     def __call__(self, noise: NoiseSource, *, mask_shape: Tuple[int, int, int, int],
                  volume_shape: Tuple[int, int, int], ddim: DDIMParams,
@@ -64,7 +77,7 @@ class TwoStagePipeline:
         return ct, labels_up
 
 
-def make_chunked_two_stage_programs(mask_sampler: MaskSampler, slice_ldm: SliceLDM, *,
+def make_chunked_two_stage_programs(mask_sampler: MaskSampler, slice_ldm: Union[SliceLDM, LatentSliceLDM], *,
                                     mask_shape: Tuple[int, int, int, int],
                                     volume_shape: Tuple[int, int, int],
                                     ddim: DDIMParams, chunk: int,
@@ -80,6 +93,7 @@ def make_chunked_two_stage_programs(mask_sampler: MaskSampler, slice_ldm: SliceL
     the same volume as one sample_volume call (under `warm_start`, up to each
     chunk's first slice, which runs the full chain).  `sample_kw`
     (`guidance_scale`, `warm_start`, `sampler`) go to sample_volume."""
+    _check_stage2(slice_ldm)
     d = volume_shape[0]
     if d % chunk != 0:
         raise ValueError(f"volume depth {d} must divide by chunk {chunk}")

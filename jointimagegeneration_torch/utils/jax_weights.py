@@ -1,4 +1,4 @@
-"""Weight bridge: a JAX package UNet parameter tree -> this port's UNet state dict.
+"""Weight bridge: JAX package parameter trees -> this port's state dicts.
 
 Takes the flax tree as nested dicts of numpy arrays (optionally under a
 top-level "params" key), or a flat mapping / `.npz` file whose keys are the
@@ -11,6 +11,11 @@ tree paths joined by '/'.  Layout changes:
     `emb_kernel`, `skip_kernel`, ...), kernels re-laid as above;
   * a stage-2 tree with a learned logvar, {"unet": <UNet tree>, "logvar":
     (T,)}, gives the UNet's keys and `logvar` as it is.
+
+`ae_state_dict_from_jax` does the same for an AutoencoderKL / VQModel tree
+(only `kernel` leaves change layout: the VQ codebook (n_embed, embed_dim) is
+2-D but no Dense kernel, and stays as it is), `lpips_state_dict_from_jax`
+for the LPIPS VGG16 tower (`conv0` ... `conv12`).
 
 `train_state_from_jax` carries a whole JAX train state (params, EMA, an
 optax Adam / AdamW state, optionally inside optax.MultiSteps) over as an
@@ -26,7 +31,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["unet_state_dict_from_jax", "flatten_tree", "train_state_from_jax"]
+__all__ = ["unet_state_dict_from_jax", "ae_state_dict_from_jax", "lpips_state_dict_from_jax", "flatten_tree",
+           "flat_paths", "train_state_from_jax"]
 
 
 def flatten_tree(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -48,28 +54,51 @@ def _to_torch_layout(arr: np.ndarray) -> np.ndarray:
     return arr
 
 
-def unet_state_dict_from_jax(params: Union[Mapping, str, Path]) -> Dict[str, torch.Tensor]:
-    """State dict (fp32 CPU tensors) for `nn.unet.UNet.load_state_dict`."""
+def flat_paths(params: Union[Mapping, str, Path]) -> Dict[Tuple[str, ...], np.ndarray]:
+    """Tree paths -> leaves, from a nested tree, a flat mapping with
+    '/'-joined keys or tuple keys, or the `.npz` file of one."""
+    if isinstance(params, Mapping) and params and all(isinstance(k, tuple) for k in params):
+        return {k: np.asarray(v) for k, v in params.items()}
     if isinstance(params, (str, Path)):
         with np.load(params) as z:
             params = {k: z[k] for k in z.files}
     flat = flatten_tree(params)
     if flat and all(len(k) == 1 and "/" in k[0] for k in flat):
         flat = {tuple(k[0].split("/")): v for k, v in flat.items()}
+    return flat
+
+
+def _state_dict(flat: Mapping[Tuple[str, ...], np.ndarray], unet: bool) -> Dict[str, torch.Tensor]:
     state = {}
     for path, arr in flat.items():
         path = [p for p in path if p != "GroupNorm_0"]
-        if path[0] == "unet" and len(path) > 1:  # {"unet": ..., "logvar": ...}
+        if unet and path[0] == "unet" and len(path) > 1:  # {"unet": ..., "logvar": ...}
             path = path[1:]
         if path[0] == "params":
             path = path[1:]
         leaf = path[-1]
-        if leaf == "kernel" or leaf.endswith("_kernel"):
+        if leaf == "kernel" or (unet and leaf.endswith("_kernel")):
             arr = _to_torch_layout(arr)
         if leaf in ("kernel", "scale"):
             leaf = "weight"
         state[".".join(path[:-1] + [leaf])] = torch.tensor(np.asarray(arr, np.float32))
     return state
+
+
+def unet_state_dict_from_jax(params: Union[Mapping, str, Path]) -> Dict[str, torch.Tensor]:
+    """State dict (fp32 CPU tensors) for `nn.unet.UNet.load_state_dict`."""
+    return _state_dict(flat_paths(params), unet=True)
+
+
+def ae_state_dict_from_jax(params: Union[Mapping, str, Path]) -> Dict[str, torch.Tensor]:
+    """State dict for `models.autoencoder.AutoencoderKL` / `VQModel` from the
+    flax variables of one ({"params": ...} or the bare tree)."""
+    return _state_dict(flat_paths(params), unet=False)
+
+
+def lpips_state_dict_from_jax(params: Union[Mapping, str, Path]) -> Dict[str, torch.Tensor]:
+    """State dict for `eval.lpips.VGG16Features` from the JAX LPIPS' `params`."""
+    return _state_dict(flat_paths(params), unet=False)
 
 
 def _find_states(tree: Any, field: str) -> list:

@@ -158,9 +158,12 @@ def test_cli_checkpoint_and_unported_keys(tmp_path, slice_models):
                     ddim=TDDIM.create(tpipe.slice_ldm.diffusion, 4), mask_steps=4,
                     cond=torch.zeros((*MASK_SHAPE, 1)), **opt)[0]
         np.testing.assert_allclose(got, to_numpy(ref)[:, :3, ..., 0], atol=1e-6, err_msg=str(opt))
-    for bad in ({"stage": "mask"}, {"text": {"features_npz": "x.npz"}}, {"tile": {"patch": [8, 8]}},
-                {"stage2": {**cfg["stage2"], "first_stage": {"ch": 8}}}):
+    for bad in ({"stage": "mask"}, {"text": {"features_npz": "x.npz"}}, {"tile": {"patch": [8, 8]}}):
         with pytest.raises(NotImplementedError):
             tcli.run({**cfg, **bad})
+    # the latent first stage is ported: without a cond stage, a 1-channel first
+    # stage cannot encode the [prev, mask] pair, and the CLI says so
+    with pytest.raises(ValueError, match="in_channels"):
+        tcli.run({**cfg, "stage2": {**cfg["stage2"], "first_stage": {"ch": 8}}})
     with pytest.raises(ValueError):
         tcli.run({**cfg, "slices": 4})  # not a multiple of chunk 3
