@@ -19,7 +19,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
      3x3x3 conv kernel (`conv3d ...` lines: error, a bitwise repeat, the
      launch plan taken) at the fused and pallas_conv paths' shapes (library:
      F.conv3d), then checked at every distinct conv of the fused path and at
-     its edge shapes;
+     its edge shapes.  The flash rows include the text-guided stage 1's
+     (CROSS_SHAPES: cross-attention over 4 and 512 context tokens in bf16,
+     the refiner's 512-token self-attention in fp32 at D = 64);
   3. reference: a tiny two-stage pipeline on the card against the same
      pipeline on the CPU (same weights, same noise);
   4. sampler reference: the stage-2 sampler routes of a tiny fp32 SliceLDM
@@ -67,21 +69,31 @@ Phases, in order (any failure exits non-zero and prints no result line):
      widths (64x128x128, 12 classes, base 64, bf16, AdamW, EMA), with only the
      lengths cut: 6 steps with checkpoints at 3 and 6 and one validation at 6,
      then a resumed run to step 8;
- 10. ldm train reference: three fp32 stage-2 train steps of a small 2D
+ 10. text: a tiny fp32 text-conditioned MaskSampler (self-, cross- and
+     refiner attention all at 512 tokens) on the card against the CPU,
+     guided `sample_labels` and two train steps with the refiner's dropout
+     (`text reference`); `cli.sample.run` with `stage: mask` at full width,
+     `selfattn` (embed 768) and a seeded 512-token features file, 2 draws of
+     4 steps with GED and HM-IoU (`text mask path`); the two-stage path with
+     the same text over 2 slices (`text two-stage path`); the train path
+     with `selfattn` on 4-token synthetic contexts, the refiner in the
+     state (`text train path`; its checkpoints deleted at the end);
+ 11. ldm train reference: three fp32 stage-2 train steps of a small 2D
      SliceLDM with a learned logvar (T = 1024 at its attention sites, so the
      card runs the flash kernels) on the card against the same steps on the
      CPU: loss, every gradient and the params after each step;
- 11. ldm train path: `cli.train_ldm.run` on `configs/stage2_ldm.yml`'s full
+ 12. ldm train path: `cli.train_ldm.run` on `configs/stage2_ldm.yml`'s full
      widths (512x512 slices, base 128, mult (1,2,4,4,5), bf16, AdamW, LitEma
      EMA), with only the lengths cut: 6 steps with checkpoints at 3 and 6 and
      one validation at 6 (the panels of 2 slices: three DDIM-20 chains,
      written as PNGs; then the val loss at t = T/2), then a resumed run to
      step 8; its ~2.8 GB checkpoints are deleted at the end.
-Before each main path (6 per run and the latent path, 7 per variant, 9, 11)
-every kernel launch counter is set to 0; after it the counts must equal what
-the path implies.  The last lines are the sampling, latent, fused and train
-summaries, a JSON line with the kernel numbers, the card's name and power
-limit, and `{"ok": true, "device": {...}}`.  Imports neither JAX nor PyYAML.
+Before each main path (6 per run and the latent path, 7 per variant, 9, each
+text path of 10, 12) every kernel launch counter is set to 0; after it the
+counts must equal what the path implies.  The last lines are the sampling,
+latent, fused, train and text summaries, a JSON line with the kernel
+numbers, the card's name and power limit, and `{"ok": true, "device":
+{...}}`.  Imports neither JAX nor PyYAML.
 """
 
 from __future__ import annotations
@@ -132,6 +144,14 @@ FWD_EDGE_SHAPES = [  # (BH, Tq, Tk, D), dtype: ragged T, Tq != Tk, every head wi
     ((3, 100, 77, 40), torch.float32), ((2, 130, 70, 256), torch.float32), ((1, 7, 3, 5), torch.float32),
     ((2, 130, 40, 40), torch.bfloat16),  # Tk <= 64: two warpgroups, one of which sees no key
     ((1, 7, 3, 5), torch.bfloat16), ((2, 300, 200, 64), torch.bfloat16), ((1, 64, 64, 128), torch.bfloat16),
+]
+# (BH, Tq, Tk, D), dtype, where: the text-guided stage-1 paths (8 heads of 32
+# at the five ds-8 sites of 8x16x16 = 2,048 tokens; the refiner 8 heads of 64
+# in fp32), forward and backward
+CROSS_SHAPES = [
+    ((8, 2048, 4, 32), torch.bfloat16, "stage 1 ds8 cross-attention, synthetic context"),
+    ((8, 2048, 512, 32), torch.bfloat16, "stage 1 ds8 cross-attention, a 512-token report"),
+    ((8, 512, 512, 64), torch.float32, "text refiner, a 512-token report"),
 ]
 BWD_SHAPES = [  # (BH, T, D), dtype, where training runs it
     ((8, 2048, 32), torch.bfloat16, "stage 1 ds8, 64x128x128"),
@@ -259,6 +279,22 @@ LATENT_CT_CFG = {  # configs/sample_ct_ae.yml, depth cut to 4 slices
         "dataset": {"kind": "synthetic", "slice_shape": [512, 512], "depth": 4, "num_cases": 2},
     },
 }
+# text-guided stage 1: `feature_cond_encoder: {type: selfattn, embed_dim: 768}`
+# in the stage-1 section, the refiner at build_feature_cond_encoder's defaults
+# (4 blocks of 8 heads x 64, dropout 0.2); the text paths read a seeded
+# (512, 768) fp32 features file, one BERT chunk of a report
+TEXT_FCE = {"type": "selfattn", "embed_dim": 768}
+TEXT_TOKENS = 512
+TEXT_STAGE1 = {**TWO_STAGE_CFG["stage1"], "feature_cond_encoder": TEXT_FCE}
+TEXT_MASK_CFG = {"stage": "mask", "seed": 1024, "n_cases": 1, "samples": 2, "mask_steps": 4,
+                 "fresh_init_noise": 0.02, "stage1": TEXT_STAGE1}
+TEXT_TWO_STAGE_CFG = {**TWO_STAGE_CFG, "slices": 2, "chunk": 2, "stage1": TEXT_STAGE1}
+TEXT_TRAIN_CFG = {**STAGE1_TRAIN_CFG, "feature_cond_encoder": TEXT_FCE}
+# the tiny text model of the text reference phase: the train reference's UNet
+# (512 tokens at its ds-1 sites) cross-attending over a 512-token context that
+# a 2-block refiner of 2 heads x 64 refines, so the self-, cross- and refiner
+# attention all take the flash kernels (the refiner's in fp32 at D = 64)
+TEXT_REF_FCE = {"type": "selfattn", "embed_dim": 128, "n_heads": 2, "d_head": 64, "model_depth": 2, "dropout": 0.2}
 # the tiny KL-VAEs of the latent reference phase: 64x64 pixels, a 32x32
 # latent, one 'vanilla' attention placed at resolution 32 besides the mid one
 LATENT_REF_AE = {"embed_dim": 4, "ddconfig": {"ch": 8, "ch_mult": [1, 2], "num_res_blocks": 1,
@@ -350,37 +386,42 @@ def compare(flash, q, k, v, label: str) -> tuple:
     return err_o, err_lse, tol_o
 
 
+def _full_shapes(shapes) -> list:
+    """FWD_SHAPES / BWD_SHAPES rows as (BH, Tq, Tk, D) rows, then CROSS_SHAPES."""
+    return [((bh, t, t, d), dtype, where) for (bh, t, d), dtype, where in shapes] + CROSS_SHAPES
+
+
 def flash_phase(flash) -> list:
-    """The flash forward at the main paths' shapes: error, a bitwise repeat,
-    times (graph-timed, eager, plain, SDPA) and bounds, the largest of three
-    times: the products on the tensor cores (`tensor_bound_ms`, 4*BH*T^2*D
-    flops; fp32 on the FMA pipes), the BH*T^2 exponentials at EX2_PER_CLK per
-    clock of the card's maximum SM clock (`exp_bound_ms`), and the bytes (q,
-    k, v read, O and LSE written once).  Then checked, not timed, at the
-    edge shapes."""
+    """The flash forward at the main paths' shapes (CROSS_SHAPES with Tq !=
+    Tk among them): error, a bitwise repeat, times (graph-timed, eager,
+    plain, SDPA) and bounds, the largest of three times: the products on the
+    tensor cores (`tensor_bound_ms`, 4*BH*Tq*Tk*D flops; fp32 on the FMA
+    pipes), the BH*Tq*Tk exponentials at EX2_PER_CLK per clock of the card's
+    maximum SM clock (`exp_bound_ms`), and the bytes (q, k, v read, O and LSE
+    written once).  Then checked, not timed, at the edge shapes."""
     import torch.nn.functional as F
 
     ex2_per_s = EX2_PER_CLK * max_sm_clock_hz()
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     rows = []
-    for (bh, t, d), dtype, where in FWD_SHAPES:
+    for (bh, t, tk, d), dtype, where in _full_shapes(FWD_SHAPES):
         q = (torch.randn(bh, t, d, generator=g, device="cuda") / math.sqrt(d)).to(dtype)
-        k = torch.randn(bh, t, d, generator=g, device="cuda").to(dtype)
-        v = torch.randn(bh, t, d, generator=g, device="cuda").to(dtype)
+        k = torch.randn(bh, tk, d, generator=g, device="cuda").to(dtype)
+        v = torch.randn(bh, tk, d, generator=g, device="cuda").to(dtype)
         dname = str(dtype).replace("torch.", "")
-        err_o, err_lse, tol_o = compare(flash, q, k, v, f"{(bh, t, d)} {dname}")
-        plan = flash.plan_flash_fwd(bh, t, t, d, dtype)
+        err_o, err_lse, tol_o = compare(flash, q, k, v, f"{(bh, t, tk, d)} {dname}")
+        plan = flash.plan_flash_fwd(bh, t, tk, d, dtype)
         ms, eager_ms = time_ms(lambda: flash.flash_forward(q, k, v), 50)
         plain_ms, _ = time_ms(lambda: flash.flash_attention_plain(q, k, v), 10)
         q4, k4, v4 = q[None], k[None], v[None]
         library_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0), 50)
-        t_ms = 4.0 * bh * t * t * d / PEAK_FLOPS[dtype] * 1e3
-        exp_ms = bh * t * t / ex2_per_s * 1e3
-        b_ms = (4 * bh * t * d * q.element_size() + bh * t * 4) / PEAK_BYTES * 1e3
+        t_ms = 4.0 * bh * t * tk * d / PEAK_FLOPS[dtype] * 1e3
+        exp_ms = bh * t * tk / ex2_per_s * 1e3
+        b_ms = (2 * bh * (t + tk) * d * q.element_size() + bh * t * 4) / PEAK_BYTES * 1e3
         bound_ms = max(t_ms, exp_ms, b_ms)
         limit = "bytes" if b_ms == bound_ms else ("ex2" if exp_ms > t_ms else "tensor")
-        row = {"shape": [bh, t, t, d], "dtype": dname, "where": where,
+        row = {"shape": [bh, t, tk, d], "dtype": dname, "where": where,
                "err_o": err_o, "tol_o": tol_o, "err_lse": err_lse, "ms": ms, "eager_ms": eager_ms,
                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": "bytes" if limit == "bytes" else "operations", "limit": limit,
@@ -437,7 +478,8 @@ def compare_bwd(flash, q, k, v, o, lse, do, label: str) -> dict:
 
 def bwd_phase(flash) -> list:
     """The backward kernels at the training shapes: error, a bitwise repeat,
-    times, bounds, and the launch plan taken.
+    times, bounds, and the launch plan taken (CROSS_SHAPES with Tq != Tk
+    among them).
 
     Per shape: `dq_ms` (the dq kernel, which also computes delta) and
     `dkv_ms` are each kernel alone, `ms` the whole backward as
@@ -446,8 +488,8 @@ def bwd_phase(flash) -> list:
     forward + backward in one captured graph less its forward alone (the port
     never calls it).  Bounds, each the largest of three times: the products
     on the tensor cores (`tensor_bound_ms`; the whole backward 5 of
-    2*BH*T^2*D flops: S, dP, dV, dK, dQ; dkv alone S, dP, dV, dK; dq alone S,
-    dP, dQ), the BH*T^2 exponentials at EX2_PER_CLK per clock of the card's
+    2*BH*Tq*Tk*D flops: S, dP, dV, dK, dQ; dkv alone S, dP, dV, dK; dq alone
+    S, dP, dQ), the BH*Tq*Tk exponentials at EX2_PER_CLK per clock of the card's
     maximum SM clock (`exp_bound_ms`; once for the whole backward, once in
     each kernel), and the bytes: the whole backward reads q, k, v, O, dO and
     LSE and writes dQ, dK, dV; dq reads q, k, v, O, dO, LSE and writes dQ and
@@ -458,12 +500,12 @@ def bwd_phase(flash) -> list:
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
     rows = []
-    for (bh, t, d), dtype, where in BWD_SHAPES:
-        q, k, v, do = _attention_inputs(g, bh, t, t, d, dtype)
+    for (bh, t, tk, d), dtype, where in _full_shapes(BWD_SHAPES):
+        q, k, v, do = _attention_inputs(g, bh, t, tk, d, dtype)
         o, lse = flash.flash_forward(q, k, v)
         dname = str(dtype).replace("torch.", "")
-        errs = compare_bwd(flash, q, k, v, o, lse, do, f"{(bh, t, d)} {dname}")
-        plan = flash.plan_flash_bwd(bh, t, t, d, dtype)
+        errs = compare_bwd(flash, q, k, v, o, lse, do, f"{(bh, t, tk, d)} {dname}")
+        plan = flash.plan_flash_bwd(bh, t, tk, d, dtype)
         _, delta = flash.flash_bwd_dq(q, k, v, o, do, lse)
         ms, eager_ms = time_ms(lambda: flash.flash_backward(q, k, v, o, lse, do), 20)
         dq_ms, _ = time_ms(lambda: flash.flash_bwd_dq(q, k, v, o, do, lse), 20)
@@ -477,9 +519,9 @@ def bwd_phase(flash) -> list:
 
         lib_fwd_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0), 20)
         lib_both_ms, _ = time_ms(sdpa_fwd_bwd, 20)
-        es, flops_unit, rowbytes = q.element_size(), 2.0 * bh * t * t * d, bh * t * 4
-        io = bh * t * d * es
-        exp_ms = bh * t * t / ex2_per_s * 1e3
+        es, flops_unit, rowbytes = q.element_size(), 2.0 * bh * t * tk * d, bh * t * 4
+        io_q, io_k = bh * t * d * es, bh * tk * d * es  # one q-side (q, O, dO, dQ) or k-side tensor
+        exp_ms = bh * t * tk / ex2_per_s * 1e3
 
         def bound(n_products, nbytes):
             t_ms, b_ms = n_products * flops_unit / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -487,9 +529,9 @@ def bwd_phase(flash) -> list:
                     "bound_by": "bytes" if b_ms > max(t_ms, exp_ms) else "operations",
                     "limit": "bytes" if b_ms > max(t_ms, exp_ms) else ("ex2" if exp_ms > t_ms else "tensor")}
 
-        whole = bound(5, 8 * io + rowbytes)
-        dkv_b, dq_b = bound(4, 6 * io + 2 * rowbytes), bound(3, 6 * io + 2 * rowbytes)
-        row = {"shape": [bh, t, t, d], "dtype": dname, "where": where, **errs,
+        whole = bound(5, 4 * io_q + 4 * io_k + rowbytes)
+        dkv_b, dq_b = bound(4, 2 * io_q + 4 * io_k + 2 * rowbytes), bound(3, 4 * io_q + 2 * io_k + 2 * rowbytes)
+        row = {"shape": [bh, t, tk, d], "dtype": dname, "where": where, **errs,
                "ms": ms, "eager_ms": eager_ms, "dkv_ms": dkv_ms, "dq_ms": dq_ms, "plain_ms": plain_ms,
                "library_ms": lib_both_ms - lib_fwd_ms, "library_fwd_bwd_ms": lib_both_ms, **whole,
                **{f"dkv_{key}": val for key, val in dkv_b.items()}, **{f"dq_{key}": val for key, val in dq_b.items()},
@@ -723,6 +765,9 @@ class _CpuDrawnNoise:
 
     def normal(self, shape):
         return self.src.normal(shape).to(self.device)
+
+    def uniform(self, shape):
+        return self.src.uniform(shape).to(self.device)
 
     def gumbel(self, shape):
         return self.src.gumbel(shape).to(self.device)
@@ -1039,16 +1084,35 @@ def stage2_calls(cfg: dict) -> int:
     return n_chunks * per_chunk * (2 if float(cfg.get("guidance_scale", 1.0)) != 1.0 else 1)
 
 
-def sampling_run(flash, cfg: dict, label: str, card: str) -> dict:
+def stage1_launches(s1: dict, steps: int, ctx_len: int = 0) -> int:
+    """flash_fwd launches of one stage-1 chain of `steps` UNet calls: one per
+    flash site a call, two (attn1 and attn2) with a `selfattn` encoder, whose
+    refiner adds two per block (once a chain) when its `ctx_len`-token
+    context takes the flash rule."""
+    from jointimagegeneration_torch.ops.attention import FLASH_MIN_SEQ
+    from jointimagegeneration_torch.ops.flash_attention import flash_eligible
+
+    fce = s1.get("feature_cond_encoder") or {}
+    text = fce.get("type") == "selfattn"
+    per_call = flash_sites(s1["dataset"]["volume_shape"], s1["unet_openai"], "channel_mult") * (2 if text else 1)
+    d_head = fce.get("d_head", 64)
+    refine = (text and fce.get("train", True) and ctx_len >= FLASH_MIN_SEQ
+              and flash_eligible(ctx_len, ctx_len, d_head))
+    return steps * per_call + (2 * fce.get("model_depth", 4) if refine else 0)
+
+
+def sampling_run(flash, cfg: dict, label: str, card: str, ctx_len: int = 0) -> dict:
     """`cli.sample.run(cfg)` on the card with the launch counts zeroed before
     it; checks the outputs, the files and that flash_fwd (and no other
-    kernel) launched mask_steps x stage-1 sites + stage2_calls x stage-2
-    sites times.  Returns the launches and stage-2 s/slice."""
+    kernel) launched `stage1_launches` (mask_steps x stage-1 sites, with a
+    text context of `ctx_len` tokens attn1 + attn2 and the refiner) +
+    stage2_calls x stage-2 sites times.  Returns the launches and stage-2
+    s/slice."""
     from jointimagegeneration_torch.cli.sample import run
 
     s1, s2 = cfg["stage1"], cfg["stage2"]
     u2 = s2["unet_config"]["params"]
-    expected = (cfg["mask_steps"] * flash_sites(s1["dataset"]["volume_shape"], s1["unet_openai"], "channel_mult")
+    expected = (stage1_launches(s1, cfg["mask_steps"], ctx_len)
                 + stage2_calls(cfg) * flash_sites([s2["slice_size"]] * 2, u2, "channel_mult"))
     _reset_counts(flash)
     t0 = time.perf_counter()
@@ -1610,48 +1674,60 @@ def _train_run(flash, run, cfg: dict, exp: str) -> tuple:
     return state, launches, wall, out.getvalue()
 
 
-def train_path_phase(flash, card: str) -> dict:
+def train_path_phase(flash, card: str, base: dict = STAGE1_TRAIN_CFG, label: str = "train path",
+                     subdir: str = "train") -> dict:
     """Stage-1 training at full width through `cli.train_mask.run`, then a
-    resumed run; returns the first run's launch counts and numbers."""
+    resumed run; returns the first run's launch counts and numbers.  With a
+    `selfattn` encoder (the text train path) each flash site launches twice
+    (attn1, attn2), every refiner parameter must move, and the checkpoints
+    under build/chip_smoke/<subdir> are deleted at the end."""
     from jointimagegeneration_torch.cli.sample import build_mask_sampler
     from jointimagegeneration_torch.cli.train_mask import run
     from jointimagegeneration_torch.core.checkpoint import CheckpointManager
 
-    cfg = json.loads(json.dumps(STAGE1_TRAIN_CFG))
-    cfg["output_path"] = str(ROOT / "build" / "chip_smoke" / "train")
+    cfg = json.loads(json.dumps(base))
+    cfg["output_path"] = str(ROOT / "build" / "chip_smoke" / subdir)
     shutil.rmtree(cfg["output_path"], ignore_errors=True)
     logdir = Path(cfg["output_path"]) / "smoke"
-    sites = flash_sites(cfg["dataset"]["volume_shape"], cfg["unet_openai"], "channel_mult")
+    text = (cfg.get("feature_cond_encoder") or {}).get("type") == "selfattn"
+    ctx_len = cfg["dataset"].get("context_len", 4) if text else 0
+    sites = stage1_launches(cfg, 1, ctx_len)  # launches of a train step's forward, each with its backward
     n_steps, n_eval = cfg["max_steps"], cfg["max_steps"] // cfg["validation_freq_steps"]
-    expected = {"flash_fwd": sites * (n_steps + n_eval * cfg["eval_time_steps"]),
+    expected = {"flash_fwd": sites * n_steps + n_eval * stage1_launches(cfg, cfg["eval_time_steps"], ctx_len),
                 "flash_bwd_dkv": sites * n_steps, "flash_bwd_dq": sites * n_steps,
                 "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}  # the unfused UNet
     torch.cuda.reset_peak_memory_stats()
     state, launches, wall, _ = _train_run(flash, run, cfg, "smoke")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    check(launches == expected, f"train path: launches {launches}, expected {expected}")
+    check(launches == expected, f"{label}: launches {launches}, expected {expected}")
     recs = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
     train = [r for r in recs if "train/loss" in r]
-    check([r["step"] for r in train] == list(range(1, n_steps + 1)), f"train path: logged steps {train}")
-    check(all(math.isfinite(r["train/loss"]) for r in train), "train path: a logged loss is not finite")
+    check([r["step"] for r in train] == list(range(1, n_steps + 1)), f"{label}: logged steps {train}")
+    check(all(math.isfinite(r["train/loss"]) for r in train), f"{label}: a logged loss is not finite")
     check(all(r["train/grad_finite"] == 1.0 and r["train/nonfinite_skipped"] == 0.0 for r in train),
-          "train path: a step had non-finite gradients")
+          f"{label}: a step had non-finite gradients")
     dice = [r["val/dice"] for r in recs if "val/dice" in r and r["step"] == n_steps]
-    check(len(dice) == 1 and 0.0 <= dice[0] <= 1.0, f"train path: val/dice at step {n_steps}: {dice}")
+    check(len(dice) == 1 and 0.0 <= dice[0] <= 1.0, f"{label}: val/dice at step {n_steps}: {dice}")
     steps = CheckpointManager(logdir / "checkpoints").all_steps()
-    check(steps["rolling"] == [3, 6] and steps["best"] == [6], f"train path: checkpoints {steps}")
-    fresh = build_mask_sampler(cfg, "cuda", seed=cfg["seed"]).unet
-    moved = [(p - p0).abs().max().item() > 0 for p, p0 in zip(state.params, fresh.parameters())]
-    check(sum(moved) > 0.9 * len(moved), f"train path: only {sum(moved)} of {len(moved)} params moved")
+    check(steps["rolling"] == [3, 6] and steps["best"] == [6], f"{label}: checkpoints {steps}")
+    fresh = dict(build_mask_sampler(cfg, "cuda", seed=cfg["seed"]).named_parameters())
+    moved = {n: (p - fresh[n]).abs().max().item() > 0 for n, p in zip(state.names, state.params)}
+    check(sum(moved.values()) > 0.9 * len(moved), f"{label}: only {sum(moved.values())} of {len(moved)} params moved")
+    refiner = [n for n in moved if n.startswith("refiner.")]
+    check(len(refiner) == (20 * cfg["feature_cond_encoder"].get("model_depth", 4) if text else 0)
+          and all(moved[n] for n in refiner), f"{label}: refiner params {len(refiner)}, moved "
+                                              f"{sum(moved[n] for n in refiner)}")
     ema_off = max((e - p).abs().max().item() for e, p in zip(state.ema, state.params))
-    check(ema_off > 0, "train path: the EMA equals the params")
+    check(ema_off > 0, f"{label}: the EMA equals the params")
     sec = sorted(r["train/step_seconds"] for r in train[1:])  # step 1 carries cuDNN's first-call setup
     s_per_step = sec[len(sec) // 2]
-    print(f"train path: stage 1 (64x128x128, base 64, bf16, AdamW + EMA) {n_steps} steps, warmed "
+    what = f"text, context {ctx_len} x {cfg['feature_cond_encoder']['embed_dim']}, " if text else ""
+    print(f"{label}: stage 1 (64x128x128, base 64, bf16, {what}AdamW + EMA) {n_steps} steps, warmed "
           f"{s_per_step:.4f} s/step (median of steps 2-{n_steps}; step 1 {train[0]['train/step_seconds']:.3f} s), "
           f"losses {[round(r['train/loss'], 2) for r in train]}, val/dice {dice[0]:.4f}, peak "
           f"torch.cuda.max_memory_allocated {peak_gib:.2f} GiB, run() wall {wall:.2f} s (incl. model init, "
-          f"validation and three checkpoint writes); launches {launches} = expected; card {card}", flush=True)
+          f"validation and three checkpoint writes); launches {launches} = expected"
+          f"{f'; {len(refiner)} refiner params all moved' if text else ''}; card {card}", flush=True)
     del state, fresh
     gc.collect()
     torch.cuda.empty_cache()
@@ -1659,15 +1735,164 @@ def train_path_phase(flash, card: str) -> dict:
     cfg2 = dict(cfg, load_from=True, max_steps=n_steps + 2)
     expected2 = {k: sites * 2 if k.startswith("flash") else 0 for k in expected}
     state2, launches2, wall2, printed = _train_run(flash, run, cfg2, "smoke")
-    check(f"resumed from step {n_steps}" in printed, "train path: the rerun did not resume from step 6")
-    check(state2.step == n_steps + 2, f"train path: resumed run ended at step {state2.step}")
-    check(launches2 == expected2, f"train path (resumed): launches {launches2}, expected {expected2}")
-    print(f"train path: resumed from step {n_steps} to {state2.step} in {wall2:.2f} s; launches {launches2} "
+    check(f"resumed from step {n_steps}" in printed, f"{label}: the rerun did not resume from step 6")
+    check(state2.step == n_steps + 2, f"{label}: resumed run ended at step {state2.step}")
+    check(launches2 == expected2, f"{label} (resumed): launches {launches2}, expected {expected2}")
+    print(f"{label}: resumed from step {n_steps} to {state2.step} in {wall2:.2f} s; launches {launches2} "
           f"= expected", flush=True)
     del state2
     gc.collect()
     torch.cuda.empty_cache()
+    if text:
+        shutil.rmtree(cfg["output_path"], ignore_errors=True)
     return {"launches": launches, "s_per_step": s_per_step, "peak_gib": peak_gib, "val_dice": dice[0]}
+
+
+def _text_features(path: Path) -> str:
+    """A seeded (TEXT_TOKENS, 768) fp32 features file, the form stage 1
+    trains and samples on (one BERT chunk of a report)."""
+    gen = np.random.default_rng(512)
+    np.savez(path, feats=gen.standard_normal((TEXT_TOKENS, TEXT_FCE["embed_dim"])).astype(np.float32))
+    return str(path)
+
+
+def text_reference_phase(flash) -> dict:
+    """A tiny fp32 text-conditioned MaskSampler (TRAIN_REF_UNET with
+    cross-attention, TEXT_REF_FCE's refiner over a 512-token context) on the
+    card against the CPU, same weights and draws: `sample_labels` with a
+    label-guidance function, then two train steps with the refiner's dropout
+    on (its masks drawn on the CPU for both), each from the un-zeroed init on
+    its own batch.  Not one after the other: this model's gradients move
+    ~30x any relative change of its weights (a 1e-6 change moved them
+    3.2e-5 on the CPU), so a second step taken from the first's fp32-rounded
+    update would hold that amplification, not the kernels, to
+    TRAIN_REF_TOL.  Launches on the card: per chain the refiner's 4 fp32 forwards
+    and per UNet call 6 (three 512-token sites, attn1 and attn2); per train
+    step the same 10 of each kernel."""
+    from jointimagegeneration_torch.cli.sample import build_mask_sampler
+    from jointimagegeneration_torch.core.runtime import configure_precision
+    from jointimagegeneration_torch.data.datasets import SyntheticMaskDataset
+    from jointimagegeneration_torch.train.steps import make_mask_train_step
+
+    configure_precision()
+    cfg = {"num_classes": 4, "time_steps": 20, "bf16": False, "unet_openai": TRAIN_REF_UNET,
+           "feature_cond_encoder": TEXT_REF_FCE, "dataset": {"volume_shape": [8, 8, 8]}}
+    gen = torch.Generator().manual_seed(8)
+    ctx = torch.randn((1, TEXT_TOKENS, TEXT_REF_FCE["embed_dim"]), generator=gen)
+    cond = torch.rand((1, 8, 8, 8, 1), generator=gen)
+    ds = SyntheticMaskDataset(2, (8, 8, 8), 4)
+    batches = [{"mask": torch.from_numpy(ds[i]["mask"])[None], "image": cond, "context": ctx * (1 + i)}
+               for i in range(2)]
+    sample_steps = 3
+    per_call, refine = stage1_launches(cfg, 1, 0), stage1_launches(cfg, 0, TEXT_TOKENS)
+    check(per_call == 6 and refine == 4, f"text reference: planned launches {per_call} a call, {refine} a chain")
+    runs, labels, sample_launches, init = [], [], [], None
+    for device in ("cpu", "cuda"):
+        model = build_mask_sampler(cfg, device)
+        named = model.named_parameters()
+        with torch.no_grad():
+            if init is None:
+                for _, p in named:
+                    p.add_(0.02 * torch.randn(p.shape, generator=gen))  # un-zero every kernel
+                init = {n: p.detach().clone() for n, p in named}  # training moves the CPU params
+            else:
+                for n, p in named:
+                    p.copy_(init[n])
+        before = _counts(flash)
+        lab = model.sample_labels(_CpuDrawnNoise(4, device), (1, 8, 8, 8), cond=cond.to(device),
+                                  context=ctx.to(device), num_steps=sample_steps, guidance_fn=lambda p: 0.4 * p * p)
+        labels.append(lab.cpu().numpy())
+        sample_launches.append({k: v - before[k] for k, v in _counts(flash).items()})
+        step = make_mask_train_step(model, torch.ones(4, device=device))
+        steps = []
+        for batch in batches:  # each step from the init: see the docstring
+            with torch.no_grad():
+                for n, p in named:
+                    p.copy_(init[n])
+            steps.append(_reference_steps(flash, "text reference", device, named, step, [batch]))
+        runs.append(([x for s in steps for x in s[0]], [x for s in steps for x in s[1]],
+                     [x for s in steps for x in s[2]], {k: sum(s[3][k] for s in steps) for k in steps[0][3]}))
+    want = {"flash_fwd": sample_steps * per_call + refine, "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "conv3d": 0,
+            "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
+    check(not any(sample_launches[0].values()) and sample_launches[1] == want,
+          f"text reference (sample): launches cpu {sample_launches[0]}, card {sample_launches[1]}, expected {want}")
+    agree = float(np.mean(labels[0] == labels[1]))
+    check(agree >= 0.999, f"text reference (sample): labels agree on {100 * agree:.2f}% of voxels")
+    n_gpu = _check_flash_only(runs, "text reference")
+    step_want = {k: 2 * (per_call + refine) if k.startswith("flash") else 0 for k in n_gpu}
+    check(n_gpu == step_want, f"text reference (train): launches {n_gpu}, expected {step_want}")
+    worst = _compare_reference_steps(runs, "text reference")
+    refiner = max(runs[1][1][0][n].abs().max().item() for n in runs[1][1][0] if n.startswith("refiner."))
+    check(refiner > 0, "text reference: the refiner got no gradient")
+    print(f"text reference: tiny fp32 text MaskSampler (TRAIN_REF_UNET + cross-attention, a 2-block refiner of "
+          f"2 heads x 64 over {TEXT_TOKENS} tokens), card vs CPU: guided sample_labels ({sample_steps} steps) "
+          f"agree on {100 * agree:.2f}% of voxels with {sample_launches[1]['flash_fwd']} flash_fwd launches; 2 "
+          f"train steps (refiner dropout 0.2) worst relative diff loss {worst['loss']:.3g}, gradient "
+          f"{worst['grad']:.3g}, params {worst['param']:.3g} (tol {TRAIN_REF_TOL}); launches {n_gpu}", flush=True)
+    return {"label_agreement": agree, "launches": {k: sample_launches[1][k] + n_gpu[k] for k in n_gpu},
+            "max_rel_err": max(worst.values())}
+
+
+def text_mask_path_phase(flash, card: str) -> dict:
+    """`cli.sample.run` with `stage: mask` at full width and `selfattn`
+    (embed 768): one case, 2 draws of 4 steps over a 512-token features file.
+    flash_fwd launches per draw: 10 bf16 a step (5 ds-8 sites, attn1 and
+    attn2) + 8 fp32 for the refinement (4 blocks, attn1 and attn2)."""
+    import tempfile
+
+    from jointimagegeneration_torch.cli.sample import run
+
+    cfg = json.loads(json.dumps(TEXT_MASK_CFG))
+    cfg["output_path"] = str(ROOT / "build" / "chip_smoke" / "text_mask")
+    s1 = cfg["stage1"]
+    expected = cfg["samples"] * stage1_launches(s1, cfg["mask_steps"], TEXT_TOKENS)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg["text"] = {"features_npz": _text_features(Path(tmp) / "report.npz")}
+        _reset_counts(flash)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run(cfg, device="cuda")
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = _counts(flash)
+    others = {k: v for k, v in launches.items() if k != "flash_fwd"}
+    check(launches["flash_fwd"] == expected and not any(others.values()),
+          f"text mask path: launches {launches}, expected flash_fwd {expected}")
+    labels, m = out["labels"], out["metrics"][0]
+    check(labels.shape == (1, cfg["samples"], *s1["dataset"]["volume_shape"]), f"text mask path: labels {labels.shape}")
+    check(int(labels.min()) >= 0 and int(labels.max()) < s1["num_classes"], "text mask path: labels out of range")
+    check(math.isfinite(m["ged"]) and 0.0 <= m["hm_iou"] <= 1.0 and 0.0 <= m["dice"] <= 1.0,
+          f"text mask path: metrics {m}")
+    for name in ("pred.nii.gz", "pred.png", "gt.nii.gz"):
+        check((Path(cfg["output_path"]) / "case_0000" / name).stat().st_size > 0, f"text mask path: {name}")
+    n_steps = cfg["samples"] * cfg["mask_steps"]
+    s_step = out["seconds"]["stage1"] / n_steps
+    print(f"text mask path: stage: mask at 64x128x128 (base 64, bf16, selfattn embed 768, refiner 4 x 8 heads x 64 "
+          f"over {TEXT_TOKENS} tokens), {cfg['samples']} draws x {cfg['mask_steps']} steps: {s_step:.4f} s/step "
+          f"(incl. each draw's refinement), peak torch.cuda.max_memory_allocated {peak:.2f} GiB, run() wall "
+          f"{wall:.2f} s; dice {m['dice']:.4f} GED {m['ged']:.4f} HM-IoU {m['hm_iou']:.4f}; flash_fwd launches "
+          f"{launches['flash_fwd']} = {cfg['samples']} x ({cfg['mask_steps']} x 10 bf16 + 8 fp32 refiner); card "
+          f"{card}", flush=True)
+    return {"launches": launches["flash_fwd"], "s_per_step": s_step, "peak_gib": peak, **m}
+
+
+def text_two_stage_phase(flash, card: str, ddim_path: dict) -> dict:
+    """`cli.sample.run` on TWO_STAGE_CFG with `selfattn` and the text: 4 mask
+    steps, 2 slices in one chunk, DDIM-50.  The context goes to stage 1 only:
+    stage 2's launches per UNet call are the untexted path's."""
+    import tempfile
+
+    cfg = json.loads(json.dumps(TEXT_TWO_STAGE_CFG))
+    cfg["output_path"] = str(ROOT / "build" / "chip_smoke" / "text_two_stage")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg["text"] = {"features_npz": _text_features(Path(tmp) / "report.npz")}
+        out = sampling_run(flash, cfg, "text two-stage path", card, ctx_len=TEXT_TOKENS)
+    text_s1 = stage1_launches(cfg["stage1"], cfg["mask_steps"], TEXT_TOKENS)
+    s2_per_call = (out["launches"] - text_s1) / out["stage2_calls"]
+    plain_s1 = stage1_launches(TWO_STAGE_CFG["stage1"], TWO_STAGE_CFG["mask_steps"])
+    base = (ddim_path["launches"] - plain_s1) / ddim_path["stage2_calls"]
+    check(s2_per_call == base, f"text two-stage path: stage 2 launched {s2_per_call} a call, the untexted {base}")
+    return out
 
 
 def ldm_train_path_phase(flash, card: str) -> dict:
@@ -1785,6 +2010,10 @@ def main() -> int:
     fused = fused_path_phase(flash, card)
     train_reference_phase(flash)
     train = train_path_phase(flash, card)
+    text_ref = text_reference_phase(flash)
+    text_mask = text_mask_path_phase(flash, card)
+    text_two_stage = text_two_stage_phase(flash, card, ddim_path)
+    text_train = train_path_phase(flash, card, TEXT_TRAIN_CFG, "text train path", "train_text")
     ldm_train_reference_phase(flash)
     ldm_train = ldm_train_path_phase(flash, card)
 
@@ -1796,7 +2025,11 @@ def main() -> int:
                     "latent_reference": sum(r["launches"] for r in latent_ref.values()),
                     "latent_ct_sampling": latent["launches"],
                     "stage1_training": train["launches"]["flash_fwd"],
-                    "stage2_training": ldm_train["launches"]["flash_fwd"]}
+                    "stage2_training": ldm_train["launches"]["flash_fwd"],
+                    "text_reference": text_ref["launches"]["flash_fwd"],
+                    "text_mask_sampling": text_mask["launches"],
+                    "text_two_stage_sampling": text_two_stage["launches"],
+                    "stage1_text_training": text_train["launches"]["flash_fwd"]}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -1818,7 +2051,9 @@ def main() -> int:
     train_row = bwd_rows[0]  # (8, 2048, 32) bf16: the stage-1 training site
     for name, line, grads in (("flash_bwd_dkv", 250, ("dk", "dv")), ("flash_bwd_dq", 282, ("dq",))):
         part = name.rsplit("_", 1)[1]
-        bwd_launches = {"stage1_training": train["launches"][name], "stage2_training": ldm_train["launches"][name]}
+        bwd_launches = {"stage1_training": train["launches"][name], "stage2_training": ldm_train["launches"][name],
+                        "text_reference": text_ref["launches"][name],
+                        "stage1_text_training": text_train["launches"][name]}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1868,6 +2103,8 @@ def main() -> int:
     print(f"fused: {json.dumps({'reference': fused_ref, 'paths': fused})}")
     print(f"train: {json.dumps(train)}")
     print(f"ldm train: {json.dumps(ldm_train)}")
+    text = {"reference": text_ref, "mask_path": text_mask, "two_stage_path": text_two_stage, "train_path": text_train}
+    print(f"text: {json.dumps(text)}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Shared by the CLIs: the first-stage autoencoders, their weights,
-the latent (`_ae`) stage 2 and the slice dataset.
+the latent (`_ae`) stage 2, the slice dataset and the mask dataset.
 
-Counterpart of the AE part of `jointimagegeneration_tpu/cli/common.py`
-(`build_autoencoder`, `load_ae_params`, `build_latent_ldm`,
-`build_slice_dataset`).  The card's machine has no orbax, so AE weights come
+Counterpart of the AE and dataset parts of
+`jointimagegeneration_tpu/cli/common.py` (`build_autoencoder`,
+`load_ae_params`, `build_latent_ldm`, `build_slice_dataset`,
+`build_mask_dataset`).  The card's machine has no orbax, so AE weights come
 from a flat `.npz` of the JAX AE variables ('/'-joined keys, as the UNet
 bridge reads them): a `cli.train_ae` state keeps them under `g_params`, a
 converted reference AE under `params`.
@@ -23,12 +24,12 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..data.datasets import SyntheticSliceDataset
+from ..data.datasets import SyntheticMaskDataset, SyntheticSliceDataset
 from ..models.autoencoder import AutoencoderKL, VQModel
 from ..nn.unet import ZERO_INIT_SUFFIXES
-from ..utils.jax_weights import ae_state_dict_from_jax, flat_paths
+from ..utils.jax_weights import ae_state_dict_from_jax, check_state, flat_paths
 
-__all__ = ["build_autoencoder", "load_ae_weights", "build_latent_ldm", "build_slice_dataset",
+__all__ = ["build_autoencoder", "load_ae_weights", "build_latent_ldm", "build_slice_dataset", "build_mask_dataset",
            "fill_zero_init", "LATENT_SCALE_FILE"]
 
 LATENT_SCALE_FILE = "latent_scale.json"
@@ -86,16 +87,7 @@ def load_ae_weights(module: nn.Module, section: Optional[dict], fresh_init_noise
         raise ValueError(f"AE checkpoint {ck!r} has neither 'g_params' (cli.train_ae) nor 'params' (a converted "
                          f"AE); top-level keys: {sorted({k[0] for k in flat})[:6]}")
     state = ae_state_dict_from_jax(tree)
-    own = module.state_dict()
-    extra = sorted(set(state) - set(own))
-    if extra:
-        raise ValueError(f"AE checkpoint {ck!r} holds leaves the model lacks, e.g. {extra[:3]} (wrong ddconfig?)")
-    for name, t in own.items():
-        if name not in state:
-            raise ValueError(f"AE checkpoint {ck!r} lacks {name} (wrong ddconfig?)")
-        if tuple(state[name].shape) != tuple(t.shape):
-            raise ValueError(f"AE checkpoint leaf {name} shape {tuple(state[name].shape)} != model "
-                             f"{tuple(t.shape)} (wrong ddconfig for {ck}?)")
+    check_state(module.state_dict(), state, f"AE checkpoint {ck!r} (wrong ddconfig?)")
     module.load_state_dict(state)
 
 
@@ -148,3 +140,20 @@ def build_slice_dataset(cfg: dict, split: str) -> SyntheticSliceDataset:
     return SyntheticSliceDataset(num_cases=d.get("num_cases", 16),
                                  slice_shape=tuple(d.get("slice_shape", (512, 512))),
                                  depth=d.get("depth", 8), include_volumes=split != "train")
+
+
+def build_mask_dataset(cfg: dict, split: str = "train") -> SyntheticMaskDataset:
+    """The synthetic branch of the JAX CLI's `build_mask_dataset` (the split
+    does not change it); with a `selfattn` feature_cond_encoder each case
+    carries an N(0, 1) "context" of (dataset.context_len (4), embed_dim
+    (768)).  Other kinds raise."""
+    d = cfg.get("dataset", {})
+    kind = d.get("kind", "synthetic")
+    if kind != "synthetic":
+        raise NotImplementedError(f"dataset kind {kind!r} is not ported yet")
+    fce = cfg.get("feature_cond_encoder") or {}
+    ctx_shape = (d.get("context_len", 4), fce.get("embed_dim", 768)) if fce.get("type") == "selfattn" else None
+    return SyntheticMaskDataset(num_cases=d.get("num_cases", 16),
+                                volume_shape=tuple(d.get("volume_shape", (64, 128, 128))),
+                                num_classes=cfg.get("num_classes", 12), context_shape=ctx_shape,
+                                seed=d.get("seed", 0))

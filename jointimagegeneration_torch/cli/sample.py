@@ -1,14 +1,28 @@
-"""Sampling CLI: `stage: two_stage` (stage-1 mask volume -> stage-2 CT volume)
-or `stage: ct` (stage 2 alone, on the slice dataset's masks).
+"""Sampling CLI: `stage: two_stage` (stage-1 mask volume -> stage-2 CT volume),
+`stage: mask` (stage 1 alone, on the mask dataset's cases) or `stage: ct`
+(stage 2 alone, on the slice dataset's masks).
 
     python -m jointimagegeneration_torch.cli.sample <config.yml> [k=v ...] [device=cpu]
 
 Reads the keys of `configs/sample_two_stage.yml` and `configs/sample_ct_ae.yml`
 (the JAX CLI's format) and writes per case, under `output_path`,
 `case_XXXX/image.nii.gz` and `image.png`, with `overlay.png` (the labels over
-the CT); `two_stage` adds `pred.nii.gz` and `pred.png`.  Runs on CUDA unless
+the CT); `two_stage` adds `pred.nii.gz` and `pred.png`.  `stage: mask` writes
+per case `pred.nii.gz`, `pred.png` (the first of `samples` draws) and
+`gt.nii.gz`, and prints the mean foreground Dice, with GED and HM-IoU over the
+draws when `samples` > 1; its cases run in batches of `batch_size`, a ragged
+last batch padded by repeating its last case.  Runs on CUDA unless
 `device=cpu` is given.  `run(cfg)` is the same entry point for a config that
 is already a dict.
+
+Text guidance: a stage-1 section with `feature_cond_encoder: {type: selfattn,
+embed_dim: D}` builds the cross-attention UNet and, unless `train: false`,
+the trained text refiner (its weights come with the UNet's from the stage-1
+checkpoint, never a fresh init when one is given).  `text: {features_npz:
+path}` reads the file's first array (T, D) as the context, `text:
+{bert_path: dir, prompt: str}` encodes the prompt with a frozen local BERT
+(`nn.text.FrozenBERTEmbedder`); the context is tiled over the batch and goes
+to stage 1 only (`mask` and `two_stage`).
 
 Stage 2 is the pixel-space SliceLDM, or with `stage2.first_stage` (and a
 `cond_stage`) the latent `_ae` route (`models/latent_ldm.py`): the KL-VAEs
@@ -33,10 +47,11 @@ Keys beyond the JAX CLI's:
 
 Weights come from a flat `.npz` of the JAX parameter tree ('/'-joined keys)
 given as `stage1.checkpoint` / `stage2.checkpoint`, and for the AEs as
-`first_stage.checkpoint` / `cond_stage.checkpoint` (`cli/common.py`); without
-one the sampler uses a seeded fresh init and says so.  Not ported here:
-`stage: mask`, FVD (two or more `stage: ct` cases with metrics), text
-context, stage-2 context or class conditioning, and `tile` on `two_stage`
+`first_stage.checkpoint` / `cond_stage.checkpoint` (`cli/common.py`); a
+text-guided stage-1 `.npz` holds the {"unet": ..., "refiner": ...} tree.
+Without one the sampler uses a seeded fresh init and says so.  Not ported
+here: FVD (two or more `stage: ct` cases with metrics), the `dino` feature
+encoder, stage-2 context or class conditioning, and `tile` on `two_stage`
 (which the JAX CLI never passes); asking for them raises.
 """
 
@@ -56,24 +71,33 @@ from ..core.runtime import configure_precision, resolve_device, synchronize
 from ..data.nifti import save_image_volume, save_label_volume
 from ..diffusion.ddim import DDIMParams
 from ..diffusion.noise import NoiseSource
+from ..eval.metrics import generalized_energy_distance, hungarian_matched_iou, per_class_dice
 from ..eval.writers import image_volume_to_grid, labels_to_grid, overlay_volume_to_grid, save_grid_png
+from ..models.cond_encoders import build_feature_cond_encoder
 from ..models.mask_sampler import MaskSampler
 from ..models.slice_ldm import SliceLDM
 from ..nn.unet import UNet
 from ..pipeline.two_stage import make_chunked_two_stage_programs
-from ..utils.jax_weights import unet_state_dict_from_jax
-from .common import build_latent_ldm, build_slice_dataset, fill_zero_init
+from ..utils.jax_weights import check_state, unet_state_dict_from_jax
+from .common import build_latent_ldm, build_mask_dataset, build_slice_dataset, fill_zero_init
 
-__all__ = ["build_mask_sampler", "build_slice_ldm", "load_weights", "run", "main"]
+__all__ = ["build_mask_sampler", "build_slice_ldm", "load_weights", "load_mask_weights", "load_text_context",
+           "run", "main"]
 
 
 def build_mask_sampler(cfg: dict, device, cond_channels: int = 1, seed: int = 0,
                        **unet_options) -> MaskSampler:
     """cfg keys mirror ccdm params.yml (unet_openai + diffusion sections);
-    `seed` seeds the UNet's fresh init.  `unet_options` (`use_fused_resblock`,
-    `use_pallas_conv`) go to `MaskSampler.create`; no config key sets them,
-    as in the JAX CLI."""
+    `seed` seeds the UNet's fresh init (the refiner's with seed + 1).
+    `feature_cond_encoder: {type: selfattn}` sets the UNet's `context_dim`
+    to its `embed_dim` and adds the trainable refiner unless `train: false`.
+    `unet_options` (`use_fused_resblock`, `use_pallas_conv`) go to
+    `MaskSampler.create`; no config key sets them, as in the JAX CLI."""
     u = cfg.get("unet_openai", {})
+    fce = cfg.get("feature_cond_encoder") or {}
+    selfattn = fce.get("type") == "selfattn"
+    if not selfattn:
+        build_feature_cond_encoder(fce)  # None for 'none'; raises for 'dino' (not ported) and unknown types
     return MaskSampler.create(
         num_classes=cfg.get("num_classes", 12),
         cond_channels=cond_channels,
@@ -89,6 +113,8 @@ def build_mask_sampler(cfg: dict, device, cond_channels: int = 1, seed: int = 0,
         step_T_sample=cfg.get("step_T_sample", "majority"),
         device=device,
         seed=seed,
+        context_dim=fce.get("embed_dim") if selfattn else None,
+        text_refiner=fce if selfattn and fce.get("train", True) else None,
         **unet_options,
     )
 
@@ -123,12 +149,8 @@ def _reject_unported(cfg: dict, s1: dict, s2: dict, stage: str) -> None:
 
     if stage not in ("mask", "ct", "two_stage"):
         raise ValueError(f"unknown stage {stage!r}: expected 'mask', 'ct', or 'two_stage'")
-    if stage == "mask":
-        bad("stage 'mask'")
     if stage == "ct" and cfg.get("metrics", True) and int(cfg.get("n_cases", 1)) >= 2:
         bad("FVD over two or more cases (set metrics: false, or n_cases: 1)")
-    if stage == "two_stage" and (cfg.get("text") or (s1.get("feature_cond_encoder") or {}).get("type")):
-        bad("text / feature conditioning")
     u2 = s2.get("unet_config", {}).get("params", s2.get("unet", {}))
     if u2.get("context_dim") is not None or u2.get("num_classes", s2.get("adm_classes")) is not None:
         bad("stage-2 context / class conditioning")
@@ -149,6 +171,42 @@ def load_weights(unet: UNet, ckpt: Optional[str], fresh_init_noise: float, seed:
     print("WARNING: no checkpoint configured — sampling with FRESH-INIT (random) weights")
     if fresh_init_noise:
         fill_zero_init(unet, fresh_init_noise, seed)
+
+
+def load_mask_weights(ms: MaskSampler, ckpt: Optional[str], fresh_init_noise: float, seed: int) -> None:
+    """Load `ckpt` (a flat .npz of the JAX stage-1 tree: the UNet's, or
+    {"unet": ..., "refiner": ...} with a text refiner) into the UNet and the
+    refiner, every leaf's name and shape checked; without one keep the fresh
+    init as `load_weights` does."""
+    if not ckpt:
+        load_weights(ms.unet, None, fresh_init_noise, seed)
+        return
+    if not str(ckpt).endswith(".npz"):
+        raise ValueError(f"checkpoint {ckpt!r}: the PyTorch sampler reads a flat .npz of the JAX stage-1 "
+                         "parameter tree")
+    state = unet_state_dict_from_jax(ckpt)
+    check_state(dict(ms.named_parameters()), state, f"stage-1 checkpoint {ckpt!r}")
+    ms.unet.load_state_dict({k: v for k, v in state.items() if not k.startswith("refiner.")})
+    if ms.refiner is not None:
+        ms.refiner.load_state_dict({k[len("refiner."):]: v for k, v in state.items() if k.startswith("refiner.")})
+
+
+def load_text_context(tcfg, device) -> Optional[torch.Tensor]:
+    """The raw (1, T, D) fp32 text context the `text:` section names: the
+    first array of `features_npz` with a batch axis, or the frozen BERT
+    features of `prompt` from the model directory `bert_path`; None without
+    either."""
+    if not isinstance(tcfg, dict):
+        return None
+    if tcfg.get("features_npz"):
+        with np.load(tcfg["features_npz"]) as z:
+            return torch.from_numpy(np.asarray(z[z.files[0]], np.float32))[None].to(device)
+    if tcfg.get("bert_path"):
+        from ..nn.text import FrozenBERTEmbedder
+
+        feats = FrozenBERTEmbedder(tcfg["bert_path"], device=device)(tcfg.get("prompt", ""))
+        return torch.from_numpy(feats).to(device)
+    return None
 
 
 def _stage2(cfg: dict, s2: dict, device, seed: int, noise_std: float):
@@ -184,7 +242,7 @@ def run(cfg: dict, device=None) -> dict:
     "seconds": {"stage1", "stage2"}, "output_path": Path}; `ct` and the
     written pred.nii.gz cover the generated slices, `labels` the whole grid.
     `ct` returns {"ct", "seconds": {"stage2"}, "metrics" (the metrics.json
-    dict or None), "output_path"}."""
+    dict or None), "output_path"}; `mask` what `_run_mask` says."""
     device = resolve_device(cfg.get("device", device))
     configure_precision()
     stage = cfg.get("stage", "two_stage")
@@ -199,6 +257,11 @@ def run(cfg: dict, device=None) -> dict:
     noise_std = float(cfg.get("fresh_init_noise", 0.0))
     if stage == "ct":
         return _run_ct(cfg, s2, device, seed, noise_std, outdir)
+    ms = build_mask_sampler(s1, device)
+    load_mask_weights(ms, s1.get("checkpoint"), noise_std, seed + 1)
+    context = load_text_context(cfg.get("text"), device)
+    if stage == "mask":
+        return _run_mask(cfg, s1, ms, context, device, seed, outdir)
     n_cases = int(cfg.get("n_cases", 1))
     spatial = tuple(s1.get("dataset", {}).get("volume_shape", (64, 128, 128)))
     vshape = tuple(cfg.get("volume_shape", (128, 256, 256)))
@@ -207,8 +270,6 @@ def run(cfg: dict, device=None) -> dict:
     if not 0 < n_slices <= vshape[0] or n_slices % chunk:
         raise ValueError(f"slices ({n_slices}) must be in [1, {vshape[0]}] and a multiple of chunk ({chunk})")
 
-    ms = build_mask_sampler(s1, device)
-    load_weights(ms.unet, s1.get("checkpoint"), noise_std, seed + 1)
     ldm, latent, ddim, sample_kw = _stage2(cfg, s2, device, seed, noise_std)
     noise = NoiseSource(seed, device)
     bs = max(1, min(int(cfg.get("batch_size", 1)), n_cases))
@@ -219,9 +280,10 @@ def run(cfg: dict, device=None) -> dict:
             b = min(bs, n_cases - c0)
             # zero image condition, as the JAX CLI's two_stage branch
             cond = torch.zeros((b, *spatial, 1), device=device)
+            ctx = None if context is None else context.expand(b, -1, -1)
             mask_program, chunk_program = make_chunked_two_stage_programs(
                 ms, latent or ldm, mask_shape=(b, *spatial), volume_shape=vshape, ddim=ddim, chunk=chunk,
-                mask_steps=cfg.get("mask_steps", 250), cond=cond, **sample_kw)
+                mask_steps=cfg.get("mask_steps", 250), cond=cond, context=ctx, **sample_kw)
             t0 = time.perf_counter()
             labels, mask_channel = mask_program(noise)
             synchronize(device)
@@ -243,6 +305,60 @@ def run(cfg: dict, device=None) -> dict:
           f"({n_slices} slices x {ddim.num_steps} {sample_kw['sampler']} nodes"
           f"{', latent' if latent is not None else ''}) on {device}")
     return {"ct": np.concatenate(cts), "labels": np.concatenate(labels_all), "seconds": seconds,
+            "output_path": outdir}
+
+
+def _run_mask(cfg: dict, s1: dict, ms: MaskSampler, context: Optional[torch.Tensor], device, seed: int,
+              outdir: Path) -> dict:
+    """`stage: mask`: per batch of `batch_size` cases (the ragged last batch
+    padded by repeating its last case) `samples` label volumes drawn in turn
+    from one noise source; per case its files, the mean foreground Dice of the
+    first draw against the dataset's mask, and with `samples` > 1 GED and
+    HM-IoU over the draws.  Returns {"labels": (n_cases, samples, D, H, W),
+    "metrics": per case {"dice", "ged", "hm_iou"}, "seconds": {"stage1"},
+    "output_path"}."""
+    n_cases, n_rep = int(cfg.get("n_cases", 1)), int(cfg.get("samples", 1))
+    ds = build_mask_dataset(s1, cfg.get("split", "val"))
+    spatial = ds.volume_shape
+    bs = int(cfg.get("batch_size", 1))
+    nc = ms.num_classes
+    noise = NoiseSource(seed, device)
+    labels_all, metrics, seconds = [], [], 0.0
+    t_start = time.perf_counter()
+    with torch.inference_mode():
+        for c0 in range(0, n_cases, bs):
+            cases = list(range(c0, min(c0 + bs, n_cases)))
+            items = [ds[i % len(ds)] for i in cases]
+            images = [items[j if j < len(items) else -1]["image"] for j in range(bs)]
+            cond = torch.from_numpy(np.stack(images)).to(device)
+            ctx = None if context is None else context.expand(bs, -1, -1)
+            t0 = time.perf_counter()
+            draws = [ms.sample_labels(noise, (bs, *spatial), cond=cond, context=ctx,
+                                      num_steps=cfg.get("mask_steps", 250)) for _ in range(n_rep)]
+            synchronize(device)
+            seconds += time.perf_counter() - t0
+            draws = np.stack([d.cpu().numpy() for d in draws], axis=1)  # (bs, samples, D, H, W)
+            for j, i in enumerate(cases):
+                cdir = outdir / f"case_{i:04d}"
+                cdir.mkdir(parents=True, exist_ok=True)
+                pred, gt = draws[j, 0], np.argmax(items[j]["mask"], -1)
+                save_label_volume(cdir / "pred.nii.gz", pred)
+                save_grid_png(cdir / "pred.png", labels_to_grid(pred))
+                save_label_volume(cdir / "gt.nii.gz", gt)
+                dice = float(per_class_dice(torch.from_numpy(pred), torch.from_numpy(gt), nc)[1:].mean())
+                m = {"dice": dice}
+                msg = f"case {i}: mean fg dice {dice:.4f}"
+                if n_rep > 1:
+                    m["ged"] = generalized_energy_distance(draws[j], gt[None], nc)
+                    m["hm_iou"] = hungarian_matched_iou(draws[j], np.stack([gt] * n_rep), nc)
+                    msg += f" GED {m['ged']:.4f} HM-IoU {m['hm_iou']:.4f}"
+                print(msg)
+                metrics.append(m)
+            labels_all.append(draws[:len(cases)])
+    dt = time.perf_counter() - t_start
+    print(f"{n_cases} case(s) in {dt:.1f}s ({dt / max(n_cases, 1):.1f}s/case; stage 1 {seconds:.2f}s, "
+          f"{n_rep} draw(s) x {cfg.get('mask_steps', 250)} steps) on {device}")
+    return {"labels": np.concatenate(labels_all), "metrics": metrics, "seconds": {"stage1": seconds},
             "output_path": outdir}
 
 

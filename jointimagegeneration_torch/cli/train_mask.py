@@ -11,9 +11,16 @@ checkpoint.  Validation samples `n_validation_images` masks with the EMA
 weights in `eval_time_steps` steps and logs their mean foreground Dice as
 `val/dice`.
 
-Not ported here, and rejected with NotImplementedError: feature / text
-conditioning (`feature_cond_encoder`), `remat`, `init_from`, datasets other
-than `synthetic`, gradient accumulation and `profile_steps`.
+Text guidance: `feature_cond_encoder: {type: selfattn, embed_dim: D}` trains
+the cross-attention UNet and the text refiner together (AdamW and the EMA
+cover both; checkpoints and resume carry both), on synthetic cases whose
+N(0, 1) context is (dataset.context_len (4), D); the refiner's dropout draws
+come from the step's noise source, and validation passes each case's context
+(no dropout).
+
+Not ported here, and rejected with NotImplementedError: the `dino` feature
+encoder, `remat`, `init_from`, datasets other than `synthetic` and
+`profile_steps`.
 """
 
 from __future__ import annotations
@@ -26,7 +33,6 @@ import torch
 
 from ..core.config import load_yaml_config
 from ..core.runtime import configure_precision, resolve_device
-from ..data.datasets import SyntheticMaskDataset
 from ..data.loader import DataLoader
 from ..diffusion.noise import NoiseSource
 from ..eval.metrics import per_class_dice
@@ -34,6 +40,7 @@ from ..train.optim import build_optimizer
 from ..train.state import EMATrainState
 from ..train.steps import make_mask_train_step
 from ..train.trainer import Trainer, TrainerConfig, noise_seed
+from .common import build_mask_dataset
 from .sample import build_mask_sampler
 
 __all__ = ["build_mask_dataset", "run", "main"]
@@ -44,7 +51,7 @@ def _reject_unported(cfg: dict) -> None:
         raise NotImplementedError(f"{what} is not ported to the PyTorch trainer yet")
 
     fce = (cfg.get("feature_cond_encoder") or {}).get("type")
-    if fce not in (None, "none"):
+    if fce not in (None, "none", "selfattn"):
         bad(f"feature_cond_encoder type {fce!r}")
     if cfg.get("remat"):
         bad("remat")
@@ -55,13 +62,6 @@ def _reject_unported(cfg: dict) -> None:
         bad(f"dataset kind {kind!r}")
 
 
-def build_mask_dataset(cfg: dict) -> SyntheticMaskDataset:
-    d = cfg.get("dataset", {})
-    return SyntheticMaskDataset(num_cases=d.get("num_cases", 16),
-                                volume_shape=tuple(d.get("volume_shape", (64, 128, 128))),
-                                num_classes=cfg.get("num_classes", 12), seed=d.get("seed", 0))
-
-
 def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
     """Train as the config says; returns the final train state."""
     device = resolve_device(cfg.get("device", device))
@@ -70,7 +70,7 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
     seed = int(cfg.get("seed", 0))
     num_classes = int(cfg.get("num_classes", 12))
     model = build_mask_sampler(cfg, device, cond_channels=1, seed=seed)
-    n_params = sum(p.numel() for p in model.unet.parameters())
+    n_params = sum(p.numel() for _, p in model.named_parameters())
     print(f"stage-1 UNet params: {n_params / 1e6:.2f}M")
     dataset = build_mask_dataset(cfg)
     spatial = dataset.volume_shape
@@ -80,7 +80,7 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
     opt_cfg = cfg.get("optim", {})
     total_steps = int(cfg.get("max_steps", 100_000))
     optimizer = build_optimizer(
-        list(model.unet.named_parameters()),
+        model.named_parameters(),
         name=opt_cfg.get("name", "AdamW"),
         learning_rate=opt_cfg.get("learning_rate", 1e-3),
         lr_function=opt_cfg.get("lr_function"),
@@ -105,8 +105,9 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
                 item = dataset[i]
                 gt = torch.from_numpy(np.argmax(item["mask"], -1)).to(device)
                 img = torch.from_numpy(item["image"])[None].to(device)
+                ctx = torch.from_numpy(item["context"])[None].to(device) if "context" in item else None
                 labels = model.sample_labels(NoiseSource(noise_seed(seed, step + i), device),
-                                             (1, *spatial), cond=img,
+                                             (1, *spatial), cond=img, context=ctx,
                                              num_steps=int(cfg.get("eval_time_steps", 50)))
                 dices.append(float(per_class_dice(labels[0], gt, num_classes)[1:].mean()))
         score = float(np.mean(dices))

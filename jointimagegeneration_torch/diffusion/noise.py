@@ -2,8 +2,9 @@
 
 Every random number the samplers and the train steps use comes from a
 `NoiseSource`: standard normals (DDIM x_T, the stage-2 training noise),
-standard Gumbels (categorical draws, as argmax(logits + Gumbel)) and uniform
-integers (the stage-2 training timesteps).  The draws come in a fixed order,
+standard Gumbels (categorical draws, as argmax(logits + Gumbel)), uniform
+integers (the stage-2 training timesteps) and uniforms in [0, 1) (the text
+refiner's dropout masks).  The draws come in a fixed order,
 so a test can hand the samplers and steps a source that replays another
 implementation's numbers.
 """
@@ -33,6 +34,10 @@ class NoiseSource:
         u = torch.rand(tuple(shape), generator=self.generator, device=self.device)
         u = u.clamp_min(torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
+
+    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
+        """Floats uniform in [0, 1), fp32."""
+        return torch.rand(tuple(shape), generator=self.generator, device=self.device)
 
     def randint(self, low: int, high: int, shape: Sequence[int]) -> torch.Tensor:
         """Integers uniform in [low, high), int64."""

@@ -144,7 +144,7 @@ class Linear(nn.Linear):
     """nn.Linear with fp32 params cast to the input dtype per call."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, self.weight.to(x.dtype), None if self.bias is None else self.bias.to(x.dtype))
 
 
 class Upsample(nn.Module):

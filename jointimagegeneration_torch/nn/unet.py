@@ -11,10 +11,16 @@ Submodules carry the JAX package's flax names (`in_conv`, `down_0_0_res`,
 
 Precision follows the JAX package: fp32 params cast per op; an fp32 time MLP
 whose output is cast to the torso dtype; the torso in `dtype` (bf16 on the
-main path); an fp32 head.  Not ported here: cross-attention `context`, class
-ids `y`, `feature_cond` injection, rematerialisation, and the UNet-level
-`use_scale_shift_norm` / `resblock_updown` / `num_heads` options (ResBlock
-itself has scale-shift and up/down).
+main path); an fp32 head.
+
+With `context_dim` set, every attention site is a `SequenceTransformer` of
+`transformer_depth` blocks whose `attn2` attends over the `context` (B, T,
+context_dim) that `forward` casts to the torso dtype and hands to each site
+(the text-guided stage-1 UNet); without it a context is ignored, as the flax
+UNet ignores it.  Not ported here: class ids `y`, `feature_cond` injection,
+rematerialisation, and the UNet-level `use_scale_shift_norm` /
+`resblock_updown` / `num_heads` options (ResBlock itself has scale-shift and
+up/down).
 
 `use_fused_resblock` (False | 'xla' | 'kernel' | True) and `use_pallas_conv`
 are the JAX UNet's opt-in kernel paths (nn/unet.py:91-94 there), passed to
@@ -32,6 +38,7 @@ from torch import nn
 
 from ..core.runtime import resolve_device
 from .blocks import AttentionBlock, Conv, Downsample, GroupNorm32, Linear, ResBlock, Upsample, timestep_embedding
+from .transformer import SequenceTransformer
 
 __all__ = ["UNet", "init_weights", "ZERO_INIT_SUFFIXES"]
 
@@ -79,6 +86,8 @@ class UNet(nn.Module):
         seed: int = 0,
         use_pallas_conv: bool = False,
         use_fused_resblock=False,
+        context_dim: Optional[int] = None,
+        transformer_depth: int = 1,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -88,13 +97,18 @@ class UNet(nn.Module):
         self.channel_mult = tuple(channel_mult)
         self.softmax_output = softmax_output
         self.dtype = dtype
+        self.context_dim = context_dim
         mc = model_channels
         emb_ch = mc * 4
         res = dict(emb_ch=emb_ch, dims=dims, device=device, pallas_conv=use_pallas_conv and dims == 3,
                    fused=use_fused_resblock if dims == 3 else False)
 
-        def attn(ch: int) -> AttentionBlock:
-            return AttentionBlock(ch, num_head_channels=num_head_channels, device=device)
+        def attn(ch: int) -> nn.Module:
+            if context_dim is None:
+                return AttentionBlock(ch, num_head_channels=num_head_channels, device=device)
+            heads = max(1, ch // num_head_channels)
+            return SequenceTransformer(ch, heads, ch // heads, depth=transformer_depth, context_dim=context_dim,
+                                       device=device)
 
         self.time_embed_0 = Linear(mc, emb_ch, device=device)
         self.time_embed_1 = Linear(emb_ch, emb_ch, device=device)
@@ -131,9 +145,12 @@ class UNet(nn.Module):
         generator.manual_seed(seed)
         init_weights(self, generator)
 
-    def _block(self, name: str, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def _block(self, name: str, h: torch.Tensor, emb: torch.Tensor,
+               context: Optional[torch.Tensor] = None) -> torch.Tensor:
         block = getattr(self, name)
-        return block(h, emb) if isinstance(block, ResBlock) else block(h)
+        if isinstance(block, ResBlock):
+            return block(h, emb)
+        return block(h, context) if isinstance(block, SequenceTransformer) else block(h)
 
     def forward(
         self,
@@ -144,8 +161,9 @@ class UNet(nn.Module):
         y: Optional[torch.Tensor] = None,
         feature_cond: Optional[dict] = None,
     ) -> torch.Tensor:
-        if context is not None or y is not None or feature_cond is not None:
-            raise NotImplementedError("UNet: context, y and feature_cond are not ported")
+        if y is not None or feature_cond is not None:
+            raise NotImplementedError("UNet: y and feature_cond are not ported")
+        context = None if context is None or self.context_dim is None else context.to(self.dtype)
         emb = timestep_embedding(timesteps, self.model_channels)
         emb = self.time_embed_1(F.silu(self.time_embed_0(emb)))
         emb = emb.to(self.dtype)
@@ -160,18 +178,18 @@ class UNet(nn.Module):
             for i in range(self.num_res_blocks):
                 h = self._block(f"down_{level}_{i}_res", h, emb)
                 if ds in self.attention_resolutions:
-                    h = self._block(f"down_{level}_{i}_attn", h, emb)
+                    h = self._block(f"down_{level}_{i}_attn", h, emb, context)
                 hs.append(h)
             if level != n_levels - 1:
                 h = self._block(f"down_{level}_ds", h, emb)
                 hs.append(h)
                 ds *= 2
-        h = self.mid_res2(self.mid_attn(self.mid_res1(h, emb)), emb)
+        h = self.mid_res2(self._block("mid_attn", self.mid_res1(h, emb), emb, context), emb)
         for level in reversed(range(n_levels)):
             for i in range(self.num_res_blocks + 1):
                 h = self._block(f"up_{level}_{i}_res", torch.cat([h, hs.pop()], dim=-1), emb)
                 if ds in self.attention_resolutions:
-                    h = self._block(f"up_{level}_{i}_attn", h, emb)
+                    h = self._block(f"up_{level}_{i}_attn", h, emb, context)
                 if level and i == self.num_res_blocks:
                     h = self._block(f"up_{level}_us", h, emb)
                     ds //= 2

@@ -2,7 +2,7 @@
 
 Counterpart of `jointimagegeneration_tpu/ops/attention.py`.  Public functions
 take channels-last sequences (B, T, C); heads are split as (B, H, T, D).
-Sites with T >= 512 whose shape the flash rule accepts go to
+Sites with Tq >= 512 query tokens whose shape the flash rule accepts go to
 `ops.flash_attention.flash_attention` (the Hopper kernels, forward and
 backward, on CUDA tensors; their plain versions on CPU tensors); the rest take
 the plain path, which scales q and k by d^-1/4 each and takes an fp32
@@ -17,7 +17,8 @@ import torch
 
 from .flash_attention import flash_attention, flash_eligible
 
-__all__ = ["plain_attention", "attention", "multi_head_self_attention", "FLASH_MIN_SEQ"]
+__all__ = ["plain_attention", "attention", "multi_head_self_attention", "multi_head_cross_attention",
+           "FLASH_MIN_SEQ"]
 
 FLASH_MIN_SEQ = 512
 
@@ -43,9 +44,18 @@ def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     return x.reshape(b, t, heads, c // heads).transpose(1, 2)
 
 
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, d = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * d)
+
+
 def multi_head_self_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """qkv: (B, T, 3C) fused projection, split as [q | k | v] -> (B, T, C)."""
     q, k, v = qkv.chunk(3, dim=-1)
-    out = attention(_split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads))
-    b, h, t, d = out.shape
-    return out.transpose(1, 2).reshape(b, t, h * d)
+    return _merge_heads(attention(_split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads)))
+
+
+def multi_head_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """q: (B, Tq, C); k, v: (B, Tk, C) -> (B, Tq, C).  Tq and Tk may differ;
+    the flash rule reads both."""
+    return _merge_heads(attention(_split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads)))

@@ -2,7 +2,10 @@
 
 Counterpart of `jointimagegeneration_tpu/pipeline/two_stage.py`: stage-1
 labels -> nearest-neighbour upsample to the CT grid -> the mask channel
-labels / (C - 1) -> the autoregressive stage-2 volume, with the stage-2
+labels / (C - 1) -> the autoregressive stage-2 volume.  A text `context`
+goes to the mask sampler (which refines it when it has a refiner); stage 2
+takes none (the JAX pipeline hands it the same context, which its UNet
+without `context_dim` ignores).  The stage-2
 options `guidance_scale`, `warm_start` and `sampler` passed through to
 `SliceLDM.sample_volume`.  Stage 2 may be a `LatentSliceLDM` (the `_ae`
 route): its volume encodes each [previous slice | mask slice] pair, runs the
@@ -66,10 +69,11 @@ class TwoStagePipeline:
     def __call__(self, noise: NoiseSource, *, mask_shape: Tuple[int, int, int, int],
                  volume_shape: Tuple[int, int, int], ddim: DDIMParams,
                  mask_steps: Optional[int] = None, cond: Optional[torch.Tensor] = None,
-                 guidance_scale: float = 1.0, warm_start: Optional[float] = None, sampler: str = "ddim"
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 context: Optional[torch.Tensor] = None, guidance_scale: float = 1.0,
+                 warm_start: Optional[float] = None, sampler: str = "ddim") -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (ct volume (B, D', H', W', C), labels (B, D', H', W'))."""
-        labels = self.mask_sampler.sample_labels(noise, mask_shape, cond=cond, num_steps=mask_steps)
+        labels = self.mask_sampler.sample_labels(noise, mask_shape, cond=cond, num_steps=mask_steps,
+                                                 context=context)
         labels_up = upsample_labels(labels, volume_shape)
         mask_channel = normalize_mask_channel(labels_up, self.mask_sampler.num_classes)
         ct = self.slice_ldm.sample_volume(noise, mask_channel, ddim, guidance_scale=guidance_scale,
@@ -82,7 +86,8 @@ def make_chunked_two_stage_programs(mask_sampler: MaskSampler, slice_ldm: Union[
                                     volume_shape: Tuple[int, int, int],
                                     ddim: DDIMParams, chunk: int,
                                     mask_steps: Optional[int] = None,
-                                    cond: Optional[torch.Tensor] = None, **sample_kw):
+                                    cond: Optional[torch.Tensor] = None,
+                                    context: Optional[torch.Tensor] = None, **sample_kw):
     """The two-stage pipeline as two callables:
 
       mask_program(noise) -> (labels (B, D', H', W'), mask channel (B, D', H', W', 1))
@@ -99,7 +104,7 @@ def make_chunked_two_stage_programs(mask_sampler: MaskSampler, slice_ldm: Union[
         raise ValueError(f"volume depth {d} must divide by chunk {chunk}")
 
     def mask_program(noise: NoiseSource):
-        labels = mask_sampler.sample_labels(noise, mask_shape, cond=cond, num_steps=mask_steps)
+        labels = mask_sampler.sample_labels(noise, mask_shape, cond=cond, num_steps=mask_steps, context=context)
         up = upsample_labels(labels, volume_shape)
         return up, normalize_mask_channel(up, mask_sampler.num_classes)
 

@@ -6,8 +6,11 @@ gradients of every parameter the train state holds, then one optimizer + EMA
 update (skipped if any gradient is not finite).  Random draws come from the
 `NoiseSource` the caller hands in, in the JAX step's order:
   * stage 1: t ~ t^1.5 (the (B, T) timestep Gumbels), x_t ~ q(x_t | x0) (the
-    x_t Gumbels), the UNet's x0 probabilities from (x_t, t, cond = the batch's
-    image), the KL + CE loss on the categorical posterior;
+    x_t Gumbels), the text refiner over the batch's `context` with its
+    dropout (the masks' uniforms; inside the loss, so the refiner's
+    parameters get gradients), the UNet's x0 probabilities from (x_t, t,
+    cond = the batch's image, the refined context), the KL + CE loss on the
+    categorical posterior;
   * stage 2: t ~ U[0, T) (randint), eps ~ N(0, 1) in the batch's dtype,
     x_noisy = q_sample(x0, t, eps), the UNet's output from (x_noisy, t, cond
     = the batch's [prev | mask]) against eps (or x0), the Gaussian loss with
@@ -34,15 +37,16 @@ TrainStep = Callable[[EMATrainState, dict, NoiseSource], Dict[str, torch.Tensor]
 def mask_loss(model: MaskSampler, noise: NoiseSource, batch: Dict[str, torch.Tensor],
               class_weights: Optional[torch.Tensor] = None):
     """(loss, metrics) of one batch {"mask": one-hot x0 (B, D, H, W, C),
-    "image": cond (B, D, H, W, 1)}."""
-    if batch.get("context") is not None or batch.get("feature_cond") is not None:
-        raise NotImplementedError("text context and feature conditioning are not ported to "
-                                  "training yet")
+    "image": cond (B, D, H, W, 1)}, optionally "context" (B, T, D) raw text
+    features."""
+    if batch.get("feature_cond") is not None:
+        raise NotImplementedError("feature conditioning is not ported to training yet")
     diff = model.diffusion
     x0 = batch["mask"]
     t = sample_train_timesteps(noise, x0.shape[0], diff.time_steps, device=x0.device)
     xt = diff.sample_q_xt_given_x0(noise, x0, t)
-    x0pred = model.unet(xt, t.float(), cond=batch.get("image"))
+    context = model.refine_context(batch.get("context"), noise)
+    x0pred = model.unet(xt, t.float(), cond=batch.get("image"), context=context)
     post_true = diff.theta_post(xt, x0, t)
     post_pred = diff.theta_post_prob(xt, x0pred, t)
     return categorical_diffusion_loss(post_true, post_pred, x0, x0pred, class_weights)
@@ -58,7 +62,9 @@ def _update(state: EMATrainState, loss: torch.Tensor, metrics: Dict[str, torch.T
 
 def make_mask_train_step(model: MaskSampler, class_weights: Optional[torch.Tensor] = None) -> TrainStep:
     """step(state, batch, noise) -> metrics {loss, loss_kl, loss_ce (detached
-    tensors), grad_finite (1.0 or 0.0)}; updates `state` in place."""
+    tensors), grad_finite (1.0 or 0.0)}; updates `state` in place.  The
+    state's parameters are `model.named_parameters()` (the UNet's, and the
+    refiner's with one)."""
 
     def step(state: EMATrainState, batch: dict, noise: NoiseSource) -> Dict[str, torch.Tensor]:
         return _update(state, *mask_loss(model, noise, batch, class_weights))

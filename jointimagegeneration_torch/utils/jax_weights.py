@@ -10,7 +10,18 @@ tree paths joined by '/'.  Layout changes:
   * ResBlock parameters keep their flat names (`norm1_scale`, `conv1_kernel`,
     `emb_kernel`, `skip_kernel`, ...), kernels re-laid as above;
   * a stage-2 tree with a learned logvar, {"unet": <UNet tree>, "logvar":
-    (T,)}, gives the UNet's keys and `logvar` as it is.
+    (T,)}, gives the UNet's keys and `logvar` as it is;
+  * a text-guided stage-1 tree, {"unet": <UNet tree>, "refiner": <refiner
+    tree>} (`MaskSampler.init_params` there), gives the UNet's keys and the
+    refiner's as `refiner.<name>`, the names of `MaskSampler.named_parameters`;
+    the transformer leaves follow the rules above (Dense kernels transposed,
+    LayerNorm `scale` -> `weight`), and every `params` level is dropped.
+
+`check_state` holds a bridged state dict against a model's parameters and
+names the first leaf that is missing, extra or of another shape; it reshapes
+nothing.  (A JAX stage-1 tree initialised without a context shape and without
+a refiner sizes every `attn2`'s `to_k` / `to_v` from the query width through
+flax's lazy shapes: such a tree fails here, at that leaf.)
 
 `ae_state_dict_from_jax` does the same for an AutoencoderKL / VQModel tree
 (only `kernel` leaves change layout: the VQ codebook (n_embed, embed_dim) is
@@ -32,7 +43,7 @@ import numpy as np
 import torch
 
 __all__ = ["unet_state_dict_from_jax", "ae_state_dict_from_jax", "lpips_state_dict_from_jax", "flatten_tree",
-           "flat_paths", "train_state_from_jax"]
+           "flat_paths", "check_state", "train_state_from_jax"]
 
 
 def flatten_tree(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -71,10 +82,8 @@ def flat_paths(params: Union[Mapping, str, Path]) -> Dict[Tuple[str, ...], np.nd
 def _state_dict(flat: Mapping[Tuple[str, ...], np.ndarray], unet: bool) -> Dict[str, torch.Tensor]:
     state = {}
     for path, arr in flat.items():
-        path = [p for p in path if p != "GroupNorm_0"]
-        if unet and path[0] == "unet" and len(path) > 1:  # {"unet": ..., "logvar": ...}
-            path = path[1:]
-        if path[0] == "params":
+        path = [p for p in path if p not in ("GroupNorm_0", "params")]
+        if unet and path[0] == "unet" and len(path) > 1:  # {"unet": ..., "logvar" | "refiner": ...}
             path = path[1:]
         leaf = path[-1]
         if leaf == "kernel" or (unet and leaf.endswith("_kernel")):
@@ -99,6 +108,24 @@ def ae_state_dict_from_jax(params: Union[Mapping, str, Path]) -> Dict[str, torch
 def lpips_state_dict_from_jax(params: Union[Mapping, str, Path]) -> Dict[str, torch.Tensor]:
     """State dict for `eval.lpips.VGG16Features` from the JAX LPIPS' `params`."""
     return _state_dict(flat_paths(params), unet=False)
+
+
+def check_state(own: Mapping[str, torch.Tensor], state: Mapping[str, torch.Tensor], source: str) -> None:
+    """Raise ValueError unless `state` holds exactly the names of `own` at
+    their shapes, naming the first leaf that differs."""
+    extra = sorted(set(state) - set(own))
+    if extra:
+        raise ValueError(f"{source} holds leaves the model lacks, e.g. {extra[:3]}")
+    for name, t in own.items():
+        if name not in state:
+            raise ValueError(f"{source} lacks {name}")
+        if tuple(state[name].shape) != tuple(t.shape):
+            hint = ""
+            if ".attn2.to_k." in name or ".attn2.to_v." in name:
+                hint = (" (a JAX tree initialised without a context shape sizes attn2's to_k / to_v from the "
+                        "query width; initialise it with the context's shape)")
+            raise ValueError(f"{source} leaf {name} has shape {tuple(state[name].shape)}, the model "
+                             f"{tuple(t.shape)}{hint}")
 
 
 def _find_states(tree: Any, field: str) -> list:

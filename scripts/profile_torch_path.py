@@ -11,7 +11,9 @@ kernels un-zeroed as the sample CLI does), times one stage-1 denoise step at
 64x128x128 (the unfused UNet, then the same weights with
 use_fused_resblock='kernel', whose convs are `csrc/conv3d.cu`'s kernel), one
 stage-2 DDIM step at 256x256 and 512x512, one stage-1 train step (forward,
-backward, AdamW, EMA) at 64x128x128 and one stage-2 train step (b = 1, AdamW,
+backward, AdamW, EMA) at 64x128x128, untexted and text-guided (its
+`TEXT_TRAIN_CFG`: `selfattn`, embed 768, the refiner in the state, a 4-token
+synthetic context), and one stage-2 train step (b = 1, AdamW,
 LitEma warmup EMA; the trainer's fresh init) at 512x512 with CUDA events,
 then traces a few steps of each with torch.profiler and sums the kernels'
 device time by kind (convolution by cuDNN, the port's conv3d kernel,
@@ -35,10 +37,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import STAGE1_TRAIN_CFG, STAGE2_TRAIN_CFG, TWO_STAGE_CFG, conv_flags, fused_conv_calls  # noqa: E402
+from chip_smoke import (STAGE1_TRAIN_CFG, STAGE2_TRAIN_CFG, TEXT_TRAIN_CFG, TWO_STAGE_CFG, conv_flags,  # noqa: E402
+                        fused_conv_calls)
+from jointimagegeneration_torch.cli.common import build_mask_dataset  # noqa: E402
 from jointimagegeneration_torch.cli.sample import build_mask_sampler, build_slice_ldm, load_weights  # noqa: E402
 from jointimagegeneration_torch.core.runtime import configure_precision  # noqa: E402
-from jointimagegeneration_torch.data.datasets import SyntheticMaskDataset, SyntheticSliceDataset  # noqa: E402
+from jointimagegeneration_torch.data.datasets import SyntheticSliceDataset  # noqa: E402
 from jointimagegeneration_torch.diffusion.ddim import DDIMParams, ddim_step  # noqa: E402
 from jointimagegeneration_torch.diffusion.noise import NoiseSource  # noqa: E402
 from jointimagegeneration_torch.ops import conv3d as conv  # noqa: E402
@@ -188,17 +192,19 @@ def main() -> int:
         del ldm, x, c
         torch.cuda.empty_cache()
 
-    model = build_mask_sampler(STAGE1_TRAIN_CFG, "cuda", seed=STAGE1_TRAIN_CFG["seed"])  # the CLI's init
-    opt = STAGE1_TRAIN_CFG["optim"]
-    state = EMATrainState(build_optimizer(list(model.unet.named_parameters()), opt["name"], opt["learning_rate"],
-                                          opt["lr_function"], opt["lr_params"], total_steps=100_000),
-                          ema_decay=STAGE1_TRAIN_CFG["polyak_alpha"])
-    item = SyntheticMaskDataset(1, tuple(STAGE1_TRAIN_CFG["dataset"]["volume_shape"]), 12)[0]
-    batch = {k: torch.from_numpy(item[k])[None].cuda() for k in ("mask", "image")}
-    train_step = make_mask_train_step(model, torch.ones(12, device="cuda"))
-    rows.append(measure("stage1_train_step_64x128x128", lambda: train_step(state, batch, noise), args.steps))
-    del model, state, batch, train_step
-    torch.cuda.empty_cache()
+    for cfg, label in ((STAGE1_TRAIN_CFG, "stage1_train_step_64x128x128"),
+                       (TEXT_TRAIN_CFG, "stage1_text_train_step_64x128x128")):
+        model = build_mask_sampler(cfg, "cuda", seed=cfg["seed"])  # the CLI's init
+        opt = cfg["optim"]
+        state = EMATrainState(build_optimizer(model.named_parameters(), opt["name"], opt["learning_rate"],
+                                              opt["lr_function"], opt["lr_params"], total_steps=100_000),
+                              ema_decay=cfg["polyak_alpha"])
+        item = build_mask_dataset(cfg)[0]
+        batch = {k: torch.from_numpy(item[k])[None].cuda() for k in ("mask", "image", "context") if k in item}
+        train_step = make_mask_train_step(model, torch.ones(12, device="cuda"))
+        rows.append(measure(label, lambda: train_step(state, batch, noise), args.steps))
+        del model, state, batch, train_step
+        torch.cuda.empty_cache()
 
     cfg2 = STAGE2_TRAIN_CFG
     ldm = build_slice_ldm(cfg2["model"], "cuda", seed=cfg2["seed"])  # the CLI's init

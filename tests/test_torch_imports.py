@@ -2,7 +2,8 @@
 
 The port and chip_smoke.py import neither JAX, flax nor the JAX package (the
 machine with the card has none of them), the port imports PyYAML only when a
-config file is read, and an entry point asked for no device on a machine
+config file is read and `transformers` only inside
+`FrozenBERTEmbedder.__init__` (nor has it `transformers`), and an entry point asked for no device on a machine
 without CUDA raises instead of running on the CPU."""
 
 import ast
@@ -46,6 +47,25 @@ def test_yaml_only_imported_inside_functions():
     bad = [(str(f.relative_to(ROOT)), m) for f in _port_sources() for m, top in _imports(f)
            if m.split(".")[0] == "yaml" and (top or f.name == "chip_smoke.py")]
     assert not bad, bad
+
+
+def test_transformers_only_imported_inside_frozen_bert_init():
+    """Every import of `transformers` in the port sits in
+    `nn/text.py`'s `FrozenBERTEmbedder.__init__`; chip_smoke.py has none."""
+    found = []
+    for f in _port_sources():
+        tree = ast.parse(f.read_text(), filename=str(f))
+        scopes = {}  # import node id -> the (class, function) it sits in
+        for cls in [n for n in ast.walk(tree) if isinstance(n, ast.ClassDef)]:
+            for fn in [n for n in cls.body if isinstance(n, ast.FunctionDef)]:
+                for node in ast.walk(fn):
+                    scopes[id(node)] = (cls.name, fn.name)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) and node.level == 0 else [])
+            if any(n.split(".")[0] == "transformers" for n in names):
+                found.append((str(f.relative_to(ROOT)), scopes.get(id(node))))
+    assert found == [("jointimagegeneration_torch/nn/text.py", ("FrozenBERTEmbedder", "__init__"))], found
 
 
 def test_package_imports_with_jax_and_yaml_blocked():

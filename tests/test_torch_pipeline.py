@@ -158,7 +158,9 @@ def test_cli_checkpoint_and_unported_keys(tmp_path, slice_models):
                     ddim=TDDIM.create(tpipe.slice_ldm.diffusion, 4), mask_steps=4,
                     cond=torch.zeros((*MASK_SHAPE, 1)), **opt)[0]
         np.testing.assert_allclose(got, to_numpy(ref)[:, :3, ..., 0], atol=1e-6, err_msg=str(opt))
-    for bad in ({"stage": "mask"}, {"text": {"features_npz": "x.npz"}}, {"tile": {"patch": [8, 8]}}):
+    for bad in ({"stage1": {**cfg["stage1"], "feature_cond_encoder": {"type": "dino"}}},
+                {"stage": "mask", "stage1": {**cfg["stage1"], "feature_cond_encoder": {"type": "dino"}}},
+                {"tile": {"patch": [8, 8]}}):
         with pytest.raises(NotImplementedError):
             tcli.run({**cfg, **bad})
     # the latent first stage is ported: without a cond stage, a 1-channel first

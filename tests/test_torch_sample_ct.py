@@ -162,7 +162,7 @@ def test_ae_weights_scale_sidecar_and_guards(tmp_path):
 
 @pytest.mark.parametrize("bad,err", [
     ({"n_cases": 2}, "metrics: false"),  # FVD over two or more cases
-    ({"stage": "mask"}, "stage 'mask'"),
+    ({"stage": "mask", "stage1": {"feature_cond_encoder": {"type": "dino"}}}, "dino"),
 ])
 def test_ct_guards_raise(tmp_path, bad, err):
     with pytest.raises(NotImplementedError, match=err):

@@ -412,7 +412,7 @@ def test_cli_halts_on_non_finite_and_rejects_unported(tmp_path):
         tcli.run(cfg, "nan")
     assert CheckpointManager(tmp_path / "r" / "nan" / "checkpoints").all_steps()["rolling"] == [2]
     for bad in ({"remat": True}, {"init_from": {"path": "x"}}, {"dataset": {"kind": "ruijin"}},
-                {"feature_cond_encoder": {"type": "selfattn"}}, {"profile_steps": 2}):
+                {"feature_cond_encoder": {"type": "dino"}}, {"profile_steps": 2}):
         with pytest.raises(NotImplementedError):
             tcli.run(_tiny_cfg(tmp_path / "x", **bad), "bad")
 

@@ -83,6 +83,9 @@ class ReplayNoise:
     def gumbel(self, shape):
         return self._next("gumbel", shape)
 
+    def uniform(self, shape):
+        return self._next("uniform", shape)
+
     def randint(self, low, high, shape):
         assert self.draws, f"no draw left for randint{tuple(shape)}"
         k, arr = self.draws.pop(0)
