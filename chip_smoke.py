@@ -20,7 +20,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
      launch plan taken) at the fused and pallas_conv paths' shapes (library:
      F.conv3d), then checked at every distinct conv of the fused path and at
      its edge shapes.  The flash rows include the text-guided stage 1's
-     (CROSS_SHAPES: cross-attention over 4 and 512 context tokens in bf16,
+     (CROSS_SHAPES: cross-attention over 4, 128 and 512 context tokens in bf16,
      the refiner's 512-token self-attention in fp32 at D = 64);
   3. reference: a tiny two-stage pipeline on the card against the same
      pipeline on the CPU (same weights, same noise);
@@ -71,8 +71,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
      then a resumed run to step 8;
  10. text: a tiny fp32 text-conditioned MaskSampler (self-, cross- and
      refiner attention all at 512 tokens) on the card against the CPU,
-     guided `sample_labels` and two train steps with the refiner's dropout
-     (`text reference`); `cli.sample.run` with `stage: mask` at full width,
+     guided `sample_labels`, two train steps with the refiner's dropout, each
+     from the init, and the second step again from the card's parameters
+     after its first (`text reference`); `cli.sample.run` with `stage: mask` at full width,
      `selfattn` (embed 768) and a seeded 512-token features file, 2 draws of
      4 steps with GED and HM-IoU (`text mask path`); the two-stage path with
      the same text over 2 slices (`text two-stage path`); the train path
@@ -87,13 +88,25 @@ Phases, in order (any failure exits non-zero and prints no result line):
      EMA), with only the lengths cut: 6 steps with checkpoints at 3 and 6 and
      one validation at 6 (the panels of 2 slices: three DDIM-20 chains,
      written as PNGs; then the val loss at t = T/2), then a resumed run to
-     step 8; its ~2.8 GB checkpoints are deleted at the end.
+     step 8; its ~2.8 GB checkpoints are deleted at the end;
+ 13. real data: 3 abdominal CT cases (96 x 512 x 512 int16 HU, TotalSegmentator
+     and crcseg volumes, 128-token text features) written as NIfTI with the
+     port's writer, indexed by `cli.build_index` and laid out as an nnUNet
+     tree; the host seconds of a train item of each dataset kind; then
+     `cli.train_mask.run` (text-guided, full width) for 2 steps and a
+     validation on the val case, `stage: mask` from its `checkpoints/`
+     (labels equal to a by-hand load of the EMA weights), `cli.train_ldm.run`
+     on `ruijin` (full width, 512x512) for 2 steps and a validation, `stage:
+     ct` from its `checkpoints/` (2 slices, DDIM-50, LPIPS against the case's
+     CT), and `cli.train_ldm.run` on `nnunet` for 2 steps: s/step, the
+     seconds each step waited on the loader, peak GiB; every file deleted at
+     the end.
 Before each main path (6 per run and the latent path, 7 per variant, 9, each
-text path of 10, 12) every kernel launch counter is set to 0; after it the
-counts must equal what the path implies.  The last lines are the sampling,
-latent, fused, train and text summaries, a JSON line with the kernel
-numbers, the card's name and power limit, and `{"ok": true, "device":
-{...}}`.  Imports neither JAX nor PyYAML.
+text path of 10, 12, each run of 13) every kernel launch counter is set to 0;
+after it the counts must equal what the path implies.  The last lines are
+the sampling, latent, fused, train, text and real-data summaries, a JSON line
+with the kernel numbers, the card's name and power limit, and `{"ok": true,
+"device": {...}}`.  Imports neither JAX nor PyYAML.
 """
 
 from __future__ import annotations
@@ -103,6 +116,7 @@ import gc
 import io
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -150,6 +164,7 @@ FWD_EDGE_SHAPES = [  # (BH, Tq, Tk, D), dtype: ragged T, Tq != Tk, every head wi
 # in fp32), forward and backward
 CROSS_SHAPES = [
     ((8, 2048, 4, 32), torch.bfloat16, "stage 1 ds8 cross-attention, synthetic context"),
+    ((8, 2048, 128, 32), torch.bfloat16, "stage 1 ds8 cross-attention, the real-data index's 128-token features"),
     ((8, 2048, 512, 32), torch.bfloat16, "stage 1 ds8 cross-attention, a 512-token report"),
     ((8, 512, 512, 64), torch.float32, "text refiner, a 512-token report"),
 ]
@@ -309,6 +324,23 @@ LDM_REF_UNET = {"model_channels": 64, "channel_mult": [1], "attention_resolution
 TRAIN_REF_UNET = {"base_channels": 64, "channel_mult": [1, 2], "attention_resolutions": [1],
                   "num_res_blocks": 1, "num_head_channels": 16}
 TRAIN_REF_TOL = 1e-4  # card vs CPU, fp32: of each tensor's max |CPU value|
+
+
+# the real data phase: an index of 3 abdominal CT cases (96 slices of 512x512
+# int16 HU, a uint8 TotalSegmentator volume, a crcseg tumour mask, (128, 768)
+# text features each), which the split gives as 2 train cases and 1 val case,
+# and the same cases as an nnUNet tree; stage 1 and stage 2 train on them at
+# configs/stage1_mask.yml's and configs/stage2_ldm.yml's widths, 2 steps and a
+# validation each, and `stage: mask` / `stage: ct` sample the val case from
+# the checkpoints they write
+REAL_SHAPE = (96, 512, 512)
+REAL_TOKENS = 128
+TOTALSEG_IDS = (1, 2, 3, 5, 6, 10, 55, 56, 57, 104)  # classes 1..10
+BACKGROUND_IDS = (7, 200)  # TotalSegmentator ids that no class takes
+REAL_STAGE1 = {**STAGE1_TRAIN_CFG, "max_steps": 2, "save_freq": 2, "validation_freq_steps": 2,
+               "feature_cond_encoder": TEXT_FCE, "dataset": {"kind": "ruijin", "volume_shape": [64, 128, 128]}}
+REAL_STAGE2 = {**STAGE2_TRAIN_CFG, "max_steps": 2, "save_freq": 2, "eval_every": 2,
+               "dataset": {"kind": "ruijin", "slice_shape": [512, 512]}}
 
 
 class SmokeFailure(RuntimeError):
@@ -1762,13 +1794,16 @@ def text_reference_phase(flash) -> dict:
     card against the CPU, same weights and draws: `sample_labels` with a
     label-guidance function, then two train steps with the refiner's dropout
     on (its masks drawn on the CPU for both), each from the un-zeroed init on
-    its own batch.  Not one after the other: this model's gradients move
-    ~30x any relative change of its weights (a 1e-6 change moved them
-    3.2e-5 on the CPU), so a second step taken from the first's fp32-rounded
-    update would hold that amplification, not the kernels, to
-    TRAIN_REF_TOL.  Launches on the card: per chain the refiner's 4 fp32 forwards
-    and per UNet call 6 (three 512-token sites, attn1 and attn2); per train
-    step the same 10 of each kernel."""
+    its own batch; then step 2 again, taken on both devices from the card's
+    parameters after its step 1 (copied into the CPU model), so the card's
+    model is held after an update.  Each device does not take step 2 from
+    its own step 1: this model's gradients move ~30x any relative change of
+    its weights (a 1e-6 change moved them 3.2e-5 on the CPU), so two states
+    that differ by the first update's fp32 rounding would hold that
+    amplification, not the kernels, to TRAIN_REF_TOL.  Launches on the card:
+    per chain the refiner's 4 fp32 forwards and per UNet call 6 (three
+    512-token sites, attn1 and attn2); per train step the same 10 of each
+    kernel."""
     from jointimagegeneration_torch.cli.sample import build_mask_sampler
     from jointimagegeneration_torch.core.runtime import configure_precision
     from jointimagegeneration_torch.data.datasets import SyntheticMaskDataset
@@ -1786,7 +1821,7 @@ def text_reference_phase(flash) -> dict:
     sample_steps = 3
     per_call, refine = stage1_launches(cfg, 1, 0), stage1_launches(cfg, 0, TEXT_TOKENS)
     check(per_call == 6 and refine == 4, f"text reference: planned launches {per_call} a call, {refine} a chain")
-    runs, labels, sample_launches, init = [], [], [], None
+    runs, labels, sample_launches, init, models = [], [], [], None, {}
     for device in ("cpu", "cuda"):
         model = build_mask_sampler(cfg, device)
         named = model.named_parameters()
@@ -1804,6 +1839,7 @@ def text_reference_phase(flash) -> dict:
         labels.append(lab.cpu().numpy())
         sample_launches.append({k: v - before[k] for k, v in _counts(flash).items()})
         step = make_mask_train_step(model, torch.ones(4, device=device))
+        models[device] = (model, named, step)
         steps = []
         for batch in batches:  # each step from the init: see the docstring
             with torch.no_grad():
@@ -1824,13 +1860,29 @@ def text_reference_phase(flash) -> dict:
     worst = _compare_reference_steps(runs, "text reference")
     refiner = max(runs[1][1][0][n].abs().max().item() for n in runs[1][1][0] if n.startswith("refiner."))
     check(refiner > 0, "text reference: the refiner got no gradient")
+    after_step1 = runs[1][2][0]  # the card's parameters after its step 1
+    stepped = []
+    for device in ("cpu", "cuda"):
+        model, named, step = models[device]
+        with torch.no_grad():
+            for n, p in named:
+                p.copy_(after_step1[n])
+        stepped.append(_reference_steps(flash, "text reference (step 2)", device, named, step, batches[1:]))
+    n_stepped = _check_flash_only(stepped, "text reference (step 2)")
+    check(n_stepped == {k: v // 2 for k, v in step_want.items()},
+          f"text reference (step 2): launches {n_stepped}, expected half of {step_want}")
+    worst2 = _compare_reference_steps(stepped, "text reference (step 2 from the card's step 1)")
     print(f"text reference: tiny fp32 text MaskSampler (TRAIN_REF_UNET + cross-attention, a 2-block refiner of "
           f"2 heads x 64 over {TEXT_TOKENS} tokens), card vs CPU: guided sample_labels ({sample_steps} steps) "
           f"agree on {100 * agree:.2f}% of voxels with {sample_launches[1]['flash_fwd']} flash_fwd launches; 2 "
           f"train steps (refiner dropout 0.2) worst relative diff loss {worst['loss']:.3g}, gradient "
-          f"{worst['grad']:.3g}, params {worst['param']:.3g} (tol {TRAIN_REF_TOL}); launches {n_gpu}", flush=True)
-    return {"label_agreement": agree, "launches": {k: sample_launches[1][k] + n_gpu[k] for k in n_gpu},
-            "max_rel_err": max(worst.values())}
+          f"{worst['grad']:.3g}, params {worst['param']:.3g} (tol {TRAIN_REF_TOL}); launches {n_gpu}; step 2 "
+          f"from the card's step 1 on both: loss {worst2['loss']:.3g}, gradient {worst2['grad']:.3g}, params "
+          f"{worst2['param']:.3g}; launches {n_stepped}", flush=True)
+    del models
+    return {"label_agreement": agree,
+            "launches": {k: sample_launches[1][k] + n_gpu[k] + n_stepped[k] for k in n_gpu},
+            "max_rel_err": max(worst.values()), "stepped_max_rel_err": max(worst2.values())}
 
 
 def text_mask_path_phase(flash, card: str) -> dict:
@@ -1977,6 +2029,314 @@ def ldm_train_path_phase(flash, card: str) -> dict:
             "run_wall_s": wall, "val_loss_simple": val[0][1], "panel_seconds": panel_s[0], "checkpoint_gb": ckpt_gb}
 
 
+def write_real_fixture(root: Path) -> dict:
+    """The real data phase's fixture under `root`, written with the port's
+    NIfTI writer: per case `cases/<case>/{image,totalseg,crcseg}.nii.gz` and
+    `features.npz`, the index from `cli.build_index` (+ each case's
+    "text_features"), and the nnUNet tree (`imagesTr/<case>_0000.nii.gz` a
+    hard link of the CT, `labelsTr/<case>.nii.gz` the class ids).  The
+    labels: ellipsoid organs at a quarter of the size, repeated 4x along
+    each axis; classes 1..10 as their TotalSegmentator ids, class 11 as colon
+    with the crcseg mask, the body's background as ids that map to 0."""
+    from jointimagegeneration_torch.cli import build_index
+    from jointimagegeneration_torch.data.classes import remap_totalseg_labels
+    from jointimagegeneration_torch.data.datasets import synthesize_case
+    from jointimagegeneration_torch.data.nifti import write_nifti
+
+    shutil.rmtree(root, ignore_errors=True)
+    tree, nnunet = root / "cases", root / "nnunet"
+    for sub in ("imagesTr", "labelsTr"):
+        (nnunet / sub).mkdir(parents=True)
+    t0 = time.perf_counter()
+    ids = np.array((0,) + TOTALSEG_IDS + (57,), np.uint8)  # class -> TotalSegmentator id (tumour in the colon)
+    hu = np.array([20, 45, 30, 30, 60, 35, 40, 25, 30, 10, 5, 50], np.float32)  # soft tissue, organs, tumour
+    gen = np.random.default_rng(2024)
+    z, y, x = np.ogrid[:REAL_SHAPE[0], :REAL_SHAPE[1], :REAL_SHAPE[2]]
+    h, w = REAL_SHAPE[1:]
+    body = ((y - h / 2) / (0.45 * h)) ** 2 + ((x - w / 2) / (0.39 * w)) ** 2 <= 1.0
+    texts = {}
+    for c in range(3):
+        name = f"case_{c:02d}"
+        labels = synthesize_case(gen, tuple(s // 4 for s in REAL_SHAPE), 12)
+        labels = labels.repeat(4, 0).repeat(4, 1).repeat(4, 2)
+        seg = ids[labels]
+        background = (labels == 0) & body
+        seg[background & (z % 2 == 0)], seg[background & (z % 2 == 1)] = BACKGROUND_IDS
+        tumor = (labels == 11).astype(np.uint8)
+        check(set(np.unique(seg)) == {0, *TOTALSEG_IDS, *BACKGROUND_IDS}, f"fixture {name}: ids {np.unique(seg)}")
+        image = np.where(body, hu[labels], -1000.0) + 15.0 * gen.standard_normal(REAL_SHAPE, dtype=np.float32)
+        d = tree / name
+        d.mkdir(parents=True)
+        write_nifti(d / "image.nii.gz", image.astype(np.int16), spacing=(0.8, 0.8, 2.5))
+        write_nifti(d / "totalseg.nii.gz", seg, spacing=(0.8, 0.8, 2.5))
+        write_nifti(d / "crcseg.nii.gz", tumor, spacing=(0.8, 0.8, 2.5))
+        np.savez(d / "features.npz", features=gen.standard_normal((REAL_TOKENS, TEXT_FCE["embed_dim"]),
+                                                                  dtype=np.float32))
+        texts[name] = f"CT abdomen, case {c}: colorectal mass."
+        os.link(d / "image.nii.gz", nnunet / "imagesTr" / f"{name}_0000.nii.gz")
+        write_nifti(nnunet / "labelsTr" / f"{name}.nii.gz", remap_totalseg_labels(seg, tumor).astype(np.uint8))
+    (root / "texts.json").write_text(json.dumps(texts))
+    with contextlib.redirect_stdout(io.StringIO()):
+        index = build_index.main([str(tree), str(root / "index.json"), "--texts", str(root / "texts.json")])
+    for name, entry in index.items():
+        check(set(entry) == {"image", "totalseg", "crcseg", "text"} and not Path(entry["image"]).is_absolute(),
+              f"build_index: {name} {entry}")
+        entry["text_features"] = f"cases/{name}/features.npz"
+    (root / "index.json").write_text(json.dumps(index, indent=1))
+    nbytes = sum(p.stat().st_size for p in root.rglob("*.nii.gz"))
+    return {"index": str(root / "index.json"), "nnunet": str(nnunet), "seconds": time.perf_counter() - t0,
+            "gb": nbytes / 1e9}
+
+
+def _seconds(fn, *args):
+    """(fn(*args), the lesser wall seconds of two calls)."""
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        times.append(time.perf_counter() - t0)
+    return out, min(times)
+
+
+def real_item_seconds(fixture: dict, card: str) -> dict:
+    """Host seconds of one train item of each dataset kind, and of its parts
+    (decode: read_nifti of its files; remap; resize or window + crop), each
+    the lesser of two calls."""
+    from jointimagegeneration_torch.data import datasets as D
+    from jointimagegeneration_torch.data.classes import remap_totalseg_labels
+    from jointimagegeneration_torch.data.nifti import read_nifti
+    from jointimagegeneration_torch.data.transforms import crop_or_pad, resize_volume, window_norm
+
+    index = fixture["index"]
+    vshape = tuple(REAL_STAGE1["dataset"]["volume_shape"])
+    kinds = {"ruijin": D.RuijinMaskDataset(index, volume_shape=vshape),
+             "ruijin_3d": D.RuijinVolumeDataset(index, volume_shape=vshape),
+             "ruijin_slices": D.RuijinSlicePairDataset(index, slice_shape=REAL_STAGE2["dataset"]["slice_shape"]),
+             "nnunet": D.NNUNetLayoutDataset(fixture["nnunet"], slice_shape=REAL_STAGE2["dataset"]["slice_shape"])}
+    ds = kinds["ruijin_slices"]
+    case = ds.index[ds.keys[0]]
+    (seg, _), t_seg = _seconds(read_nifti, ds._resolve(case["totalseg"]))
+    (tumor, _), t_tumor = _seconds(read_nifti, ds._resolve(case["crcseg"]))
+    (img, _), t_img = _seconds(read_nifti, ds._resolve(case["image"]))
+    labels, t_remap = _seconds(remap_totalseg_labels, seg, tumor)
+    _, t_nearest = _seconds(resize_volume, labels, vshape, "nearest")
+    win, t_window = _seconds(window_norm, img)
+    _, t_linear = _seconds(resize_volume, win, vshape, "linear")
+    _, t_crop = _seconds(crop_or_pad, win, (win.shape[0], *REAL_STAGE2["dataset"]["slice_shape"]))
+    parts = {"ruijin": {"decode_s": t_seg + t_tumor, "remap_s": t_remap, "resize_s": t_nearest},
+             "ruijin_3d": {"decode_s": t_seg + t_tumor + t_img, "remap_s": t_remap,
+                           "resize_s": t_window + t_linear + t_nearest},
+             "ruijin_slices": {"decode_s": t_seg + t_tumor + t_img, "remap_s": t_remap, "crop_s": t_window + t_crop},
+             "nnunet": {"decode_s": t_img + t_seg, "crop_s": t_window + t_crop}}
+    for kind, dset in kinds.items():
+        parts[kind]["item_s"] = _seconds(dset.__getitem__, 0)[1]
+    print("real data: host seconds per train item (one thread calling): " + "; ".join(
+        f"{k} {v['item_s']:.3f} s ({', '.join(f'{p[:-2]} {t:.3f}' for p, t in v.items() if p != 'item_s')})"
+        for k, v in parts.items()) + f"; card {card}", flush=True)
+    for kind in ("ruijin", "ruijin_slices"):  # what each trainer's loader keeps up with: 2 threads, to the card
+        parts[kind]["loader_s_per_item"] = loader_seconds_per_item(kinds[kind])
+    print(f"real data: the trainers' DataLoader (2 threads, batch 1, to the card) over 8 items: "
+          f"{parts['ruijin']['loader_s_per_item']:.3f} s/item (ruijin), "
+          f"{parts['ruijin_slices']['loader_s_per_item']:.3f} s/item (ruijin slices); card {card}", flush=True)
+    return parts
+
+
+class _Repeated:
+    """`n` items cycling over a dataset's."""
+
+    def __init__(self, dataset, n: int):
+        self.dataset, self.n = dataset, n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int) -> dict:
+        return self.dataset[i % len(self.dataset)]
+
+
+def loader_seconds_per_item(dataset, n: int = 8) -> float:
+    """Wall seconds per item of one pass of `data.loader.DataLoader` (2 worker
+    threads, batch 1, to the card) over `n` items of `dataset`."""
+    from jointimagegeneration_torch.data.loader import DataLoader
+
+    loader = DataLoader(_Repeated(dataset, n), 1, device="cuda", num_workers=2)
+    t0 = time.perf_counter()
+    for _ in loader:
+        pass
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+
+def _train_records(logdir: Path, label: str, n_steps: int) -> list:
+    recs = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in recs if "train/loss" in r]
+    check([r["step"] for r in train] == list(range(1, n_steps + 1)), f"{label}: logged steps {train}")
+    check(all(math.isfinite(r["train/loss"]) and r["train/grad_finite"] == 1.0 for r in train),
+          f"{label}: a loss or a gradient is not finite: {train}")
+    return recs
+
+
+def _real_train(flash, run, cfg: dict, label: str, expected: dict) -> dict:
+    """One trainer run on the real data with its launches checked; returns
+    its metrics records, s/step, the loader wait and the peak GiB."""
+    torch.cuda.reset_peak_memory_stats()
+    state, launches, wall, _ = _train_run(flash, run, cfg, "smoke")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(launches == expected, f"{label}: launches {launches}, expected {expected}")
+    check(state.step == cfg["max_steps"], f"{label}: ended at step {state.step}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    recs = _train_records(Path(cfg["output_path"]) / "smoke", label, cfg["max_steps"])
+    train = [r for r in recs if "train/loss" in r]
+    return {"recs": recs, "launches": launches, "wall_s": wall, "peak_gib": peak,
+            "step_s": [r["train/step_seconds"] for r in train], "data_s": [r["train/data_seconds"] for r in train]}
+
+
+def _train_text(label: str, out: dict, what: str, card: str) -> None:
+    print(f"{label}: {what}, {len(out['step_s'])} steps: s/step {[round(t, 4) for t in out['step_s']]} (step 1 "
+          f"carries cuDNN's first-call setup), waited on the loader {[round(t, 4) for t in out['data_s']]} s "
+          f"before each step, peak torch.cuda.max_memory_allocated {out['peak_gib']:.2f} GiB, run() wall "
+          f"{out['wall_s']:.2f} s; launches {out['launches']} = expected; card {card}", flush=True)
+
+
+def real_data_phase(flash, card: str) -> dict:
+    """Both trainers on an index of CT volumes at full width, and the sampler
+    on the checkpoints they write (see REAL_SHAPE): stage 1 with `selfattn`
+    on the cases' 128-token features (launches stage1_launches(cfg, 1, 128)
+    a step, the refiner plain, plus the validation's), `stage: mask` from
+    its `checkpoints/` on the val case (equal, bit for bit, to the same draws
+    with the checkpoint's EMA weights loaded by hand), stage 2 on `ruijin`
+    with a validation, `stage: ct` from its `checkpoints/` (2 slices of
+    DDIM-50, LPIPS against the case's CT), and stage 2 on `nnunet`.  Every
+    file it writes (the ~2.8 GB stage-2 checkpoints too) is deleted at the
+    end."""
+    from jointimagegeneration_torch.cli import sample, train_ldm, train_mask
+    from jointimagegeneration_torch.core.checkpoint import CheckpointManager
+    from jointimagegeneration_torch.diffusion.noise import NoiseSource
+
+    root = ROOT / "build" / "chip_smoke" / "real"
+    zero = {"conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
+    out = {}
+    try:
+        fixture = write_real_fixture(root)
+        print(f"real data: 3 cases of {REAL_SHAPE} int16 HU + uint8 totalseg + crcseg ({fixture['gb']:.2f} GB of "
+              f".nii.gz, the nnUNet tree's labels included) written in {fixture['seconds']:.2f} s", flush=True)
+        out["item_seconds"] = real_item_seconds(fixture, card)
+
+        # stage 1, text-guided, on the index
+        cfg = json.loads(json.dumps(REAL_STAGE1))
+        cfg["dataset"]["index"], cfg["output_path"] = fixture["index"], str(root / "stage1")
+        per_step = stage1_launches(cfg, 1, REAL_TOKENS)  # 5 sites, attn1 + attn2; the 128-token refiner is plain
+        val_launches = stage1_launches(cfg, cfg["eval_time_steps"], REAL_TOKENS)
+        s1 = _real_train(flash, train_mask.run, cfg, "real stage 1",
+                         {"flash_fwd": 2 * per_step + val_launches, "flash_bwd_dkv": 2 * per_step,
+                          "flash_bwd_dq": 2 * per_step, **zero})
+        dice = [r["val/dice"] for r in s1["recs"] if "val/dice" in r]
+        check(len(dice) == 1 and 0.0 <= dice[0] <= 1.0, f"real stage 1: val/dice {dice}")
+        ckdir = Path(cfg["output_path"]) / "smoke" / "checkpoints"
+        steps = CheckpointManager(ckdir).all_steps()
+        check(steps["rolling"] == [2] and steps["best"] == [2], f"real stage 1: checkpoints {steps}")
+        _train_text("real stage 1", s1, f"64x128x128, base 64, bf16, selfattn over {REAL_TOKENS}-token features, "
+                    f"AdamW + EMA, val/dice {dice[0]:.4f} on the val case", card)
+        out["stage1"] = {k: v for k, v in s1.items() if k != "recs"} | {"val_dice": dice[0]}
+
+        # stage: mask from the stage-1 checkpoints, on the val split
+        s1_section = {k: v for k, v in cfg.items() if k not in ("output_path",)}
+        val_case = sample.build_mask_dataset(s1_section, "val")
+        feats = str(Path(fixture["index"]).parent / val_case.index[val_case.keys[0]]["text_features"])
+        scfg = {"stage": "mask", "seed": 1024, "n_cases": 1, "samples": 1, "mask_steps": 4, "split": "val",
+                "output_path": str(root / "mask"), "text": {"features_npz": feats},
+                "stage1": {**s1_section, "checkpoint": str(ckdir)}}
+        expected = stage1_launches(s1_section, scfg["mask_steps"], REAL_TOKENS)
+        _reset_counts(flash)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            res = sample.run(scfg, device="cuda")
+        wall = time.perf_counter() - t0
+        launches = _counts(flash)
+        check(launches == {"flash_fwd": expected, "flash_bwd_dkv": 0, "flash_bwd_dq": 0, **zero},
+              f"real mask sampling: launches {launches}, expected flash_fwd {expected}")
+        check(f"EMA weights of {ckdir}" in printed.getvalue(), "real mask sampling: the checkpoint was not read")
+        labels, m = res["labels"][0, 0], res["metrics"][0]
+        check(labels.shape == tuple(cfg["dataset"]["volume_shape"]) and 0 <= labels.min() and labels.max() < 12,
+              f"real mask sampling: labels {labels.shape} in [{labels.min()}, {labels.max()}]")
+        check(0.0 <= m["dice"] <= 1.0, f"real mask sampling: dice {m}")
+        ms = sample.build_mask_sampler(s1_section, "cuda")
+        ema = torch.load(CheckpointManager(ckdir).step_path(), map_location="cpu", weights_only=True)["ema"]
+        ms.unet.load_state_dict({k: v for k, v in ema.items() if not k.startswith("refiner.")})
+        ms.refiner.load_state_dict({k[len("refiner."):]: v for k, v in ema.items() if k.startswith("refiner.")})
+        item = val_case[0]
+        with torch.inference_mode():
+            ctx = torch.from_numpy(np.load(feats)["features"])[None].cuda()
+            by_hand = ms.sample_labels(NoiseSource(scfg["seed"], "cuda"), (1, *cfg["dataset"]["volume_shape"]),
+                                       cond=torch.from_numpy(item["image"])[None].cuda(), context=ctx,
+                                       num_steps=scfg["mask_steps"])[0].cpu().numpy()
+        check(np.array_equal(by_hand, labels), "real mask sampling: the labels differ from the same draws with "
+              f"the EMA weights loaded by hand on {int((by_hand != labels).sum())} voxels")
+        del ms, ema
+        print(f"real mask sampling: stage: mask from {ckdir.relative_to(root)} (newest step's EMA weights) on the "
+              f"val case {val_case.keys[0]}, {scfg['mask_steps']} steps: {res['seconds']['stage1']:.3f} s, run() "
+              f"wall {wall:.2f} s; dice {m['dice']:.4f} against its mask; labels equal to the by-hand EMA load; "
+              f"flash_fwd launches {expected} = expected; card {card}", flush=True)
+        out["mask"] = {"launches": expected, "dice": m["dice"], "stage1_s": res["seconds"]["stage1"]}
+        shutil.rmtree(Path(cfg["output_path"]), ignore_errors=True)
+
+        # stage 2 on the index, then stage: ct from its checkpoints
+        cfg2 = json.loads(json.dumps(REAL_STAGE2))
+        cfg2["dataset"]["index"], cfg2["output_path"] = fixture["index"], str(root / "stage2")
+        sites = flash_sites(cfg2["dataset"]["slice_shape"], cfg2["model"]["unet_config"]["params"], "channel_mult")
+        panel_calls = 3 * min(cfg2.get("log_ddim_steps", 20), cfg2["model"]["timesteps"] // 2)
+        s2 = _real_train(flash, train_ldm.run, cfg2, "real stage 2",
+                         {"flash_fwd": sites * (2 + 1 + panel_calls), "flash_bwd_dkv": 2 * sites,
+                          "flash_bwd_dq": 2 * sites, **zero})
+        val = [r["val/loss_simple"] for r in s2["recs"] if "val/loss_simple" in r]
+        check(len(val) == 1 and math.isfinite(val[0]) and val[0] > 0, f"real stage 2: val/loss_simple {val}")
+        ckdir2 = Path(cfg2["output_path"]) / "smoke" / "checkpoints"
+        steps = CheckpointManager(ckdir2).all_steps()
+        check(steps["rolling"] == [2] and steps["best"] == [2], f"real stage 2: checkpoints {steps}")
+        hw = cfg2["dataset"]["slice_shape"]
+        _train_text("real stage 2", s2, f"ruijin {hw[0]}x{hw[1]}, base 128, bf16, AdamW + EMA, val/loss_simple {val[0]:.4f} "
+                    f"(panels at b = 1 on the val case)", card)
+        out["stage2"] = {k: v for k, v in s2.items() if k != "recs"} | {"val_loss_simple": val[0]}
+
+        ccfg = {"stage": "ct", "seed": 1024, "n_cases": 1, "ddim_steps": 50, "slices": 2, "split": "val",
+                "output_path": str(root / "ct"),
+                "stage2": {**cfg2["model"], "slice_size": hw[0], "dataset": cfg2["dataset"], "checkpoint": str(ckdir2)}}
+        expected = sites * ccfg["slices"] * ccfg["ddim_steps"]
+        _reset_counts(flash)
+        t0 = time.perf_counter()
+        res = sample.run(ccfg, device="cuda")
+        wall = time.perf_counter() - t0
+        launches = _counts(flash)
+        check(launches == {"flash_fwd": expected, "flash_bwd_dkv": 0, "flash_bwd_dq": 0, **zero},
+              f"real ct sampling: launches {launches}, expected flash_fwd {expected}")
+        ct, lp = res["ct"], (res["metrics"] or {}).get("lpips_three_view_mean")
+        check(ct.shape == (1, 2, *hw) and bool(np.isfinite(ct).all()) and 0.0 <= ct.min() and ct.max() <= 1.0,
+              f"real ct sampling: CT {ct.shape} in [{ct.min()}, {ct.max()}]")
+        check(lp is not None and math.isfinite(lp), f"real ct sampling: LPIPS {res['metrics']}")
+        print(f"real ct sampling: stage: ct from {ckdir2.relative_to(root)} on the val case, 2 slices x DDIM-50 at "
+              f"{hw[0]}x{hw[1]}: {res['seconds']['stage2'] / 2:.4f} s/slice, run() wall {wall:.2f} s; LPIPS (3 views, "
+              f"uncalibrated VGG) {lp:.4f} against the case's CT; flash_fwd launches {expected} = expected; card "
+              f"{card}", flush=True)
+        out["ct"] = {"launches": expected, "lpips_three_view": lp, "s_per_slice": res["seconds"]["stage2"] / 2}
+        shutil.rmtree(Path(cfg2["output_path"]), ignore_errors=True)
+
+        # stage 2 on the nnUNet tree
+        cfg3 = {**cfg2, "dataset": {"kind": "nnunet", "root": fixture["nnunet"], "slice_shape": hw},
+                "validate": False, "save_freq": 1000, "output_path": str(root / "nnunet_run")}
+        s3 = _real_train(flash, train_ldm.run, cfg3, "nnunet stage 2",
+                         {"flash_fwd": 2 * sites, "flash_bwd_dkv": 2 * sites, "flash_bwd_dq": 2 * sites, **zero})
+        _train_text("nnunet stage 2", s3, f"nnUNet tree, {hw[0]}x{hw[1]}, base 128, bf16, AdamW + EMA, no validation",
+                    card)
+        out["nnunet"] = {k: v for k, v in s3.items() if k != "recs"}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a machine with an NVIDIA GPU",
@@ -2016,6 +2376,7 @@ def main() -> int:
     text_train = train_path_phase(flash, card, TEXT_TRAIN_CFG, "text train path", "train_text")
     ldm_train_reference_phase(flash)
     ldm_train = ldm_train_path_phase(flash, card)
+    real = real_data_phase(flash, card)
 
     main_row = rows[1]  # (16, 1024, 32): the stage-2 site, most of the sampling path's launches
     fwd_launches = {"two_stage_sampling": ddim_path["launches"], "fast_sampling": fast["fast path"]["launches"],
@@ -2029,7 +2390,12 @@ def main() -> int:
                     "text_reference": text_ref["launches"]["flash_fwd"],
                     "text_mask_sampling": text_mask["launches"],
                     "text_two_stage_sampling": text_two_stage["launches"],
-                    "stage1_text_training": text_train["launches"]["flash_fwd"]}
+                    "stage1_text_training": text_train["launches"]["flash_fwd"],
+                    "real_stage1_text_training": real["stage1"]["launches"]["flash_fwd"],
+                    "real_mask_sampling": real["mask"]["launches"],
+                    "real_stage2_training": real["stage2"]["launches"]["flash_fwd"],
+                    "real_ct_sampling": real["ct"]["launches"],
+                    "nnunet_stage2_training": real["nnunet"]["launches"]["flash_fwd"]}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -2053,7 +2419,10 @@ def main() -> int:
         part = name.rsplit("_", 1)[1]
         bwd_launches = {"stage1_training": train["launches"][name], "stage2_training": ldm_train["launches"][name],
                         "text_reference": text_ref["launches"][name],
-                        "stage1_text_training": text_train["launches"][name]}
+                        "stage1_text_training": text_train["launches"][name],
+                        "real_stage1_text_training": real["stage1"]["launches"][name],
+                        "real_stage2_training": real["stage2"]["launches"][name],
+                        "nnunet_stage2_training": real["nnunet"]["launches"][name]}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2105,6 +2474,7 @@ def main() -> int:
     print(f"ldm train: {json.dumps(ldm_train)}")
     text = {"reference": text_ref, "mask_path": text_mask, "two_stage_path": text_two_stage, "train_path": text_train}
     print(f"text: {json.dumps(text)}")
+    print(f"real: {json.dumps(real)}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

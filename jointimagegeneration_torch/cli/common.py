@@ -1,36 +1,44 @@
 """Shared by the CLIs: the first-stage autoencoders, their weights,
-the latent (`_ae`) stage 2, the slice dataset and the mask dataset.
+the latent (`_ae`) stage 2, checkpoint reading, the slice dataset and the
+mask dataset.
 
-Counterpart of the AE and dataset parts of
-`jointimagegeneration_tpu/cli/common.py` (`build_autoencoder`,
-`load_ae_params`, `build_latent_ldm`, `build_slice_dataset`,
-`build_mask_dataset`).  The card's machine has no orbax, so AE weights come
-from a flat `.npz` of the JAX AE variables ('/'-joined keys, as the UNet
-bridge reads them): a `cli.train_ae` state keeps them under `g_params`, a
-converted reference AE under `params`.
+Counterpart of the AE, checkpoint and dataset parts of
+`jointimagegeneration_tpu/cli/common.py` and `cli/sample.py`
+(`build_autoencoder`, `load_ae_params`, `_load_params`, `build_latent_ldm`,
+`build_slice_dataset`, `build_mask_dataset`).  A `checkpoint:` key names one
+of three things:
+
+  * a directory of `<step>.pt` files, as a port trainer writes it
+    (`<logdir>/checkpoints/`): the newest step's EMA weights, rolling or best;
+  * one such `.pt` file (a train state or a `trainstep/` weights snapshot):
+    its EMA weights;
+  * a flat `.npz` of a JAX parameter tree ('/'-joined keys; the card's
+    machine has no orbax): for the AEs a `cli.train_ae` state keeps them
+    under `g_params`, a converted reference AE under `params`.
 
 The latent scale factor comes from `first_stage.scale_factor`, else from
-`latent_scale.json` in the directory of the UNet's `.npz` (the JAX CLI reads
-it in the UNet's checkpoint directory, which is that directory's
-counterpart), else 1.0.
+`latent_scale.json` inside the UNet's checkpoint directory or beside its
+file, else 1.0.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from ..data.datasets import SyntheticMaskDataset, SyntheticSliceDataset
+from ..core.checkpoint import CheckpointManager
+from ..data.datasets import (NNUNetLayoutDataset, RuijinMaskDataset, RuijinSlicePairDataset, RuijinVolumeDataset,
+                             SyntheticMaskDataset, SyntheticSliceDataset)
 from ..models.autoencoder import AutoencoderKL, VQModel
 from ..nn.unet import ZERO_INIT_SUFFIXES
 from ..utils.jax_weights import ae_state_dict_from_jax, check_state, flat_paths
 
-__all__ = ["build_autoencoder", "load_ae_weights", "build_latent_ldm", "build_slice_dataset", "build_mask_dataset",
-           "fill_zero_init", "LATENT_SCALE_FILE"]
+__all__ = ["build_autoencoder", "read_port_checkpoint", "load_ae_weights", "build_latent_ldm", "build_slice_dataset",
+           "build_mask_dataset", "fill_zero_init", "LATENT_SCALE_FILE"]
 
 LATENT_SCALE_FILE = "latent_scale.json"
 
@@ -64,20 +72,48 @@ def build_autoencoder(m: dict, device, seed: int = 3) -> nn.Module:
     return AutoencoderKL(**kw)
 
 
+def read_port_checkpoint(ck, what: str = "checkpoint") -> Optional[Dict[str, torch.Tensor]]:
+    """The EMA weights (name -> fp32 CPU tensor) of a port checkpoint `ck`: a
+    directory of `<step>.pt` files (the newest step) or one `.pt` file, read
+    with `weights_only=True`; None for an `.npz` file.  Anything else raises
+    ValueError naming the forms accepted."""
+    forms = ("a directory of <step>.pt files as a port trainer writes it, one such .pt file, or a flat .npz of "
+             "the JAX parameter tree")
+    path = Path(ck)
+    if path.is_file() and path.suffix == ".npz":
+        return None
+    if path.is_dir():
+        manager = CheckpointManager(path)
+        if manager.latest_step() is None:
+            raise ValueError(f"{what} {ck!r} is a directory with no <step>.pt: expected {forms}")
+        path = manager.step_path()
+    elif not (path.is_file() and path.suffix == ".pt"):
+        raise ValueError(f"{what} {ck!r} is not {forms}")
+    saved = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    if not isinstance(saved, dict) or not isinstance(saved.get("ema"), dict):
+        raise ValueError(f"{what} {str(path)!r} holds no 'ema' weights: expected {forms}")
+    print(f"{what}: EMA weights of {path}")
+    return dict(saved["ema"])
+
+
 def load_ae_weights(module: nn.Module, section: Optional[dict], fresh_init_noise: float = 0.0,
                     seed: int = 0) -> None:
-    """Load `section['checkpoint']` (a flat `.npz` of the JAX AE variables,
-    under `g_params` or `params`) into `module`, every leaf's shape checked;
-    without a checkpoint keep the fresh init, say so, and fill its zero-init
-    kernels with N(0, fresh_init_noise^2) drawn from `seed`."""
+    """Load `section['checkpoint']` (a port checkpoint's EMA weights, or a
+    flat `.npz` of the JAX AE variables under `g_params` or `params`) into
+    `module`, every leaf's name and shape checked; without a checkpoint keep
+    the fresh init, say so, and fill its zero-init kernels with
+    N(0, fresh_init_noise^2) drawn from `seed`."""
     ck = (section or {}).get("checkpoint")
     if not ck:
         print("WARNING: no AE checkpoint configured — using FRESH-INIT (random) first-stage weights")
         if fresh_init_noise:
             fill_zero_init(module, fresh_init_noise, seed)
         return
-    if not str(ck).endswith(".npz") or not Path(ck).is_file():
-        raise ValueError(f"AE checkpoint {ck!r}: the PyTorch sampler reads a flat .npz of the JAX AE variables")
+    state = read_port_checkpoint(ck, "AE checkpoint")
+    if state is not None:
+        check_state(module.state_dict(), state, f"AE checkpoint {ck!r} (wrong ddconfig?)")
+        module.load_state_dict(state)
+        return
     flat = flat_paths(ck)
     for top in ("g_params", "params"):
         tree = {k[1:] if top == "g_params" else k: v for k, v in flat.items() if k[0] == top}
@@ -121,7 +157,7 @@ def build_latent_ldm(s2: dict, inner, size: int, device, fresh_init_noise: float
         sf = 1.0
         ck = s2.get("checkpoint")
         if ck:
-            sidecar = Path(ck).parent / LATENT_SCALE_FILE
+            sidecar = (Path(ck) if Path(ck).is_dir() else Path(ck).parent) / LATENT_SCALE_FILE
             if sidecar.exists():
                 sf = float(json.loads(sidecar.read_text())["scale_factor"])
                 print(f"latent scale_factor {sf:.4f} from {sidecar}")
@@ -130,30 +166,47 @@ def build_latent_ldm(s2: dict, inner, size: int, device, fresh_init_noise: float
     return latent, size // ae.downsample_factor
 
 
-def build_slice_dataset(cfg: dict, split: str) -> SyntheticSliceDataset:
-    """The synthetic branch of the JAX CLI's `build_slice_dataset`; splits
-    other than 'train' carry the whole volumes.  Other kinds raise."""
+def build_slice_dataset(cfg: dict, split: str):
+    """The stage-2 dataset of `cfg['dataset']`, as the JAX CLI's
+    `build_slice_dataset`: `synthetic` (splits other than 'train' carry the
+    whole volumes), `ruijin` (`index`: the JSON index) or `nnunet` (`root`:
+    the nnUNet tree).  The stock kinds raise NotImplementedError, any other
+    kind ValueError."""
     d = cfg.get("dataset", {})
     kind = d.get("kind", "synthetic")
-    if kind != "synthetic":
-        raise NotImplementedError(f"dataset kind {kind!r} is not ported yet")
-    return SyntheticSliceDataset(num_cases=d.get("num_cases", 16),
-                                 slice_shape=tuple(d.get("slice_shape", (512, 512))),
-                                 depth=d.get("depth", 8), include_volumes=split != "train")
+    shape = tuple(d.get("slice_shape", (512, 512)))
+    if kind == "synthetic":
+        return SyntheticSliceDataset(num_cases=d.get("num_cases", 16), slice_shape=shape, depth=d.get("depth", 8),
+                                     include_volumes=split != "train")
+    if kind == "ruijin":
+        return RuijinSlicePairDataset(d["index"], split=split, slice_shape=shape)
+    if kind == "nnunet":
+        return NNUNetLayoutDataset(d["root"], split=split, slice_shape=shape, num_classes=cfg.get("num_classes", 12))
+    if kind in ("lsun", "imagenet", "imagenet_sr"):
+        raise NotImplementedError(f"dataset kind {kind!r} is not ported yet (the stock datasets, ROADMAP.md "
+                                  "section 1, item 10)")
+    raise ValueError(f"unknown dataset kind {kind!r}")
 
 
-def build_mask_dataset(cfg: dict, split: str = "train") -> SyntheticMaskDataset:
-    """The synthetic branch of the JAX CLI's `build_mask_dataset` (the split
-    does not change it); with a `selfattn` feature_cond_encoder each case
-    carries an N(0, 1) "context" of (dataset.context_len (4), embed_dim
-    (768)).  Other kinds raise."""
+def build_mask_dataset(cfg: dict, split: str = "train"):
+    """The stage-1 dataset of `cfg['dataset']`, as the JAX CLI's
+    `build_mask_dataset`: `synthetic` (the split does not change it; with a
+    `selfattn` feature_cond_encoder each case carries an N(0, 1) "context" of
+    (dataset.context_len (4), embed_dim (768))), `ruijin` (`index`, with
+    `max_size`) or `ruijin_3d` (CT volume, mask and text).  Any other kind
+    raises ValueError."""
     d = cfg.get("dataset", {})
     kind = d.get("kind", "synthetic")
-    if kind != "synthetic":
-        raise NotImplementedError(f"dataset kind {kind!r} is not ported yet")
-    fce = cfg.get("feature_cond_encoder") or {}
-    ctx_shape = (d.get("context_len", 4), fce.get("embed_dim", 768)) if fce.get("type") == "selfattn" else None
-    return SyntheticMaskDataset(num_cases=d.get("num_cases", 16),
-                                volume_shape=tuple(d.get("volume_shape", (64, 128, 128))),
-                                num_classes=cfg.get("num_classes", 12), context_shape=ctx_shape,
-                                seed=d.get("seed", 0))
+    shape = tuple(d.get("volume_shape", (64, 128, 128)))
+    num_classes = cfg.get("num_classes", 12)
+    if kind == "synthetic":
+        fce = cfg.get("feature_cond_encoder") or {}
+        ctx_shape = (d.get("context_len", 4), fce.get("embed_dim", 768)) if fce.get("type") == "selfattn" else None
+        return SyntheticMaskDataset(num_cases=d.get("num_cases", 16), volume_shape=shape, num_classes=num_classes,
+                                    context_shape=ctx_shape, seed=d.get("seed", 0))
+    if kind == "ruijin":
+        return RuijinMaskDataset(d["index"], split=split, volume_shape=shape, num_classes=num_classes,
+                                 max_size=d.get("max_size"))
+    if kind == "ruijin_3d":
+        return RuijinVolumeDataset(d["index"], split=split, volume_shape=shape, num_classes=num_classes)
+    raise ValueError(f"unknown dataset kind {kind!r}")

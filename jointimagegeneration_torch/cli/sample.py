@@ -45,14 +45,24 @@ Keys beyond the JAX CLI's:
     weights (the UNets' and the AEs') with N(0, s^2), so that every layer of a
     random network carries signal (smoke runs; checkpoints are unaffected).
 
-Weights come from a flat `.npz` of the JAX parameter tree ('/'-joined keys)
-given as `stage1.checkpoint` / `stage2.checkpoint`, and for the AEs as
-`first_stage.checkpoint` / `cond_stage.checkpoint` (`cli/common.py`); a
-text-guided stage-1 `.npz` holds the {"unet": ..., "refiner": ...} tree.
-Without one the sampler uses a seeded fresh init and says so.  Not ported
-here: FVD (two or more `stage: ct` cases with metrics), the `dino` feature
-encoder, stage-2 context or class conditioning, and `tile` on `two_stage`
-(which the JAX CLI never passes); asking for them raises.
+`stage: mask` and `stage: ct` take their cases from the dataset of the stage's
+section (`dataset.kind` `synthetic`, `ruijin`, `ruijin_3d` or `nnunet`, see
+`cli/common.py`) on the split `split` (default 'val'): the mask and CT of
+each item are the ground truth of the Dice and LPIPS.
+
+Weights: `stage1.checkpoint` / `stage2.checkpoint`, and for the AEs
+`first_stage.checkpoint` / `cond_stage.checkpoint`, name a port trainer's
+`checkpoints/` directory (its newest step), one of its `.pt` files, or a flat
+`.npz` of the JAX parameter tree ('/'-joined keys); the EMA weights are read.
+A text-guided stage 1 holds the UNet's and the refiner's ({"unet",
+"refiner"}), a stage 2 trained with `learn_logvar` the UNet's and `logvar`
+({"unet", "logvar"}), which sampling drops.  Every leaf's name and shape is
+checked (`cli/common.py`).  Without a checkpoint the sampler uses a seeded
+fresh init and says so.
+
+Not ported here: FVD (two or more `stage: ct` cases with metrics), the `dino`
+feature encoder, stage-2 context or class conditioning, and `tile` on
+`two_stage` (which the JAX CLI never passes); asking for them raises.
 """
 
 from __future__ import annotations
@@ -79,7 +89,7 @@ from ..models.slice_ldm import SliceLDM
 from ..nn.unet import UNet
 from ..pipeline.two_stage import make_chunked_two_stage_programs
 from ..utils.jax_weights import check_state, unet_state_dict_from_jax
-from .common import build_latent_ldm, build_mask_dataset, build_slice_dataset, fill_zero_init
+from .common import build_latent_ldm, build_mask_dataset, build_slice_dataset, fill_zero_init, read_port_checkpoint
 
 __all__ = ["build_mask_sampler", "build_slice_ldm", "load_weights", "load_mask_weights", "load_text_context",
            "run", "main"]
@@ -158,15 +168,25 @@ def _reject_unported(cfg: dict, s1: dict, s2: dict, stage: str) -> None:
         bad("tile on two_stage (a `stage: ct` key)")
 
 
+def _checkpoint_state(ckpt) -> dict:
+    """{name: tensor} of a `checkpoint:` key: a port checkpoint's EMA weights
+    (`cli.common.read_port_checkpoint`) or the bridged JAX `.npz` tree."""
+    state = read_port_checkpoint(ckpt)
+    return unet_state_dict_from_jax(ckpt) if state is None else state
+
+
 def load_weights(unet: UNet, ckpt: Optional[str], fresh_init_noise: float, seed: int) -> None:
-    """Load `ckpt` (a flat .npz of the JAX UNet tree) into `unet`; without one,
-    keep the fresh init and fill its zero-initialised kernels with
-    N(0, fresh_init_noise^2) drawn from `seed`."""
+    """Load `ckpt` (a port checkpoint directory or `.pt` file, whose EMA
+    weights are taken, or a flat .npz of the JAX UNet tree) into `unet`, every
+    leaf's name and shape checked; a stage-2 tree's learned `logvar` (the
+    {"unet", "logvar"} tree) is dropped, as sampling does not read it.
+    Without one, keep the fresh init and fill its zero-initialised kernels
+    with N(0, fresh_init_noise^2) drawn from `seed`."""
     if ckpt:
-        if not str(ckpt).endswith(".npz"):
-            raise ValueError(f"checkpoint {ckpt!r}: the PyTorch sampler reads a flat .npz of the "
-                             "JAX UNet parameter tree")
-        unet.load_state_dict(unet_state_dict_from_jax(ckpt))
+        state = _checkpoint_state(ckpt)
+        state.pop("logvar", None)
+        check_state(dict(unet.named_parameters()), state, f"checkpoint {ckpt!r}")
+        unet.load_state_dict(state)
         return
     print("WARNING: no checkpoint configured — sampling with FRESH-INIT (random) weights")
     if fresh_init_noise:
@@ -174,17 +194,15 @@ def load_weights(unet: UNet, ckpt: Optional[str], fresh_init_noise: float, seed:
 
 
 def load_mask_weights(ms: MaskSampler, ckpt: Optional[str], fresh_init_noise: float, seed: int) -> None:
-    """Load `ckpt` (a flat .npz of the JAX stage-1 tree: the UNet's, or
-    {"unet": ..., "refiner": ...} with a text refiner) into the UNet and the
-    refiner, every leaf's name and shape checked; without one keep the fresh
-    init as `load_weights` does."""
+    """Load `ckpt` (as `load_weights` reads it: the UNet's names, and with a
+    text refiner the refiner's as `refiner.<name>`, the {"unet", "refiner"}
+    tree of the JAX package) into the UNet and the refiner, every leaf's name
+    and shape checked; without one keep the fresh init as `load_weights`
+    does."""
     if not ckpt:
         load_weights(ms.unet, None, fresh_init_noise, seed)
         return
-    if not str(ckpt).endswith(".npz"):
-        raise ValueError(f"checkpoint {ckpt!r}: the PyTorch sampler reads a flat .npz of the JAX stage-1 "
-                         "parameter tree")
-    state = unet_state_dict_from_jax(ckpt)
+    state = _checkpoint_state(ckpt)
     check_state(dict(ms.named_parameters()), state, f"stage-1 checkpoint {ckpt!r}")
     ms.unet.load_state_dict({k: v for k, v in state.items() if not k.startswith("refiner.")})
     if ms.refiner is not None:

@@ -1,4 +1,4 @@
-"""Stage-2 training CLI: the pixel-space slice LDM on synthetic slices.
+"""Stage-2 training CLI: the pixel-space slice LDM on CT slices.
 
     python -m jointimagegeneration_torch.cli.train_ldm <config.yml> <exp_name> [k=v ...] [device=cpu]
 
@@ -7,7 +7,10 @@ the top, the model under `model:`) and trains under `<output_path>/<exp_name>/`:
 `metrics.jsonl`, `checkpoints/` (torch files, see core/checkpoint.py) and
 `configs/run-config.json`.  Runs on CUDA unless `device=cpu` is given;
 `run(cfg, exp)` is the same entry point for a config that is already a dict.
-`resume: true` resumes from the latest checkpoint.
+`resume: true` resumes from the latest checkpoint.  The data is
+`dataset.kind` `synthetic`, `ruijin` (an index of NIfTI CT and label
+volumes) or `nnunet` (an nnUNet tree), as `cli/common.py` builds it: the
+loader reads the 'train' split, validation the 'val' split.
 
 As the JAX CLI: AdamW with lr = accumulate_grad_batches x batch_size x
 base_learning_rate (unless `scale_lr: false`), `model.scheduler` as the lr
@@ -26,9 +29,9 @@ the stream seeded for (seed, step + 1); its negation ranks the best
 checkpoints.
 
 Rejected with NotImplementedError: the latent route (`first_stage`, `cond_stage`,
-`scale_by_std`), `init_from` and `ckpt_path`, `model.remat`, datasets other
-than `synthetic`, cross-attention `context_dim` and class conditioning (the
-UNet's `num_classes`), and `profile_steps`.
+`scale_by_std`), `init_from` and `ckpt_path`, `model.remat`, cross-attention
+`context_dim` and class conditioning (the UNet's `num_classes`), and
+`profile_steps`.
 """
 
 from __future__ import annotations
@@ -69,9 +72,6 @@ def _reject_unported(cfg: dict, model_cfg: dict) -> None:
             bad(key)
     if model_cfg.get("remat"):
         bad("remat")
-    kind = cfg.get("dataset", {}).get("kind", "synthetic")
-    if kind != "synthetic":
-        bad(f"dataset kind {kind!r}")
     u = model_cfg.get("unet_config", {}).get("params", model_cfg.get("unet", {}))
     if u.get("context_dim") is not None:
         bad("cross-attention context (context_dim)")

@@ -1,4 +1,4 @@
-"""Stage-1 training CLI: the categorical mask sampler on synthetic volumes.
+"""Stage-1 training CLI: the categorical mask sampler on mask volumes.
 
     python -m jointimagegeneration_torch.cli.train_mask <config.yml> <exp_name> [k=v ...] [device=cpu]
 
@@ -19,8 +19,7 @@ come from the step's noise source, and validation passes each case's context
 (no dropout).
 
 Not ported here, and rejected with NotImplementedError: the `dino` feature
-encoder, `remat`, `init_from`, datasets other than `synthetic` and
-`profile_steps`.
+encoder, `remat`, `init_from` and `profile_steps`.
 """
 
 from __future__ import annotations
@@ -57,9 +56,6 @@ def _reject_unported(cfg: dict) -> None:
         bad("remat")
     if cfg.get("init_from"):
         bad("init_from")
-    kind = cfg.get("dataset", {}).get("kind", "synthetic")
-    if kind != "synthetic":
-        bad(f"dataset kind {kind!r}")
 
 
 def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
@@ -72,7 +68,7 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
     model = build_mask_sampler(cfg, device, cond_channels=1, seed=seed)
     n_params = sum(p.numel() for _, p in model.named_parameters())
     print(f"stage-1 UNet params: {n_params / 1e6:.2f}M")
-    dataset = build_mask_dataset(cfg)
+    dataset, val_ds = build_mask_dataset(cfg, "train"), build_mask_dataset(cfg, "val")
     spatial = dataset.volume_shape
     loader = DataLoader(dataset, int(cfg.get("batch_size", 1)), seed=seed, device=device,
                         num_workers=int(cfg.get("mp_loaders", 2)))
@@ -98,11 +94,11 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
     step_fn = make_mask_train_step(model, class_weights)
 
     def eval_fn(state: EMATrainState, step: int, logger) -> float:
-        n_eval = min(len(dataset), int(cfg.get("n_validation_images", 2)))
+        n_eval = min(len(val_ds), int(cfg.get("n_validation_images", 2)))
         dices = []
         with state.ema_applied():
             for i in range(n_eval):
-                item = dataset[i]
+                item = val_ds[i]
                 gt = torch.from_numpy(np.argmax(item["mask"], -1)).to(device)
                 img = torch.from_numpy(item["image"])[None].to(device)
                 ctx = torch.from_numpy(item["context"])[None].to(device) if "context" in item else None

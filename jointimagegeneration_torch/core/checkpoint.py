@@ -97,12 +97,16 @@ class CheckpointManager:
             return None
         return (max if self.best_mode == "max" else min)(scores, key=lambda s: scores[s])
 
-    def restore(self, step: Optional[int] = None) -> Any:
-        """The saved object at `step` (default: the latest), on the CPU."""
+    def step_path(self, step: Optional[int] = None) -> Path:
+        """The file of `step` (default: the latest), rolling before best."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         for path in (self.directory / f"{step}.pt", self._best_dir / f"{step}.pt"):
             if path.exists():
-                return torch.load(path, map_location="cpu", weights_only=True)
+                return path
         raise FileNotFoundError(f"no checkpoint for step {step} in {self.directory}")
+
+    def restore(self, step: Optional[int] = None) -> Any:
+        """The saved object at `step` (default: the latest), on the CPU."""
+        return torch.load(self.step_path(step), map_location="cpu", weights_only=True)

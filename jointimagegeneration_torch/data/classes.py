@@ -1,17 +1,19 @@
-"""The abdominal organ class table and its colours.
+"""The abdominal organ class table, its colours and the label remap.
 
-The port's own copy of what it needs from `jointimagegeneration_tpu/data/
-classes.py`: 12 classes (background 0, ten TotalSegmentator organs, the
-colorectal tumour 11) with the colours the panels paint them in.
+The port's own copy of `jointimagegeneration_tpu/data/classes.py`: 12 classes
+(background 0, ten TotalSegmentator organs, the colorectal tumour 11) with the
+colours the panels paint them in, and the remap of a TotalSegmentator label
+volume onto them.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["OrganClass", "ABD_ORGAN_CLASSES", "NUM_CLASSES", "class_color_map", "labels_to_colors"]
+__all__ = ["OrganClass", "ABD_ORGAN_CLASSES", "NUM_CLASSES", "TOTALSEG_DESIGNATED_LABELS", "remap_totalseg_labels",
+           "class_color_map", "labels_to_colors"]
 
 
 class OrganClass(NamedTuple):
@@ -36,6 +38,27 @@ ABD_ORGAN_CLASSES: List[OrganClass] = [
 ]
 
 NUM_CLASSES = len(ABD_ORGAN_CLASSES)  # 12
+
+# the TotalSegmentator ids that become classes 1..10, in order
+TOTALSEG_DESIGNATED_LABELS = (1, 2, 3, 5, 6, 10, 55, 56, 57, 104)
+_UINT8_LUT = np.zeros(256, np.int32)
+_UINT8_LUT[list(TOTALSEG_DESIGNATED_LABELS)] = np.arange(1, len(TOTALSEG_DESIGNATED_LABELS) + 1)
+
+
+def remap_totalseg_labels(label: np.ndarray, tumor_mask: Optional[np.ndarray] = None) -> np.ndarray:
+    """TotalSegmentator label volume -> int32 class ids (other ids -> 0);
+    voxels where `tumor_mask` > 0 become the last class.  A uint8 volume
+    goes through a lookup table in one pass."""
+    label = np.asarray(label)
+    if label.dtype == np.uint8:
+        out = _UINT8_LUT[label]
+    else:
+        out = np.zeros(label.shape, np.int32)
+        for i, tid in enumerate(TOTALSEG_DESIGNATED_LABELS):
+            out[label == tid] = i + 1
+    if tumor_mask is not None:
+        out[np.asarray(tumor_mask) > 0] = NUM_CLASSES - 1
+    return out
 
 
 def class_color_map() -> np.ndarray:

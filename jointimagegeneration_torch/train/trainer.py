@@ -2,7 +2,8 @@
 
 Counterpart of `jointimagegeneration_tpu/train/trainer.py`, run eagerly:
   for each batch: train step -> every `log_every` steps the metrics to
-  `metrics.jsonl` (with imgs/s, the step's seconds and the card's memory
+  `metrics.jsonl` (with imgs/s, the step's seconds, the seconds the loop
+  waited for the step's batch (`data_seconds`) and the card's memory
   watermarks) -> every `save_every` steps a rolling checkpoint -> every
   `save_weights_every` steps a weight-only snapshot -> every `eval_every`
   steps `eval_fn`, whose score goes into the best-k checkpoints.
@@ -109,7 +110,9 @@ class Trainer:
         try:
             while step < cfg.max_steps:
                 epoch_batches = 0
+                waited_from = time.perf_counter()
                 for batch in self.train_loader:
+                    data_seconds = time.perf_counter() - waited_from
                     epoch_batches += 1
                     if step >= cfg.max_steps:
                         break
@@ -123,6 +126,7 @@ class Trainer:
                         synchronize(self.device)
                         metrics = {k: float(v) for k, v in metrics.items()}
                         metrics["step_seconds"] = time.perf_counter() - t0
+                        metrics["data_seconds"] = data_seconds
                         metrics["nonfinite_skipped"] = float(state.nonfinite_count)
                         if not math.isfinite(metrics.get("loss", 0.0)) or state.nonfinite_count > 0:
                             self.ckpt.save(step, state.state_dict())
@@ -148,6 +152,7 @@ class Trainer:
                         score = self.eval_fn(state, step, self.logger)
                         if score is not None:
                             self.ckpt.save(step, state.state_dict(), score=float(score))
+                    waited_from = time.perf_counter()
                 if epoch_batches == 0:
                     raise RuntimeError("train_loader yielded no batches this epoch: empty dataset "
                                        "or exhausted one-shot iterator?")

@@ -67,16 +67,16 @@ def _to_torch_layout(arr: np.ndarray) -> np.ndarray:
 
 def flat_paths(params: Union[Mapping, str, Path]) -> Dict[Tuple[str, ...], np.ndarray]:
     """Tree paths -> leaves, from a nested tree, a flat mapping with
-    '/'-joined keys or tuple keys, or the `.npz` file of one."""
+    '/'-joined keys or tuple keys, or the `.npz` file of one.  Each top-level
+    key is split at its '/'s on its own, so a flat stage-2 tree's `logvar`
+    sits beside the UNet's 'unet/...' paths."""
     if isinstance(params, Mapping) and params and all(isinstance(k, tuple) for k in params):
         return {k: np.asarray(v) for k, v in params.items()}
     if isinstance(params, (str, Path)):
         with np.load(params) as z:
             params = {k: z[k] for k in z.files}
-    flat = flatten_tree(params)
-    if flat and all(len(k) == 1 and "/" in k[0] for k in flat):
-        flat = {tuple(k[0].split("/")): v for k, v in flat.items()}
-    return flat
+    # a top-level key is a '/'-joined path, one level ("logvar") or more
+    return {tuple(k[0].split("/")) if len(k) == 1 else k: v for k, v in flatten_tree(params).items()}
 
 
 def _state_dict(flat: Mapping[Tuple[str, ...], np.ndarray], unet: bool) -> Dict[str, torch.Tensor]:

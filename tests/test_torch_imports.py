@@ -3,8 +3,10 @@
 The port and chip_smoke.py import neither JAX, flax nor the JAX package (the
 machine with the card has none of them), the port imports PyYAML only when a
 config file is read and `transformers` only inside
-`FrozenBERTEmbedder.__init__` (nor has it `transformers`), and an entry point asked for no device on a machine
-without CUDA raises instead of running on the CPU."""
+`FrozenBERTEmbedder.__init__` (nor has it `transformers`), `h5py` only inside
+the slice dataset's optional cache (nor has it `h5py`), and an entry point
+asked for no device on a machine without CUDA raises instead of running on
+the CPU."""
 
 import ast
 import subprocess
@@ -49,9 +51,9 @@ def test_yaml_only_imported_inside_functions():
     assert not bad, bad
 
 
-def test_transformers_only_imported_inside_frozen_bert_init():
-    """Every import of `transformers` in the port sits in
-    `nn/text.py`'s `FrozenBERTEmbedder.__init__`; chip_smoke.py has none."""
+def _scoped_imports(package: str) -> list:
+    """(file, (class, method) or None) for every import of `package` in the
+    port and chip_smoke.py."""
     found = []
     for f in _port_sources():
         tree = ast.parse(f.read_text(), filename=str(f))
@@ -63,15 +65,29 @@ def test_transformers_only_imported_inside_frozen_bert_init():
         for node in ast.walk(tree):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) and node.level == 0 else [])
-            if any(n.split(".")[0] == "transformers" for n in names):
+            if any(n.split(".")[0] == package for n in names):
                 found.append((str(f.relative_to(ROOT)), scopes.get(id(node))))
+    return found
+
+
+def test_transformers_only_imported_inside_frozen_bert_init():
+    """Every import of `transformers` in the port sits in
+    `nn/text.py`'s `FrozenBERTEmbedder.__init__`; chip_smoke.py has none."""
+    found = _scoped_imports("transformers")
     assert found == [("jointimagegeneration_torch/nn/text.py", ("FrozenBERTEmbedder", "__init__"))], found
+
+
+def test_h5py_only_imported_inside_the_slice_cache():
+    """`h5py` is imported only where `RuijinSlicePairDataset` opens its
+    `cache_h5` file; chip_smoke.py has none."""
+    found = _scoped_imports("h5py")
+    assert found == [("jointimagegeneration_torch/data/datasets.py", ("RuijinSlicePairDataset", "_load_case"))], found
 
 
 def test_package_imports_with_jax_and_yaml_blocked():
     modules = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts) for p in PORT.rglob("*.py"))
     code = ("import sys\n"
-            "for m in ('jax', 'flax', 'jointimagegeneration_tpu', 'yaml'):\n"
+            "for m in ('jax', 'flax', 'jointimagegeneration_tpu', 'yaml', 'h5py', 'transformers'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {modules!r}:\n"
@@ -102,6 +118,10 @@ def test_entry_points_without_device_raise_on_a_cuda_less_machine():
         run({"stage": "two_stage", "output_path": "unused"})
     with pytest.raises(RuntimeError, match="CUDA"):
         train_run({"output_path": "unused"}, "exp")
+    from jointimagegeneration_torch.cli.train_ldm import run as train_ldm_run
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_ldm_run({"output_path": "unused"}, "exp")
     assert resolve_device("cpu") == torch.device("cpu")
 
 

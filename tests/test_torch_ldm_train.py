@@ -448,7 +448,7 @@ def test_ldm_cli_halts_on_non_finite(tmp_path):
 
 
 UNPORTED = ["model.first_stage={type: kl}", "model.cond_stage={type: kl}", "model.scale_by_std=true",
-            "init_from=x", "ckpt_path=x.ckpt", "model.remat=true", "dataset.kind=ruijin",
+            "init_from=x", "ckpt_path=x.ckpt", "model.remat=true", "dataset.kind=lsun",
             "model.unet_config.params.context_dim=16", "model.unet_config.params.num_classes=3", "profile_steps=2"]
 
 

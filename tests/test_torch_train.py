@@ -411,10 +411,12 @@ def test_cli_halts_on_non_finite_and_rejects_unported(tmp_path):
     with pytest.raises(FloatingPointError):
         tcli.run(cfg, "nan")
     assert CheckpointManager(tmp_path / "r" / "nan" / "checkpoints").all_steps()["rolling"] == [2]
-    for bad in ({"remat": True}, {"init_from": {"path": "x"}}, {"dataset": {"kind": "ruijin"}},
-                {"feature_cond_encoder": {"type": "dino"}}, {"profile_steps": 2}):
+    for bad in ({"remat": True}, {"init_from": {"path": "x"}}, {"feature_cond_encoder": {"type": "dino"}},
+                {"profile_steps": 2}):
         with pytest.raises(NotImplementedError):
             tcli.run(_tiny_cfg(tmp_path / "x", **bad), "bad")
+    with pytest.raises(ValueError, match="unknown dataset kind"):  # the real kinds are ported; as the JAX CLI
+        tcli.run(_tiny_cfg(tmp_path / "x", dataset={"kind": "nope"}), "bad")
 
 
 def test_cli_trains_with_gradient_accumulation(tmp_path):
