@@ -20,8 +20,11 @@ Phases, in order (any failure exits non-zero and prints no result line):
      launch plan taken) at the fused and pallas_conv paths' shapes (library:
      F.conv3d), then checked at every distinct conv of the fused path and at
      its edge shapes.  The flash rows include the text-guided stage 1's
-     (CROSS_SHAPES: cross-attention over 4, 128 and 512 context tokens in bf16,
-     the refiner's 512-token self-attention in fp32 at D = 64);
+     (CROSS_SHAPES: cross-attention over 4, 128, 512 and 640 context tokens in
+     bf16, the refiner's 512- and 640-token self-attention in fp32 at D = 64);
+     the fp32 backward rows also time the split reduce (`flash_bwd_reduce`)
+     and hold it against its plain version, and the backward's edge shapes
+     include ragged fp32 splits;
   3. reference: a tiny two-stage pipeline on the card against the same
      pipeline on the CPU (same weights, same noise);
   4. sampler reference: the stage-2 sampler routes of a tiny fp32 SliceLDM
@@ -78,7 +81,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
      4 steps with GED and HM-IoU (`text mask path`); the two-stage path with
      the same text over 2 slices (`text two-stage path`); the train path
      with `selfattn` on 4-token synthetic contexts, the refiner in the
-     state (`text train path`; its checkpoints deleted at the end);
+     state (`text train path`; its checkpoints deleted at the end); then
+     on a 640-token report (a 512- and a 128-token BERT chunk), so the
+     refiner's 8 attention sites run the fp32 flash kernels, forward and
+     backward with their split reduces: 3 steps, one checkpoint, no
+     validation or resume (`text long-report train path`), its s/step, peak
+     GiB and the fp32 backward's device ms per step beside the 4-token
+     path's;
  11. ldm train reference: three fp32 stage-2 train steps of a small 2D
      SliceLDM with a learned logvar (T = 1024 at its attention sites, so the
      card runs the flash kernels) on the card against the same steps on the
@@ -102,7 +111,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
      seconds each step waited on the loader, peak GiB; every file deleted at
      the end.
 Before each main path (6 per run and the latent path, 7 per variant, 9, each
-text path of 10, 12, each run of 13) every kernel launch counter is set to 0;
+text path of 10, 12, each run of 13) every kernel launch counter (flash_fwd,
+flash_bwd_dkv, flash_bwd_dq, flash_bwd_reduce and the conv kernel's) is set to 0;
 after it the counts must equal what the path implies.  The last lines are
 the sampling, latent, fused, train, text and real-data summaries, a JSON line
 with the kernel numbers, the card's name and power limit, and `{"ok": true,
@@ -166,7 +176,9 @@ CROSS_SHAPES = [
     ((8, 2048, 4, 32), torch.bfloat16, "stage 1 ds8 cross-attention, synthetic context"),
     ((8, 2048, 128, 32), torch.bfloat16, "stage 1 ds8 cross-attention, the real-data index's 128-token features"),
     ((8, 2048, 512, 32), torch.bfloat16, "stage 1 ds8 cross-attention, a 512-token report"),
+    ((8, 2048, 640, 32), torch.bfloat16, "stage 1 ds8 cross-attention, a 640-token report"),
     ((8, 512, 512, 64), torch.float32, "text refiner, a 512-token report"),
+    ((8, 640, 640, 64), torch.float32, "text refiner, a 640-token report"),
 ]
 BWD_SHAPES = [  # (BH, T, D), dtype, where training runs it
     ((8, 2048, 32), torch.bfloat16, "stage 1 ds8, 64x128x128"),
@@ -305,6 +317,13 @@ TEXT_MASK_CFG = {"stage": "mask", "seed": 1024, "n_cases": 1, "samples": 2, "mas
                  "fresh_init_noise": 0.02, "stage1": TEXT_STAGE1}
 TEXT_TWO_STAGE_CFG = {**TWO_STAGE_CFG, "slices": 2, "chunk": 2, "stage1": TEXT_STAGE1}
 TEXT_TRAIN_CFG = {**STAGE1_TRAIN_CFG, "feature_cond_encoder": TEXT_FCE}
+# text-guided stage 1 on a long report: one full 512-token BERT chunk and a
+# 128-token one, concatenated as FrozenBERTEmbedder does (a multiple of 128,
+# so the refiner's attention takes the fp32 flash kernels); 3 steps, one
+# checkpoint, no validation and no resume, to keep the smoke's length
+LONG_TEXT_TOKENS = 640
+TEXT_LONG_TRAIN_CFG = {**TEXT_TRAIN_CFG, "max_steps": 3, "save_freq": 3, "validation_freq_steps": 1000,
+                       "dataset": {**STAGE1_TRAIN_CFG["dataset"], "context_len": LONG_TEXT_TOKENS}}
 # the tiny text model of the text reference phase: the train reference's UNet
 # (512 tokens at its ds-1 sites) cross-attending over a 512-token context that
 # a 2-block refiner of 2 heads x 64 refines, so the self-, cross- and refiner
@@ -514,8 +533,10 @@ def bwd_phase(flash) -> list:
     among them).
 
     Per shape: `dq_ms` (the dq kernel, which also computes delta) and
-    `dkv_ms` are each kernel alone, `ms` the whole backward as
-    `flash_backward` runs it, all graph-timed; `library_ms` is the backward
+    `dkv_ms` are each kernel's wrapper alone (in fp32 with its split reduce,
+    timed alone as `dq_reduce_ms` / `dkv_reduce_ms` on a workspace of the
+    plan's splits), `ms` the whole backward as `flash_backward` runs it, all
+    graph-timed, each beside its eager time; `library_ms` is the backward
     of `F.scaled_dot_product_attention` on the same inputs, timed as its
     forward + backward in one captured graph less its forward alone (the port
     never calls it).  Bounds, each the largest of three times: the products
@@ -525,7 +546,11 @@ def bwd_phase(flash) -> list:
     maximum SM clock (`exp_bound_ms`; once for the whole backward, once in
     each kernel), and the bytes: the whole backward reads q, k, v, O, dO and
     LSE and writes dQ, dK, dV; dq reads q, k, v, O, dO, LSE and writes dQ and
-    delta; dkv reads q, k, v, dO, LSE, delta and writes dK, dV."""
+    delta; dkv reads q, k, v, dO, LSE, delta and writes dK, dV.  fp32 has
+    no tensor cores: its products bound on the FMA pipes (`PEAK_FLOPS`).
+    Then checked, not timed, at edge shapes: ragged T, Tq != Tk, D padded,
+    and fp32 splits that leave a ragged streamed tile or give some blocks
+    fewer tiles than others."""
     import torch.nn.functional as F
 
     ex2_per_s = EX2_PER_CLK * max_sm_clock_hz()
@@ -540,8 +565,27 @@ def bwd_phase(flash) -> list:
         plan = flash.plan_flash_bwd(bh, t, tk, d, dtype)
         _, delta = flash.flash_bwd_dq(q, k, v, o, do, lse)
         ms, eager_ms = time_ms(lambda: flash.flash_backward(q, k, v, o, lse, do), 20)
-        dq_ms, _ = time_ms(lambda: flash.flash_bwd_dq(q, k, v, o, do, lse), 20)
-        dkv_ms, _ = time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta), 20)
+        dq_ms, dq_eager = time_ms(lambda: flash.flash_bwd_dq(q, k, v, o, do, lse), 20)
+        dkv_ms, dkv_eager = time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta), 20)
+        reduce_ms, reduce_row = {}, None
+        for part, kp, shape in (("dq", plan.dq, q.shape), ("dkv", plan.dkv, (2, *k.shape))):
+            if kp.splits > 1:
+                ws = torch.randn((kp.splits, *shape), generator=g, device="cuda")
+                out = torch.empty(shape, device="cuda")
+                reduce_ms[part] = time_ms(lambda: flash.flash_bwd_reduce(ws, out), 20)
+                if part == "dkv":  # the reduce against its plain version and torch.sum, on the same partials
+                    want = flash.flash_bwd_reduce_plain(ws)
+                    flash.flash_bwd_reduce(ws, out)
+                    again = flash.flash_bwd_reduce(ws, torch.empty_like(out))
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, again), f"flash_bwd_reduce: two calls differ at {(bh, t, tk, d)}")
+                    reduce_row = {"max_abs_err": (out - want).abs().max().item(), "ms": reduce_ms[part][0],
+                                  "eager_ms": reduce_ms[part][1], "splits": kp.splits,
+                                  "plain_ms": time_ms(lambda: flash.flash_bwd_reduce_plain(ws), 20)[0],
+                                  "library_ms": time_ms(lambda: torch.sum(ws, dim=0), 20)[0],
+                                  "bound_ms": (kp.splits + 1) * out.numel() * 4 / PEAK_BYTES * 1e3,
+                                  "bound_by": "bytes"}
+                del ws, out
         plain_ms, _ = time_ms(lambda: flash.flash_backward_plain(q, k, v, o, lse, do), 5)
         q4, k4, v4, do4 = (x[None].detach().requires_grad_() for x in (q, k, v, do))
 
@@ -564,37 +608,47 @@ def bwd_phase(flash) -> list:
         whole = bound(5, 4 * io_q + 4 * io_k + rowbytes)
         dkv_b, dq_b = bound(4, 2 * io_q + 4 * io_k + 2 * rowbytes), bound(3, 4 * io_q + 2 * io_k + 2 * rowbytes)
         row = {"shape": [bh, t, tk, d], "dtype": dname, "where": where, **errs,
-               "ms": ms, "eager_ms": eager_ms, "dkv_ms": dkv_ms, "dq_ms": dq_ms, "plain_ms": plain_ms,
+               "ms": ms, "eager_ms": eager_ms, "dkv_ms": dkv_ms, "dq_ms": dq_ms, "dkv_eager_ms": dkv_eager,
+               "dq_eager_ms": dq_eager, "plain_ms": plain_ms,
+               **{f"{part}_reduce_ms": r[0] for part, r in reduce_ms.items()},
+               **{f"{part}_reduce_eager_ms": r[1] for part, r in reduce_ms.items()},
                "library_ms": lib_both_ms - lib_fwd_ms, "library_fwd_bwd_ms": lib_both_ms, **whole,
                **{f"dkv_{key}": val for key, val in dkv_b.items()}, **{f"dq_{key}": val for key, val in dq_b.items()},
-               "plan": {"dkv": [plan.dkv.warpgroups, plan.dkv.smem_bytes],
-                        "dq": [plan.dq.warpgroups, plan.dq.smem_bytes]}}
+               "plan": {"dkv": [plan.dkv.warpgroups, plan.dkv.smem_bytes, plan.dkv.splits, plan.dkv.grid],
+                        "dq": [plan.dq.warpgroups, plan.dq.smem_bytes, plan.dq.splits, plan.dq.grid]},
+               "reduce": reduce_row}
+        reduce_text = "".join(f", {part} split reduce {r[0]:.4f} (eager {r[1]:.4f})" for part, r in reduce_ms.items())
         print(f"flash_bwd {row['shape']} {dname} ({where}): err dQ {errs['err_dq']:.3g} "
               f"(tol {errs['tol_dq']:.3g}) dK {errs['err_dk']:.3g} (tol {errs['tol_dk']:.3g}) "
               f"dV {errs['err_dv']:.3g} (tol {errs['tol_dv']:.3g}), repeat bitwise equal; graph-timed backward "
-              f"{ms:.4f} ms (eager {eager_ms:.4f}) = dq {dq_ms:.4f} (with delta) + dkv {dkv_ms:.4f}; plain "
+              f"{ms:.4f} ms (eager {eager_ms:.4f}) = dq {dq_ms:.4f} (with delta; eager {dq_eager:.4f}) + dkv "
+              f"{dkv_ms:.4f} (eager {dkv_eager:.4f}){reduce_text}; {100 * dq_b['tensor_bound_ms'] / dq_ms:.1f}% / "
+              f"{100 * dkv_b['tensor_bound_ms'] / dkv_ms:.1f}% of dq / dkv product bound; plain "
               f"{plain_ms:.4f} ms; sdpa backward {row['library_ms']:.4f} ms (fwd+bwd {lib_both_ms:.4f}); "
               f"bound {whole['bound_ms']:.4f} ms ({whole['limit']}; tensor {whole['tensor_bound_ms']:.4f}, ex2 "
               f"{exp_ms:.4f}), {100 * whole['bound_ms'] / ms:.1f}% of bound; dkv bound {dkv_b['bound_ms']:.4f} "
               f"({dkv_b['limit']}, tensor {dkv_b['tensor_bound_ms']:.4f}), dq bound {dq_b['bound_ms']:.4f} "
-              f"({dq_b['limit']}, tensor {dq_b['tensor_bound_ms']:.4f}); plan (warpgroups, smem bytes) "
-              f"dkv {row['plan']['dkv']} dq {row['plan']['dq']}", flush=True)
+              f"({dq_b['limit']}, tensor {dq_b['tensor_bound_ms']:.4f}); plan (warpgroups, smem bytes, splits, "
+              f"blocks) dkv {row['plan']['dkv']} dq {row['plan']['dq']}", flush=True)
         rows.append(row)
         del q, k, v, do, o, lse, delta, q4, k4, v4, do4
         torch.cuda.empty_cache()
-    # correctness only: the forward's edge shapes (ragged T, Tq != Tk, D padded)
+    # correctness only: the forward's edge shapes (ragged T, Tq != Tk, D padded), fp32 split edges
     for (bh, tq, tk, d), dtype in [((3, 100, 77, 40), torch.bfloat16), ((2, 130, 200, 256), torch.bfloat16),
                                    ((2, 1088, 1088, 16), torch.bfloat16), ((1, 64, 64, 128), torch.bfloat16),
                                    ((3, 100, 77, 40), torch.float32), ((2, 130, 70, 256), torch.float32),
                                    ((1, 7, 3, 5), torch.float32), ((2, 600, 600, 64), torch.float32),
-                                   ((2, 300, 200, 64), torch.bfloat16)]:
+                                   ((2, 300, 200, 64), torch.bfloat16), ((3, 1000, 77, 40), torch.float32),
+                                   ((2, 77, 1000, 64), torch.float32), ((1, 65, 4097, 16), torch.float32)]:
         q, k, v, do = _attention_inputs(g, bh, tq, tk, d, dtype)
         o, lse = flash.flash_forward(q, k, v)
         dname = str(dtype).replace("torch.", "")
         errs = compare_bwd(flash, q, k, v, o, lse, do, f"{(bh, tq, tk, d)} {dname}")
+        plan = flash.plan_flash_bwd(bh, tq, tk, d, dtype)
         print(f"flash_bwd {[bh, tq, tk, d]} {dname} (edge shape): " +
               " ".join(f"{n} {errs['err_' + n]:.3g} (tol {errs['tol_' + n]:.3g})" for n in ("dq", "dk", "dv")) +
-              ", repeat bitwise equal", flush=True)
+              f", repeat bitwise equal; splits dkv {plan.dkv.splits} dq {plan.dq.splits}", flush=True)
+
     return rows
 
 
@@ -1345,7 +1399,8 @@ def _counts(flash) -> dict:
     from jointimagegeneration_torch.ops import conv3d as conv
 
     return {"flash_fwd": flash.flash_forward.launches, "flash_bwd_dkv": flash.flash_bwd_dkv.launches,
-            "flash_bwd_dq": flash.flash_bwd_dq.launches, "conv3d": conv.conv3d_igemm.launches,
+            "flash_bwd_dq": flash.flash_bwd_dq.launches, "flash_bwd_reduce": flash.flash_bwd_reduce.launches,
+            "conv3d": conv.conv3d_igemm.launches,
             "conv3d_splitk_reduce": conv.conv3d_igemm.splitk_launches,
             "conv3d_stats_reduce": conv.channel_stats_reduce.launches}
 
@@ -1354,6 +1409,7 @@ def _reset_counts(flash) -> None:
     from jointimagegeneration_torch.ops import conv3d as conv
 
     flash.flash_forward.launches = flash.flash_bwd_dkv.launches = flash.flash_bwd_dq.launches = 0
+    flash.flash_bwd_reduce.launches = 0
     conv.conv3d_igemm.launches = conv.conv3d_igemm.splitk_launches = conv.channel_stats_reduce.launches = 0
 
 
@@ -1527,7 +1583,7 @@ def fused_path_phase(flash, card: str) -> dict:
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
         launches = _counts(flash)
-        expected = {"flash_fwd": steps * sites, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+        expected = {"flash_fwd": steps * sites, "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "flash_bwd_reduce": 0,
                     **{k: steps * per_step[name].get(k, 0) for k in
                        ("conv3d", "conv3d_splitk_reduce", "conv3d_stats_reduce")}}
         check(launches == expected, f"fused path ({name}): launches {launches}, expected {expected}")
@@ -1603,17 +1659,26 @@ def _compare_reference_steps(runs, label: str) -> dict:
     return worst
 
 
-def _check_flash_only(runs, label: str) -> dict:
-    """The card's run launched all three flash kernels and no conv kernel;
-    the CPU's launched nothing."""
+def bwd_reduces(flash, bh: int, tq: int, tk: int, d: int) -> int:
+    """Split-reduce launches of one fp32 flash backward call: one for each of
+    dkv and dq whose streamed loop `plan_flash_bwd` splits."""
+    plan = flash.plan_flash_bwd(bh, tq, tk, d, torch.float32)
+    return plan.dkv.reduce_launches + plan.dq.reduce_launches
+
+
+def _check_flash_only(runs, label: str, reduces_per_bwd: int = None) -> dict:
+    """The card's run launched all three flash kernels (and, given
+    `reduces_per_bwd`, that many split reduces per backward) and no conv
+    kernel; the CPU's launched nothing."""
     n_cpu, n_gpu = runs[0][3], runs[1][3]
     check(not any(n_cpu.values()) and all(n_gpu[k] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
-          and n_gpu["conv3d"] == n_gpu["conv3d_splitk_reduce"] == n_gpu["conv3d_stats_reduce"] == 0,
+          and n_gpu["conv3d"] == n_gpu["conv3d_splitk_reduce"] == n_gpu["conv3d_stats_reduce"] == 0
+          and (reduces_per_bwd is None or n_gpu["flash_bwd_reduce"] == reduces_per_bwd * n_gpu["flash_bwd_dq"]),
           f"{label}: kernel launches cpu {n_cpu}, card {n_gpu}")
     return n_gpu
 
 
-def train_reference_phase(flash) -> float:
+def train_reference_phase(flash) -> dict:
     """Three fp32 train steps (make_mask_train_step) on the card against the
     same steps on the CPU: same weights, same data, same draws.  Returns the
     worst relative difference.  The optimizer is SGD: Adam would normalise
@@ -1643,22 +1708,22 @@ def train_reference_phase(flash) -> float:
         step = make_mask_train_step(model, torch.ones(4, device=device))
         named = list(model.unet.named_parameters())
         runs.append(_reference_steps(flash, "train reference", device, named, step, batches))
-    n_gpu = _check_flash_only(runs, "train reference")
+    n_gpu = _check_flash_only(runs, "train reference", bwd_reduces(flash, 4, 512, 512, 16))  # 4 heads of 16
     worst = _compare_reference_steps(runs, "train reference")
     print(f"train reference: 3 fp32 steps (base 64, T = 512 at the attention sites), card vs CPU: worst "
           f"relative diff loss {worst['loss']:.3g}, gradient {worst['grad']:.3g}, params {worst['param']:.3g} "
           f"(tol {TRAIN_REF_TOL}); launches on the card {n_gpu}", flush=True)
-    return max(worst.values())
+    return {"max_rel_err": max(worst.values()), "launches": n_gpu}
 
 
-def ldm_train_reference_phase(flash) -> float:
+def ldm_train_reference_phase(flash) -> dict:
     """Three fp32 stage-2 train steps (make_ldm_train_step, with a learned
     logvar and the elbo term) of a small 2D SliceLDM on the card against the
     same steps on the CPU: same weights, same slices, same draws (t, then the
     noise).  Every parameter, logvar included, is un-zeroed first: a fresh
     UNet's zero output conv would block every upstream gradient.  SGD, for
     the reason train_reference_phase gives.  Returns the worst relative
-    difference."""
+    difference and the card's launches."""
     from jointimagegeneration_torch.cli.sample import build_slice_ldm
     from jointimagegeneration_torch.core.runtime import configure_precision
     from jointimagegeneration_torch.data.datasets import SyntheticSliceDataset
@@ -1683,12 +1748,12 @@ def ldm_train_reference_phase(flash) -> float:
                     p.copy_(init[n])
         step = make_ldm_train_step(model, elbo_weight=0.25)
         runs.append(_reference_steps(flash, "ldm train reference", device, named, step, batches))
-    n_gpu = _check_flash_only(runs, "ldm train reference")
+    n_gpu = _check_flash_only(runs, "ldm train reference", bwd_reduces(flash, 4, 1024, 1024, 16))
     worst = _compare_reference_steps(runs, "ldm train reference")
     print(f"ldm train reference: 3 fp32 stage-2 steps (base 64, learned logvar, T = 1024 at the attention "
           f"sites), card vs CPU: worst relative diff loss {worst['loss']:.3g}, gradient {worst['grad']:.3g}, "
           f"params {worst['param']:.3g} (tol {TRAIN_REF_TOL}); launches on the card {n_gpu}", flush=True)
-    return max(worst.values())
+    return {"max_rel_err": max(worst.values()), "launches": n_gpu}
 
 
 def _train_run(flash, run, cfg: dict, exp: str) -> tuple:
@@ -1707,12 +1772,18 @@ def _train_run(flash, run, cfg: dict, exp: str) -> tuple:
 
 
 def train_path_phase(flash, card: str, base: dict = STAGE1_TRAIN_CFG, label: str = "train path",
-                     subdir: str = "train") -> dict:
-    """Stage-1 training at full width through `cli.train_mask.run`, then a
-    resumed run; returns the first run's launch counts and numbers.  With a
-    `selfattn` encoder (the text train path) each flash site launches twice
-    (attn1, attn2), every refiner parameter must move, and the checkpoints
-    under build/chip_smoke/<subdir> are deleted at the end."""
+                     subdir: str = "train", resume: bool = True) -> dict:
+    """Stage-1 training at full width through `cli.train_mask.run`, then (with
+    `resume`) a resumed run; returns the first run's launch counts and
+    numbers.  With a `selfattn` encoder (the text train paths) each flash
+    site launches twice (attn1, attn2), a context the flash rule takes adds
+    the refiner's fp32 sites (2 per block, each backward with its split
+    reduces), every refiner parameter must move, the device time of the fp32
+    flash backward calls is summed (CUDA events around each), and the
+    checkpoints under build/chip_smoke/<subdir> are deleted at the end.  The
+    long-report run (TEXT_LONG_TRAIN_CFG, a 640-token context) cuts its own
+    length to keep the smoke's: 3 steps, one checkpoint, no validation and
+    no resume."""
     from jointimagegeneration_torch.cli.sample import build_mask_sampler
     from jointimagegeneration_torch.cli.train_mask import run
     from jointimagegeneration_torch.core.checkpoint import CheckpointManager
@@ -1721,17 +1792,40 @@ def train_path_phase(flash, card: str, base: dict = STAGE1_TRAIN_CFG, label: str
     cfg["output_path"] = str(ROOT / "build" / "chip_smoke" / subdir)
     shutil.rmtree(cfg["output_path"], ignore_errors=True)
     logdir = Path(cfg["output_path"]) / "smoke"
-    text = (cfg.get("feature_cond_encoder") or {}).get("type") == "selfattn"
+    fce = cfg.get("feature_cond_encoder") or {}
+    text = fce.get("type") == "selfattn"
     ctx_len = cfg["dataset"].get("context_len", 4) if text else 0
     sites = stage1_launches(cfg, 1, ctx_len)  # launches of a train step's forward, each with its backward
+    refiner_sites = stage1_launches(cfg, 0, ctx_len)  # the fp32 ones among them
+    reduces = refiner_sites * (bwd_reduces(flash, fce.get("n_heads", 8), ctx_len, ctx_len, fce.get("d_head", 64))
+                               if refiner_sites else 0)
     n_steps, n_eval = cfg["max_steps"], cfg["max_steps"] // cfg["validation_freq_steps"]
     expected = {"flash_fwd": sites * n_steps + n_eval * stage1_launches(cfg, cfg["eval_time_steps"], ctx_len),
                 "flash_bwd_dkv": sites * n_steps, "flash_bwd_dq": sites * n_steps,
+                "flash_bwd_reduce": reduces * n_steps,
                 "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}  # the unfused UNet
+    events, real_backward = [], flash.flash_backward
+
+    def timed_backward(q, *rest):  # device time of the fp32 backward calls, between CUDA events
+        if q.dtype != torch.float32:
+            return real_backward(q, *rest)
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real_backward(q, *rest)
+        ev[1].record()
+        events.append(ev)
+        return out
+
     torch.cuda.reset_peak_memory_stats()
-    state, launches, wall, _ = _train_run(flash, run, cfg, "smoke")
+    flash.flash_backward = timed_backward
+    try:
+        state, launches, wall, _ = _train_run(flash, run, cfg, "smoke")
+    finally:
+        flash.flash_backward = real_backward
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    f32_bwd_ms = sum(s.elapsed_time(e) for s, e in events) / n_steps
     check(launches == expected, f"{label}: launches {launches}, expected {expected}")
+    check(len(events) == refiner_sites * n_steps, f"{label}: {len(events)} fp32 backward calls timed")
     recs = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
     train = [r for r in recs if "train/loss" in r]
     check([r["step"] for r in train] == list(range(1, n_steps + 1)), f"{label}: logged steps {train}")
@@ -1739,45 +1833,53 @@ def train_path_phase(flash, card: str, base: dict = STAGE1_TRAIN_CFG, label: str
     check(all(r["train/grad_finite"] == 1.0 and r["train/nonfinite_skipped"] == 0.0 for r in train),
           f"{label}: a step had non-finite gradients")
     dice = [r["val/dice"] for r in recs if "val/dice" in r and r["step"] == n_steps]
-    check(len(dice) == 1 and 0.0 <= dice[0] <= 1.0, f"{label}: val/dice at step {n_steps}: {dice}")
+    check(len(dice) == n_eval and all(0.0 <= x <= 1.0 for x in dice), f"{label}: val/dice at step {n_steps}: {dice}")
     steps = CheckpointManager(logdir / "checkpoints").all_steps()
-    check(steps["rolling"] == [3, 6] and steps["best"] == [6], f"{label}: checkpoints {steps}")
+    want_steps = list(range(cfg["save_freq"], n_steps + 1, cfg["save_freq"]))
+    check(steps["rolling"] == want_steps and steps["best"] == ([n_steps] if n_eval else []),
+          f"{label}: checkpoints {steps}")
     fresh = dict(build_mask_sampler(cfg, "cuda", seed=cfg["seed"]).named_parameters())
     moved = {n: (p - fresh[n]).abs().max().item() > 0 for n, p in zip(state.names, state.params)}
     check(sum(moved.values()) > 0.9 * len(moved), f"{label}: only {sum(moved.values())} of {len(moved)} params moved")
     refiner = [n for n in moved if n.startswith("refiner.")]
-    check(len(refiner) == (20 * cfg["feature_cond_encoder"].get("model_depth", 4) if text else 0)
+    check(len(refiner) == (20 * fce.get("model_depth", 4) if text else 0)
           and all(moved[n] for n in refiner), f"{label}: refiner params {len(refiner)}, moved "
                                               f"{sum(moved[n] for n in refiner)}")
     ema_off = max((e - p).abs().max().item() for e, p in zip(state.ema, state.params))
     check(ema_off > 0, f"{label}: the EMA equals the params")
     sec = sorted(r["train/step_seconds"] for r in train[1:])  # step 1 carries cuDNN's first-call setup
     s_per_step = sec[len(sec) // 2]
-    what = f"text, context {ctx_len} x {cfg['feature_cond_encoder']['embed_dim']}, " if text else ""
+    what = f"text, context {ctx_len} x {fce['embed_dim']}, " if text else ""
+    val = f"val/dice {dice[0]:.4f}" if dice else "no validation"
     print(f"{label}: stage 1 (64x128x128, base 64, bf16, {what}AdamW + EMA) {n_steps} steps, warmed "
           f"{s_per_step:.4f} s/step (median of steps 2-{n_steps}; step 1 {train[0]['train/step_seconds']:.3f} s), "
-          f"losses {[round(r['train/loss'], 2) for r in train]}, val/dice {dice[0]:.4f}, peak "
+          f"losses {[round(r['train/loss'], 2) for r in train]}, {val}, peak "
           f"torch.cuda.max_memory_allocated {peak_gib:.2f} GiB, run() wall {wall:.2f} s (incl. model init, "
-          f"validation and three checkpoint writes); launches {launches} = expected"
-          f"{f'; {len(refiner)} refiner params all moved' if text else ''}; card {card}", flush=True)
+          f"validation and checkpoint writes); launches {launches} = expected"
+          f"{f'; {len(refiner)} refiner params all moved' if text else ''}"
+          f"{f'; fp32 flash backward (the refiner) {f32_bwd_ms:.4f} device ms per step' if events else ''}; card "
+          f"{card}", flush=True)
     del state, fresh
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg2 = dict(cfg, load_from=True, max_steps=n_steps + 2)
-    expected2 = {k: sites * 2 if k.startswith("flash") else 0 for k in expected}
-    state2, launches2, wall2, printed = _train_run(flash, run, cfg2, "smoke")
-    check(f"resumed from step {n_steps}" in printed, f"{label}: the rerun did not resume from step 6")
-    check(state2.step == n_steps + 2, f"{label}: resumed run ended at step {state2.step}")
-    check(launches2 == expected2, f"{label} (resumed): launches {launches2}, expected {expected2}")
-    print(f"{label}: resumed from step {n_steps} to {state2.step} in {wall2:.2f} s; launches {launches2} "
-          f"= expected", flush=True)
-    del state2
-    gc.collect()
-    torch.cuda.empty_cache()
+    if resume:
+        cfg2 = dict(cfg, load_from=True, max_steps=n_steps + 2)
+        expected2 = {k: (v // n_steps * 2 if k.startswith("flash_bwd") else 0) for k, v in expected.items()}
+        expected2["flash_fwd"] = sites * 2
+        state2, launches2, wall2, printed = _train_run(flash, run, cfg2, "smoke")
+        check(f"resumed from step {n_steps}" in printed, f"{label}: the rerun did not resume from step {n_steps}")
+        check(state2.step == n_steps + 2, f"{label}: resumed run ended at step {state2.step}")
+        check(launches2 == expected2, f"{label} (resumed): launches {launches2}, expected {expected2}")
+        print(f"{label}: resumed from step {n_steps} to {state2.step} in {wall2:.2f} s; launches {launches2} "
+              f"= expected", flush=True)
+        del state2
+        gc.collect()
+        torch.cuda.empty_cache()
     if text:
         shutil.rmtree(cfg["output_path"], ignore_errors=True)
-    return {"launches": launches, "s_per_step": s_per_step, "peak_gib": peak_gib, "val_dice": dice[0]}
+    return {"launches": launches, "s_per_step": s_per_step, "peak_gib": peak_gib,
+            "val_dice": dice[0] if dice else None, "f32_bwd_ms_per_step": f32_bwd_ms}
 
 
 def _text_features(path: Path) -> str:
@@ -1848,14 +1950,19 @@ def text_reference_phase(flash) -> dict:
             steps.append(_reference_steps(flash, "text reference", device, named, step, [batch]))
         runs.append(([x for s in steps for x in s[0]], [x for s in steps for x in s[1]],
                      [x for s in steps for x in s[2]], {k: sum(s[3][k] for s in steps) for k in steps[0][3]}))
-    want = {"flash_fwd": sample_steps * per_call + refine, "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "conv3d": 0,
-            "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
+    want = {"flash_fwd": sample_steps * per_call + refine, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+            "flash_bwd_reduce": 0, "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
     check(not any(sample_launches[0].values()) and sample_launches[1] == want,
           f"text reference (sample): launches cpu {sample_launches[0]}, card {sample_launches[1]}, expected {want}")
     agree = float(np.mean(labels[0] == labels[1]))
     check(agree >= 0.999, f"text reference (sample): labels agree on {100 * agree:.2f}% of voxels")
     n_gpu = _check_flash_only(runs, "text reference")
-    step_want = {k: 2 * (per_call + refine) if k.startswith("flash") else 0 for k in n_gpu}
+    # split reduces a train step: the UNet's sites at (4 heads of 16, 512, 512), the refiner's at (2 x 64)
+    reduces = per_call * bwd_reduces(flash, 4, TEXT_TOKENS, TEXT_TOKENS, 16) + refine * bwd_reduces(
+        flash, TEXT_REF_FCE["n_heads"], TEXT_TOKENS, TEXT_TOKENS, TEXT_REF_FCE["d_head"])
+    step_want = {k: 2 * (per_call + refine) if k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq") else 0
+                 for k in n_gpu}
+    step_want["flash_bwd_reduce"] = 2 * reduces
     check(n_gpu == step_want, f"text reference (train): launches {n_gpu}, expected {step_want}")
     worst = _compare_reference_steps(runs, "text reference")
     refiner = max(runs[1][1][0][n].abs().max().item() for n in runs[1][1][0] if n.startswith("refiner."))
@@ -1968,7 +2075,7 @@ def ldm_train_path_phase(flash, card: str) -> dict:
     # its batch for val/loss_simple
     panel_calls = 3 * min(cfg.get("log_ddim_steps", 20), cfg["model"]["timesteps"] // 2)
     expected = {"flash_fwd": sites * (n_steps + n_eval * (1 + panel_calls)), "flash_bwd_dkv": sites * n_steps,
-                "flash_bwd_dq": sites * n_steps,
+                "flash_bwd_dq": sites * n_steps, "flash_bwd_reduce": 0,  # bf16: no split reduce
                 "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}  # a 2D UNet
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -2013,7 +2120,7 @@ def ldm_train_path_phase(flash, card: str) -> dict:
         torch.cuda.empty_cache()
 
         cfg2 = dict(cfg, resume=True, max_steps=n_steps + 2)
-        expected2 = {k: sites * 2 if k.startswith("flash") else 0 for k in expected}
+        expected2 = {k: sites * 2 if k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq") else 0 for k in expected}
         state2, launches2, wall2, printed = _train_run(flash, run, cfg2, "smoke")
         check(f"resumed from step {n_steps}" in printed, "ldm train path: the rerun did not resume from step 6")
         check(state2.step == n_steps + 2, f"ldm train path: resumed run ended at step {state2.step}")
@@ -2216,7 +2323,7 @@ def real_data_phase(flash, card: str) -> dict:
     from jointimagegeneration_torch.diffusion.noise import NoiseSource
 
     root = ROOT / "build" / "chip_smoke" / "real"
-    zero = {"conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
+    zero = {"flash_bwd_reduce": 0, "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
     out = {}
     try:
         fixture = write_real_fixture(root)
@@ -2374,6 +2481,14 @@ def main() -> int:
     text_mask = text_mask_path_phase(flash, card)
     text_two_stage = text_two_stage_phase(flash, card, ddim_path)
     text_train = train_path_phase(flash, card, TEXT_TRAIN_CFG, "text train path", "train_text")
+    long_train = train_path_phase(flash, card, TEXT_LONG_TRAIN_CFG, "text long-report train path", "train_text_long",
+                                  resume=False)
+    print(f"text long-report train path: {long_train['s_per_step']:.4f} s/step, peak {long_train['peak_gib']:.2f} "
+          f"GiB, the refiner's fp32 flash backward {long_train['f32_bwd_ms_per_step']:.4f} device ms per step "
+          f"(8 dkv + 8 dq, {long_train['launches']['flash_bwd_reduce'] // TEXT_LONG_TRAIN_CFG['max_steps']} split "
+          f"reduces); the 4-token text train path {text_train['s_per_step']:.4f} s/step, peak "
+          f"{text_train['peak_gib']:.2f} GiB, no fp32 flash backward (its refiner attention is plain); card {card}",
+          flush=True)
     ldm_train_reference_phase(flash)
     ldm_train = ldm_train_path_phase(flash, card)
     real = real_data_phase(flash, card)
@@ -2391,6 +2506,7 @@ def main() -> int:
                     "text_mask_sampling": text_mask["launches"],
                     "text_two_stage_sampling": text_two_stage["launches"],
                     "stage1_text_training": text_train["launches"]["flash_fwd"],
+                    "stage1_long_report_training": long_train["launches"]["flash_fwd"],
                     "real_stage1_text_training": real["stage1"]["launches"]["flash_fwd"],
                     "real_mask_sampling": real["mask"]["launches"],
                     "real_stage2_training": real["stage2"]["launches"]["flash_fwd"],
@@ -2420,6 +2536,7 @@ def main() -> int:
         bwd_launches = {"stage1_training": train["launches"][name], "stage2_training": ldm_train["launches"][name],
                         "text_reference": text_ref["launches"][name],
                         "stage1_text_training": text_train["launches"][name],
+                        "stage1_long_report_training": long_train["launches"][name],
                         "real_stage1_text_training": real["stage1"]["launches"][name],
                         "real_stage2_training": real["stage2"]["launches"][name],
                         "nnunet_stage2_training": real["nnunet"]["launches"][name]}
@@ -2440,6 +2557,23 @@ def main() -> int:
             "library_ms": train_row["library_ms"],  # SDPA's backward, all three gradients
             "shapes": bwd_rows,
         })
+    # the fp32 kernels' split reduce, as the refiner's 640-token row's dkv runs it
+    reduce_row = next(r for r in bwd_rows if r["shape"] == [8, LONG_TEXT_TOKENS, LONG_TEXT_TOKENS, 64])["reduce"]
+    reduce_launches = {"text_reference": text_ref["launches"]["flash_bwd_reduce"],
+                       "stage1_long_report_training": long_train["launches"]["flash_bwd_reduce"]}
+    kernels.append({
+        "name": "flash_bwd_reduce",
+        "route": "cuda",
+        "source": "jointimagegeneration_torch/csrc/flash_bwd.cu",
+        "replaces": "jointimagegeneration_tpu/ops/pallas/flash_attention.py:250",
+        "note": ("splits_reduce_f32_kernel: sums the fp32 dkv and dq kernels' split partials in split order, "
+                 "where the TPU kernels accumulate over their sequential grid; the numbers are the (8, 640, 640, "
+                 "64) fp32 row's dkv reduce"),
+        "launches": sum(reduce_launches.values()),
+        "launches_by_path": reduce_launches,
+        **{k: reduce_row[k] for k in ("max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "splits")},
+    })
     fused_rows = [r for r in conv_rows + conv_edge if "activate" not in r["options"] and r["options"]]
     bare_rows = [r for r in conv_rows + conv_edge if "activate" in r["options"] or not r["options"]]
     fused_launches = {f"fused_{m}_sampling": fused[m]["launches"]["conv3d"] for m in ("kernel", "xla")}
@@ -2472,7 +2606,8 @@ def main() -> int:
     print(f"fused: {json.dumps({'reference': fused_ref, 'paths': fused})}")
     print(f"train: {json.dumps(train)}")
     print(f"ldm train: {json.dumps(ldm_train)}")
-    text = {"reference": text_ref, "mask_path": text_mask, "two_stage_path": text_two_stage, "train_path": text_train}
+    text = {"reference": text_ref, "mask_path": text_mask, "two_stage_path": text_two_stage, "train_path": text_train,
+            "long_report_train_path": long_train}
     print(f"text: {json.dumps(text)}")
     print(f"real: {json.dumps(real)}")
     print(json.dumps({"kernels": kernels}))

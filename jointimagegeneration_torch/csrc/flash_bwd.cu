@@ -70,15 +70,40 @@
 //     memory while its first tiles load, and block (row tile, chunk 0) writes
 //     them to the (BH, Tq) buffer dkv reads.
 
-// fp32 (`flash_bwd_dkv_f32_kernel`, `flash_bwd_dq_f32_kernel`): one thread per
-// key (dkv) or q row (dq), plain FMA over fp32 tiles in shared memory
-// (broadcast reads) with expf; tensor cores would round through TF32.  The fp32
-// dq entry computes delta with `delta_f32_kernel` first.
+// fp32 design (`flash_bwd_dkv_f32_kernel`, `flash_bwd_dq_f32_kernel`; the
+// dq entry runs `delta_f32_kernel` first).  Every product in full fp32 on the
+// FMA pipes (one TF32 pass keeps a 10-bit mantissa, too coarse for fp32
+// gradients), so the bound is the FMAs: dkv 8*BH*Tq*Tk*D flops, dq 6*, at 67
+// TFLOP/s.  To get near it:
+//   * The card is filled: a block of 256 threads owns 64 keys (dkv) or 64 q
+//     rows (dq) and one output chunk of min(D, 64) head columns, and the
+//     planner (`plan_flash_bwd`) splits its streamed loop (q tiles in dkv,
+//     key tiles in dq) over `splits` blocks, so that the grid reaches about
+//     two blocks per SM where the work allows.  A split writes its partial
+//     dK/dV (dQ) to an fp32 workspace and `splits_reduce_f32_kernel` sums the
+//     partials in split order (no float atomics; two calls are bitwise
+//     equal); with one split the block writes the gradient itself.
+//   * Register tiles: the 16 x 16 threads of a block each compute a micro-tile
+//     of S and dP (4 of the block's rows x RT / 16 streamed rows) from float4
+//     shared-memory reads, each feeding 4 x RT / 16 FMAs; P and dS go through a
+//     transposed shared tile, and each thread then adds its 4 x CW (CW = chunk
+//     / 16) micro-tile of dV, dK (dQ), reading one float4 of P / dS and the
+//     chunk's CW columns per streamed row.  Shared rows are padded by 4
+//     floats, so the lanes of a warp read distinct banks or broadcast.
+//   * The streamed tiles (RT rows of Q and dO in dkv, of K and V in dq; RT =
+//     64 up to D = 32, 32 up to D = 128, 16 at 256) are double-buffered by
+//     cp.async, zero-filled past T and D; the LSE (scaled by log2 e, +inf past
+//     Tq so that P = 0 there) and delta of the next tile are read into
+//     registers while this one is computed.  Keys past Tk get P = 0 in dq
+//     and are not written by dkv.  P = 2^(S log2e - LSE log2e): one FFMA and
+//     one MUFU.EX2.
+//   * The kernels take d % 4 == 0 and 16-byte aligned q, k, v, dO (the
+//     wrapper pads with zero columns where they are not); any T >= 1.
 //
-// Launches on the caller's stream, allocates nothing, uses no float atomics,
-// writes every output element once (results are the same call to call), and
-// returns cudaGetLastError() so the Python wrapper can raise on a refused
-// launch.
+// Launches on the caller's stream, allocates nothing (the wrapper passes the
+// workspace), uses no float atomics, writes every output element once
+// (results are the same call to call), and returns cudaGetLastError() so the
+// Python wrapper can raise on a refused launch.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -89,8 +114,6 @@
 #include "flash_common.cuh"
 
 namespace {
-
-constexpr int kF32Tile = 32;  // rows per shared-memory tile (fp32 kernels)
 
 // Warpgroup 1's accumulator to warpgroup 0's through the shared scratch `red`
 // (warpgroup 1's consumed ring): warpgroup 0 adds it to its own, in that
@@ -409,140 +432,337 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdParams p) {
                 d, g, t4);
 }
 
+// ---- fp32 kernels ----
+
+constexpr int kF32Threads = 256;  // a block: 16 x 16 threads
+constexpr int kPad = 4;           // floats of padding per shared row
+
+// rows of a streamed tile (Q / dO in dkv, K / V in dq)
 template <int HD>
-constexpr int f32_smem_bytes() {
-  return 2 * kF32Tile * HD * 4 + 2 * kF32Tile * 4;
+__host__ __device__ constexpr int f32_rows() {
+  return HD <= 32 ? 64 : (HD <= 128 ? 32 : 16);
 }
 
-// fp32 dK, dV: one thread per key; q / dO rows staged kF32Tile at a time.
-template <int HD>
-__global__ void __launch_bounds__(kTile)
-flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int tq, int tk, int d) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // (kF32Tile, HD)
-  float* sdO = sQ + kF32Tile * HD;
-  float* sLse = sdO + kF32Tile * HD;
-  float* sDelta = sLse + kF32Tile;
+// Shared memory of an fp32 block, in floats: the block's own two tiles (K, V
+// in dkv; Q, dO in dq; 64 rows of HD + kPad), two stages of the streamed pair
+// (RT rows each), the row data (dkv: per stage RT scaled LSE and RT delta; dq:
+// the block's 64 rows' scaled LSE and delta), then the transposed tiles (dkv:
+// P and dS as (RT, 64 + kPad); dq: dS as (RT, 64 + kPad)).
+template <bool kDkv, int HD>
+struct F32Smem {
+  static constexpr int RT = f32_rows<HD>(), LD = HD + kPad, LDT = kTile + kPad;
+  static constexpr int kOwn = 2 * kTile * LD;
+  static constexpr int kStage = 2 * RT * LD;
+  static constexpr int kRows = kDkv ? 2 * 2 * RT : 2 * kTile;
+  static constexpr int kTrans = (kDkv ? 2 : 1) * RT * LDT;
+  static constexpr int kBytes = 4 * (kOwn + 2 * kStage + kRows + kTrans);
+  static_assert(RT % 16 == 0 && kBytes <= 232448, "an fp32 block fits its shared memory");
+};
 
-  const int n_tiles = (tk + kTile - 1) / kTile;
-  const int bh = blockIdx.x / n_tiles;
-  const int key = (blockIdx.x % n_tiles) * kTile + threadIdx.x;
-  const bool active = key < tk;
-  const float* qb = q + (size_t)bh * tq * d;
-  const float* dob = dout + (size_t)bh * tq * d;
+struct F32Params {
+  const float *q, *k, *v, *dout, *lse;
+  const float* delta;  // (bh, tq), written by delta_f32_kernel
+  float *out0, *out1;  // dkv: dk, dv; dq: dq (splits == 1)
+  float* ws;           // splits > 1: (splits, n_out) partials, dkv's dk then dv
+  long long n_out;     // floats of one split's partials: dkv 2 * bh * tk * d, dq bh * tq * d
+  int tq, tk, d, splits;
+};
 
-  float kr[HD], vr[HD], dkr[HD], dvr[HD];
+// rows [row0, row0 + R) of a (T, d) fp32 matrix into a shared (R, HD + kPad)
+// tile by cp.async, 16 bytes a copy, zeros past T and d (d % 4 == 0)
+template <int HD, int R>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int t_rows, int d, int t) {
+  constexpr int Q4 = HD / 4;
 #pragma unroll
-  for (int c = 0; c < HD; ++c) {
-    const bool ok = active && c < d;
-    kr[c] = ok ? k[((size_t)bh * tk + key) * d + c] : 0.f;
-    vr[c] = ok ? v[((size_t)bh * tk + key) * d + c] : 0.f;
-    dkr[c] = dvr[c] = 0.f;
-  }
-
-  for (int m0 = 0; m0 < tq; m0 += kF32Tile) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32Tile * HD; i += kTile) {
-      const int r = i / HD, c = i % HD;
-      const bool ok = (m0 + r < tq) && (c < d);
-      sQ[i] = ok ? qb[(size_t)(m0 + r) * d + c] : 0.f;
-      sdO[i] = ok ? dob[(size_t)(m0 + r) * d + c] : 0.f;
-    }
-    for (int i = threadIdx.x; i < kF32Tile; i += kTile) {
-      const bool ok = m0 + i < tq;
-      sLse[i] = ok ? lse[(size_t)bh * tq + m0 + i] : 0.f;
-      sDelta[i] = ok ? delta[(size_t)bh * tq + m0 + i] : 0.f;
-    }
-    __syncthreads();
-    const int n_rows = min(kF32Tile, tq - m0);
-#pragma unroll 1
-    for (int j = 0; j < n_rows; ++j) {
-      float s = 0.f, dpv = 0.f;
-#pragma unroll
-      for (int c = 0; c < HD; ++c) {
-        s = fmaf(kr[c], sQ[j * HD + c], s);
-        dpv = fmaf(vr[c], sdO[j * HD + c], dpv);
-      }
-      const float p = expf(s - sLse[j]);
-      const float ds = p * (dpv - sDelta[j]);
-#pragma unroll
-      for (int c = 0; c < HD; ++c) {
-        dvr[c] = fmaf(p, sdO[j * HD + c], dvr[c]);
-        dkr[c] = fmaf(ds, sQ[j * HD + c], dkr[c]);
-      }
-    }
-  }
-
-  if (!active) return;
-#pragma unroll
-  for (int c = 0; c < HD; ++c) {
-    if (c < d) {
-      dk[((size_t)bh * tk + key) * d + c] = dkr[c];
-      dv[((size_t)bh * tk + key) * d + c] = dvr[c];
-    }
+  for (int i = t; i < R * Q4; i += kF32Threads) {
+    const int r = i / Q4, c = (i % Q4) * 4;
+    const bool in = row0 + r < t_rows && c < d;
+    cp_async16(smem_u32(dst + r * (HD + kPad) + c), in ? src + (size_t)(row0 + r) * d + c : src, in ? 16 : 0);
   }
 }
 
-// fp32 dQ: one thread per q row; k / v rows staged kF32Tile at a time.
-template <int HD>
-__global__ void __launch_bounds__(kTile)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int tq, int tk, int d) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);  // (kF32Tile, HD)
-  float* sV = sK + kF32Tile * HD;
+// The streamed tiles of split s of n: [s n / splits, (s + 1) n / splits)
+__device__ __forceinline__ int split_start(int s, int n, int splits) {
+  return (int)((long long)s * n / splits);
+}
 
-  const int n_tiles = (tq + kTile - 1) / kTile;
-  const int bh = blockIdx.x / n_tiles;
-  const int row = (blockIdx.x % n_tiles) * kTile + threadIdx.x;
-  const bool active = row < tq;
-  const float* kb = k + (size_t)bh * tk * d;
-  const float* vb = v + (size_t)bh * tk * d;
-
-  float qr[HD], dor[HD], dqr[HD];
+// acc[i][jj] += a_row(i) . b_row(jj) over the head dim: a rows at a + (a0 +
+// 16 i) * LD (i < 4), b rows at b + (b0 + 16 jj) * LD (jj < TR), float4 reads
+template <int HD, int TR>
+__device__ __forceinline__ void dot_tile(float (&acc)[4][TR], const float* a, int a0, const float* b, int b0) {
+  constexpr int LD = HD + kPad;
+#pragma unroll 4
+  for (int c = 0; c < HD; c += 4) {
+    float4 av[4], bv[TR];
 #pragma unroll
-  for (int c = 0; c < HD; ++c) {
-    const bool ok = active && c < d;
-    qr[c] = ok ? q[((size_t)bh * tq + row) * d + c] : 0.f;
-    dor[c] = ok ? dout[((size_t)bh * tq + row) * d + c] : 0.f;
-    dqr[c] = 0.f;
-  }
-  const float lse_i = active ? lse[(size_t)bh * tq + row] : 0.f;
-  const float delta_i = active ? delta[(size_t)bh * tq + row] : 0.f;
-
-  for (int n0 = 0; n0 < tk; n0 += kF32Tile) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32Tile * HD; i += kTile) {
-      const int r = i / HD, c = i % HD;
-      const bool ok = (n0 + r < tk) && (c < d);
-      sK[i] = ok ? kb[(size_t)(n0 + r) * d + c] : 0.f;
-      sV[i] = ok ? vb[(size_t)(n0 + r) * d + c] : 0.f;
-    }
-    __syncthreads();
-    const int n_keys = min(kF32Tile, tk - n0);
-#pragma unroll 1
-    for (int j = 0; j < n_keys; ++j) {
-      float s = 0.f, dpv = 0.f;
+    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + (a0 + 16 * i) * LD + c);
 #pragma unroll
-      for (int c = 0; c < HD; ++c) {
-        s = fmaf(qr[c], sK[j * HD + c], s);
-        dpv = fmaf(dor[c], sV[j * HD + c], dpv);
+    for (int j = 0; j < TR; ++j) bv[j] = *reinterpret_cast<const float4*>(b + (b0 + 16 * j) * LD + c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < TR; ++j) {
+        acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
       }
-      const float ds = expf(s - lse_i) * (dpv - delta_i);
+  }
+}
+
+// CW consecutive floats from shared memory (16-, 8- or 4-byte aligned)
+template <int CW>
+__device__ __forceinline__ void load_cols(float (&x)[CW], const float* p) {
+  if constexpr (CW == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else if constexpr (CW == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x, x[1] = v.y;
+  } else {
+    x[0] = p[0];
+  }
+}
+
+// A thread's 4 x CW micro-tile (rows row0 + i, columns col0 + e) of a (rows,
+// d) fp32 output; rows past n_rows and columns past d are not written
+template <int CW>
+__device__ __forceinline__ void store_tile(float* out, float (&acc)[4][CW], int row0, int n_rows, int col0,
+                                           int d) {
 #pragma unroll
-      for (int c = 0; c < HD; ++c) dqr[c] = fmaf(ds, sK[j * HD + c], dqr[c]);
+  for (int i = 0; i < 4; ++i) {
+    if (row0 + i >= n_rows) continue;
+    float* o = out + (size_t)(row0 + i) * d + col0;
+    if constexpr (CW == 4) {
+      if (col0 < d) *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < CW; ++e)
+        if (col0 + e < d) o[e] = acc[i][e];
     }
   }
+}
 
-  if (!active) return;
+// fp32 dK, dV.  Block (bh, 64-key tile, chunk, split); thread (ty, tx):
+// S^T and dP^T for keys ty + 16 i and q rows tx + 16 j of each streamed tile,
+// then dK, dV for keys 4 ty + i and the chunk's columns tx CW + e.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads, HD <= 64 ? 2 : 1)
+flash_bwd_dkv_f32_kernel(const __grid_constant__ F32Params p) {
+  using S = F32Smem<true, HD>;
+  constexpr int RT = S::RT, LD = S::LD, LDT = S::LDT, TR = RT / 16;
+  constexpr int DC = chunk_cols<HD>(), NCH = HD / DC, CW = DC / 16;
+  extern __shared__ __align__(16) float smf[];
+  float* const sK = smf;
+  float* const sV = sK + kTile * LD;
+  float* const stages = sV + kTile * LD;
+  float* const sRows = stages + 2 * S::kStage;  // per stage: scaled LSE [RT], delta [RT]
+  float* const sP = sRows + 4 * RT;             // (RT, LDT): P[row][key]
+  float* const sDS = sP + RT * LDT;             // dS[row][key]
+
+  const int tq = p.tq, tk = p.tk, d = p.d, splits = p.splits;
+  const int n_kt = (tk + kTile - 1) / kTile;
+  int blk = blockIdx.x;
+  const int s = blk % splits;
+  blk /= splits;
+  const int chunk = blk % NCH;
+  blk /= NCH;
+  const int n0 = (blk % n_kt) * kTile;
+  const int bh = blk / n_kt;
+  const int n_qt = (tq + RT - 1) / RT;
+  const int j0 = split_start(s, n_qt, splits), j1 = split_start(s + 1, n_qt, splits);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int ty = 4 * (warp >> 1) + (lane >> 3), tx = 8 * (warp & 1) + (lane & 7);
+  const float* qb = p.q + (size_t)bh * tq * d;
+  const float* dob = p.dout + (size_t)bh * tq * d;
+  const float* lseb = p.lse + (size_t)bh * tq;
+  const float* deltab = p.delta + (size_t)bh * tq;
+
+  // the next tile's row data passes through registers (thread t < RT: row t)
+  float next_l = 0.f, next_d = 0.f;
+  auto fetch_rows = [&](int j) {
+    if (t < RT) {
+      const int row = j * RT + t;
+      next_l = row < tq ? lseb[row] * kLog2e : INFINITY;  // P = 0 past tq
+      next_d = row < tq ? deltab[row] : 0.f;
+    }
+  };
+  auto put_rows = [&](int j) {
+    if (t < RT) {
+      sRows[(j & 1) * 2 * RT + t] = next_l;
+      sRows[(j & 1) * 2 * RT + RT + t] = next_d;
+    }
+  };
+  auto load_stage = [&](int j) {
+    float* st = stages + (j & 1) * S::kStage;
+    load_rows<HD, RT>(st, qb, j * RT, tq, d, t);
+    load_rows<HD, RT>(st + RT * LD, dob, j * RT, tq, d, t);
+  };
+
+  load_rows<HD, kTile>(sK, p.k + (size_t)bh * tk * d, n0, tk, d, t);
+  load_rows<HD, kTile>(sV, p.v + (size_t)bh * tk * d, n0, tk, d, t);
+  if (j0 < j1) {
+    load_stage(j0);
+    fetch_rows(j0);
+    put_rows(j0);
+  }
+  cp_async_commit();
+
+  float dk[4][CW] = {}, dv[4][CW] = {};
+  for (int j = j0; j < j1; ++j) {
+    if (j + 1 < j1) {  // its buffer was consumed in iteration j - 1
+      load_stage(j + 1);
+      fetch_rows(j + 1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // stage j (and the own tiles) have landed, from every thread's copies
+    const float* sQ = stages + (j & 1) * S::kStage;
+    const float* sdO = sQ + RT * LD;
+    const float* rl = sRows + (j & 1) * 2 * RT;
+
+    // S^T = K Q^T and dP^T = V dO^T: keys ty + 16 i, rows tx + 16 jj
+    float st[4][TR] = {}, dpt[4][TR] = {};
+    dot_tile<HD, TR>(st, sK, ty, sQ, tx);
+    dot_tile<HD, TR>(dpt, sV, ty, sdO, tx);
 #pragma unroll
-  for (int c = 0; c < HD; ++c)
-    if (c < d) dq[((size_t)bh * tq + row) * d + c] = dqr[c];
+    for (int jj = 0; jj < TR; ++jj) {
+      const int r = tx + 16 * jj;
+      const float l2 = rl[r], dl = rl[RT + r];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pv = ex2_approx(fmaf(st[i][jj], kLog2e, -l2));
+        sP[r * LDT + ty + 16 * i] = pv;
+        sDS[r * LDT + ty + 16 * i] = pv * (dpt[i][jj] - dl);
+      }
+    }
+    __syncthreads();  // P and dS are complete
+
+    // dV += P^T dO and dK += dS^T Q over the tile's rows: keys 4 ty + i, columns tx CW + e
+    const int col = chunk * DC + tx * CW;
+#pragma unroll 4
+    for (int r = 0; r < RT; ++r) {
+      const float4 pv = *reinterpret_cast<const float4*>(sP + r * LDT + 4 * ty);
+      const float4 sv = *reinterpret_cast<const float4*>(sDS + r * LDT + 4 * ty);
+      float ov[CW], qv[CW];
+      load_cols<CW>(ov, sdO + r * LD + col);
+      load_cols<CW>(qv, sQ + r * LD + col);
+      const float pa[4] = {pv.x, pv.y, pv.z, pv.w}, sa[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < CW; ++e) {
+          dv[i][e] = fmaf(pa[i], ov[e], dv[i][e]);
+          dk[i][e] = fmaf(sa[i], qv[e], dk[i][e]);
+        }
+    }
+    if (j + 1 < j1) put_rows(j + 1);  // its slot was read in iteration j - 1
+    __syncthreads();                  // stage j and the transposed tiles are consumed
+  }
+  cp_async_wait<0>();  // a split with no tile still waits for its own tiles' copies
+
+  float *dkp = p.out0, *dvp = p.out1;
+  if (splits > 1) {
+    dkp = p.ws + (size_t)s * p.n_out;
+    dvp = dkp + p.n_out / 2;
+  }
+  const size_t off = (size_t)bh * tk * d;
+  store_tile<CW>(dkp + off, dk, n0 + 4 * ty, tk, chunk * DC + tx * CW, d);
+  store_tile<CW>(dvp + off, dv, n0 + 4 * ty, tk, chunk * DC + tx * CW, d);
+}
+
+// fp32 dQ.  Block (bh, 64-row tile, chunk, split); thread (ty, tx): S and dP
+// for q rows ty + 16 i and keys tx + 16 j of each streamed tile, then dQ for
+// rows 4 ty + i and the chunk's columns tx CW + e.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads, HD <= 64 ? 2 : 1)
+flash_bwd_dq_f32_kernel(const __grid_constant__ F32Params p) {
+  using S = F32Smem<false, HD>;
+  constexpr int RT = S::RT, LD = S::LD, LDT = S::LDT, TR = RT / 16;
+  constexpr int DC = chunk_cols<HD>(), NCH = HD / DC, CW = DC / 16;
+  extern __shared__ __align__(16) float smf[];
+  float* const sQ = smf;
+  float* const sdO = sQ + kTile * LD;
+  float* const stages = sdO + kTile * LD;
+  float* const sL = stages + 2 * S::kStage;  // the block's rows: scaled LSE [64], delta [64]
+  float* const sDS = sL + 2 * kTile;         // (RT, LDT): dS[key][row]
+
+  const int tq = p.tq, tk = p.tk, d = p.d, splits = p.splits;
+  const int n_mt = (tq + kTile - 1) / kTile;
+  int blk = blockIdx.x;
+  const int s = blk % splits;
+  blk /= splits;
+  const int chunk = blk % NCH;
+  blk /= NCH;
+  const int m0 = (blk % n_mt) * kTile;
+  const int bh = blk / n_mt;
+  const int n_kt = (tk + RT - 1) / RT;
+  const int j0 = split_start(s, n_kt, splits), j1 = split_start(s + 1, n_kt, splits);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int ty = 4 * (warp >> 1) + (lane >> 3), tx = 8 * (warp & 1) + (lane & 7);
+  const float* kb = p.k + (size_t)bh * tk * d;
+  const float* vb = p.v + (size_t)bh * tk * d;
+  auto load_stage = [&](int j) {
+    float* st = stages + (j & 1) * S::kStage;
+    load_rows<HD, RT>(st, kb, j * RT, tk, d, t);
+    load_rows<HD, RT>(st + RT * LD, vb, j * RT, tk, d, t);
+  };
+
+  load_rows<HD, kTile>(sQ, p.q + (size_t)bh * tq * d, m0, tq, d, t);
+  load_rows<HD, kTile>(sdO, p.dout + (size_t)bh * tq * d, m0, tq, d, t);
+  if (j0 < j1) load_stage(j0);
+  cp_async_commit();
+  if (t < kTile) {  // rows past tq are never written: any finite values
+    const int row = m0 + t;
+    sL[t] = row < tq ? p.lse[(size_t)bh * tq + row] * kLog2e : 0.f;
+    sL[kTile + t] = row < tq ? p.delta[(size_t)bh * tq + row] : 0.f;
+  }
+
+  float dq[4][CW] = {};
+  for (int j = j0; j < j1; ++j) {
+    if (j + 1 < j1) load_stage(j + 1);  // its buffer was consumed in iteration j - 1
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // stage j (and the own tiles and row data) have landed
+    const float* sK = stages + (j & 1) * S::kStage;
+    const float* sV = sK + RT * LD;
+
+    // S = Q K^T and dP = dO V^T: rows ty + 16 i, keys tx + 16 jj
+    float sc[4][TR] = {}, dp[4][TR] = {};
+    dot_tile<HD, TR>(sc, sQ, ty, sK, tx);
+    dot_tile<HD, TR>(dp, sdO, ty, sV, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const float l2 = sL[r], dl = sL[kTile + r];
+#pragma unroll
+      for (int jj = 0; jj < TR; ++jj) {
+        const int key = tx + 16 * jj;
+        const float pv = j * RT + key < tk ? ex2_approx(fmaf(sc[i][jj], kLog2e, -l2)) : 0.f;  // P = 0 past tk
+        sDS[key * LDT + r] = pv * (dp[i][jj] - dl);
+      }
+    }
+    __syncthreads();  // dS is complete
+
+    // dQ += dS K over the tile's keys: rows 4 ty + i, columns tx CW + e
+    const int col = chunk * DC + tx * CW;
+#pragma unroll 4
+    for (int r = 0; r < RT; ++r) {
+      const float4 sv = *reinterpret_cast<const float4*>(sDS + r * LDT + 4 * ty);
+      float kv[CW];
+      load_cols<CW>(kv, sK + r * LD + col);
+      const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < CW; ++e) dq[i][e] = fmaf(sa[i], kv[e], dq[i][e]);
+    }
+    __syncthreads();  // stage j and dS are consumed
+  }
+  cp_async_wait<0>();
+
+  float* dqp = splits > 1 ? p.ws + (size_t)s * p.n_out : p.out0;
+  store_tile<CW>(dqp + (size_t)bh * tq * d, dq, m0 + 4 * ty, tq, chunk * DC + tx * CW, d);
 }
 
 // fp32 delta = rowsum(dO * O): one warp per row, lanes over the columns, then
@@ -558,10 +778,29 @@ __global__ void __launch_bounds__(256) delta_f32_kernel(const float* __restrict_
   if (lane == 0) delta[row] = acc;
 }
 
-// The launch as the plan gives it: warpgroups and the shared memory
-// size, checked against the kernel's own.
+// out[i] = sum over s = 0 ... splits - 1, in that order, of ws[s][i]: the
+// fp32 kernels' split partials, float4 at a time (n4 float4s a split)
+__global__ void __launch_bounds__(256) splits_reduce_f32_kernel(const float4* __restrict__ ws,
+                                                                float4* __restrict__ out, long long n4, int splits) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n4) return;
+  float4 a = ws[i];
+  for (int s = 1; s < splits; ++s) {
+    const float4 b = ws[s * n4 + i];
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+  out[i] = a;
+}
+
+// The launch as the plan gives it: warpgroups (0 for fp32), the splits of
+// the streamed loop (1 for bf16) and the shared memory size, checked against
+// the kernel's own; the fp32 kernels' workspace of split partials.
 struct Launch {
-  int bh, nwg, smem_bytes;
+  int bh, nwg, splits, smem_bytes;
+  void* ws;
   cudaStream_t stream;
 };
 
@@ -596,39 +835,48 @@ cudaError_t launch_wgmma(const BwdParams& p, const Launch& l, int hd) {
   }
 }
 
-template <int HD>
-cudaError_t launch_f32(const BwdParams& p, const Launch& l, bool dkv) {
-  cudaError_t err;
-  const int tiles = ((dkv ? p.tk : p.tq) + kTile - 1) / kTile;
-  const float *q = static_cast<const float*>(p.q), *k = static_cast<const float*>(p.k),
-              *v = static_cast<const float*>(p.v), *dout = static_cast<const float*>(p.dout);
-  if (dkv) {
-    constexpr int smem = f32_smem_bytes<HD>();
-    if (l.smem_bytes != smem) return cudaErrorInvalidValue;
-    if ((err = allow_smem(flash_bwd_dkv_f32_kernel<HD>, smem)) != cudaSuccess) return err;
-    flash_bwd_dkv_f32_kernel<HD><<<tiles * l.bh, kTile, smem, l.stream>>>(
-        q, k, v, dout, p.lse, p.delta, static_cast<float*>(p.out0), static_cast<float*>(p.out1), p.tq, p.tk, p.d);
-  } else {
-    constexpr int smem = 2 * kF32Tile * HD * 4;
-    if (l.smem_bytes != smem) return cudaErrorInvalidValue;
-    if ((err = allow_smem(flash_bwd_dq_f32_kernel<HD>, smem)) != cudaSuccess) return err;
-    const int rows = l.bh * p.tq;
-    delta_f32_kernel<<<(rows + 7) / 8, 256, 0, l.stream>>>(static_cast<const float*>(p.o), dout, p.delta, rows,
-                                                           p.d);
-    flash_bwd_dq_f32_kernel<HD><<<tiles * l.bh, kTile, smem, l.stream>>>(
-        q, k, v, dout, p.lse, p.delta, static_cast<float*>(p.out0), p.tq, p.tk, p.d);
+template <bool kDkv, int HD>
+cudaError_t launch_f32(const BwdParams& b, const Launch& l) {
+  constexpr int smem = F32Smem<kDkv, HD>::kBytes;
+  if (l.smem_bytes != smem) return cudaErrorInvalidValue;  // the planner disagrees
+  auto kernel = kDkv ? flash_bwd_dkv_f32_kernel<HD> : flash_bwd_dq_f32_kernel<HD>;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  F32Params p{};
+  p.q = static_cast<const float*>(b.q);
+  p.k = static_cast<const float*>(b.k);
+  p.v = static_cast<const float*>(b.v);
+  p.dout = static_cast<const float*>(b.dout);
+  p.lse = b.lse;
+  p.delta = b.delta;
+  p.out0 = static_cast<float*>(b.out0);
+  p.out1 = static_cast<float*>(b.out1);
+  p.ws = static_cast<float*>(l.ws);
+  p.n_out = (long long)(kDkv ? 2 : 1) * l.bh * (kDkv ? b.tk : b.tq) * b.d;
+  p.tq = b.tq;
+  p.tk = b.tk;
+  p.d = b.d;
+  p.splits = l.splits;
+  if (!kDkv) {
+    const int rows = l.bh * b.tq;
+    delta_f32_kernel<<<(rows + 7) / 8, 256, 0, l.stream>>>(static_cast<const float*>(b.o), p.dout, b.delta, rows,
+                                                           b.d);
   }
+  const int tiles = ((kDkv ? b.tk : b.tq) + kTile - 1) / kTile;
+  kernel<<<tiles * l.bh * (HD / chunk_cols<HD>()) * l.splits, kF32Threads, smem, l.stream>>>(p);
   return cudaGetLastError();
 }
 
 // Dispatch on the padded head width.  bf16 wants d % 8 == 0, tq % 4 == 0 (the
 // LSE and delta rows dkv copies start on 16 bytes) and 16-byte aligned
-// tensors: what TMA takes (the wrapper pads otherwise).
+// tensors: what TMA takes (the wrapper pads otherwise).  fp32 wants d % 4 ==
+// 0 and 16-byte aligned q, k, v, dO (cp.async), a workspace where splits > 1,
+// and fp32 outputs 16-byte aligned.
 template <bool kDkv>
 int dispatch(BwdParams& p, const Launch& l, int dtype) {
-  if (l.bh < 1 || p.tq < 1 || p.tk < 1 || p.d < 1 || p.d > 256 || (dtype != 0 && dtype != 1))
+  if (l.bh < 1 || p.tq < 1 || p.tk < 1 || p.d < 1 || p.d > 256 || (dtype != 0 && dtype != 1) || l.splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((long long)(((kDkv ? p.tk : p.tq) + kTile - 1) / kTile) * l.bh * 4 > 0x7fffffffLL)
+  if ((long long)(((kDkv ? p.tk : p.tq) + kTile - 1) / kTile) * l.bh * 4 * l.splits > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const int hd = head_width(p.d);
   if (dtype == 0) {
@@ -637,21 +885,26 @@ int dispatch(BwdParams& p, const Launch& l, int dtype) {
                         reinterpret_cast<uintptr_t>(p.v) | reinterpret_cast<uintptr_t>(p.o) |
                         reinterpret_cast<uintptr_t>(p.dout) | reinterpret_cast<uintptr_t>(p.lse) |
                         reinterpret_cast<uintptr_t>(p.delta);
-    if (p.d % 8 != 0 || (kDkv && p.tq % 4 != 0) || a % 16 != 0 || !cached_map(&p.q_map, p.q, l.bh, p.tq, p.d, ac) ||
-        !cached_map(&p.k_map, p.k, l.bh, p.tk, p.d, ac) || !cached_map(&p.v_map, p.v, l.bh, p.tk, p.d, ac) ||
-        !cached_map(&p.do_map, p.dout, l.bh, p.tq, p.d, ac) ||
+    if (l.splits != 1 || p.d % 8 != 0 || (kDkv && p.tq % 4 != 0) || a % 16 != 0 ||
+        !cached_map(&p.q_map, p.q, l.bh, p.tq, p.d, ac) || !cached_map(&p.k_map, p.k, l.bh, p.tk, p.d, ac) ||
+        !cached_map(&p.v_map, p.v, l.bh, p.tk, p.d, ac) || !cached_map(&p.do_map, p.dout, l.bh, p.tq, p.d, ac) ||
         (kDkv && (!cached_map(&p.lse_map, p.lse, l.bh, p.tq, 1, 0) ||
                   !cached_map(&p.delta_map, p.delta, l.bh, p.tq, 1, 0))))
       return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch_wgmma<kDkv>(p, l, hd));
   }
-  if (l.nwg != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.k) |
+                      reinterpret_cast<uintptr_t>(p.v) | reinterpret_cast<uintptr_t>(p.dout) |
+                      reinterpret_cast<uintptr_t>(p.out0) | reinterpret_cast<uintptr_t>(p.out1) |
+                      reinterpret_cast<uintptr_t>(l.ws);
+  if (l.nwg != 0 || p.d % 4 != 0 || a % 16 != 0 || (l.splits > 1) != (l.ws != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (hd == 16) err = launch_f32<16>(p, l, kDkv);
-  else if (hd == 32) err = launch_f32<32>(p, l, kDkv);
-  else if (hd == 64) err = launch_f32<64>(p, l, kDkv);
-  else if (hd == 128) err = launch_f32<128>(p, l, kDkv);
-  else err = launch_f32<256>(p, l, kDkv);
+  if (hd == 16) err = launch_f32<kDkv, 16>(p, l);
+  else if (hd == 32) err = launch_f32<kDkv, 32>(p, l);
+  else if (hd == 64) err = launch_f32<kDkv, 64>(p, l);
+  else if (hd == 128) err = launch_f32<kDkv, 128>(p, l);
+  else err = launch_f32<kDkv, 256>(p, l);
   return static_cast<int>(err);
 }
 
@@ -678,25 +931,42 @@ BwdParams params(const void* q, const void* k, const void* v, const void* o, con
 // q, dout: (bh, tq, d); k, v: (bh, tk, d); lse, delta: (bh, tq) fp32 (delta as
 // written by jig_flash_bwd_dq); dk, dv: (bh, tk, d) in the input dtype.  All
 // contiguous; bf16 wants d % 8 == 0, tq % 4 == 0 and 16-byte aligned
-// tensors.  dtype: 0 =
-// bf16, 1 = fp32.  nwg, smem_bytes: the launch plan (`ops/flash_attention.py`
-// `plan_flash_bwd`: warpgroups per block, 0 for the fp32 kernels; shared
-// memory bytes), checked against the kernels'.  Returns a cudaError_t (0 =
-// launched).
+// tensors, fp32 d % 4 == 0 and 16-byte aligned tensors.  dtype: 0 = bf16, 1 =
+// fp32.  nwg, splits, smem_bytes: the launch plan (`ops/flash_attention.py`
+// `plan_flash_bwd`: warpgroups per block, 0 for the fp32 kernels; the splits
+// of the q loop, 1 for bf16; shared memory bytes), checked against the
+// kernels'.  ws: with splits > 1, the (splits, 2, bh, tk, d) fp32 workspace of
+// the split partials, dk's then dv's, which jig_flash_bwd_reduce then sums
+// into dk (dv must follow dk in memory); else null.  Returns a cudaError_t (0
+// = launched).
 extern "C" int jig_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                                 const void* delta, void* dk, void* dv, int bh, int tq, int tk, int d, int dtype,
-                                 int nwg, int smem_bytes, void* stream) {
+                                 const void* delta, void* dk, void* dv, void* ws, int bh, int tq, int tk, int d,
+                                 int dtype, int nwg, int splits, int smem_bytes, void* stream) {
   BwdParams p = params(q, k, v, q, dout, lse, const_cast<void*>(delta), dk, dv, tq, tk, d);
-  return dispatch<true>(p, Launch{bh, nwg, smem_bytes, static_cast<cudaStream_t>(stream)}, dtype);
+  return dispatch<true>(p, Launch{bh, nwg, splits, smem_bytes, ws, static_cast<cudaStream_t>(stream)}, dtype);
 }
 
 // As jig_flash_bwd_dkv, plus o: (bh, tq, d) in the input dtype; writes delta
-// (bh, tq) fp32 and dq: (bh, tq, d) in the input dtype.
+// (bh, tq) fp32 and dq: (bh, tq, d) in the input dtype (with splits > 1, the
+// (splits, bh, tq, d) partials to ws, for jig_flash_bwd_reduce).
 extern "C" int jig_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                                const void* lse, void* delta, void* dq, int bh, int tq, int tk, int d, int dtype,
-                                int nwg, int smem_bytes, void* stream) {
+                                const void* lse, void* delta, void* dq, void* ws, int bh, int tq, int tk, int d,
+                                int dtype, int nwg, int splits, int smem_bytes, void* stream) {
   BwdParams p = params(q, k, v, o, dout, lse, delta, dq, nullptr, tq, tk, d);
-  return dispatch<false>(p, Launch{bh, nwg, smem_bytes, static_cast<cudaStream_t>(stream)}, dtype);
+  return dispatch<false>(p, Launch{bh, nwg, splits, smem_bytes, ws, static_cast<cudaStream_t>(stream)}, dtype);
+}
+
+// out[i] = ws[0][i] + ws[1][i] + ... + ws[splits - 1][i], summed in that order,
+// for i < n (n % 4 == 0; ws (splits, n) and out (n) fp32, 16-byte aligned):
+// the fp32 kernels' split partials.  Returns a cudaError_t.
+extern "C" int jig_flash_bwd_reduce(const void* ws, void* out, long long n, int splits, void* stream) {
+  if (n < 4 || n % 4 != 0 || splits < 2 ||
+      (reinterpret_cast<uintptr_t>(ws) | reinterpret_cast<uintptr_t>(out)) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n4 = n / 4;
+  splits_reduce_f32_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(ws), static_cast<float4*>(out), n4, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 #if JIG_FLASH_TRACE

@@ -13,7 +13,8 @@ Counterpart of `jointimagegeneration_tpu/ops/pallas/flash_attention.py`.
     `_bwd_dq_kernel` (entered through `_flash_backward`): dK, dV and dQ
     recomputed from the saved LSE.  The dq kernel runs first and also
     computes delta = rowsum(dO * O), which the dkv kernel reads.  How each
-    runs on the card (warpgroups per block, shared memory) is
+    runs on the card (warpgroups per block, shared memory; in fp32 the
+    splits of its streamed loop, whose partials `flash_bwd_reduce` sums) is
     decided on the host by `plan_flash_bwd`, a pure function of the shapes.
   * `FlashAttention` is the `torch.autograd.Function` that takes the place of
     the custom_vjp `_flash`.
@@ -41,7 +42,8 @@ from .cuda.build import load_library
 __all__ = ["flash_forward", "flash_attention_plain", "flash_backward", "flash_backward_plain",
            "flash_bwd_dkv", "flash_bwd_dq", "FlashAttention", "flash_attention", "flash_eligible",
            "FLASH_SOURCE", "FLASH_BWD_SOURCE", "FlashFwdPlan", "plan_flash_fwd", "BwdKernelPlan",
-           "FlashBwdPlan", "plan_flash_bwd"]
+           "FlashBwdPlan", "plan_flash_bwd", "flash_bwd_reduce", "flash_bwd_reduce_plain", "f32_bwd_rows",
+           "f32_bwd_splits"]
 
 FLASH_SOURCE = "flash_fwd"
 FLASH_BWD_SOURCE = "flash_bwd"
@@ -107,7 +109,7 @@ SMS = 132
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (227 KB)
 TILE = 64             # q rows (forward, dq) or keys (dkv) per block, rows per streamed tile
 STAGES = 2            # stages in each warpgroup's ring of streamed tiles
-_F32_TILE = 32        # rows per shared-memory tile of the fp32 kernels
+_F32_TILE = 32        # keys per shared-memory tile of the fp32 forward kernel
 _HEAD_WIDTHS = (16, 32, 64, 128, 256)
 
 
@@ -173,14 +175,24 @@ def plan_flash_fwd(bh: int, tq: int, tk: int, d: int, dtype: torch.dtype) -> Fla
 @dataclass(frozen=True)
 class BwdKernelPlan:
     """One backward kernel's launch (`plan_flash_bwd`): `warpgroups` of 128
-    threads per block (0 for the fp32 kernel, one thread per row), `threads`
-    and `smem_bytes` per block, and `grid` blocks: one per (bh, 64-row tile,
-    head-column chunk)."""
+    threads per block (0 for the fp32 kernels, blocks of 256 threads),
+    `threads` and `smem_bytes` per block, `rows` of a streamed tile (q rows in
+    dkv, keys in dq), `splits` blocks sharing each block's streamed loop (1
+    in bf16; fp32 partials summed by one reduce launch where it is > 1), and
+    `grid` blocks: one per (bh, 64-row tile, head-column chunk, split)."""
 
     warpgroups: int
     threads: int
     smem_bytes: int
     grid: int
+    rows: int = TILE
+    splits: int = 1
+
+    @property
+    def reduce_launches(self) -> int:
+        """Launches of the split reduce this kernel's call adds: 1 where the
+        loop is split, else 0."""
+        return int(self.splits > 1)
 
 
 @dataclass(frozen=True)
@@ -212,24 +224,61 @@ def _bwd_smem(kernel: str, hd: int, warpgroups: int) -> int:
     return 2048 + 2 * tile + warpgroups * STAGES * (2 * tile + (1024 if kernel == "dkv" else 0))
 
 
+F32_THREADS = 256  # threads of an fp32 backward block
+F32_MAX_SPLITS = 16  # bounds the workspace (splits x the gradient) and the reduce's reads
+
+
+def f32_bwd_rows(hd: int) -> int:
+    """Rows of an fp32 backward kernel's streamed tile (csrc/flash_bwd.cu's
+    `f32_rows`): 64 up to D = 32, 32 up to 128, 16 at 256."""
+    return 64 if hd <= 32 else (32 if hd <= 128 else 16)
+
+
+def _f32_bwd_smem(kernel: str, hd: int) -> int:
+    """csrc/flash_bwd.cu's `F32Smem`, in bytes: the block's own two tiles of
+    64 rows, two stages of the streamed pair of `f32_bwd_rows` rows (rows of
+    hd + 4 floats), the row data (dkv: per stage LSE and delta of the tile's
+    rows; dq: the block's 64 rows'), and the transposed tiles of 64 + 4
+    floats a row (dkv: P and dS; dq: dS)."""
+    rt, ld = f32_bwd_rows(hd), hd + 4
+    dkv = kernel == "dkv"
+    rows, trans = (4 * rt, 2 * rt * (TILE + 4)) if dkv else (2 * TILE, rt * (TILE + 4))
+    return 4 * (2 * TILE * ld + 2 * 2 * rt * ld + rows + trans)
+
+
+def f32_bwd_splits(blocks: int, streamed_tiles: int) -> int:
+    """Splits of an fp32 kernel's streamed loop: as many as keep the grid
+    within two blocks per SM (2 * SMS), at most one per streamed tile and at
+    most F32_MAX_SPLITS."""
+    return max(1, min(streamed_tiles, F32_MAX_SPLITS, (2 * SMS) // blocks))
+
+
 @functools.lru_cache(maxsize=256)
 def plan_flash_bwd(bh: int, tq: int, tk: int, d: int, dtype: torch.dtype) -> FlashBwdPlan:
     """The launch plan of one backward call of (bh, tq, d) queries against
     (bh, tk, d) keys.  A pure function of its arguments (cached).
 
-    bf16: D is padded to the next of 16, 32, 64, 128, 256; tiles are
-    swizzled in rows of min(D, 64) columns; one block per 64-key (dkv) or
-    64-row (dq) tile and 64-column output chunk, with a ring of STAGES
-    stages per warpgroup.  dkv takes one warpgroup per block (three blocks
-    share an SM up to D = 32, two above).  dq takes two, splitting the
-    block's key tiles, where one-warpgroup blocks would number at most two
-    per SM (SMS * 2): that doubles the warpgroups in flight, which the
+    D is padded to the next of 16, 32, 64, 128, 256, and each block owns 64
+    keys (dkv) or 64 q rows (dq) and one output chunk of min(D, 64) head
+    columns, recomputing S and dP over all of D.
+
+    bf16: tiles are swizzled in rows of min(D, 64) columns, with a ring of
+    STAGES stages per warpgroup.  dkv takes one warpgroup per block (three
+    blocks share an SM up to D = 32, two above).  dq takes two, splitting
+    the block's key tiles, where one-warpgroup blocks would number at most
+    two per SM (SMS * 2): that doubles the warpgroups in flight, which the
     latency of each warpgroup's serial chain (products, exponentials,
     products) needs; at more blocks two warpgroups per block only add a
     reduction.  (Measured on an H100 at the training shapes,
     `scripts/bench_flash_bwd.py`: two warpgroups ran dq 8-10% faster at
     (8, 2048, 32) and (16, 1024, 32) and 5% slower at (20, 1024, 32); dkv
-    17-37% slower at every shape, so its kernel has one warpgroup.)"""
+    17-37% slower at every shape, so its kernel has one warpgroup.)
+
+    fp32: blocks of F32_THREADS threads stream tiles of `f32_bwd_rows(hd)`
+    rows, and `f32_bwd_splits` splits each block's streamed loop (dkv: the q
+    tiles, dq: the key tiles) over blocks, so that the grid fills the card
+    where the work allows; the split partials are then summed by the reduce
+    kernel in split order."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"plan_flash_bwd: bf16 or fp32, got {dtype}")
     if min(bh, tq, tk, d) < 1 or d > _MAX_D:
@@ -237,32 +286,41 @@ def plan_flash_bwd(bh: int, tq: int, tk: int, d: int, dtype: torch.dtype) -> Fla
     hd = _head_width(d)
     chunk = min(hd, 64)
     nch = hd // chunk
-    if dtype == torch.float32:
-        fp32 = lambda rows, smem: BwdKernelPlan(0, TILE, smem, _cdiv(rows, TILE) * bh)
-        return FlashBwdPlan(hd, hd, 0, dkv=fp32(tk, 2 * _F32_TILE * hd * 4 + 2 * _F32_TILE * 4),
-                            dq=fp32(tq, 2 * _F32_TILE * hd * 4))
     plans = {}
-    for kernel, rows in (("dkv", tk), ("dq", tq)):
+    for kernel, rows, streamed in (("dkv", tk, tq), ("dq", tq, tk)):
         blocks = _cdiv(rows, TILE) * bh * nch
-        wg = 2 if kernel == "dq" and hd < 256 and blocks <= 2 * SMS else 1
-        plans[kernel] = BwdKernelPlan(wg, 128 * wg, _bwd_smem(kernel, hd, wg), blocks)
-    return FlashBwdPlan(hd, chunk, 2 * chunk, dkv=plans["dkv"], dq=plans["dq"])
+        if dtype == torch.float32:
+            rt = f32_bwd_rows(hd)
+            splits = f32_bwd_splits(blocks, _cdiv(streamed, rt))
+            plans[kernel] = BwdKernelPlan(0, F32_THREADS, _f32_bwd_smem(kernel, hd), blocks * splits, rt, splits)
+        else:
+            wg = 2 if kernel == "dq" and hd < 256 and blocks <= 2 * SMS else 1
+            plans[kernel] = BwdKernelPlan(wg, 128 * wg, _bwd_smem(kernel, hd, wg), blocks)
+    swizzle = 2 * chunk if dtype == torch.bfloat16 else 0
+    return FlashBwdPlan(hd, chunk, swizzle, dkv=plans["dkv"], dq=plans["dq"])
 
 
-# C entry point -> (source under csrc/, pointer arguments, int arguments); each
-# also takes the stream as a pointer
-_ENTRY_POINTS = {"jig_flash_fwd": (FLASH_SOURCE, 5, 7), "jig_flash_bwd_dkv": (FLASH_BWD_SOURCE, 8, 7),
-                 "jig_flash_bwd_dq": (FLASH_BWD_SOURCE, 8, 7)}
+# C entry point -> (source under csrc/, ctypes argument types); the
+# kernels' entries take pointers, then ints, then the stream
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRY_POINTS = {"jig_flash_fwd": (FLASH_SOURCE, [_P] * 5 + [_I] * 7 + [_P]),
+                 "jig_flash_bwd_dkv": (FLASH_BWD_SOURCE, [_P] * 9 + [_I] * 8 + [_P]),
+                 "jig_flash_bwd_dq": (FLASH_BWD_SOURCE, [_P] * 9 + [_I] * 8 + [_P]),
+                 "jig_flash_bwd_reduce": (FLASH_BWD_SOURCE, [_P, _P, ctypes.c_longlong, _I, _P])}
+
+
+def _bind(lib: ctypes.CDLL, name: str):
+    """The C entry point `name` of a loaded library, typed."""
+    fn = getattr(lib, name)
+    fn.argtypes = _ENTRY_POINTS[name][1]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(name: str):
     """A C entry point of csrc/flash_{fwd,bwd}.cu, built on first use."""
-    source, n_ptr, n_int = _ENTRY_POINTS[name]
-    fn = getattr(load_library(source), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _bind(load_library(_ENTRY_POINTS[name][0]), name)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, who: str = "flash_forward") -> None:
@@ -303,22 +361,29 @@ def _cuda_bindings():
     return device, raw if raw is not None else (lambda index: torch.cuda.current_stream(index).cuda_stream)
 
 
-def _launch(name: str, tensors, q: torch.Tensor, k: torch.Tensor, plan) -> None:
-    """Calls the C entry point `name` with the tensors' pointers, the shape,
-    the dtype code and the plan's (warpgroups, smem_bytes), on the current
-    stream of q's device (made the current device where it is not)."""
-    bh, tq, d = q.shape
-    args = (*(t.data_ptr() for t in tensors), bh, tq, k.shape[1], d, _DTYPE_CODES[q.dtype],
-            plan.warpgroups, plan.smem_bytes)
-    index, (current_device, raw_stream) = q.device.index, _cuda_bindings()
+def _call(name: str, args: tuple, device: torch.device, what: str) -> None:
+    """Calls the C entry point `name` with `args` and the current stream of
+    `device` (made the current device where it is not); raises on an error."""
+    index, (current_device, raw_stream) = device.index, _cuda_bindings()
     if index == current_device():
         err = _kernel_fn(name)(*args, raw_stream(index))
     else:
         with torch.cuda.device(index):
             err = _kernel_fn(name)(*args, raw_stream(index))
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} at "
-                           f"q={tuple(q.shape)} k={tuple(k.shape)} {q.dtype}")
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} at {what}")
+
+
+def _launch(name: str, tensors, q: torch.Tensor, k: torch.Tensor, plan) -> None:
+    """Calls the kernel entry point `name` with the tensors' pointers (None:
+    a null pointer), the shape, the dtype code and the plan's (warpgroups,
+    smem_bytes; a backward plan's splits between them)."""
+    bh, tq, d = q.shape
+    ints = (plan.warpgroups, plan.splits, plan.smem_bytes) if isinstance(plan, BwdKernelPlan) else (
+        plan.warpgroups, plan.smem_bytes)
+    args = (*(None if t is None else t.data_ptr() for t in tensors), bh, tq, k.shape[1], d,
+            _DTYPE_CODES[q.dtype], *ints)
+    _call(name, args, q.device, f"q={tuple(q.shape)} k={tuple(k.shape)} {q.dtype}")
 
 
 def _tma_padded(forward, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -367,14 +432,54 @@ def _bwd_plan(q: torch.Tensor, k: torch.Tensor, plan: Optional[FlashBwdPlan]) ->
     return plan_flash_bwd(q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.dtype) if plan is None else plan
 
 
-def _check_tma(who: str, *tensors: torch.Tensor) -> None:
-    """The bf16 kernels load their tiles by TMA: rows of a multiple of 16
-    bytes (D % 8 == 0), LSE and delta rows starting on 16 bytes (Tq % 4 ==
-    0), 16-byte aligned tensors (`flash_backward` pads where they are not)."""
+def _check_layout(who: str, *tensors: torch.Tensor) -> None:
+    """What the kernels' tile loads take (`flash_backward` pads where they do
+    not): bf16 by TMA, rows of a multiple of 16 bytes (D % 8 == 0), LSE and
+    delta rows starting on 16 bytes (Tq % 4 == 0) and 16-byte aligned
+    tensors; fp32 by 16-byte cp.async, D % 4 == 0 and 16-byte aligned q, k,
+    v, dO (the first four tensors)."""
     q = tensors[0]
     if q.dtype == torch.bfloat16 and (q.shape[2] % 8 or q.shape[1] % 4 or any(t.data_ptr() % 16 for t in tensors)):
         raise ValueError(f"{who}: bf16 kernels want D % 8 == 0, Tq % 4 == 0 and 16-byte aligned tensors, got "
                          f"q {tuple(q.shape)}")
+    if q.dtype == torch.float32 and (q.shape[2] % 4 or any(t.data_ptr() % 16 for t in tensors[:4])):
+        raise ValueError(f"{who}: fp32 kernels want D % 4 == 0 and 16-byte aligned q, k, v, dO, got "
+                         f"q {tuple(q.shape)}")
+
+
+def flash_bwd_reduce_plain(ws: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the split reduce: ws[0] + ws[1] + ..., summed
+    in that order, as the kernel sums."""
+    out = ws[0].clone()
+    for part in ws[1:]:
+        out += part
+    return out
+
+
+def flash_bwd_reduce(ws: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """out = ws[0] + ws[1] + ... in that order: the fp32 kernels' split
+    partials, ws (splits >= 2, *out.shape) fp32, out contiguous fp32 with a
+    multiple of 4 elements.  On CUDA tensors it launches the reduce kernel
+    (and counts the launch in `flash_bwd_reduce.launches`) or raises; on CPU
+    tensors it computes the plain version into out."""
+    if ws.dtype != torch.float32 or out.dtype != torch.float32 or ws.shape[1:] != out.shape or ws.shape[0] < 2:
+        raise ValueError(f"flash_bwd_reduce: ws {tuple(ws.shape)} {ws.dtype} does not split out "
+                         f"{tuple(out.shape)} {out.dtype}")
+    if ws.device.type == "cpu" and out.device.type == "cpu":
+        return out.copy_(flash_bwd_reduce_plain(ws))
+    _check_cuda("flash_bwd_reduce", ws, out)
+    _call("jig_flash_bwd_reduce", (ws.data_ptr(), out.data_ptr(), out.numel(), ws.shape[0]), out.device,
+          f"ws={tuple(ws.shape)}")
+    flash_bwd_reduce.launches += 1
+    return out
+
+
+flash_bwd_reduce.launches = 0
+
+
+def _split_workspace(kp: BwdKernelPlan, out: torch.Tensor) -> Optional[torch.Tensor]:
+    """The (splits, *out.shape) fp32 workspace of a split fp32 launch, else None."""
+    return torch.empty((kp.splits, *out.shape), dtype=torch.float32, device=out.device) if kp.splits > 1 else None
 
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
@@ -382,13 +487,18 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Ten
     """(dq, delta) from the dq kernel (CUDA tensors only; counts its launches
     in `flash_bwd_dq.launches`): delta = rowsum(dO * O) (BH, Tq, 1) fp32, as
     the kernel computes it for the dkv kernel.  lse: (BH, Tq, 1) fp32.
-    `plan` defaults to `plan_flash_bwd`'s."""
+    `plan` defaults to `plan_flash_bwd`'s; where it splits the fp32 key loop,
+    `flash_bwd_reduce` sums the partials."""
     _check_cuda("flash_bwd_dq", q, k, v, o, do, lse)
-    _check_tma("flash_bwd_dq", q, k, v, o, do, lse)
+    _check_layout("flash_bwd_dq", q, k, v, do, o, lse)
+    kp = _bwd_plan(q, k, plan).dq
     dq = torch.empty_like(q)
     delta = torch.empty((q.shape[0], q.shape[1], 1), dtype=torch.float32, device=q.device)
-    _launch("jig_flash_bwd_dq", (q, k, v, o, do, lse, delta, dq), q, k, _bwd_plan(q, k, plan).dq)
+    ws = _split_workspace(kp, dq)
+    _launch("jig_flash_bwd_dq", (q, k, v, o, do, lse, delta, dq, ws), q, k, kp)
     flash_bwd_dq.launches += 1
+    if ws is not None:
+        flash_bwd_reduce(ws, dq)
     return dq, delta
 
 
@@ -400,12 +510,22 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) from the dkv kernel (CUDA tensors only; counts its launches
     in `flash_bwd_dkv.launches`).  lse, delta: (BH, Tq, 1) fp32, delta from
-    `flash_bwd_dq`."""
+    `flash_bwd_dq`.  fp32: dk and dv are the two halves of one (2, BH, Tk,
+    D) buffer, which one `flash_bwd_reduce` fills where the plan splits the q
+    loop."""
     _check_cuda("flash_bwd_dkv", q, k, v, do, lse, delta)
-    _check_tma("flash_bwd_dkv", q, k, v, do, lse, delta)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("jig_flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q, k, _bwd_plan(q, k, plan).dkv)
+    _check_layout("flash_bwd_dkv", q, k, v, do, lse, delta)
+    kp = _bwd_plan(q, k, plan).dkv
+    if q.dtype == torch.float32:
+        dkv = torch.empty((2, *k.shape), dtype=torch.float32, device=k.device)
+        dk, dv, ws = dkv[0], dkv[1], _split_workspace(kp, dkv)
+    else:
+        dkv, ws = None, None
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("jig_flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv, ws), q, k, kp)
     flash_bwd_dkv.launches += 1
+    if ws is not None:
+        flash_bwd_reduce(ws, dkv)
     return dk, dv
 
 
@@ -420,11 +540,14 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
 
     On CUDA tensors: the dq kernel (which also writes delta = rowsum(dO * O),
     the rowsum flash_attention.py:315 leaves to XLA), then the dkv kernel,
-    both on one `plan_flash_bwd` plan.  In bf16 where D % 8 or Tq % 4 is not
-    0 (or a view is misaligned) they run on copies padded with zero columns
-    and zero q rows (with dO, O and LSE rows 0): a zero column adds nothing
-    to any product, and a zero q row has dP = delta = 0, so dS = 0, and its
-    dQ row is dropped.  On CPU tensors: the plain version."""
+    both on one `plan_flash_bwd` plan (fp32: each followed by the split
+    reduce where the plan splits its loop).  In bf16 where D % 8 or Tq % 4 is
+    not 0 (or a view is misaligned) they run on copies padded with zero
+    columns and zero q rows (with dO, O and LSE rows 0): a zero column adds
+    nothing to any product, and a zero q row has dP = delta = 0, so dS = 0,
+    and its dQ row is dropped.  In fp32 where D % 4 is not 0 (or a view is
+    misaligned) they run on copies padded with zero columns.  On CPU tensors:
+    the plain version."""
     _check(q, k, v, "flash_backward")
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"flash_backward: o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} "
@@ -435,18 +558,33 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, o, lse, do)
     _check_cuda("flash_backward", q, k, v, o, lse, do)
+    return _bwd_padded(_backward_kernels, q, k, v, o, lse, do)
+
+
+def _backward_kernels(q, k, v, o, lse, do):
+    plan = _bwd_plan(q, k, None)
+    dq, delta = flash_bwd_dq(q, k, v, o, do, lse, plan)
+    return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, plan))
+
+
+def _bwd_padded(backward, q, k, v, o, lse, do):
+    """backward(q, k, v, o, lse, do) -> (dq, dk, dv) where the kernels' tile
+    loads take the tensors (`_check_layout`).  Elsewhere it runs on padded
+    copies and the gradients are sliced back: bf16 zero columns to D % 8 == 0
+    and zero q rows (dO, O and LSE rows 0) to Tq % 4 == 0, fp32 zero columns
+    to D % 4 == 0."""
     tq, d = q.shape[1], q.shape[2]
+    pad = torch.nn.functional.pad
     if q.dtype == torch.bfloat16 and (d % 8 or tq % 4 or any(t.data_ptr() % 16 for t in (q, k, v, o, do, lse))):
-        pad = torch.nn.functional.pad
         q, o, do = (pad(t, (0, -d % 8, 0, -tq % 4)) for t in (q, o, do))
         k, v = (pad(t, (0, -d % 8)) for t in (k, v))
         lse = pad(lse, (0, 0, 0, -tq % 4))
-    plan = _bwd_plan(q, k, None)
-    dq, delta = flash_bwd_dq(q, k, v, o, do, lse, plan)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, plan)
-    if q.shape[1:] != (tq, d):
-        dq, dk, dv = dq[:, :tq, :d].contiguous(), dk[..., :d].contiguous(), dv[..., :d].contiguous()
-    return dq, dk, dv
+    elif q.dtype == torch.float32 and (d % 4 or any(t.data_ptr() % 16 for t in (q, k, v, do))):
+        q, k, v, o, do = (pad(t, (0, -d % 4)) for t in (q, k, v, o, do))
+    else:
+        return backward(q, k, v, o, lse, do)
+    dq, dk, dv = backward(q, k, v, o, lse, do)
+    return dq[:, :tq, :d].contiguous(), dk[..., :d].contiguous(), dv[..., :d].contiguous()
 
 
 class FlashAttention(torch.autograd.Function):

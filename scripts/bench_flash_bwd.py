@@ -3,12 +3,20 @@
 where their k loop spends its clocks, on one NVIDIA card.
 
     python3 scripts/bench_flash_bwd.py            # the plan variants
+    python3 scripts/bench_flash_bwd.py --fp32     # the fp32 kernels under each split count
     python3 scripts/bench_flash_bwd.py --trace    # SM clocks per phase of the k loop
 
 Plan variants: at every bf16 row of `chip_smoke.BWD_SHAPES`, the dq kernel
 (with delta) with one and with two warpgroups per block (the dkv kernel, which
 has one, beside it), each variant's gradients checked against the plain
 version (chip_smoke's BWD_REL_TOL) and graph-timed as chip_smoke does.
+
+fp32: at every fp32 row of `chip_smoke.BWD_SHAPES` and `CROSS_SHAPES`, the dq
+(with delta) and dkv kernels with their loops split 1, 2, 4 and 8 ways (and the
+planner's count), each with its split reduce, the gradients checked against
+the plain version at 1e-4 of their max and graph-timed; the share of each
+kernel's FMA bound beside it.  The planner's split rule
+(`ops.flash_attention.f32_bwd_splits`) rests on these numbers.
 
 Trace: csrc/flash_bwd.cu is built with JIG_FLASH_TRACE = 1, whose
 kernels sum, in thread 0 of each warpgroup, the SM clocks (clock64) spent in
@@ -39,6 +47,44 @@ from jointimagegeneration_torch.ops.cuda import build  # noqa: E402
 
 TRACE_SHAPES = [(8, 2048, 32), (16, 4096, 32)]
 
+def f32_variant(plan: flash.FlashBwdPlan, splits: int) -> flash.FlashBwdPlan:
+    """The fp32 plan with both kernels' loops split `splits` ways."""
+    split = lambda kp: dataclasses.replace(kp, splits=splits, grid=kp.grid // kp.splits * splits)
+    return dataclasses.replace(plan, dkv=split(plan.dkv), dq=split(plan.dq))
+
+
+def bench_fp32(card: str) -> None:
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = [((bh, t, t, d), where) for (bh, t, d), dtype, where in smoke.BWD_SHAPES if dtype == torch.float32]
+    rows += [(shape, where) for shape, dtype, where in smoke.CROSS_SHAPES if dtype == torch.float32]
+    for (bh, tq, tk, d), where in rows:
+        q, k, v, do = smoke._attention_inputs(g, bh, tq, tk, d, torch.float32)
+        o, lse = flash.flash_forward(q, k, v)
+        want = flash.flash_backward_plain(q, k, v, o, lse, do)
+        base = flash.plan_flash_bwd(bh, tq, tk, d, torch.float32)
+        fma_ms = {n: k * bh * tq * tk * d / smoke.PEAK_FLOPS[torch.float32] * 1e3 for n, k in (("dq", 6), ("dkv", 8))}
+        for splits in sorted({1, 2, 4, 8, base.dkv.splits}):
+            if splits > -(-min(tq, tk) // base.dkv.rows):
+                continue
+            plan = f32_variant(base, splits)
+            dq, delta = flash.flash_bwd_dq(q, k, v, o, do, lse, plan)
+            dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, delta, plan)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+                err = (a - b).abs().max().item()
+                smoke.check(err <= 1e-4 * b.abs().max().item(),
+                            f"fp32 {name} disagrees at {(bh, tq, tk, d)} with {splits} splits: {err}")
+            dq_ms, _ = smoke.time_ms(lambda: flash.flash_bwd_dq(q, k, v, o, do, lse, plan), 20)
+            dkv_ms, _ = smoke.time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, plan), 20)
+            mark = " (the plan's)" if splits == base.dkv.splits == base.dq.splits else ""
+            print(f"flash_bwd fp32 plan {[bh, tq, tk, d]} ({where}): {splits} splits{mark}, blocks dkv "
+                  f"{plan.dkv.grid} dq {plan.dq.grid}: dq {dq_ms:.4f} ms ({100 * fma_ms['dq'] / dq_ms:.1f}% of its "
+                  f"FMA bound), dkv {dkv_ms:.4f} ms ({100 * fma_ms['dkv'] / dkv_ms:.1f}%), sum "
+                  f"{dq_ms + dkv_ms:.4f} ms; card {card}", flush=True)
+        del q, k, v, do, o, lse, want
+        torch.cuda.empty_cache()
+
+
 def variant(plan: flash.FlashBwdPlan, wg: int) -> flash.FlashBwdPlan:
     """The plan with `wg` warpgroups per dq block."""
     dq = dataclasses.replace(plan.dq, warpgroups=wg, threads=128 * wg,
@@ -66,15 +112,9 @@ def profiling_builds(defines: dict, source: str = flash.FLASH_BWD_SOURCE) -> dic
     for label, (proc, lib) in procs.items():
         log, _ = proc.communicate()
         smoke.check(proc.returncode == 0, f"nvcc failed for the {label} build:\n{log}")
-        cdll, table = ctypes.CDLL(str(lib)), {}
-        for name, (src, n_ptr, n_int) in flash._ENTRY_POINTS.items():
-            if src != source:
-                continue
-            fn = getattr(cdll, name)
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            table[name] = fn
-        out[label] = (cdll, table)
+        cdll = ctypes.CDLL(str(lib))
+        out[label] = (cdll, {name: flash._bind(cdll, name) for name, (src, _) in flash._ENTRY_POINTS.items()
+                             if src == source})
     return out
 
 
@@ -117,6 +157,9 @@ def main() -> int:
     card = smoke.card_line()
     if sys.argv[1:] == ["--trace"]:
         trace(card)
+        return 0
+    if sys.argv[1:] == ["--fp32"]:
+        bench_fp32(card)
         return 0
     g = torch.Generator(device="cuda").manual_seed(3)
     for (bh, t, d), dtype, where in smoke.BWD_SHAPES:

@@ -55,7 +55,7 @@ from jointimagegeneration_torch.train.steps import make_ldm_train_step, make_mas
 KINDS = [  # (kind, pattern on the kernel name), first match wins
     ("conv3d_kernel", r"conv3d_wgmma_kernel|conv3d_ffma_kernel|splitk_reduce_kernel|stats_reduce_kernel"),
     ("flash_fwd", r"flash_fwd"),
-    ("flash_bwd", r"flash_bwd"),
+    ("flash_bwd", r"flash_bwd|delta_f32_kernel|splits_reduce_f32_kernel"),
     ("optimizer", r"multi_tensor_apply|foreach|adam"),
     ("conv", r"xmma_fprop|implicit_gemm|conv|cudnn|wgrad|dgrad"),
     ("matmul", r"gemm|cutlass|cublas"),
@@ -102,8 +102,8 @@ def measure(label: str, step, steps: int, per_level: bool = False) -> dict:
         step()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    counters = (flash.flash_forward, flash.flash_bwd_dkv, flash.flash_bwd_dq, conv.conv3d_igemm,
-                conv.channel_stats_reduce)
+    counters = (flash.flash_forward, flash.flash_bwd_dkv, flash.flash_bwd_dq, flash.flash_bwd_reduce,
+                conv.conv3d_igemm, conv.channel_stats_reduce)
     for c in counters:
         c.launches = 0
     conv.conv3d_igemm.splitk_launches = 0

@@ -115,20 +115,39 @@ def test_backward_wrappers_check_inputs():
     for fn in (tflash.flash_bwd_dkv, tflash.flash_bwd_dq):  # kernel launchers: CUDA tensors only
         with pytest.raises(ValueError):
             fn(q, q, q, q, lse, lse)
+    for ws, out in ((torch.zeros(2, 64), torch.zeros(65)), (torch.zeros(1, 64), torch.zeros(64)),
+                    (torch.zeros(2, 64).double(), torch.zeros(64).double())):
+        with pytest.raises(ValueError):  # the split reduce: (splits >= 2, *out.shape) fp32
+            tflash.flash_bwd_reduce(ws, out)
     m = q.to("meta")
     with pytest.raises(ValueError):  # no kernel for the device, and no plain fallback
         tflash.flash_backward(m, m, m, m, lse.to("meta"), m)
+
+
+def test_split_reduce_plain_sums_in_split_order():
+    """On CPU tensors the reduce computes its plain version: the partials
+    summed in split order, as the kernel sums, bit for bit; no launch."""
+    ws = torch.from_numpy(np.random.RandomState(4).randn(5, 3, 8).astype(np.float32)) * 1e3
+    before = tflash.flash_bwd_reduce.launches
+    out = tflash.flash_bwd_reduce(ws, torch.empty(3, 8))
+    want = ws[0].clone()
+    for s in range(1, 5):
+        want = want + ws[s]
+    assert torch.equal(out, want) and torch.equal(tflash.flash_bwd_reduce_plain(ws), want)
+    assert tflash.flash_bwd_reduce.launches == before
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,tq,tk,d,dtype", [
     (8, 2048, 2048, 32, torch.bfloat16), (16, 1024, 1024, 32, torch.bfloat16), (16, 4096, 4096, 32, torch.bfloat16),
     (3, 100, 77, 40, torch.bfloat16), (2, 130, 200, 256, torch.bfloat16), (2, 300, 200, 64, torch.bfloat16),
-    (4, 512, 512, 32, torch.float32), (3, 100, 77, 40, torch.float32)])
+    (4, 512, 512, 32, torch.float32), (3, 100, 77, 40, torch.float32), (8, 512, 512, 64, torch.float32),
+    (8, 640, 640, 64, torch.float32), (3, 1000, 77, 40, torch.float32)])
 def test_backward_kernels_match_plain_on_cuda(bh, tq, tk, d, dtype):
     """The two Hopper kernels against the plain version on the card, with
     chip_smoke.py's limits: each of dQ, dK, dV within 2^-6 (bf16) or 1e-4
-    (fp32) of its max |plain|; one launch of each kernel; a second call
+    (fp32) of its max |plain|; one launch of each kernel, and of the split
+    reduce for each kernel whose fp32 loop the plan splits; a second call
     bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs the same check on one")
@@ -137,10 +156,13 @@ def test_backward_kernels_match_plain_on_cuda(bh, tq, tk, d, dtype):
     k, v = (torch.randn(bh, tk, d, generator=g, device="cuda").to(dtype) for _ in range(2))
     do = torch.randn(bh, tq, d, generator=g, device="cuda").to(dtype)
     o, lse = tflash.flash_forward(q, k, v)
-    before = (tflash.flash_bwd_dkv.launches, tflash.flash_bwd_dq.launches)
+    before = (tflash.flash_bwd_dkv.launches, tflash.flash_bwd_dq.launches, tflash.flash_bwd_reduce.launches)
     got = tflash.flash_backward(q, k, v, o, lse, do)
     torch.cuda.synchronize()
-    assert (tflash.flash_bwd_dkv.launches, tflash.flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    plan = tflash.plan_flash_bwd(bh, tq, tk, d, dtype)
+    reduces = plan.dkv.reduce_launches + plan.dq.reduce_launches
+    assert (tflash.flash_bwd_dkv.launches, tflash.flash_bwd_dq.launches, tflash.flash_bwd_reduce.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + reduces)
     want = tflash.flash_backward_plain(q, k, v, o, lse, do)
     again = tflash.flash_backward(q, k, v, o, lse, do)
     rel = 2**-6 if dtype == torch.bfloat16 else 1e-4

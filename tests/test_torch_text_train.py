@@ -300,3 +300,86 @@ def test_cli_dataset_context_and_rejects(tmp_path):
     assert "context" not in build_mask_dataset({**cfg, "feature_cond_encoder": {"type": "none"}})[0]
     with pytest.raises(NotImplementedError, match="dino"):
         tcli.run(_cli_cfg(tmp_path, feature_cond_encoder={"type": "dino"}), "bad")
+
+
+# a long report: one 512-token BERT chunk and a 128-token one (640 tokens), so
+# the refiner's self-attention, and the UNet's cross-attention over it, take
+# the flash rule on both sides
+LONG_CTX = (640, 128)
+LONG_REFINER = {"type": "selfattn", "embed_dim": 128, "n_heads": 2, "d_head": 64, "model_depth": 2, "dropout": 0.0}
+
+
+def test_long_report_step_through_flash_matches_jax(monkeypatch):
+    """The fp32 text step's loss and every gradient over a 640-token context:
+    the JAX step with its flash dispatch switched on (the Pallas forward and
+    backward kernels in interpret mode on the CPU, at every site of >= 512
+    query tokens: the UNet's self- and cross-attention and the refiner's 2 x 2
+    sites of 2 heads x 64) against the port's step, whose flash sites take
+    the kernels' plain versions on the CPU.  Within 1e-5 of each tensor's
+    max (the two sum the same products in another order)."""
+    import jointimagegeneration_tpu.ops.attention as jattn
+    import jointimagegeneration_tpu.ops.pallas.flash_attention as jflash
+    from jointimagegeneration_torch.ops import attention as tattn
+
+    jm = MaskSampler.create(context_dim=LONG_CTX[1], text_refiner=LONG_REFINER, **UNET)
+    rs = np.random.RandomState(17)
+    ctx = rs.randn(1, *LONG_CTX).astype(np.float32)
+    pu = init_flax(jm.unet, jnp.zeros((*SHAPE, 4)), jnp.zeros((1,)), cond=jnp.zeros((*SHAPE, 1)),
+                   context=jnp.asarray(ctx))
+    pr = init_flax(jm.refiner, jnp.asarray(ctx), seed=5)
+    tree = {"unet": {"params": pu}, "refiner": {"params": pr}}
+    item = SyntheticMaskDataset(num_cases=1, volume_shape=SHAPE[1:], num_classes=4)[0]
+    batch = {"mask": item["mask"][None], "image": rs.rand(*SHAPE, 1).astype(np.float32), "context": ctx}
+    cw = jnp.asarray([0.5, 1.0, 2.0, 1.5])
+    key = jax.random.key(21)
+    x0, cond, jctx = (jnp.asarray(batch[k]) for k in ("mask", "image", "context"))
+
+    jax_sites, real_jflash = [], jflash.flash_attention
+
+    def recording_jflash(q, k, v, **kw):
+        jax_sites.append((q.shape[2], k.shape[2], q.shape[3]))
+        return real_jflash(q, k, v, **kw)
+
+    monkeypatch.setattr(jattn, "_flash_available", lambda: True)
+    monkeypatch.setattr(jflash, "flash_attention", recording_jflash)
+
+    def loss_fn(params):
+        diff = jm.diffusion
+        kt, kx, kd = jax.random.split(key, 3)
+        t = jlosses.sample_train_timesteps(kt, 1, diff.time_steps)
+        xt = diff.sample_q_xt_given_x0(kx, x0, t)
+        context = jm.refine_context(params, jctx, rng=kd)
+        x0pred = jm.unet.apply(unet_vars(params), xt, t.astype(jnp.float32), cond=cond, context=context)
+        return jlosses.categorical_diffusion_loss(diff.theta_post(xt, x0, t), diff.theta_post_prob(xt, x0pred, t),
+                                                  x0, x0pred, cw)
+
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(tree)
+    # the refiner's 4 sites at 640 tokens and the UNet's cross-attention over them went through the kernels
+    assert jax_sites.count((640, 640, 64)) == 4 and (512, 640, 16) in jax_sites
+    want = unet_state_dict_from_jax(jax.device_get(jgrads))
+
+    port_sites, real_tflash = [], tattn.flash_attention
+
+    def recording_tflash(q, k, v):
+        port_sites.append((q.shape[2], k.shape[2], q.shape[3]))
+        return real_tflash(q, k, v)
+
+    monkeypatch.setattr(tattn, "flash_attention", recording_tflash)
+    tm = TMask.create(cond_channels=1, dtype=torch.float32, device="cpu", context_dim=LONG_CTX[1],
+                      text_refiner=LONG_REFINER, **UNET)
+    state = unet_state_dict_from_jax(tree)
+    named = dict(tm.named_parameters())
+    assert sorted(state) == sorted(named)
+    with torch.no_grad():
+        for n, p in named.items():
+            p.copy_(state[n])
+    noise = ReplayNoise(_draws(key, x0.shape))
+    loss, _ = mask_loss(tm, noise, {k: to_torch(v) for k, v in batch.items()}, to_torch(np.asarray(cw)))
+    names = list(named)
+    grads = dict(zip(names, torch.autograd.grad(loss, [named[n] for n in names])))
+    assert sorted(set(port_sites)) == sorted(set(jax_sites)) and port_sites.count((640, 640, 64)) == 4
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    assert sorted(want) == sorted(grads)
+    for n, g in grads.items():
+        _scaled(to_numpy(g), want[n].numpy(), 1e-5, n)
+    assert np.abs(to_numpy(grads["refiner.block_1.attn1.to_q.weight"])).max() > 0
