@@ -14,12 +14,15 @@ Phases, in order (any failure exits non-zero and prints no result line):
      plain version, one PyTorch library call computing the same function
      (`library_ms`) and the card's bound; then checked, not timed, at ragged
      and wide-head shapes off the main paths.  The flash forward (error, a
-     bitwise repeat, the launch plan taken), then the
+     bitwise repeat, the launch plan taken; the fp32 rows with their key
+     splits and merge, and the merge alone on the refiner rows' splits,
+     `flash_fwd_merge ...`, its bound the bytes that must cross HBM, O and
+     LSE written, as the backward's split reduce's the sum written), then the
      flash backward (dkv and dq kernels) at the training shapes, then the
      3x3x3 conv kernel (`conv3d ...` lines: error, a bitwise repeat, the
-     launch plan taken) at the fused and pallas_conv paths' shapes (library:
-     F.conv3d), then checked at every distinct conv of the fused path and at
-     its edge shapes.  The flash rows include the text-guided stage 1's
+     launch plan taken) at the fused and pallas_conv paths' shapes, bf16 and
+     fp32 (library: F.conv3d, TF32 off), then checked at every distinct conv
+     of the fused path, in bf16 and fp32, and at its edge shapes.  The flash rows include the text-guided stage 1's
      (CROSS_SHAPES: cross-attention over 4, 128, 512 and 640 context tokens in
      bf16, the refiner's 512- and 640-token self-attention in fp32 at D = 64);
      the fp32 backward rows also time the split reduce (`flash_bwd_reduce`)
@@ -63,7 +66,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
      each beside the unfused model, same weights and draws: s/step, launch
      counts (per step fused: 54 conv, 27 stats-reduce and a split-K reduce
      for each conv the launch planner splits; 8 conv under pallas_conv) and
-     probabilities against an fp32 forward (`fused path ...`);
+     probabilities against an fp32 forward (`fused path ...`); then the
+     'kernel' path in fp32 (`bf16: false`, the fp32 conv kernel), 2 steps:
+     s/step, peak GiB, the conv device ms per UNet level, the fp32 planner's
+     launches, probabilities within 1e-4 of the fp32 unfused forward's;
   8. train reference: three fp32 stage-1 train steps of a small UNet (T = 512
      at its attention sites, so the card runs the kernels) on the card against
      the same steps on the CPU: loss, every gradient and the params after
@@ -112,7 +118,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
      the end.
 Before each main path (6 per run and the latent path, 7 per variant, 9, each
 text path of 10, 12, each run of 13) every kernel launch counter (flash_fwd,
-flash_bwd_dkv, flash_bwd_dq, flash_bwd_reduce and the conv kernel's) is set to 0;
+flash_fwd_merge, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reduce and the conv
+kernel's) is set to 0;
 after it the counts must equal what the path implies.  The last lines are
 the sampling, latent, fused, train, text and real-data summaries, a JSON line
 with the kernel numbers, the card's name and power limit, and `{"ok": true,
@@ -168,6 +175,9 @@ FWD_EDGE_SHAPES = [  # (BH, Tq, Tk, D), dtype: ragged T, Tq != Tk, every head wi
     ((3, 100, 77, 40), torch.float32), ((2, 130, 70, 256), torch.float32), ((1, 7, 3, 5), torch.float32),
     ((2, 130, 40, 40), torch.bfloat16),  # Tk <= 64: two warpgroups, one of which sees no key
     ((1, 7, 3, 5), torch.bfloat16), ((2, 300, 200, 64), torch.bfloat16), ((1, 64, 64, 128), torch.bfloat16),
+    # fp32 splits: a ragged last key tile, uneven split ranges, one key tile per split, 4097 keys
+    ((3, 1000, 77, 40), torch.float32), ((2, 77, 1000, 64), torch.float32), ((1, 65, 4097, 16), torch.float32),
+    ((2, 64, 64, 128), torch.float32),
 ]
 # (BH, Tq, Tk, D), dtype, where: the text-guided stage-1 paths (8 heads of 32
 # at the five ds-8 sites of 8x16x16 = 2,048 tokens; the refiner 8 heads of 64
@@ -419,6 +429,42 @@ def time_ms(fn, iters: int, reps: int = 5) -> tuple:
     return start.elapsed_time(end) / (reps * iters), eager_ms
 
 
+def merge_row(flash, g, bh: int, t: int, d: int) -> dict:
+    """The fp32 forward's split merge (`flash_fwd_merge`) at the plan's splits
+    of a (bh, t, t, d) forward, on seeded partial states (m ~ N(0, 1), l in
+    [0.5, 1.5), O ~ N(0, 1)): error against its plain version, a bitwise
+    repeat, graph-timed ms beside the plain version's, and its bound: the
+    bytes that must cross HBM, O and LSE written once, at PEAK_BYTES.  The
+    workspace is left out: the forward kernel writes it just before, and it
+    is read back from L2 (`all_bytes_hbm_ms` counts it too, at HBM's rate,
+    as if it were not).  No one PyTorch call computes the merge."""
+    splits = flash.plan_flash_fwd(bh, t, t, d, torch.float32).splits
+    o_parts = torch.randn((splits, bh, t, d), generator=g, device="cuda")
+    ml = torch.stack([torch.randn((splits, bh, t), generator=g, device="cuda"),
+                      torch.rand((splits, bh, t), generator=g, device="cuda") + 0.5], dim=-1)
+    o, lse = torch.empty((bh, t, d), device="cuda"), torch.empty((bh, t, 1), device="cuda")
+    flash.flash_fwd_merge(o_parts, ml, o, lse)
+    o2, lse2 = flash.flash_fwd_merge(o_parts, ml, torch.empty_like(o), torch.empty_like(lse))
+    torch.cuda.synchronize()
+    check(torch.equal(o, o2) and torch.equal(lse, lse2), f"flash_fwd_merge: two calls differ at {(bh, t, d)}")
+    want_o, want_lse = flash.flash_fwd_merge_plain(o_parts, ml)
+    err = max((o - want_o).abs().max().item(), (lse - want_lse).abs().max().item())
+    tol = O_REL_TOL[torch.float32] * want_o.abs().max().item()
+    check(err <= tol, f"flash_fwd_merge disagrees at {(bh, t, d)}: {err} (tol {tol})")
+    ms, eager_ms = time_ms(lambda: flash.flash_fwd_merge(o_parts, ml, o, lse), 20)
+    plain_ms, _ = time_ms(lambda: flash.flash_fwd_merge_plain(o_parts, ml), 20)
+    out_bytes = (o.numel() + lse.numel()) * 4
+    all_bytes = out_bytes + (o_parts.numel() + ml.numel()) * 4
+    row = {"shape": [bh, t, t, d], "splits": splits, "max_abs_err": err, "tol": tol, "ms": ms, "eager_ms": eager_ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": out_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+           "all_bytes_hbm_ms": all_bytes / PEAK_BYTES * 1e3}
+    print(f"flash_fwd_merge {[bh, t, t, d]} fp32, {splits} splits: err {err:.3g} (tol {tol:.3g}), repeat bitwise "
+          f"equal; graph-timed {ms:.4f} ms (eager {eager_ms:.4f}), plain {plain_ms:.4f} ms; bound {row['bound_ms']:.4f} "
+          f"ms (O and LSE, {out_bytes / 1e6:.2f} MB, written at HBM's rate; with the {all_bytes / 1e6:.2f} MB "
+          f"workspace read too {row['all_bytes_hbm_ms']:.4f}), {100 * row['bound_ms'] / ms:.1f}% of bound", flush=True)
+    return row
+
+
 def compare(flash, q, k, v, label: str) -> tuple:
     """Max abs error of the kernel against its plain version on the same
     inputs, (O, LSE); fails past the stated tolerances, and unless a second
@@ -463,7 +509,7 @@ def flash_phase(flash) -> list:
         dname = str(dtype).replace("torch.", "")
         err_o, err_lse, tol_o = compare(flash, q, k, v, f"{(bh, t, tk, d)} {dname}")
         plan = flash.plan_flash_fwd(bh, t, tk, d, dtype)
-        ms, eager_ms = time_ms(lambda: flash.flash_forward(q, k, v), 50)
+        ms, eager_ms = time_ms(lambda: flash.flash_forward(q, k, v), 50)  # fp32: with the merge where it splits
         plain_ms, _ = time_ms(lambda: flash.flash_attention_plain(q, k, v), 10)
         q4, k4, v4 = q[None], k[None], v[None]
         library_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0), 50)
@@ -476,12 +522,14 @@ def flash_phase(flash) -> list:
                "err_o": err_o, "tol_o": tol_o, "err_lse": err_lse, "ms": ms, "eager_ms": eager_ms,
                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": "bytes" if limit == "bytes" else "operations", "limit": limit,
-               "tensor_bound_ms": t_ms, "exp_bound_ms": exp_ms, "plan": [plan.warpgroups, plan.smem_bytes]}
+               "tensor_bound_ms": t_ms, "exp_bound_ms": exp_ms,
+               "plan": [plan.warpgroups, plan.smem_bytes, plan.splits, plan.grid]}
         print(f"flash_fwd {row['shape']} {dname} ({where}): err O {err_o:.3g} (tol {tol_o:.3g}) "
               f"LSE {err_lse:.3g}, repeat bitwise equal; graph-timed kernel {ms:.4f} ms (eager {eager_ms:.4f}), "
               f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({limit}; "
               f"{'tensor' if dtype == torch.bfloat16 else 'fma'} {t_ms:.4f}, ex2 {exp_ms:.4f}), "
-              f"{100 * bound_ms / ms:.1f}% of bound; plan (warpgroups, smem bytes) {row['plan']}", flush=True)
+              f"{100 * bound_ms / ms:.1f}% of bound; plan (warpgroups, smem bytes, splits, blocks) {row['plan']}",
+              flush=True)
         rows.append(row)
         del q, k, v, q4, k4, v4
         torch.cuda.empty_cache()
@@ -494,8 +542,10 @@ def flash_phase(flash) -> list:
         err_o, err_lse, tol_o = compare(flash, q, k, v, f"{(bh, tq, tk, d)} {dname}")
         plan = flash.plan_flash_fwd(bh, tq, tk, d, dtype)
         print(f"flash_fwd {[bh, tq, tk, d]} {dname} (edge shape): err O {err_o:.3g} (tol {tol_o:.3g}) "
-              f"LSE {err_lse:.3g}, repeat bitwise equal; plan {[plan.warpgroups, plan.smem_bytes]}", flush=True)
-    return rows
+              f"LSE {err_lse:.3g}, repeat bitwise equal; plan {[plan.warpgroups, plan.smem_bytes, plan.splits]}",
+              flush=True)
+    merges = [merge_row(flash, g, 8, t, 64) for t in (TEXT_TOKENS, LONG_TEXT_TOKENS)]  # the refiner's rows
+    return rows, merges
 
 
 def _attention_inputs(g, bh, tq, tk, d, dtype):
@@ -583,7 +633,10 @@ def bwd_phase(flash) -> list:
                                   "eager_ms": reduce_ms[part][1], "splits": kp.splits,
                                   "plain_ms": time_ms(lambda: flash.flash_bwd_reduce_plain(ws), 20)[0],
                                   "library_ms": time_ms(lambda: torch.sum(ws, dim=0), 20)[0],
-                                  "bound_ms": (kp.splits + 1) * out.numel() * 4 / PEAK_BYTES * 1e3,
+                                  # the bytes that must cross HBM: the sum written once; the workspace,
+                                  # written by dkv just before, is read from L2
+                                  "bound_ms": out.numel() * 4 / PEAK_BYTES * 1e3,
+                                  "all_bytes_hbm_ms": (kp.splits + 1) * out.numel() * 4 / PEAK_BYTES * 1e3,
                                   "bound_by": "bytes"}
                 del ws, out
         plain_ms, _ = time_ms(lambda: flash.flash_backward_plain(q, k, v, o, lse, do), 5)
@@ -618,6 +671,9 @@ def bwd_phase(flash) -> list:
                         "dq": [plan.dq.warpgroups, plan.dq.smem_bytes, plan.dq.splits, plan.dq.grid]},
                "reduce": reduce_row}
         reduce_text = "".join(f", {part} split reduce {r[0]:.4f} (eager {r[1]:.4f})" for part, r in reduce_ms.items())
+        if reduce_row:
+            reduce_text += (f" (dkv reduce bound {reduce_row['bound_ms']:.4f}: the sum written at HBM's rate; "
+                            f"{reduce_row['all_bytes_hbm_ms']:.4f} with the workspace read from HBM too)")
         print(f"flash_bwd {row['shape']} {dname} ({where}): err dQ {errs['err_dq']:.3g} "
               f"(tol {errs['tol_dq']:.3g}) dK {errs['err_dk']:.3g} (tol {errs['tol_dk']:.3g}) "
               f"dV {errs['err_dv']:.3g} (tol {errs['tol_dv']:.3g}), repeat bitwise equal; graph-timed backward "
@@ -669,7 +725,10 @@ CONV_SHAPES = [  # (x shape, Cout, options, dtype, where the main paths run it)
     ((1, 32, 64, 64, 128), 128, "", torch.bfloat16, "L1 conv3d_3x3_v2, the pallas_conv site"),
     ((1, 32, 64, 64, 128), 128, "activate", torch.bfloat16, "L1 conv3d_3x3 with its SiLU epilogue"),
     ((1, 4, 8, 8, 640), 320, "affine bias stats", torch.bfloat16, "L4 up_4_0 conv1, mode A"),
-    ((1, 32, 64, 64, 128), 128, "affine bias stats", torch.float32, "L1 fp32 torso, mode A"),
+    ((1, 32, 64, 64, 128), 128, "affine bias stats", torch.float32, "L1 fp32, mode A (fused path in fp32)"),
+    ((1, 64, 128, 128, 64), 64, "affine bias stats", torch.float32, "L0 conv1 fp32, mode A (fused path in fp32)"),
+    ((1, 4, 8, 8, 640), 320, "affine bias stats", torch.float32, "L4 up_4_0 conv1 fp32, mode A, split-K"),
+    ((1, 32, 64, 64, 128), 128, "activate", torch.float32, "L1 conv3d_3x3 fp32 with its SiLU epilogue"),
     ((1, 32, 64, 64, 128), 128, "affine bias stats", torch.bfloat16, "L1 conv1, mode A"),
     ((1, 16, 32, 32, 384), 128, "affine bias stats", torch.bfloat16, "L2 up_2_0 conv1, mode A"),
     ((1, 8, 16, 16, 576), 256, "affine bias stats", torch.bfloat16, "L3 up_3_0 conv1, mode A"),
@@ -720,11 +779,11 @@ def fused_conv_calls(unet_cfg: dict, spatial, mode: str) -> list:
     return calls
 
 
-def planned_launches(conv, calls) -> dict:
-    """Kernel launches of bf16 conv calls, by counter, from the launch planner."""
+def planned_launches(conv, calls, dtype=torch.bfloat16) -> dict:
+    """Kernel launches of conv calls in `dtype`, by counter, from the launch planner."""
     total = {"conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
     for shape, cout, opts in calls:
-        for k, v in conv.plan_conv3d(*shape, cout, torch.bfloat16, conv_flags(opts)).launches.items():
+        for k, v in conv.plan_conv3d(*shape, cout, dtype, conv_flags(opts)).launches.items():
             total[k] += v
     return total
 
@@ -825,7 +884,8 @@ def conv_phase(conv) -> tuple:
     spatial = TWO_STAGE_CFG["stage1"]["dataset"]["volume_shape"]
     fused = sorted(set(fused_conv_calls(TWO_STAGE_CFG["stage1"]["unet_openai"], spatial, "kernel")),
                    key=lambda c: (-c[0][1], c[0][-1], c[1], c[2]))
-    checks = [(shape, cout, opts, torch.bfloat16, "fused path") for shape, cout, opts in fused]
+    checks = [(shape, cout, opts, dtype, "fused path") for dtype in (torch.bfloat16, torch.float32)
+              for shape, cout, opts in fused]
     checks += [(shape, cout, opts, dtype, "edge shape") for shape, cout, opts in CONV_EDGE_SHAPES
                for dtype in (torch.bfloat16, torch.float32)]
     for shape, cout, opts, dtype, kind in checks:
@@ -969,23 +1029,27 @@ def sampler_reference_phase(flash) -> dict:
         res = []
         for device in ("cpu", "cuda"):
             ldm, ddim = models[device, name]
-            calls = []
-            hook = ldm.unet.register_forward_pre_hook(lambda *_: calls.append(1))
-            before = flash.flash_forward.launches
+            calls, flash_calls = [], []
+            hooks = [ldm.unet.register_forward_pre_hook(lambda *_: calls.append(1))]
+            hooks += _flash_attention_calls((ldm.unet,), flash_calls)
+            before, merges = flash.flash_forward.launches, flash.flash_fwd_merge.launches
             with torch.inference_mode():
                 y = fn(ldm, _CpuDrawnNoise(4, device), ddim, lambda t: t.to(device))
-            hook.remove()
-            res.append((y.float().cpu(), flash.flash_forward.launches - before, len(calls)))
-        (y_cpu, n_cpu, calls_cpu), (y_gpu, n_gpu, calls_gpu) = res
+            for h in hooks:
+                h.remove()
+            res.append((y.float().cpu(), flash.flash_forward.launches - before, len(calls),
+                        flash.flash_fwd_merge.launches - merges, call_merges(flash, flash_calls)))
+        (y_cpu, n_cpu, calls_cpu, m_cpu, _), (y_gpu, n_gpu, calls_gpu, m_gpu, m_want) = res
         err = (y_gpu - y_cpu).abs().max().item()
         print(f"sampler reference ({route}): tiny fp32 SliceLDM, card vs CPU max abs diff {err:.3g} "
-              f"(tol {SAMPLER_REF_TOL}); {calls_gpu} UNet calls, flash_fwd launches cpu {n_cpu}, card {n_gpu}",
-              flush=True)
+              f"(tol {SAMPLER_REF_TOL}); {calls_gpu} UNet calls, flash_fwd launches cpu {n_cpu}, card {n_gpu}; "
+              f"flash_fwd_merge {m_gpu} (planned {m_want})", flush=True)
         check(bool(torch.isfinite(y_gpu).all()) and y_gpu.shape == y_cpu.shape, f"sampler reference ({route}): output")
-        check(calls_cpu == calls_gpu > 0 and n_cpu == 0 and n_gpu == sites * calls_gpu,
-              f"sampler reference ({route}): launches cpu {n_cpu}, card {n_gpu}, UNet calls {calls_gpu}")
+        check(calls_cpu == calls_gpu > 0 and n_cpu == m_cpu == 0 and n_gpu == sites * calls_gpu and m_gpu == m_want,
+              f"sampler reference ({route}): launches cpu {n_cpu}, card {n_gpu}, merges {m_gpu} (planned "
+              f"{m_want}), UNet calls {calls_gpu}")
         check(err <= SAMPLER_REF_TOL, f"sampler reference ({route}): card and CPU disagree by {err}")
-        out[route] = {"max_abs_err": err, "launches": n_gpu}
+        out[route] = {"max_abs_err": err, "launches": n_gpu, "merges": m_gpu}
     ldm, ddim = models["cuda", "t100"]
     kw = {"sampler": "dpm", "warm_start": 0.5, "guidance_scale": 2.0}
     with torch.inference_mode():
@@ -998,9 +1062,9 @@ def sampler_reference_phase(flash) -> dict:
 
 
 def _flash_attention_calls(modules, calls: list) -> list:
-    """Forward pre-hooks on every AttentionBlock of `modules` that append 1 per
-    call whose sequence the flash rule takes (T >= FLASH_MIN_SEQ, eligible
-    shape); returns the hook handles."""
+    """Forward pre-hooks on every AttentionBlock of `modules` that append the
+    flash forward's (BH, T, D) per call whose sequence the flash rule takes
+    (T >= FLASH_MIN_SEQ, eligible shape); returns the hook handles."""
     from jointimagegeneration_torch.nn.blocks import AttentionBlock
     from jointimagegeneration_torch.ops.attention import FLASH_MIN_SEQ
     from jointimagegeneration_torch.ops.flash_attention import flash_eligible
@@ -1009,7 +1073,7 @@ def _flash_attention_calls(modules, calls: list) -> list:
         x = args[0]
         t, d = math.prod(x.shape[1:-1]), x.shape[-1] // block.heads
         if t >= FLASH_MIN_SEQ and flash_eligible(t, t, d):
-            calls.append(1)
+            calls.append((x.shape[0] * block.heads, t, d))
 
     return [m.register_forward_pre_hook(hook) for mod in modules for m in mod.modules()
             if isinstance(m, AttentionBlock)]
@@ -1082,26 +1146,32 @@ def latent_reference_phase(flash) -> dict:
         res = []
         for device in ("cpu", "cuda"):
             latent, ms, ddim = models[device]
-            calls, ae_calls = [], []
+            calls, ae_calls, unet_flash = [], [], []
             hooks = [latent.unet.register_forward_pre_hook(lambda *_: calls.append(1))]
             hooks += _flash_attention_calls((latent.first_stage, latent.cond_stage), ae_calls)
-            before = flash.flash_forward.launches
+            hooks += _flash_attention_calls((latent.unet,), unet_flash)
+            before, merges = flash.flash_forward.launches, flash.flash_fwd_merge.launches
             with torch.inference_mode():
                 y = fn(latent, ms, _CpuDrawnNoise(4, device), ddim, lambda t: t.to(device))
             for h in hooks:
                 h.remove()
-            res.append((y.float().cpu(), flash.flash_forward.launches - before, len(calls), len(ae_calls)))
-        (y_cpu, n_cpu, calls_cpu, ae_cpu), (y_gpu, n_gpu, calls_gpu, ae_gpu) = res
+            res.append((y.float().cpu(), flash.flash_forward.launches - before, len(calls), len(ae_calls),
+                        flash.flash_fwd_merge.launches - merges, call_merges(flash, unet_flash + ae_calls)))
+        (y_cpu, n_cpu, calls_cpu, ae_cpu, m_cpu, _), (y_gpu, n_gpu, calls_gpu, ae_gpu, m_gpu, m_want) = res
         err = (y_gpu - y_cpu).abs().max().item()
         expected = sites * calls_gpu + ae_gpu
         print(f"latent reference ({route}): tiny fp32 LatentSliceLDM, card vs CPU max abs diff {err:.3g} "
               f"(tol {SAMPLER_REF_TOL}); {calls_gpu} UNet calls, {ae_gpu} AE attention calls at T >= 512; "
-              f"flash_fwd launches cpu {n_cpu}, card {n_gpu} = {sites} x {calls_gpu} + {ae_gpu}", flush=True)
+              f"flash_fwd launches cpu {n_cpu}, card {n_gpu} = {sites} x {calls_gpu} + {ae_gpu}; "
+              f"flash_fwd_merge {m_gpu} (planned {m_want})", flush=True)
         check(bool(torch.isfinite(y_gpu).all()) and y_gpu.shape == y_cpu.shape, f"latent reference ({route}): output")
-        check(calls_cpu == calls_gpu > 0 and ae_cpu == ae_gpu > 0 and n_cpu == 0 and n_gpu == expected,
-              f"latent reference ({route}): launches cpu {n_cpu}, card {n_gpu}, expected {expected}")
+        check(calls_cpu == calls_gpu > 0 and ae_cpu == ae_gpu > 0 and n_cpu == m_cpu == 0 and n_gpu == expected
+              and m_gpu == m_want,
+              f"latent reference ({route}): launches cpu {n_cpu}, card {n_gpu}, merges {m_gpu} (planned "
+              f"{m_want}), expected {expected}")
         check(err <= SAMPLER_REF_TOL, f"latent reference ({route}): card and CPU disagree by {err}")
-        out[route] = {"max_abs_err": err, "launches": n_gpu, "unet_calls": calls_gpu, "ae_flash_calls": ae_gpu}
+        out[route] = {"max_abs_err": err, "launches": n_gpu, "merges": m_gpu, "unet_calls": calls_gpu,
+                      "ae_flash_calls": ae_gpu}
     latent, _, ddim = models["cuda"]
     kw = {"sampler": "dpm", "warm_start": 0.5, "guidance_scale": 2.0}
     with torch.inference_mode():
@@ -1204,9 +1274,11 @@ def sampling_run(flash, cfg: dict, label: str, card: str, ctx_len: int = 0) -> d
     t0 = time.perf_counter()
     result = run(cfg, device="cuda")
     wall = time.perf_counter() - t0
-    launches = flash.flash_forward.launches
-    others = {k: v for k, v in _counts(flash).items() if k != "flash_fwd"}
+    launches, merges = flash.flash_forward.launches, flash.flash_fwd_merge.launches
+    others = {k: v for k, v in _counts(flash).items() if k not in ("flash_fwd", "flash_fwd_merge")}
     check(not any(others.values()), f"{label}: sampling launched other kernels: {others}")
+    want_merges = stage1_merges(flash, s1, ctx_len)
+    check(merges == want_merges, f"{label}: flash_fwd_merge launched {merges} times, expected {want_merges}")
     ct, labels = result["ct"], result["labels"]
     check(ct.shape == (1, cfg["slices"], *cfg["volume_shape"][1:]), f"{label}: CT shape {ct.shape}")
     check(labels.shape == (1, *cfg["volume_shape"]), f"{label}: label shape {labels.shape}")
@@ -1226,8 +1298,8 @@ def sampling_run(flash, cfg: dict, label: str, card: str, ctx_len: int = 0) -> d
           f"{sec['stage2'] / stage2_calls(cfg):.4f} s/call; run() wall {wall:.3f} s (incl. model init and NIfTI "
           f"writes); flash_fwd launches {launches} = expected {expected}; classes present "
           f"{np.unique(labels).size}; card {card}", flush=True)
-    return {"launches": launches, "s_per_slice": s_slice, "stage2_s": sec["stage2"], "stage1_s": sec["stage1"],
-            "stage2_calls": stage2_calls(cfg)}
+    return {"launches": launches, "merges": merges, "s_per_slice": s_slice, "stage2_s": sec["stage2"],
+            "stage1_s": sec["stage1"], "stage2_calls": stage2_calls(cfg)}
 
 
 def path_phase(flash, card: str) -> dict:
@@ -1398,7 +1470,8 @@ def latent_path_phase(flash, card: str) -> dict:
 def _counts(flash) -> dict:
     from jointimagegeneration_torch.ops import conv3d as conv
 
-    return {"flash_fwd": flash.flash_forward.launches, "flash_bwd_dkv": flash.flash_bwd_dkv.launches,
+    return {"flash_fwd": flash.flash_forward.launches, "flash_fwd_merge": flash.flash_fwd_merge.launches,
+            "flash_bwd_dkv": flash.flash_bwd_dkv.launches,
             "flash_bwd_dq": flash.flash_bwd_dq.launches, "flash_bwd_reduce": flash.flash_bwd_reduce.launches,
             "conv3d": conv.conv3d_igemm.launches,
             "conv3d_splitk_reduce": conv.conv3d_igemm.splitk_launches,
@@ -1409,7 +1482,7 @@ def _reset_counts(flash) -> None:
     from jointimagegeneration_torch.ops import conv3d as conv
 
     flash.flash_forward.launches = flash.flash_bwd_dkv.launches = flash.flash_bwd_dq.launches = 0
-    flash.flash_bwd_reduce.launches = 0
+    flash.flash_bwd_reduce.launches = flash.flash_fwd_merge.launches = 0
     conv.conv3d_igemm.launches = conv.conv3d_igemm.splitk_launches = conv.channel_stats_reduce.launches = 0
 
 
@@ -1432,6 +1505,7 @@ def fused_reference_phase(flash) -> dict:
     from jointimagegeneration_torch.core.runtime import configure_precision
     from jointimagegeneration_torch.models.mask_sampler import MaskSampler
     from jointimagegeneration_torch.nn.blocks import ResBlock
+    from jointimagegeneration_torch.ops import conv3d as conv
 
     configure_precision()
     shape, steps = (1, 4, 16, 16), 3
@@ -1459,9 +1533,11 @@ def fused_reference_phase(flash) -> dict:
             launched = {k: v - before[k] for k, v in _counts(flash).items()}
             runs.append((probs.cpu(), labels.cpu(), launched))
         (p_cpu, l_cpu, n_cpu), (p_gpu, l_gpu, n_gpu) = runs
-        n_blocks = 8  # 1 + 1 down, 2 mid, 2 + 2 up
-        want = {"conv3d": 2 * n_blocks * (1 + steps), "conv3d_splitk_reduce": 0,  # fp32: never split
-                "conv3d_stats_reduce": n_blocks * (1 + steps)}
+        tiny = {"base_channels": TINY_FUSED["model_channels"], "channel_mult": list(TINY_FUSED["channel_mult"]),
+                "num_res_blocks": TINY_FUSED["num_res_blocks"]}
+        calls = fused_conv_calls(tiny, shape[1:], mode)
+        check(len(calls) == 16, f"fused reference: {len(calls)} convs a forward, expected 16 (8 ResBlocks)")
+        want = {k: (1 + steps) * v for k, v in planned_launches(conv, calls, torch.float32).items()}
         check(not any(n_cpu.values()), f"fused reference ({mode}): kernel launches on the CPU {n_cpu}")
         check(all(n_gpu[k] == v for k, v in want.items()),
               f"fused reference ({mode}): launches on the card {n_gpu}, expected {want}")
@@ -1534,7 +1610,8 @@ def fused_path_phase(flash, card: str) -> dict:
     against the built UNet's); holds one forward's probabilities against an
     fp32 unfused forward: each bf16 variant may be at most twice as far from
     it as the bf16 unfused model is, plus 1e-3 (the variants round at other
-    places, and by as much)."""
+    places, and by as much).  Then the 'kernel' path in fp32
+    (`_fused_f32_run`)."""
     from jointimagegeneration_torch.cli.sample import build_mask_sampler, load_weights
     from jointimagegeneration_torch.diffusion.noise import NoiseSource
     from jointimagegeneration_torch.nn.blocks import ResBlock
@@ -1557,6 +1634,8 @@ def fused_path_phase(flash, card: str) -> dict:
     per_step = {"unfused": {}, "pallas_conv": planned_launches(conv, [((1, *l1, 128), 128, "")] * n_pallas)}
     for mode in ("kernel", "xla"):
         per_step[mode] = planned_launches(conv, fused_conv_calls(s1["unet_openai"], spatial, mode))
+    per_step["kernel fp32"] = planned_launches(conv, fused_conv_calls(s1["unet_openai"], spatial, "kernel"),
+                                               torch.float32)
     print(f"fused path: planned launches per step {per_step}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(5)
     xt = torch.nn.functional.one_hot(torch.randint(0, 12, shape, generator=gen, device="cuda"), 12).float()
@@ -1583,7 +1662,8 @@ def fused_path_phase(flash, card: str) -> dict:
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
         launches = _counts(flash)
-        expected = {"flash_fwd": steps * sites, "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "flash_bwd_reduce": 0,
+        expected = {"flash_fwd": steps * sites, "flash_fwd_merge": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+                    "flash_bwd_reduce": 0,
                     **{k: steps * per_step[name].get(k, 0) for k in
                        ("conv3d", "conv3d_splitk_reduce", "conv3d_stats_reduce")}}
         check(launches == expected, f"fused path ({name}): launches {launches}, expected {expected}")
@@ -1613,7 +1693,78 @@ def fused_path_phase(flash, card: str) -> dict:
     del base
     gc.collect()
     torch.cuda.empty_cache()
+    rows["kernel fp32"] = _fused_f32_run(flash, conv, s1, state, xt, t, cond, p32,
+                                         per_step["kernel fp32"], sites, card)
     return rows
+
+
+FUSED_F32_STEPS = 2
+
+
+def _fused_f32_run(flash, conv, s1: dict, state: dict, xt, t, cond, p32, per_step: dict, sites: int,
+                   card: str) -> dict:
+    """The fused 'kernel' path in fp32 (the stage-1 config with `bf16: false`,
+    as a sampling config sets it): one forward's probabilities against the
+    fp32 unfused forward `p32` (within FUSED_REF_TOL of max |p|: the two
+    differ in GroupNorm's one-pass moments and the summation order), the conv
+    device ms per UNet level over that forward (CUDA events around each conv
+    call's launches), then FUSED_F32_STEPS sampling steps with the unfused
+    model's weights and draws: s/step, peak GiB and the exact launches (the
+    fp32 planner's, with its split-K reduces; the flash sites in fp32)."""
+    from jointimagegeneration_torch.cli.sample import build_mask_sampler
+    from jointimagegeneration_torch.diffusion.noise import NoiseSource
+
+    steps, seed = FUSED_F32_STEPS, TWO_STAGE_CFG["seed"]
+    shape = tuple(xt.shape[:4])
+    ms = build_mask_sampler({**s1, "bf16": False}, "cuda", use_fused_resblock="kernel")
+    ms.unet.load_state_dict(state)
+    by_level, real_launch = {}, conv._launch_plan
+
+    def timed_launch(plan, fn, ptrs, x_shape, cout, *rest):  # device time of each conv call's launches
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        real_launch(plan, fn, ptrs, x_shape, cout, *rest)
+        ev[1].record()
+        by_level.setdefault(int(round(math.log2(shape[1] / x_shape[1]))), []).append(ev)
+
+    with torch.inference_mode():
+        ms.unet(xt, t, cond=cond)  # the warm-up
+        conv._launch_plan = timed_launch
+        try:
+            probs = ms.unet(xt, t, cond=cond)
+        finally:
+            conv._launch_plan = real_launch
+        torch.cuda.synchronize()
+        conv_ms = {lv: sum(a.elapsed_time(b) for a, b in evs) for lv, evs in sorted(by_level.items())}
+        err = _rel(probs, p32.cpu())
+        agree = float((probs.argmax(-1) == p32.argmax(-1)).float().mean())
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(flash)
+        t0 = time.perf_counter()
+        labels = ms.sample_labels(NoiseSource(seed, "cuda"), shape, cond=cond, num_steps=steps)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = _counts(flash)
+    t8 = math.prod(shape[1:]) // 8**3  # the flash sites: ds 8, 8 heads of 32
+    merges = steps * sites * fwd_merges(flash, 8, t8, t8, 32) if sites else 0
+    expected = {"flash_fwd": steps * sites, "flash_fwd_merge": merges, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+                "flash_bwd_reduce": 0, **{k: steps * v for k, v in per_step.items()}}
+    check(launches == expected, f"fused path (kernel fp32): launches {launches}, expected {expected}")
+    check(tuple(labels.shape) == shape and int(labels.min()) >= 0 and int(labels.max()) < 12,
+          f"fused path (kernel fp32): labels {tuple(labels.shape)}")
+    check(bool(torch.isfinite(probs).all()) and err <= FUSED_REF_TOL,
+          f"fused path (kernel fp32): probabilities {err} of max |p| from the fp32 unfused forward")
+    print(f"fused path (kernel fp32): {steps} steps at 64x128x128, base 64, fp32: {sec / steps:.4f} s/step, peak "
+          f"torch.cuda.max_memory_allocated {peak:.2f} GiB; probs max abs diff vs fp32 unfused {err:.3g} of max |p| "
+          f"(tol {FUSED_REF_TOL}), argmax agree {100 * agree:.2f}%; conv device ms per level in one forward "
+          f"{ {lv: round(v, 4) for lv, v in conv_ms.items()} } (sum {sum(conv_ms.values()):.4f}); launches "
+          f"{launches} = expected; card {card}", flush=True)
+    del ms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"s_per_step": sec / steps, "peak_gib": peak, "launches": launches, "max_rel_vs_fp32": err,
+            "argmax_agree_fp32": agree, "conv_ms_by_level": conv_ms}
 
 
 def _reference_steps(flash, label: str, device: str, named, step, batches) -> tuple:
@@ -1657,6 +1808,28 @@ def _compare_reference_steps(runs, label: str) -> dict:
                                             f"of its max (tol {TRAIN_REF_TOL})")
     check(worst["loss"] <= TRAIN_REF_TOL, f"{label}: losses {l_gpu} vs {l_cpu}")
     return worst
+
+
+def fwd_merges(flash, bh: int, tq: int, tk: int, d: int) -> int:
+    """Merge launches of one fp32 flash forward call: one where
+    `plan_flash_fwd` splits its key loop."""
+    return flash.plan_flash_fwd(bh, tq, tk, d, torch.float32).merge_launches
+
+
+def call_merges(flash, calls) -> int:
+    """Merge launches of fp32 flash forward calls of these (BH, T, D) shapes
+    (self-attention; D padded to a multiple of 4, as the wrapper pads it)."""
+    return sum(fwd_merges(flash, bh, t, t, -(-d // 4) * 4) for bh, t, d in calls)
+
+
+def stage1_merges(flash, s1: dict, ctx_len: int) -> int:
+    """flash_fwd_merge launches of one stage-1 chain: the refiner's fp32
+    sites (`stage1_launches(s1, 0, ctx_len)`, 0 where its context does not
+    take the flash rule) times the merges of one of its calls (a bf16 UNet
+    site never merges)."""
+    fce = s1.get("feature_cond_encoder") or {}
+    sites = stage1_launches(s1, 0, ctx_len)
+    return sites * fwd_merges(flash, fce.get("n_heads", 8), ctx_len, ctx_len, fce.get("d_head", 64)) if sites else 0
 
 
 def bwd_reduces(flash, bh: int, tq: int, tk: int, d: int) -> int:
@@ -1801,6 +1974,7 @@ def train_path_phase(flash, card: str, base: dict = STAGE1_TRAIN_CFG, label: str
                                if refiner_sites else 0)
     n_steps, n_eval = cfg["max_steps"], cfg["max_steps"] // cfg["validation_freq_steps"]
     expected = {"flash_fwd": sites * n_steps + n_eval * stage1_launches(cfg, cfg["eval_time_steps"], ctx_len),
+                "flash_fwd_merge": (n_steps + n_eval) * stage1_merges(flash, cfg, ctx_len),
                 "flash_bwd_dkv": sites * n_steps, "flash_bwd_dq": sites * n_steps,
                 "flash_bwd_reduce": reduces * n_steps,
                 "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}  # the unfused UNet
@@ -1867,6 +2041,7 @@ def train_path_phase(flash, card: str, base: dict = STAGE1_TRAIN_CFG, label: str
         cfg2 = dict(cfg, load_from=True, max_steps=n_steps + 2)
         expected2 = {k: (v // n_steps * 2 if k.startswith("flash_bwd") else 0) for k, v in expected.items()}
         expected2["flash_fwd"] = sites * 2
+        expected2["flash_fwd_merge"] = 2 * stage1_merges(flash, cfg, ctx_len)
         state2, launches2, wall2, printed = _train_run(flash, run, cfg2, "smoke")
         check(f"resumed from step {n_steps}" in printed, f"{label}: the rerun did not resume from step {n_steps}")
         check(state2.step == n_steps + 2, f"{label}: resumed run ended at step {state2.step}")
@@ -1950,8 +2125,12 @@ def text_reference_phase(flash) -> dict:
             steps.append(_reference_steps(flash, "text reference", device, named, step, [batch]))
         runs.append(([x for s in steps for x in s[0]], [x for s in steps for x in s[1]],
                      [x for s in steps for x in s[2]], {k: sum(s[3][k] for s in steps) for k in steps[0][3]}))
-    want = {"flash_fwd": sample_steps * per_call + refine, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
-            "flash_bwd_reduce": 0, "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
+    # merges: the UNet's sites at (4 heads of 16, 512, 512), the refiner's at (2 x 64), both fp32
+    m_unet = fwd_merges(flash, 4, TEXT_TOKENS, TEXT_TOKENS, 16)
+    m_ref = fwd_merges(flash, TEXT_REF_FCE["n_heads"], TEXT_TOKENS, TEXT_TOKENS, TEXT_REF_FCE["d_head"])
+    want = {"flash_fwd": sample_steps * per_call + refine, "flash_fwd_merge": sample_steps * per_call * m_unet
+            + refine * m_ref, "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "flash_bwd_reduce": 0, "conv3d": 0,
+            "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
     check(not any(sample_launches[0].values()) and sample_launches[1] == want,
           f"text reference (sample): launches cpu {sample_launches[0]}, card {sample_launches[1]}, expected {want}")
     agree = float(np.mean(labels[0] == labels[1]))
@@ -1963,6 +2142,7 @@ def text_reference_phase(flash) -> dict:
     step_want = {k: 2 * (per_call + refine) if k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq") else 0
                  for k in n_gpu}
     step_want["flash_bwd_reduce"] = 2 * reduces
+    step_want["flash_fwd_merge"] = 2 * (per_call * m_unet + refine * m_ref)
     check(n_gpu == step_want, f"text reference (train): launches {n_gpu}, expected {step_want}")
     worst = _compare_reference_steps(runs, "text reference")
     refiner = max(runs[1][1][0][n].abs().max().item() for n in runs[1][1][0] if n.startswith("refiner."))
@@ -2005,6 +2185,7 @@ def text_mask_path_phase(flash, card: str) -> dict:
     cfg["output_path"] = str(ROOT / "build" / "chip_smoke" / "text_mask")
     s1 = cfg["stage1"]
     expected = cfg["samples"] * stage1_launches(s1, cfg["mask_steps"], TEXT_TOKENS)
+    want_merges = cfg["samples"] * stage1_merges(flash, s1, TEXT_TOKENS)
     with tempfile.TemporaryDirectory() as tmp:
         cfg["text"] = {"features_npz": _text_features(Path(tmp) / "report.npz")}
         _reset_counts(flash)
@@ -2014,9 +2195,10 @@ def text_mask_path_phase(flash, card: str) -> dict:
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = _counts(flash)
-    others = {k: v for k, v in launches.items() if k != "flash_fwd"}
-    check(launches["flash_fwd"] == expected and not any(others.values()),
-          f"text mask path: launches {launches}, expected flash_fwd {expected}")
+    others = {k: v for k, v in launches.items() if k not in ("flash_fwd", "flash_fwd_merge")}
+    check(launches["flash_fwd"] == expected and launches["flash_fwd_merge"] == want_merges
+          and not any(others.values()),
+          f"text mask path: launches {launches}, expected flash_fwd {expected}, flash_fwd_merge {want_merges}")
     labels, m = out["labels"], out["metrics"][0]
     check(labels.shape == (1, cfg["samples"], *s1["dataset"]["volume_shape"]), f"text mask path: labels {labels.shape}")
     check(int(labels.min()) >= 0 and int(labels.max()) < s1["num_classes"], "text mask path: labels out of range")
@@ -2030,9 +2212,10 @@ def text_mask_path_phase(flash, card: str) -> dict:
           f"over {TEXT_TOKENS} tokens), {cfg['samples']} draws x {cfg['mask_steps']} steps: {s_step:.4f} s/step "
           f"(incl. each draw's refinement), peak torch.cuda.max_memory_allocated {peak:.2f} GiB, run() wall "
           f"{wall:.2f} s; dice {m['dice']:.4f} GED {m['ged']:.4f} HM-IoU {m['hm_iou']:.4f}; flash_fwd launches "
-          f"{launches['flash_fwd']} = {cfg['samples']} x ({cfg['mask_steps']} x 10 bf16 + 8 fp32 refiner); card "
-          f"{card}", flush=True)
-    return {"launches": launches["flash_fwd"], "s_per_step": s_step, "peak_gib": peak, **m}
+          f"{launches['flash_fwd']} = {cfg['samples']} x ({cfg['mask_steps']} x 10 bf16 + 8 fp32 refiner), "
+          f"flash_fwd_merge {launches['flash_fwd_merge']} (the refiner's); card {card}", flush=True)
+    return {"launches": launches["flash_fwd"], "merges": launches["flash_fwd_merge"], "s_per_step": s_step,
+            "peak_gib": peak, **m}
 
 
 def text_two_stage_phase(flash, card: str, ddim_path: dict) -> dict:
@@ -2074,7 +2257,8 @@ def ldm_train_path_phase(flash, card: str) -> dict:
     # of log_ddim_steps (20, at most T/2) forwards each, then one forward of
     # its batch for val/loss_simple
     panel_calls = 3 * min(cfg.get("log_ddim_steps", 20), cfg["model"]["timesteps"] // 2)
-    expected = {"flash_fwd": sites * (n_steps + n_eval * (1 + panel_calls)), "flash_bwd_dkv": sites * n_steps,
+    expected = {"flash_fwd": sites * (n_steps + n_eval * (1 + panel_calls)), "flash_fwd_merge": 0,
+                "flash_bwd_dkv": sites * n_steps,
                 "flash_bwd_dq": sites * n_steps, "flash_bwd_reduce": 0,  # bf16: no split reduce
                 "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}  # a 2D UNet
     try:
@@ -2323,7 +2507,8 @@ def real_data_phase(flash, card: str) -> dict:
     from jointimagegeneration_torch.diffusion.noise import NoiseSource
 
     root = ROOT / "build" / "chip_smoke" / "real"
-    zero = {"flash_bwd_reduce": 0, "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
+    zero = {"flash_fwd_merge": 0, "flash_bwd_reduce": 0, "conv3d": 0, "conv3d_splitk_reduce": 0,
+            "conv3d_stats_reduce": 0}
     out = {}
     try:
         fixture = write_real_fixture(root)
@@ -2463,7 +2648,7 @@ def main() -> int:
     build_s = build.build_all([flash.FLASH_SOURCE, flash.FLASH_BWD_SOURCE, conv.CONV3D_SOURCE])
     print(f"build: {build_s} ({time.perf_counter() - t0:.2f} s wall)", flush=True)
 
-    rows = flash_phase(flash)
+    rows, merge_rows = flash_phase(flash)
     bwd_rows = bwd_phase(flash)
     conv_rows, conv_edge = conv_phase(conv)
     reference_phase(flash)
@@ -2530,6 +2715,28 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "shapes": rows,
     }]
+    # the fp32 forward's split merge, as the refiner's 640-token row runs it
+    merge_launches = {"sampler_reference": sum(r["merges"] for r in sampler_ref.values()),
+                      "latent_reference": sum(r.get("merges", 0) for r in latent_ref.values()),
+                      "text_reference": text_ref["launches"]["flash_fwd_merge"],
+                      "text_mask_sampling": text_mask["merges"],
+                      "text_two_stage_sampling": text_two_stage["merges"],
+                      "stage1_long_report_training": long_train["launches"]["flash_fwd_merge"]}
+    merge_row = merge_rows[1]
+    kernels.append({
+        "name": "flash_fwd_merge",
+        "route": "cuda",
+        "source": "jointimagegeneration_torch/csrc/flash_fwd.cu",
+        "replaces": "jointimagegeneration_tpu/ops/pallas/flash_attention.py:149",
+        "note": ("flash_fwd_merge_f32_kernel: combines the fp32 forward's key-loop splits (m, l, O) in split order, "
+                 "where the TPU kernel walks every key tile of a q block in one sequential grid; the numbers are the "
+                 "(8, 640, 640, 64) fp32 row's, its bound O and LSE written once at HBM's rate"),
+        "launches": sum(merge_launches.values()),
+        "launches_by_path": merge_launches,
+        **{k: merge_row[k] for k in ("max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "splits", "all_bytes_hbm_ms")},
+        "shapes": merge_rows,
+    })
     train_row = bwd_rows[0]  # (8, 2048, 32) bf16: the stage-1 training site
     for name, line, grads in (("flash_bwd_dkv", 250, ("dk", "dv")), ("flash_bwd_dq", 282, ("dq",))):
         part = name.rsplit("_", 1)[1]
@@ -2568,15 +2775,16 @@ def main() -> int:
         "replaces": "jointimagegeneration_tpu/ops/pallas/flash_attention.py:250",
         "note": ("splits_reduce_f32_kernel: sums the fp32 dkv and dq kernels' split partials in split order, "
                  "where the TPU kernels accumulate over their sequential grid; the numbers are the (8, 640, 640, "
-                 "64) fp32 row's dkv reduce"),
+                 "64) fp32 row's dkv reduce, its bound the sum written once at HBM's rate"),
         "launches": sum(reduce_launches.values()),
         "launches_by_path": reduce_launches,
         **{k: reduce_row[k] for k in ("max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms", "splits")},
+                                      "library_ms", "splits", "all_bytes_hbm_ms")},
     })
     fused_rows = [r for r in conv_rows + conv_edge if "activate" not in r["options"] and r["options"]]
     bare_rows = [r for r in conv_rows + conv_edge if "activate" in r["options"] or not r["options"]]
     fused_launches = {f"fused_{m}_sampling": fused[m]["launches"]["conv3d"] for m in ("kernel", "xla")}
+    fused_launches["fused_kernel_fp32_sampling"] = fused["kernel fp32"]["launches"]["conv3d"]
     pallas_launches = {"pallas_conv_sampling": fused["pallas_conv"]["launches"]["conv3d"]}
     for name, line, row, launches, errs in (
             ("conv3d_fused_resblock", "fused_resblock.py:51", conv_rows[0], fused_launches, fused_rows),
@@ -2594,9 +2802,14 @@ def main() -> int:
         }
         if name == "conv3d_fused_resblock":
             for key in ("stats_reduce", "splitk_reduce"):
-                entry[f"{key}_launches"] = sum(fused[m]["launches"][f"conv3d_{key}"] for m in ("kernel", "xla"))
+                entry[f"{key}_launches"] = sum(fused[m]["launches"][f"conv3d_{key}"]
+                                               for m in ("kernel", "xla", "kernel fp32"))
+            entry["fp32"] = {k: next(r for r in conv_rows if r["dtype"] == "float32")[k]
+                             for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             entry["shapes"] = conv_rows
         if name == "conv3d_3x3":
+            entry["fp32"] = {k: next(r for r in conv_rows if r["dtype"] == "float32" and r["options"] == "activate")[k]
+                             for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             entry["note"] = ("no model path calls conv3d_3x3 itself (nor does the JAX package's); it is "
                              "the same function, entry point and kernel as conv3d_3x3_v2, whose launches "
                              "on the pallas_conv path these are")

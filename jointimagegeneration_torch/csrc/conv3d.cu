@@ -78,11 +78,35 @@
 // atomics anywhere: results are the same run to run and the launches can be
 // captured in a CUDA graph.
 //
-// fp32 (`conv3d_ffma_kernel`) stays on plain FFMA (not TF32), so fp32
-// results hold tightly against an fp32 reference: one block of 4 warps per
-// 64-voxel x 64-channel tile (M flattened), Cin in chunks of 16, a two-stage
-// register pipeline, each thread owning 8 voxels x 4 channels.  No main path
-// runs it; the card-vs-CPU fp32 checks do.
+// fp32 design (`conv3d_ffma_kernel`): plain FFMA (not TF32, which keeps a
+// 10-bit mantissa), so fp32 results hold tightly against an fp32 reference
+// and the bound is 2*M*27*Cin*Cout flops at 67 TFLOP/s (at level 1,
+// 32x64x64, 128 -> 128: 1.73 ms).  The bf16 design carried over to FFMA:
+//   * A block of 256 threads owns a 4 x 8 x 8 output tile x 64 channels.
+//     For each chunk of 16 input channels, the (4 + 2) x 10 x 10 halo is
+//     loaded once by cp.async (zero-filled past the volume and Cin) into a
+//     voxel-major staging buffer while the previous chunk is computed, then
+//     transposed once into channel-major halo planes, rows of 12 floats per
+//     (z, y): mode A's silu(x * scale + shift) is applied there, once per
+//     in-bounds element (the padding stays 0).  The 27 taps read that halo.
+//   * The weight arrives as the DHWIO kernel reshaped, (27 * Cin, Cout), so
+//     a tap's (16, 64) slab is 16 rows of 64 contiguous floats; slabs of the
+//     three taps dx = 0, 1, 2 of one (dz, dy) stream through a two-stage
+//     cp.async ring: K iteration = (chunk, (dz, dy)), chunk-major.
+//   * Each thread owns 8 voxels (x = 0 ... 7 of one (z, y) row of the tile) x
+//     8 channels (4 tx ... 4 tx + 3 and 32 + 4 tx ...): per input channel it
+//     reads its halo row as three float4 (x 0 ... 11, shared by the three dx
+//     taps) and per tap two float4 of weights, 9 shared loads for 192 FMAs;
+//     the 8 threads of a quarter-warp read one halo row (broadcast) and 32
+//     consecutive weights (conflict-free).
+//   * Split-K where the blocks are fewer than the SMs, as in bf16: ranges of
+//     K iterations write fp32 partials and `splitk_reduce_kernel<float>` sums
+//     them in order and runs the epilogue.
+// Epilogue: bias, residual, SiLU from registers, float4 stores; with stats,
+// each thread sums its 8 voxels per channel, the 32 row threads of a
+// channel are summed in order through shared memory, and the block's
+// [sum, sumsq] row goes to the (rows, 2, Cout) buffer `stats_reduce_kernel`
+// sums.  Two blocks on an SM (at most 128 registers a thread).
 //
 // Launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -100,7 +124,7 @@ enum : int { kAffine = 1, kBias = 2, kResidual = 4, kStats = 8, kActivate = 16 }
 
 struct Params {
   const void* x;       // (M, cin) in T
-  const void* wt;      // (cout, 27 * cin) in T
+  const void* wt;      // in T: bf16 (cout, 27 * cin); fp32 (27 * cin, cout), the DHWIO kernel reshaped
   const float* scale;  // (cin,) prologue
   const float* shift;  // (cin,)
   const float* bias;   // (cout,)
@@ -109,178 +133,252 @@ struct Params {
   float* partial;      // (stats rows, 2, cout)
   int d, h, w, cin, cout, m;
   bool vec;            // 16-byte loads of x and wt are aligned
-  // (the fields above keep their offsets of the fp32 kernel's first version, so its code is unchanged)
   bool vec_out;        // 16-byte loads and stores of res and out are aligned
-  float* split;        // (splits, M, cout) fp32 partial sums (bf16 split-K only)
+  float* split;        // (splits, M, cout) fp32 partial sums (split-K)
   int b, splits, flags;
 };
 
 __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
 
 // ---------------------------------------------------------------------------
-// fp32: FFMA implicit GEMM over flattened 64-voxel x 64-channel tiles.
+// fp32: FFMA over a shared-memory halo tile.
 
-constexpr int kBM = 64;        // output voxels per block
-constexpr int kBN = 64;        // output channels per block
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kPadF = 4;       // fp32 elements of row padding
-constexpr int kSC = kBN + 1;   // row stride of the fp32 epilogue tile
-constexpr int kSmemBytes = kBM * kSC * 4;  // the epilogue tile; the A/B tiles alias it
+constexpr int kFTZ = 4;                          // output planes of a block tile (4 x 8 x 8 voxels)
+constexpr int kFBN = 64;                         // output channels per block
+constexpr int kFKC = 16;                         // input channels per halo chunk
+constexpr int kFThreads = 256;                   // 32 tile rows (z, y) x 8 channel groups
+constexpr int kFStages = 2;                      // ring stages, each the 3 taps of one (dz, dy)
+constexpr int kFHV = (kFTZ + 2) * 10 * 10;       // halo voxels
+constexpr int kFRow = 12;                        // floats of a halo row: x 0 ... 9 and 2 unused
+constexpr int kFPlane = (kFTZ + 2) * 10 * kFRow + 4;  // floats of one channel's halo plane (+4: fewer bank conflicts)
+constexpr int kFSlab = 3 * kFKC * kFBN;          // floats of one ring stage: [dx][channel][n]
+constexpr int kFSmemBytes = 4 * (kFStages * kFSlab + kFKC * kFPlane + kFHV * kFKC);
+static_assert(2 * 32 * kFBN <= kFStages * kFSlab, "the stats scratch fits in the ring");
 
-// 4 consecutive floats (16 bytes) from src, zeros where !ok or past `left`.
-__device__ __forceinline__ uint4 load_chunk(const float* src, bool ok, int left, bool vec) {
-  uint4 r = make_uint4(0u, 0u, 0u, 0u);
-  if (ok && left > 0) {
-    if (vec && left >= 4) {
-      r = __ldg(reinterpret_cast<const uint4*>(src));
-    } else {
-      float* v = reinterpret_cast<float*>(&r);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (i < left) v[i] = src[i];
-    }
-  }
-  return r;
-}
+template <bool AFF>
+__global__ void __launch_bounds__(kFThreads, 2) conv3d_ffma_kernel(const Params p) {
+  extern __shared__ __align__(16) float smf[];
+  float* const ring = smf;                          // kFStages slabs
+  float* const halo = ring + kFStages * kFSlab;     // [channel][(z, y)][x], planes of kFPlane
+  float* const stg = halo + kFKC * kFPlane;         // [halo voxel][channel], the next chunk's copies
 
-template <bool AFF, bool BIAS, bool RES, bool STATS, bool ACT>
-__global__ void __launch_bounds__(kThreads) conv3d_ffma_kernel(const Params p) {
-  constexpr int E = 4;             // elements per 16-byte chunk
-  constexpr int BK = 4 * E;        // K chunk: four chunks per tile row
-  constexpr int SF = kBM + kPadF;  // tile row stride ([k][row])
-  static_assert(kBM == kBN, "the A and B tiles share one row mapping");
-
-  __shared__ __align__(16) unsigned char smem[kSmemBytes];
   const float* __restrict__ x = static_cast<const float*>(p.x);
-  const float* __restrict__ wt = static_cast<const float*>(p.wt);
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int cin = p.cin, cout = p.cout, D = p.d, H = p.h, W = p.w;
-  const int K = 27 * cin;
-  const int cc = (tid & 3) * E;  // this thread's column in the A and B tiles
+  const float* __restrict__ wk = static_cast<const float*>(p.wt);
+  const int tid = threadIdx.x, D = p.d, H = p.h, W = p.w, cin = p.cin, cout = p.cout;
+  const int nx = (W + 7) / 8, ny = (H + 7) / 8, nz = (D + kFTZ - 1) / kFTZ;
+  int t = blockIdx.x;
+  const int x0 = (t % nx) * 8;
+  t /= nx;
+  const int y0 = (t % ny) * 8;
+  t /= ny;
+  const int z0 = (t % nz) * kFTZ;
+  const int bb = t / nz;
+  const int n0 = blockIdx.y * kFBN;
+  const int n_it = 9 * ((cin + kFKC - 1) / kFKC);
+  const int it0 = static_cast<int>((long long)blockIdx.z * n_it / p.splits);
+  const int it1 = static_cast<int>((long long)(blockIdx.z + 1) * n_it / p.splits);
+  const int n_local = it1 - it0;
+  const int tx = tid & 7, ty = tid >> 3, oz = ty >> 3, oy = ty & 7;
 
-  // the two tile rows this thread loads: voxel m0 + row of A, channel n0 + row of B
-  int vm[2], vz[2], vy[2], vx[2];
-  bool vok[2];
+  // halo voxel hv <-> input voxel (z0 + iz - 1, y0 + iy - 1, x0 + ix - 1)
+  auto halo_voxel = [&](int hv, int& ix, int& iy, int& iz) -> bool {
+    ix = hv % 10;
+    iy = (hv / 10) % 10;
+    iz = hv / 100;
+    const int z = z0 + iz - 1, y = y0 + iy - 1, xx = x0 + ix - 1;
+    return z >= 0 && z < D && y >= 0 && y < H && xx >= 0 && xx < W;
+  };
+  // chunk c's halo, voxel-major, into the staging buffer: zeros past the volume and cin
+  auto load_staging = [&](int c) {
+    for (int e = tid; e < kFHV * (kFKC / 4); e += kFThreads) {
+      const int hv = e >> 2, ch = c * kFKC + (e & 3) * 4;
+      int ix, iy, iz;
+      const bool in = halo_voxel(hv, ix, iy, iz);
+      const float* src = in ? x + ((((size_t)bb * D + z0 + iz - 1) * H + y0 + iy - 1) * W + x0 + ix - 1) * cin + ch : x;
+      float* dst = stg + hv * kFKC + (e & 3) * 4;
+      if (p.vec) {
+        const bool ok = in && ch < cin;
+        cp_async16(smem_u32(dst), src, ok ? 16 : 0);
+      } else {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + (tid >> 2) + 32 * i;
-    vok[i] = m < p.m;
-    vm[i] = m;
-    vx[i] = m % W;
-    const int r = m / W;
-    vy[i] = r % H;
-    vz[i] = (r / H) % D;
-  }
-  const int n_cchunks = (cin + BK - 1) / BK;
-  const int n_iters = 27 * n_cchunks;
-
-  uint4 ra[2], rb[2];
-  bool aok[2];
-  auto load = [&](int it) -> int {
-    const int tap = it / n_cchunks;
-    const int c = (it - tap * n_cchunks) * BK + cc;
-    const int dz = tap / 9, dy = (tap / 3) % 3, dx = tap % 3;
-    const int delta = ((dz - 1) * H + (dy - 1)) * W + (dx - 1);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int zi = vz[i] + dz - 1, yi = vy[i] + dy - 1, xi = vx[i] + dx - 1;
-      const bool ok = vok[i] && zi >= 0 && zi < D && yi >= 0 && yi < H && xi >= 0 && xi < W;
-      aok[i] = ok;
-      ra[i] = load_chunk(ok ? x + (size_t)(vm[i] + delta) * cin + c : x, ok, cin - c, p.vec);
-      const int n = n0 + (tid >> 2) + 32 * i;
-      rb[i] = load_chunk(n < cout ? wt + (size_t)n * K + tap * cin + c : wt, n < cout, cin - c, p.vec);
+        for (int q = 0; q < 4; ++q) dst[q] = in && ch + q < cin ? src[q] : 0.f;
+      }
     }
-    return c;
+  };
+  // staging -> the channel-major halo planes, with mode A's prologue on in-bounds elements; a
+  // thread's channel is fixed (the stride is a multiple of kFKC)
+  auto transpose = [&](int c) {
+    const int cl = tid & (kFKC - 1), ch = c * kFKC + cl;
+    float sc = 0.f, sf = 0.f;
+    if (AFF && ch < cin) {
+      sc = __ldg(p.scale + ch);
+      sf = __ldg(p.shift + ch);
+    }
+    for (int e = tid; e < kFHV * kFKC; e += kFThreads) {
+      const int hv = e / kFKC;
+      int ix, iy, iz;
+      const bool in = halo_voxel(hv, ix, iy, iz);
+      float v = stg[e];
+      if (AFF) v = in && ch < cin ? silu(fmaf(v, sc, sf)) : 0.f;  // the padding and channels past cin stay 0
+      halo[cl * kFPlane + (iz * 10 + iy) * kFRow + ix] = v;
+    }
+  };
+  // local iteration j = (chunk, (dz, dy)) -> the (16, 64) slabs of its taps dx = 0, 1, 2 into stage j % 2
+  auto load_b = [&](int j) {
+    const int it = it0 + j, c = it / 9, r9 = it - c * 9;
+    float* const slab = ring + (j & 1) * kFSlab;
+    for (int e = tid; e < 3 * kFKC * (kFBN / 4); e += kFThreads) {
+      const int dx = e / (kFKC * kFBN / 4), k = (e / (kFBN / 4)) % kFKC, n = (e % (kFBN / 4)) * 4;
+      const int ch = c * kFKC + k, tap = r9 * 3 + dx;
+      const bool in = ch < cin;
+      const float* src = in ? wk + ((size_t)tap * cin + ch) * cout + n0 + n : wk;
+      float* dst = slab + (dx * kFKC + k) * kFBN + n;
+      if (p.vec) {
+        const bool ok = in && n0 + n < cout;
+        cp_async16(smem_u32(dst), ok ? src : wk, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dst[q] = in && n0 + n + q < cout ? src[q] : 0.f;
+      }
+    }
   };
 
-  float acc[8][4];  // [voxel][channel] of the micro-tile
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const int tx = tid % 16, ty = tid / 16;  // micro-tile coordinates
-
-  int cur_c = load(0);
-  for (int it = 0; it < n_iters; ++it) {
-    // registers -> shared memory, with the prologue on in-bounds elements
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = (tid >> 2) + 32 * i;
-      uint4 a = ra[i];
-      if constexpr (AFF) {
-        float* v = reinterpret_cast<float*>(&a);
-#pragma unroll
-        for (int j = 0; j < E; ++j) {
-          const int ch = cur_c + j;
-          float f = 0.f;  // the padding taps and channels past cin stay 0
-          if (aok[i] && ch < cin) f = silu(v[j] * __ldg(p.scale + ch) + __ldg(p.shift + ch));
-          v[j] = f;
-        }
-      }
-      float* sA = reinterpret_cast<float*>(smem);
-      float* sB = sA + BK * SF;
-      const float* va = reinterpret_cast<const float*>(&a);
-      const float* vb = reinterpret_cast<const float*>(&rb[i]);
-#pragma unroll
-      for (int j = 0; j < E; ++j) {
-        sA[(cc + j) * SF + row] = va[j];
-        sB[(cc + j) * SF + row] = vb[j];
-      }
-    }
-    __syncthreads();
-    int next_c = 0;
-    if (it + 1 < n_iters) next_c = load(it + 1);  // in flight during the product below
-
-    const float* sA = reinterpret_cast<const float*>(smem);
-    const float* sB = sA + BK * SF;
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(sA + k * SF + 8 * ty);
-      const float4 a1 = *reinterpret_cast<const float4*>(sA + k * SF + 8 * ty + 4);
-      const float4 b = *reinterpret_cast<const float4*>(sB + k * SF + 4 * tx);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-    cur_c = next_c;
-  }
-
-  // accumulators -> the fp32 epilogue tile (aliases the A/B tiles, now consumed)
-  float* sC = reinterpret_cast<float*>(smem);
+  float acc[8][8];  // [x][channel: 4 tx + j for j < 4, 32 + 4 tx + j - 4 above]
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) sC[(8 * ty + i) * kSC + 4 * tx + j] = acc[i][j];
-  __syncthreads();
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  if (n_local > 0) {
+    load_staging(it0 / 9);
+    load_b(0);
+  }
+  cp_async_commit();
+  int chunk_loaded = -1;
+  for (int j = 0; j < n_local; ++j) {
+    const int it = it0 + j, c = it / 9, r9 = it - c * 9;
+    if (c != chunk_loaded) {
+      cp_async_wait<0>();
+      __syncthreads();  // the staging copies (and stage j) have landed, from every thread
+      transpose(c);
+      __syncthreads();  // the halo is complete and the staging free
+      if ((c + 1) * 9 < it1) load_staging(c + 1);  // joins stage j + 1's group, under this chunk's products
+      chunk_loaded = c;
+    }
+    if (j + 1 < n_local) load_b(j + 1);  // into the stage iteration j - 1 consumed
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // stage j is visible
+
+    const float* slab = ring + (j & 1) * kFSlab;
+    const float* arow = halo + ((oz + r9 / 3) * 10 + oy + r9 % 3) * kFRow;
+#pragma unroll
+    for (int k = 0; k < kFKC; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(arow + k * kFPlane);
+      const float4 a1 = *reinterpret_cast<const float4*>(arow + k * kFPlane + 4);
+      const float4 a2 = *reinterpret_cast<const float4*>(arow + k * kFPlane + 8);
+      const float a[12] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a2.x, a2.y, a2.z, a2.w};
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float* b = slab + (dx * kFKC + k) * kFBN + 4 * tx;
+        const float4 b0 = *reinterpret_cast<const float4*>(b);
+        const float4 b1 = *reinterpret_cast<const float4*>(b + 32);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jn = 0; jn < 8; ++jn) acc[i][jn] = fmaf(a[i + dx], bv[jn], acc[i][jn]);
+      }
+    }
+    __syncthreads();  // stage j (and, at a chunk's end, the halo) is consumed
+  }
+  cp_async_wait<0>();
+
+  const int z = z0 + oz, y = y0 + oy;
+  const bool row_ok = z < D && y < H;
+  const size_t mrow = (((size_t)bb * D + z) * H + y) * W;  // voxel index of (z, y, x = 0)
+  if (p.splits > 1) {  // fp32 partial sums; splitk_reduce_kernel runs the epilogue
+    float* __restrict__ split = p.split + (size_t)blockIdx.z * p.m * cout;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (!row_ok || x0 + i >= W) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + 32 * h + 4 * tx;
+        float* o = split + (mrow + x0 + i) * cout + n;
+        if (p.vec_out && n < cout) {
+          *reinterpret_cast<float4*>(o) = make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                                                      acc[i][4 * h + 3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (n + q < cout) o[q] = acc[i][4 * h + q];
+        }
+      }
+    }
+    return;
+  }
 
   const float* __restrict__ res = static_cast<const float*>(p.res);
   float* __restrict__ out = static_cast<float*>(p.out);
-  for (int e = tid; e < kBM * kBN; e += kThreads) {
-    const int row = e / kBN, col = e % kBN;
-    const int m = m0 + row, n = n0 + col;
-    float v = 0.f;
-    if (m < p.m && n < cout) {
-      v = sC[row * kSC + col];
-      if constexpr (BIAS) v += __ldg(p.bias + n);
-      if constexpr (RES) v += res[(size_t)m * cout + n];
-      out[(size_t)m * cout + n] = ACT ? silu(v) : v;
+  const int flags = p.flags;
+  float s1[8] = {}, s2[8] = {};  // this thread's per-channel sums over its voxels
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + 32 * h + 4 * tx;
+    float bias[4] = {};
+    if (flags & kBias) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) bias[q] = n + q < cout ? __ldg(p.bias + n + q) : 0.f;
     }
-    sC[row * kSC + col] = v;  // masked entries add nothing to the stats
-  }
-  if constexpr (STATS) {
-    __syncthreads();
-    if (tid < kBN && n0 + tid < cout) {
-      float s = 0.f, s2 = 0.f;
-      for (int r = 0; r < kBM; ++r) {
-        const float v = sC[r * kSC + tid];
-        s += v;
-        s2 += v * v;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (!row_ok || x0 + i >= W) continue;
+      const size_t off = (mrow + x0 + i) * cout + n;
+      float v[4], r[4] = {};
+      if (flags & kResidual) {
+        if (p.vec_out && n < cout) {
+          const float4 rv = *reinterpret_cast<const float4*>(res + off);
+          r[0] = rv.x, r[1] = rv.y, r[2] = rv.z, r[3] = rv.w;
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) r[q] = n + q < cout ? res[off + q] : 0.f;
+        }
       }
-      p.partial[((size_t)blockIdx.x * 2) * cout + n0 + tid] = s;
-      p.partial[((size_t)blockIdx.x * 2 + 1) * cout + n0 + tid] = s2;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        v[q] = n + q < cout ? acc[i][4 * h + q] + bias[q] + r[q] : 0.f;  // masked entries add nothing to the stats
+        s1[4 * h + q] += v[q];
+        s2[4 * h + q] += v[q] * v[q];
+        if (flags & kActivate) v[q] = silu(v[q]);
+      }
+      if (p.vec_out && n < cout) {
+        *reinterpret_cast<float4*>(out + off) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (n + q < cout) out[off + q] = v[q];
+      }
+    }
+  }
+  if (flags & kStats) {  // the 32 row threads of each channel, summed in order of ty
+    float* const red = ring;  // (2, 32, 64): the ring is consumed
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        red[ty * kFBN + 32 * h + 4 * tx + q] = s1[4 * h + q];
+        red[32 * kFBN + ty * kFBN + 32 * h + 4 * tx + q] = s2[4 * h + q];
+      }
+    __syncthreads();
+    if (tid < kFBN && n0 + tid < cout) {
+      float a = 0.f, b = 0.f;
+      for (int r = 0; r < 32; ++r) {
+        a += red[r * kFBN + tid];
+        b += red[32 * kFBN + r * kFBN + tid];
+      }
+      p.partial[((size_t)blockIdx.x * 2) * cout + n0 + tid] = a;
+      p.partial[((size_t)blockIdx.x * 2 + 1) * cout + n0 + tid] = b;
     }
   }
 }
@@ -562,15 +660,21 @@ __global__ void __launch_bounds__(128 * TZ, TZ == 2 ? 2 : 1) conv3d_wgmma_kernel
   }
 }
 
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
 // The split-K epilogue: v = sum over s of split[s, m, n], in order s = 0, 1,
-// ...; then bias, residual, stats, SiLU and the bf16 cast.  Block (32, 8) owns
-// 64 rows x 32 channels; with stats it writes its per-channel [sum, sumsq]
-// to row blockIdx.x of partial (ceil(m / 64), 2, cout), each thread summing
-// its 8 rows in order, then thread row 0 summing the 8 partials in order.
+// ...; then bias, residual, stats, SiLU and the cast to T (bf16 or fp32).
+// Block (32, 8) owns 64 rows x 32 channels; with stats it writes its
+// per-channel [sum, sumsq] to row blockIdx.x of partial (ceil(m / 64), 2,
+// cout), each thread summing its 8 rows in order, then thread row 0 summing
+// the 8 partials in order.
+template <typename T>
 __global__ void __launch_bounds__(256)
-splitk_reduce_kernel(const float* __restrict__ split, const float* __restrict__ bias,
-                     const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ out,
-                     float* __restrict__ partial, int m, int cout, int splits, int flags) {
+splitk_reduce_kernel(const float* __restrict__ split, const float* __restrict__ bias, const T* __restrict__ res,
+                     T* __restrict__ out, float* __restrict__ partial, int m, int cout, int splits, int flags) {
   __shared__ float red[2][8][33];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int n = blockIdx.y * 32 + tx;
@@ -582,10 +686,10 @@ splitk_reduce_kernel(const float* __restrict__ split, const float* __restrict__ 
       float v = 0.f;
       for (int s = 0; s < splits; ++s) v += split[((size_t)s * m + r) * cout + n];
       if (flags & kBias) v += __ldg(bias + n);
-      if (flags & kResidual) v += __bfloat162float(res[(size_t)r * cout + n]);
+      if (flags & kResidual) v += load_f(res + (size_t)r * cout + n);
       s1 += v;
       s2 += v * v;
-      out[(size_t)r * cout + n] = __float2bfloat16((flags & kActivate) ? silu(v) : v);
+      store_f(out + (size_t)r * cout + n, (flags & kActivate) ? silu(v) : v);
     }
   }
   if (flags & kStats) {
@@ -625,27 +729,17 @@ stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ stats
   }
 }
 
-#define JIG_FFMA_CASE(F)                                                                          \
-  case F:                                                                                         \
-    conv3d_ffma_kernel<((F)&kAffine) != 0, ((F)&kBias) != 0, ((F)&kResidual) != 0,              \
-                       ((F)&kStats) != 0, ((F)&kActivate) != 0><<<grid, kThreads, 0, stream>>>(p); \
-    break;
-
-cudaError_t launch_ffma(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.m + kBM - 1) / kBM, (p.cout + kBN - 1) / kBN);
-  switch (p.flags) {  // the fused ResBlock's 16 combinations, and conv3d's SiLU epilogue alone
-    JIG_FFMA_CASE(0) JIG_FFMA_CASE(1) JIG_FFMA_CASE(2) JIG_FFMA_CASE(3)
-    JIG_FFMA_CASE(4) JIG_FFMA_CASE(5) JIG_FFMA_CASE(6) JIG_FFMA_CASE(7)
-    JIG_FFMA_CASE(8) JIG_FFMA_CASE(9) JIG_FFMA_CASE(10) JIG_FFMA_CASE(11)
-    JIG_FFMA_CASE(12) JIG_FFMA_CASE(13) JIG_FFMA_CASE(14) JIG_FFMA_CASE(15)
-    JIG_FFMA_CASE(16)
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch_ffma(const Params& p, int smem_bytes, cudaStream_t stream) {
+  if (smem_bytes != kFSmemBytes) return cudaErrorInvalidValue;  // the planner disagrees
+  const long long mt = (long long)p.b * ((p.d + kFTZ - 1) / kFTZ) * ((p.h + 7) / 8) * ((p.w + 7) / 8);
+  if (mt >= 0x7fffffffLL || p.splits > 9 * ((p.cin + kFKC - 1) / kFKC)) return cudaErrorInvalidValue;
+  auto kernel = (p.flags & kAffine) ? conv3d_ffma_kernel<true> : conv3d_ffma_kernel<false>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned>(mt), (p.cout + kFBN - 1) / kFBN, p.splits);
+  kernel<<<grid, kFThreads, smem_bytes, stream>>>(p);
   return cudaGetLastError();
 }
-
-#undef JIG_FFMA_CASE
 
 template <int BN, int TPS, int STAGES, int TZ, bool AFF>
 cudaError_t launch_wgmma_as(const Params& p, int smem_bytes, cudaStream_t stream) {
@@ -677,18 +771,18 @@ cudaError_t launch_wgmma(const Params& p, int bn, int tps, int stages, int tz, i
 
 }  // namespace
 
-// x: (b, d, h, w, cin); wt: (cout, 27 * cin), both in the dtype (0 = bf16,
-// 1 = fp32); scale, shift: (cin,) fp32; bias: (cout,) fp32; residual, out:
-// (b, d, h, w, cout) in the dtype.  flags: 1 prologue, 2 bias, 4 residual,
-// 8 stats, 16 SiLU epilogue (alone).  The launch plan comes from
-// `ops/conv3d.py` `plan_conv3d`: tile_z (bf16: output planes of a
-// tile_z x 8 x 8 block tile; fp32: 1, with 64 flattened voxels a block), bn
-// (output channels per block), tps and stages (bf16: taps per pipeline stage
-// and stages in the ring; fp32: 27 and 1), splits (bf16: K ranges, each
-// writing fp32 partials to split (splits, b*d*h*w, cout) when > 1, which
-// jig_conv3d_splitk_reduce then sums; fp32: 1) and smem_bytes (checked
-// against the kernel's own).  The combinations launch_wgmma lists are the
-// ones built.  With stats and splits == 1 the kernel writes partial
+// x: (b, d, h, w, cin); wt: bf16 (cout, 27 * cin), fp32 (27 * cin, cout)
+// (the DHWIO kernel reshaped), both in the dtype (0 = bf16, 1 = fp32);
+// scale, shift: (cin,) fp32; bias: (cout,) fp32; residual, out: (b, d, h, w,
+// cout) in the dtype.  flags: 1 prologue, 2 bias, 4 residual, 8 stats, 16
+// SiLU epilogue (alone).  The launch plan comes from `ops/conv3d.py`
+// `plan_conv3d`: tile_z (output planes of a tile_z x 8 x 8 block tile), bn
+// (output channels per block), tps and stages (taps per pipeline stage and
+// stages in the ring; fp32: 3 and 2), splits (K ranges, each writing fp32
+// partials to split (splits, b*d*h*w, cout) when > 1, which
+// jig_conv3d_splitk_reduce then sums) and smem_bytes (checked against the
+// kernel's own).  The combinations launch_wgmma lists are the bf16 ones
+// built; fp32 has one (4, 64, 3, 2).  With stats and splits == 1 the kernel writes partial
 // (M-tiles, 2, cout) fp32.  Pointers a flag does not ask for may be null.
 // All contiguous.  Returns a cudaError_t (0 = launched).
 extern "C" int jig_conv3d(const void* x, const void* wt, const void* scale, const void* shift,
@@ -724,32 +818,42 @@ extern "C" int jig_conv3d(const void* x, const void* wt, const void* scale, cons
   p.splits = splits;
   p.flags = flags;
   const int e = dtype == 0 ? 8 : 4;
-  p.vec = cin % e == 0 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wt)) % 16 == 0;
-  p.vec_out = cout % e == 0 && (reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(residual)) % 16 == 0;
+  p.vec = cin % e == 0 && (dtype == 0 || cout % 4 == 0) &&
+          (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wt)) % 16 == 0;
+  p.vec_out = cout % e == 0 && (reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(residual) |
+                                reinterpret_cast<uintptr_t>(split)) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (tile_z != 1 || bn != kBN || tps != 27 || stages != 1 || splits != 1 || smem_bytes != kSmemBytes)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch_ffma(p, s));
-  }
   if (splits > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) {
+    if (tile_z != kFTZ || bn != kFBN || tps != 3 || stages != kFStages) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_ffma(p, smem_bytes, s));
+  }
   return static_cast<int>(launch_wgmma(p, bn, tps, stages, tile_z, smem_bytes, s));
 }
 
-// out (m, cout) bf16 = epilogue(sum over s of split (splits, m, cout) fp32):
-// + bias, + residual (bf16), SiLU (flags as jig_conv3d's; the prologue flag
-// is ignored); with stats, partial (ceil(m / 64), 2, cout) fp32 per-row-block
-// sums.  Returns a cudaError_t.
+// out (m, cout) in the dtype (0 = bf16, 1 = fp32) = epilogue(sum over s of
+// split (splits, m, cout) fp32): + bias, + residual (in the dtype), SiLU
+// (flags as jig_conv3d's; the prologue flag is ignored); with stats, partial
+// (ceil(m / 64), 2, cout) fp32 per-row-block sums.  Returns a cudaError_t.
 extern "C" int jig_conv3d_splitk_reduce(const void* split, const void* bias, const void* residual, void* out,
-                                        void* partial, int m, int cout, int splits, int flags, void* stream) {
+                                        void* partial, int m, int cout, int splits, int flags, int dtype,
+                                        void* stream) {
   if (m < 1 || cout < 1 || splits < 1 || !split || !out || ((flags & kBias) && !bias) ||
-      ((flags & kResidual) && !residual) || ((flags & kStats) && !partial))
+      ((flags & kResidual) && !residual) || ((flags & kStats) && !partial) || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((m + 63) / 64, (cout + 31) / 32);
-  splitk_reduce_kernel<<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(split), static_cast<const float*>(bias),
-      static_cast<const __nv_bfloat16*>(residual), static_cast<__nv_bfloat16*>(out), static_cast<float*>(partial),
-      m, cout, splits, flags);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  float* part = static_cast<float*>(partial);
+  if (dtype == 0) {
+    splitk_reduce_kernel<__nv_bfloat16><<<grid, dim3(32, 8), 0, s>>>(
+        static_cast<const float*>(split), b, static_cast<const __nv_bfloat16*>(residual),
+        static_cast<__nv_bfloat16*>(out), part, m, cout, splits, flags);
+  } else {
+    splitk_reduce_kernel<float><<<grid, dim3(32, 8), 0, s>>>(static_cast<const float*>(split), b,
+                                                             static_cast<const float*>(residual),
+                                                             static_cast<float*>(out), part, m, cout, splits, flags);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -434,9 +434,6 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdParams p) {
 
 // ---- fp32 kernels ----
 
-constexpr int kF32Threads = 256;  // a block: 16 x 16 threads
-constexpr int kPad = 4;           // floats of padding per shared row
-
 // rows of a streamed tile (Q / dO in dkv, K / V in dq)
 template <int HD>
 __host__ __device__ constexpr int f32_rows() {
@@ -467,81 +464,6 @@ struct F32Params {
   long long n_out;     // floats of one split's partials: dkv 2 * bh * tk * d, dq bh * tq * d
   int tq, tk, d, splits;
 };
-
-// rows [row0, row0 + R) of a (T, d) fp32 matrix into a shared (R, HD + kPad)
-// tile by cp.async, 16 bytes a copy, zeros past T and d (d % 4 == 0)
-template <int HD, int R>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int t_rows, int d, int t) {
-  constexpr int Q4 = HD / 4;
-#pragma unroll
-  for (int i = t; i < R * Q4; i += kF32Threads) {
-    const int r = i / Q4, c = (i % Q4) * 4;
-    const bool in = row0 + r < t_rows && c < d;
-    cp_async16(smem_u32(dst + r * (HD + kPad) + c), in ? src + (size_t)(row0 + r) * d + c : src, in ? 16 : 0);
-  }
-}
-
-// The streamed tiles of split s of n: [s n / splits, (s + 1) n / splits)
-__device__ __forceinline__ int split_start(int s, int n, int splits) {
-  return (int)((long long)s * n / splits);
-}
-
-// acc[i][jj] += a_row(i) . b_row(jj) over the head dim: a rows at a + (a0 +
-// 16 i) * LD (i < 4), b rows at b + (b0 + 16 jj) * LD (jj < TR), float4 reads
-template <int HD, int TR>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][TR], const float* a, int a0, const float* b, int b0) {
-  constexpr int LD = HD + kPad;
-#pragma unroll 4
-  for (int c = 0; c < HD; c += 4) {
-    float4 av[4], bv[TR];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + (a0 + 16 * i) * LD + c);
-#pragma unroll
-    for (int j = 0; j < TR; ++j) bv[j] = *reinterpret_cast<const float4*>(b + (b0 + 16 * j) * LD + c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < TR; ++j) {
-        acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
-        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
-        acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
-        acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
-      }
-  }
-}
-
-// CW consecutive floats from shared memory (16-, 8- or 4-byte aligned)
-template <int CW>
-__device__ __forceinline__ void load_cols(float (&x)[CW], const float* p) {
-  if constexpr (CW == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-  } else if constexpr (CW == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    x[0] = v.x, x[1] = v.y;
-  } else {
-    x[0] = p[0];
-  }
-}
-
-// A thread's 4 x CW micro-tile (rows row0 + i, columns col0 + e) of a (rows,
-// d) fp32 output; rows past n_rows and columns past d are not written
-template <int CW>
-__device__ __forceinline__ void store_tile(float* out, float (&acc)[4][CW], int row0, int n_rows, int col0,
-                                           int d) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (row0 + i >= n_rows) continue;
-    float* o = out + (size_t)(row0 + i) * d + col0;
-    if constexpr (CW == 4) {
-      if (col0 < d) *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < CW; ++e)
-        if (col0 + e < d) o[e] = acc[i][e];
-    }
-  }
-}
 
 // fp32 dK, dV.  Block (bh, 64-key tile, chunk, split); thread (ty, tx):
 // S^T and dP^T for keys ty + 16 i and q rows tx + 16 j of each streamed tile,

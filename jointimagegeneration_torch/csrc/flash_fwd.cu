@@ -50,11 +50,33 @@
 //     zero columns otherwise); any Tq, Tk >= 1 (rows past T arrive as zeros,
 //     q rows past Tq are not written).
 //
-// fp32 (`flash_fwd_f32_kernel`): one thread per q row, plain FMA over fp32
-// K / V tiles of 32 keys in shared memory (broadcast reads; the next tile
-// loads by cp.async into a second buffer meanwhile), free of TF32 rounding.  Each tile is one step of the online softmax: its 32 scores (8 at
-// a time, 8 independent FMA chains, kept per thread in shared memory), one max,
-// one rescale of the accumulator, one expf per key.
+// fp32 (`flash_fwd_f32_kernel`, `flash_fwd_merge_f32_kernel`): both
+// products in full fp32 on the FMA pipes (one TF32 pass keeps a 10-bit
+// mantissa, too coarse for an fp32 O), so the bound is 4*BH*Tq*Tk*D flops at
+// 67 TFLOP/s.  The design is the fp32 backward's (flash_bwd.cu):
+//   * The card is filled: a block of 256 threads owns 64 q rows and one
+//     output chunk of min(D, 64) head columns, and the planner
+//     (`plan_flash_fwd`) splits its key loop over `splits` blocks where the
+//     grid is small (the refiner's (8, 512, 64) has 64 blocks for 132 SMs).
+//     A split writes its (m, l, unnormalised O) to an fp32 workspace, and
+//     `flash_fwd_merge_f32_kernel` combines the splits in split order: m =
+//     max m_s, l = sum l_s 2^((m_s - m) log2e), O = sum O_s 2^(...) / l,
+//     LSE = m + log l; a split that saw no key (m = -1e30, l = 0, O = 0)
+//     adds nothing.  No float atomics: two calls are bitwise equal.  With one
+//     split the block writes O and LSE itself.
+//   * Register tiles: thread (ty, tx) of the 16 x 16 computes S for q rows
+//     ty + 16 i (i < 4) and keys tx + 16 j of each streamed tile from float4
+//     shared-memory reads (rows padded by 4 floats: conflict-free or
+//     broadcast).  The 16 threads of a row are one half-warp, so its max and
+//     sum are four shuffles.  P goes through a shared (keys, 64 + 4) tile,
+//     its rows permuted so that a thread's four q rows are one float4, and
+//     each thread adds its 4 x CW (CW = chunk / 16) micro-tile of O for the
+//     same four rows, so the per-row rescale stays in registers.
+//   * K and V tiles of `f32_fwd_rows` keys (64 up to D = 64, 32 at 128, 16
+//     at 256) are double-buffered by cp.async, zero-filled past Tk and D;
+//     keys past Tk get S = -inf.  P = 2^(S log2e - m log2e): one FFMA and one
+//     MUFU.EX2.  The kernel takes d % 4 == 0 and 16-byte aligned q, k, v, O
+//     and workspace (the wrapper pads with zero columns where they are not).
 //
 // Launches on the caller's stream, allocates nothing, uses no float atomics,
 // writes every output element once (results are the same call to call), and
@@ -71,8 +93,6 @@
 
 namespace {
 
-constexpr int kF32Tile = 32;         // keys per shared-memory tile (fp32 kernel)
-constexpr int kF32Group = 8;         // scores computed together (fp32 kernel)
 constexpr float kNegInit = -1e30f;  // running-max start, as the TPU kernel's _NEG_INF
 
 struct FwdParams {
@@ -275,133 +295,216 @@ flash_fwd_wgmma_kernel(const __grid_constant__ FwdParams p) {
   }
 }
 
+// ---- fp32 ----
+
+// keys of a streamed K / V tile
 template <int HD>
-constexpr int f32_smem_bytes() {
-  return 2 * 2 * kF32Tile * HD * 4 + kF32Tile * kTile * 4;
+__host__ __device__ constexpr int f32_fwd_rows() {
+  return HD <= 64 ? 64 : (HD <= 128 ? 32 : 16);
 }
 
-// fp32: one thread per q row (64 a block).  Shared memory: two buffers of
-// (K tile, V tile) of kF32Tile keys, (kF32Tile, HD) each, the next tile
-// loading by cp.async while this one is used, then each thread's scores of
-// the tile (sS[key][thread]).
+// Shared memory of an fp32 block, in floats: the block's Q tile (64 rows of
+// HD + kPad), two stages of (K tile, V tile) of RT rows each, then P as
+// (RT, 64 + kPad) with q row r at column 4 (r % 16) + r / 16.
 template <int HD>
-__global__ void __launch_bounds__(kTile)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     float* __restrict__ o, float* __restrict__ lse, int tq, int tk, int d) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* const tiles = reinterpret_cast<float*>(smem_raw);
-  float* const sS = tiles + 4 * kF32Tile * HD;  // (kF32Tile, kTile)
+struct F32FwdSmem {
+  static constexpr int RT = f32_fwd_rows<HD>(), LD = HD + kPad, LDT = kTile + kPad;
+  static constexpr int kStage = 2 * RT * LD;
+  static constexpr int kBytes = 4 * (kTile * LD + 2 * kStage + RT * LDT);
+  static_assert(RT % 16 == 0 && kBytes <= 232448, "an fp32 block fits its shared memory");
+};
 
-  const int n_mtiles = (tq + kTile - 1) / kTile;
-  const int bh = blockIdx.x / n_mtiles;
-  const int t = threadIdx.x;
-  const int row = (blockIdx.x % n_mtiles) * kTile + t;
-  const bool active = row < tq;
-  const float* kb = k + (size_t)bh * tk * d;
-  const float* vb = v + (size_t)bh * tk * d;
-  // float4 loads need d % 4 == 0 and 16-byte aligned tensors
-  const bool vec = d % 4 == 0 && ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0);
+struct F32FwdParams {
+  const float *q, *k, *v;
+  float *o, *lse;       // splits == 1: (bh, tq, d), (bh, tq)
+  float *ws_o, *ws_ml;  // splits > 1: (splits, bh, tq, d) unnormalised O, (splits, bh, tq, 2) (m, l)
+  long long rows;       // bh * tq
+  int tq, tk, d, splits;
+};
 
-  float qr[HD], acc[HD];
-#pragma unroll
-  for (int c = 0; c < HD; ++c) {
-    qr[c] = (active && c < d) ? q[((size_t)bh * tq + row) * d + c] : 0.f;
-    acc[c] = 0.f;
-  }
-  float m = kNegInit, l = 0.f;
+// fp32 forward.  Block (bh, 64-row q tile, chunk, split); thread (ty, tx):
+// S for q rows ty + 16 i and keys tx + 16 j of each streamed tile, then O
+// for rows ty + 16 i and the chunk's columns tx CW + e.  Two blocks on an SM
+// up to D = 64 (at most 128 registers a thread), one above.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads, HD <= 64 ? 2 : 1)
+flash_fwd_f32_kernel(const __grid_constant__ F32FwdParams p) {
+  using S = F32FwdSmem<HD>;
+  constexpr int RT = S::RT, LD = S::LD, LDT = S::LDT, TR = RT / 16;
+  constexpr int DC = chunk_cols<HD>(), NCH = HD / DC, CW = DC / 16;
+  extern __shared__ __align__(16) float smf[];
+  float* const sQ = smf;
+  float* const stages = sQ + kTile * LD;
+  float* const sP = stages + 2 * S::kStage;  // (RT, LDT): P[key][4 (row % 16) + row / 16]
 
-  // keys n0 ... n0 + kF32Tile - 1 into buffer b, zeros past tk and d: by
-  // cp.async where vec (one commit group per tile), else by plain stores
-  auto load_tile = [&](int n0, int b) {
-    float* const dk0 = tiles + b * 2 * kF32Tile * HD;
-    for (int i = t; i < kF32Tile * HD / 4; i += kTile) {
-      const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-      float* dk = dk0 + r * HD + c;
-      float* dv = dk + kF32Tile * HD;
-      if (vec) {
-        const bool in = n0 + r < tk && c < d;
-        const size_t off = in ? (size_t)(n0 + r) * d + c : 0;
-        cp_async16(smem_u32(dk), kb + off, in ? 16 : 0);
-        cp_async16(smem_u32(dv), vb + off, in ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool ok = n0 + r < tk && c + e < d;
-          dk[e] = ok ? kb[(size_t)(n0 + r) * d + c + e] : 0.f;
-          dv[e] = ok ? vb[(size_t)(n0 + r) * d + c + e] : 0.f;
-        }
-      }
-    }
-    cp_async_commit();
+  const int tq = p.tq, tk = p.tk, d = p.d, splits = p.splits;
+  const int n_mt = (tq + kTile - 1) / kTile;
+  int blk = blockIdx.x;
+  const int s = blk % splits;
+  blk /= splits;
+  const int chunk = blk % NCH;
+  blk /= NCH;
+  const int m0 = (blk % n_mt) * kTile;
+  const int bh = blk / n_mt;
+  const int n_kt = (tk + RT - 1) / RT;
+  const int j0 = split_start(s, n_kt, splits), j1 = split_start(s + 1, n_kt, splits);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int ty = 2 * warp + (lane >> 4), tx = lane & 15;  // a row's 16 threads: one half-warp
+  const float* kb = p.k + (size_t)bh * tk * d;
+  const float* vb = p.v + (size_t)bh * tk * d;
+  auto load_stage = [&](int j) {
+    float* st = stages + (j & 1) * S::kStage;
+    load_rows<HD, RT>(st, kb, j * RT, tk, d, t);
+    load_rows<HD, RT>(st + RT * LD, vb, j * RT, tk, d, t);
   };
 
-  const int n_kt = (tk + kF32Tile - 1) / kF32Tile;
-  load_tile(0, 0);
-  for (int it = 0; it < n_kt; ++it) {
-    const int n0 = it * kF32Tile;
-    if (it + 1 < n_kt) load_tile(n0 + kF32Tile, (it + 1) & 1);  // its buffer was consumed in it - 1
-    else cp_async_commit();                                      // an empty group: the wait below is for tile it
+  load_rows<HD, kTile>(sQ, p.q + (size_t)bh * tq * d, m0, tq, d, t);
+  if (j0 < j1) load_stage(j0);
+  cp_async_commit();
+
+  float o[4][CW] = {};
+  float m_r[4] = {kNegInit, kNegInit, kNegInit, kNegInit};  // rows ty + 16 i, in natural units
+  float l_r[4] = {};                                        // this thread's share of their denominators
+  for (int j = j0; j < j1; ++j) {
+    if (j + 1 < j1) load_stage(j + 1);  // its buffer was consumed in iteration j - 1
+    cp_async_commit();
     cp_async_wait<1>();
-    __syncthreads();  // tile it has landed, from every thread's copies
-    const float* sK = tiles + (it & 1) * 2 * kF32Tile * HD;
-    const float* sV = sK + kF32Tile * HD;
+    __syncthreads();  // stage j (and Q) have landed, from every thread's copies
+    const float* sK = stages + (j & 1) * S::kStage;
+    const float* sV = sK + RT * LD;
 
-    // the tile's scores, kF32Group keys at a time; keys past tk get -inf
-    float mx = -INFINITY;
-#pragma unroll 1
-    for (int j0 = 0; j0 < kF32Tile; j0 += kF32Group) {
-      float s[kF32Group];
+    // S = Q K^T: rows ty + 16 i, keys tx + 16 jj; keys past tk to -inf
+    float sc[4][TR] = {};
+    dot_tile<HD, TR>(sc, sQ, ty, sK, tx);
 #pragma unroll
-      for (int jj = 0; jj < kF32Group; ++jj) s[jj] = 0.f;
+    for (int jj = 0; jj < TR; ++jj)
+      if (j * RT + tx + 16 * jj >= tk) {
 #pragma unroll
-      for (int c = 0; c < HD; ++c) {
+        for (int i = 0; i < 4; ++i) sc[i][jj] = -INFINITY;
+      }
+    // one online-softmax step per row: the tile's max over the half-warp,
+    // then P = 2^(S log2e - m log2e), the rescale of l and O
+    float scale[4];
 #pragma unroll
-        for (int jj = 0; jj < kF32Group; ++jj) s[jj] = fmaf(qr[c], sK[(j0 + jj) * HD + c], s[jj]);
+    for (int i = 0; i < 4; ++i) {
+      float mx = sc[i][0];
+#pragma unroll
+      for (int jj = 1; jj < TR; ++jj) mx = fmaxf(mx, sc[i][jj]);
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_r[i], mx);
+      scale[i] = ex2_approx((m_r[i] - m_new) * kLog2e);
+      m_r[i] = m_new;
+      const float ml = m_new * kLog2e;
+      l_r[i] *= scale[i];
+#pragma unroll
+      for (int jj = 0; jj < TR; ++jj) {
+        sc[i][jj] = ex2_approx(fmaf(sc[i][jj], kLog2e, -ml));  // 0 past tk
+        l_r[i] += sc[i][jj];
       }
 #pragma unroll
-      for (int jj = 0; jj < kF32Group; ++jj) {
-        const float sj = n0 + j0 + jj < tk ? s[jj] : -INFINITY;
-        sS[(j0 + jj) * kTile + t] = sj;
-        mx = fmaxf(mx, sj);
-      }
+      for (int e = 0; e < CW; ++e) o[i][e] *= scale[i];
     }
-    // one step of the online softmax for the whole tile
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);
-    m = m_new;
-    l *= corr;
 #pragma unroll
-    for (int c = 0; c < HD; ++c) acc[c] *= corr;
-#pragma unroll 1
-    for (int j0 = 0; j0 < kF32Tile; j0 += kF32Group) {
-      float pj[kF32Group];
+    for (int jj = 0; jj < TR; ++jj)
+      *reinterpret_cast<float4*>(sP + (tx + 16 * jj) * LDT + 4 * ty) =
+          make_float4(sc[0][jj], sc[1][jj], sc[2][jj], sc[3][jj]);
+    __syncthreads();  // P is complete
+
+    // O += P V over the tile's keys: rows ty + 16 i, columns tx CW + e
+    const int col = chunk * DC + tx * CW;
+#pragma unroll 4
+    for (int r = 0; r < RT; ++r) {
+      const float4 pv = *reinterpret_cast<const float4*>(sP + r * LDT + 4 * ty);
+      float vv[CW];
+      load_cols<CW>(vv, sV + r * LD + col);
+      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
-      for (int jj = 0; jj < kF32Group; ++jj) {
-        pj[jj] = expf(sS[(j0 + jj) * kTile + t] - m);  // 0 past tk
-        l += pj[jj];
-      }
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < HD; ++c) {
-#pragma unroll
-        for (int jj = 0; jj < kF32Group; ++jj) acc[c] = fmaf(pj[jj], sV[(j0 + jj) * HD + c], acc[c]);
-      }
+        for (int e = 0; e < CW; ++e) o[i][e] = fmaf(pa[i], vv[e], o[i][e]);
     }
-    __syncthreads();  // buffer it & 1 is consumed: iteration it + 1 refills it
+    __syncthreads();  // stage j and P are consumed
   }
+  cp_async_wait<0>();  // a split with no tile still waits for its Q copies
 
-  if (!active) return;
-  const float inv = 1.f / l;
-  float* orow = o + ((size_t)bh * tq + row) * d;
 #pragma unroll
-  for (int c = 0; c < HD; ++c)
-    if (c < d) orow[c] = acc[c] * inv;
-  lse[(size_t)bh * tq + row] = m + logf(l);
+  for (int i = 0; i < 4; ++i)  // the half-warp's shares: the rows' whole denominators, in a fixed order
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], off);
+  const int col0 = chunk * DC + tx * CW;
+  if (splits == 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + ty + 16 * i;
+      if (row >= tq) continue;
+      const float inv = 1.f / l_r[i];
+      float* orow = p.o + ((size_t)bh * tq + row) * d + col0;
+#pragma unroll
+      for (int e = 0; e < CW; ++e) o[i][e] *= inv;
+      if constexpr (CW == 4) {
+        if (col0 < d) *reinterpret_cast<float4*>(orow) = make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < CW; ++e)
+          if (col0 + e < d) orow[e] = o[i][e];
+      }
+      if (chunk == 0 && tx == 0) p.lse[(size_t)bh * tq + row] = m_r[i] + logf(l_r[i]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty + 16 * i;
+    if (row >= tq) continue;
+    const size_t r = (size_t)bh * tq + row;
+    float* orow = p.ws_o + ((size_t)s * p.rows + r) * d + col0;
+    if constexpr (CW == 4) {
+      if (col0 < d) *reinterpret_cast<float4*>(orow) = make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < CW; ++e)
+        if (col0 + e < d) orow[e] = o[i][e];
+    }
+    if (chunk == 0 && tx == 0)
+      *reinterpret_cast<float2*>(p.ws_ml + ((size_t)s * p.rows + r) * 2) = make_float2(m_r[i], l_r[i]);
+  }
 }
 
-// The launch as the plan gives it: warpgroups (0 for fp32) and the shared
-// memory size, checked against the kernel's own.
+// The fp32 splits' merge: thread (row, 4 columns) reads the splits' (m, l)
+// of its row and their unnormalised O columns, and writes O = sum_s O_s a_s /
+// l and (column group 0) LSE = m + log l, with m = max_s m_s, a_s =
+// 2^((m_s - m) log2e), l = sum_s l_s a_s, every sum in split order.
+__global__ void __launch_bounds__(256)
+flash_fwd_merge_f32_kernel(const float4* __restrict__ ws_o, const float2* __restrict__ ws_ml,
+                           float4* __restrict__ o, float* __restrict__ lse, long long rows, int d4, int splits) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= rows * d4) return;
+  const long long r = i / d4;
+  float m = kNegInit;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, ws_ml[s * rows + r].x);
+  float l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float2 ml = ws_ml[s * rows + r];
+    const float a = ex2_approx((ml.x - m) * kLog2e);  // 0 for a split that saw no key
+    const float4 v = ws_o[s * rows * d4 + i];
+    l = fmaf(ml.y, a, l);
+    acc.x = fmaf(v.x, a, acc.x);
+    acc.y = fmaf(v.y, a, acc.y);
+    acc.z = fmaf(v.z, a, acc.z);
+    acc.w = fmaf(v.w, a, acc.w);
+  }
+  const float inv = 1.f / l;
+  o[i] = make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  if (i % d4 == 0) lse[r] = m + logf(l);
+}
+
+// The launch as the plan gives it: warpgroups (0 for fp32), the splits of
+// the key loop (1 for bf16) and the shared memory size, checked against the
+// kernel's own.
 struct Launch {
-  int bh, nwg, smem_bytes;
+  int bh, nwg, splits, smem_bytes;
   cudaStream_t stream;
 };
 
@@ -434,15 +537,14 @@ cudaError_t launch_wgmma(const FwdParams& p, const Launch& l, int hd) {
 }
 
 template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int tq, int tk, int d,
-                       const Launch& l) {
-  constexpr int smem = f32_smem_bytes<HD>();
-  if (l.smem_bytes != smem) return cudaErrorInvalidValue;
+cudaError_t launch_f32(const F32FwdParams& p, const Launch& l) {
+  constexpr int smem = F32FwdSmem<HD>::kBytes, rt = F32FwdSmem<HD>::RT;
+  // the planner disagrees, or a split would get no key tile
+  if (l.smem_bytes != smem || p.splits > (p.tk + rt - 1) / rt) return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(flash_fwd_f32_kernel<HD>, smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_f32_kernel<HD><<<((tq + kTile - 1) / kTile) * l.bh, kTile, smem, l.stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), tq, tk, d);
+  const int tiles = (p.tq + kTile - 1) / kTile;
+  flash_fwd_f32_kernel<HD><<<tiles * l.bh * (HD / chunk_cols<HD>()) * l.splits, kF32Threads, smem, l.stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -450,47 +552,79 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, voi
 
 // q: (bh, tq, d); k, v: (bh, tk, d); o: (bh, tq, d) in the input dtype; lse:
 // (bh, tq) fp32.  All contiguous; bf16 wants d % 8 == 0 and 16-byte aligned
-// tensors.  dtype: 0 = bf16, 1 = fp32.  nwg, smem_bytes: the launch plan
-// (`ops/flash_attention.py` `plan_flash_fwd`: warpgroups per block, 0 for
-// fp32; shared memory bytes), checked against the kernel's.  Returns a
-// cudaError_t (0 = launched).
-extern "C" int jig_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int tq,
-                             int tk, int d, int dtype, int nwg, int smem_bytes, void* stream) {
-  if (bh < 1 || tq < 1 || tk < 1 || d < 1 || d > 256 || (dtype != 0 && dtype != 1))
+// tensors, fp32 d % 4 == 0 and 16-byte aligned tensors.  dtype: 0 = bf16,
+// 1 = fp32.  nwg, splits, smem_bytes: the launch plan (`ops/flash_attention.py`
+// `plan_flash_fwd`: warpgroups per block, 0 for fp32; the splits of the fp32
+// key loop, 1 for bf16, at most one per key tile; shared memory bytes),
+// checked against the kernel's.  ws_o, ws_ml: with splits > 1, the fp32
+// workspace of the splits' unnormalised O (splits, bh, tq, d) and (m, l)
+// (splits, bh, tq, 2), which jig_flash_fwd_merge then combines into o and
+// lse; else null.  Returns a cudaError_t (0 = launched).
+extern "C" int jig_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, void* ws_o,
+                             void* ws_ml, int bh, int tq, int tk, int d, int dtype, int nwg, int splits,
+                             int smem_bytes, void* stream) {
+  if (bh < 1 || tq < 1 || tk < 1 || d < 1 || d > 256 || (dtype != 0 && dtype != 1) || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((long long)((tq + kTile - 1) / kTile) * bh * 4 > 0x7fffffffLL)
+  if ((long long)((tq + kTile - 1) / kTile) * bh * 4 * splits > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const int hd = head_width(d);
-  const Launch l{bh, nwg, smem_bytes, static_cast<cudaStream_t>(stream)};
-  cudaError_t err;
+  const Launch l{bh, nwg, splits, smem_bytes, static_cast<cudaStream_t>(stream)};
+  const uintptr_t a = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                      reinterpret_cast<uintptr_t>(v);
   if (dtype == 0) {
     const int ac = hd < kMaxChunk ? hd : kMaxChunk;
-    const uintptr_t a = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                        reinterpret_cast<uintptr_t>(v);
     FwdParams p{};
     p.o = static_cast<__nv_bfloat16*>(o);
     p.lse = static_cast<float*>(lse);
     p.tq = tq;
     p.tk = tk;
     p.d = d;
-    if (d % 8 != 0 || a % 16 != 0 || !cached_map(&p.q_map, q, bh, tq, d, ac) ||
+    if (splits != 1 || ws_o || ws_ml || d % 8 != 0 || a % 16 != 0 || !cached_map(&p.q_map, q, bh, tq, d, ac) ||
         !cached_map(&p.k_map, k, bh, tk, d, ac) || !cached_map(&p.v_map, v, bh, tk, d, ac))
       return static_cast<int>(cudaErrorInvalidValue);
-    err = launch_wgmma(p, l, hd);
-  } else if (nwg != 0) {
-    err = cudaErrorInvalidValue;
-  } else if (hd == 16) {
-    err = launch_f32<16>(q, k, v, o, lse, tq, tk, d, l);
-  } else if (hd == 32) {
-    err = launch_f32<32>(q, k, v, o, lse, tq, tk, d, l);
-  } else if (hd == 64) {
-    err = launch_f32<64>(q, k, v, o, lse, tq, tk, d, l);
-  } else if (hd == 128) {
-    err = launch_f32<128>(q, k, v, o, lse, tq, tk, d, l);
-  } else {
-    err = launch_f32<256>(q, k, v, o, lse, tq, tk, d, l);
+    return static_cast<int>(launch_wgmma(p, l, hd));
   }
+  const uintptr_t w = reinterpret_cast<uintptr_t>(o) | reinterpret_cast<uintptr_t>(ws_o) |
+                      reinterpret_cast<uintptr_t>(ws_ml);
+  if (nwg != 0 || d % 4 != 0 || (a | w) % 16 != 0 || (splits > 1) != (ws_o != nullptr) ||
+      (splits > 1) != (ws_ml != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  F32FwdParams p{};
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.ws_o = static_cast<float*>(ws_o);
+  p.ws_ml = static_cast<float*>(ws_ml);
+  p.rows = (long long)bh * tq;
+  p.tq = tq;
+  p.tk = tk;
+  p.d = d;
+  p.splits = splits;
+  cudaError_t err;
+  if (hd == 16) err = launch_f32<16>(p, l);
+  else if (hd == 32) err = launch_f32<32>(p, l);
+  else if (hd == 64) err = launch_f32<64>(p, l);
+  else if (hd == 128) err = launch_f32<128>(p, l);
+  else err = launch_f32<256>(p, l);
   return static_cast<int>(err);
+}
+
+// o (rows, d), lse (rows,) fp32 from the fp32 forward's split workspace:
+// ws_o (splits, rows, d), ws_ml (splits, rows, 2), combined in split order
+// (rows = bh * tq; d % 4 == 0; all 16-byte aligned).  Returns a cudaError_t.
+extern "C" int jig_flash_fwd_merge(const void* ws_o, const void* ws_ml, void* o, void* lse, long long rows, int d,
+                                   int splits, void* stream) {
+  if (rows < 1 || d < 4 || d % 4 != 0 || splits < 2 ||
+      (reinterpret_cast<uintptr_t>(ws_o) | reinterpret_cast<uintptr_t>(ws_ml) | reinterpret_cast<uintptr_t>(o)) %
+              16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n4 = rows * (d / 4);
+  flash_fwd_merge_f32_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(ws_o), static_cast<const float2*>(ws_ml), static_cast<float4*>(o),
+      static_cast<float*>(lse), rows, d / 4, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 #if JIG_FLASH_TRACE

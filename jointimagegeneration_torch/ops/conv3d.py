@@ -47,25 +47,27 @@ Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 SMS = 132
 SMEM_LIMIT = 232_448     # bytes of shared memory one block may use (227 KB)
 CHUNK = 64               # input channels per halo chunk (bf16)
-TILE_YX = (8, 8)         # output rows and columns of a bf16 block; its depth is 2 or 4 planes
+TILE_YX = (8, 8)         # output rows and columns of a block; its depth is 2 or 4 planes
 DEEP_WAVES = 4           # 64-wide bf16 blocks take 4 planes where they make this many waves at one per SM
 MIN_SPLIT_ITERS = 2      # (chunk, tap group) iterations a K split keeps at least
-_FFMA_TILE, _FFMA_SMEM = 64, 64 * 65 * 4  # fp32: flattened 64-voxel x 64-channel tiles
+F32_CHUNK = 16           # input channels per halo chunk (fp32)
+F32_TILE = (4, 8, 8)     # an fp32 block's output tile, with 64 channels and 256 threads
+# csrc/conv3d.cu's kFSmemBytes: two ring stages of 3 taps x 16 channels x 64, the 16 channel planes of
+# the 6 x 10 x 10 halo (rows of 12 floats, planes padded by 4), and its voxel-major staging copy
+_F32_SMEM = 4 * (2 * 3 * F32_CHUNK * 64 + F32_CHUNK * (6 * 10 * 12 + 4) + 6 * 10 * 10 * F32_CHUNK)
 
 
 @dataclass(frozen=True)
 class ConvPlan:
     """How one conv call runs on the card (`plan_conv3d`).
 
-    `tile` is the (z, y, x) output tile of a block; fp32 tiles are 64
-    voxels of the flattened (B*D*H*W) index, written (1, 1, 64).  Block
-    (i, j, s) of `grid` owns M-tile i (bf16: i = ((b * nz + iz) * ny + iy) * nx
-    + ix over the tiles of each volume; fp32: voxels 64i ... 64i + 63),
-    output channels [j * bn, (j + 1) * bn) and K split s, which walks the
-    iterations `split_ranges[s]`: with g = 27 // tps tap groups per chunk,
-    iteration it is channels [64c, 64c + 64), c = it // g, of the taps
-    tps * (it % g) ... tps * (it % g) + tps - 1 (fp32: tps = 27 and one
-    iteration per 64 channels, all of K in one range).  `split_shape` is the
+    `tile` is the (z, y, x) output tile of a block.  Block (i, j, s) of
+    `grid` owns M-tile i (i = ((b * nz + iz) * ny + iy) * nx + ix over the
+    tiles of each volume), output channels [j * bn, (j + 1) * bn) and K
+    split s, which walks the iterations `split_ranges[s]`: with g = 27 // tps
+    tap groups per chunk of `chunk` input channels (bf16 64, fp32 16),
+    iteration it is channels [chunk * c, chunk * (c + 1)), c = it // g, of the
+    taps tps * (it % g) ... tps * (it % g) + tps - 1.  `split_shape` is the
     fp32 partial-sum buffer of a split-K call, `stats_shape` the per-block
     [sum, sumsq] buffer of a call with stats, `launches` the kernels the call
     launches, by counter."""
@@ -82,6 +84,7 @@ class ConvPlan:
     split_shape: Optional[Tuple[int, int, int]]
     stats_shape: Optional[Tuple[int, int, int]]
     launches: Dict[str, int]
+    chunk: int = CHUNK
 
     @property
     def n_launches(self) -> int:
@@ -110,36 +113,37 @@ def plan_conv3d(b: int, d: int, h: int, w: int, cin: int, cout: int, dtype: torc
     card.  (Measured on an H100 at the fused path's convs: 4 planes ran
     level 0 9-11% faster, and 6-7% more with 9 taps per stage, the other
     levels slower; one wave of split blocks beat two; 64-wide split blocks
-    beat 128-wide ones, having fewer fp32 partials to sum.)"""
+    beat 128-wide ones, having fewer fp32 partials to sum.)
+
+    fp32: one block shape, F32_TILE (4 x 8 x 8 voxels) x 64 channels, 256
+    threads of 8 x 8 register tiles, two blocks per SM; K in chunks of
+    F32_CHUNK channels, 3 taps (one (dz, dy)) per stage of a two-stage ring;
+    K split by the bf16 rule."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"plan_conv3d: bf16 or fp32, got {dtype}")
     stats = bool(flags & _STATS)
     m = b * d * h * w
-    if dtype == torch.float32:
-        mt = _cdiv(m, _FFMA_TILE)
-        return ConvPlan(tile=(1, 1, _FFMA_TILE), bn=_FFMA_TILE, tps=27, stages=1, splits=1,
-                        split_ranges=((0, _cdiv(cin, CHUNK)),),
-                        grid=(mt, _cdiv(cout, _FFMA_TILE), 1), threads=128, smem_bytes=_FFMA_SMEM,
-                        split_shape=None, stats_shape=(mt, 2, cout) if stats else None,
-                        launches={"conv3d": 1, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": int(stats)})
     ty, tx = TILE_YX
     tiles = lambda tz: b * _cdiv(d, tz) * _cdiv(h, ty) * _cdiv(w, tx)
-    bn = 128 if cout % 128 == 0 and tiles(2) * cout // 128 >= SMS else 64
-    nt = _cdiv(cout, bn)
-    tz = 4 if bn == 64 and tiles(4) * nt >= DEEP_WAVES * SMS else 2
-    # taps per stage, stages: two 2-plane blocks fit on an SM either way; a 4-plane block has the SM alone
-    tps, stages = (1, 3) if bn == 128 else ((3, 2) if tz == 2 else (9, 2))
-    mt = tiles(tz)
-    n_it = 27 // tps * _cdiv(cin, CHUNK)
+    if dtype == torch.float32:
+        tz, bn, tps, stages, chunk, threads, smem = F32_TILE[0], 64, 3, 2, F32_CHUNK, 256, _F32_SMEM
+    else:
+        bn = 128 if cout % 128 == 0 and tiles(2) * cout // 128 >= SMS else 64
+        tz = 4 if bn == 64 and tiles(4) * _cdiv(cout, bn) >= DEEP_WAVES * SMS else 2
+        # taps per stage, stages: two 2-plane blocks fit on an SM either way; a 4-plane block has the SM alone
+        tps, stages = (1, 3) if bn == 128 else ((3, 2) if tz == 2 else (9, 2))
+        chunk, threads = CHUNK, 128 * tz
+        smem = 1024 + stages * tps * bn * 128 + (tz + 2) * (ty + 2) * (tx + 2) * 128
+    nt, mt = _cdiv(cout, bn), tiles(tz)
+    n_it = 27 // tps * _cdiv(cin, chunk)
     splits = 1 if mt * nt >= SMS else max(1, min(_cdiv(SMS, mt * nt), n_it // MIN_SPLIT_ITERS))
-    smem = 1024 + stages * tps * bn * 128 + (tz + 2) * (ty + 2) * (tx + 2) * 128
     return ConvPlan(tile=(tz, ty, tx), bn=bn, tps=tps, stages=stages, splits=splits,
                     split_ranges=tuple((s * n_it // splits, (s + 1) * n_it // splits) for s in range(splits)),
-                    grid=(mt, nt, splits), threads=128 * tz, smem_bytes=smem,
+                    grid=(mt, nt, splits), threads=threads, smem_bytes=smem,
                     split_shape=(splits, m, cout) if splits > 1 else None,
                     stats_shape=((mt if splits == 1 else _cdiv(m, 64)), 2, cout) if stats else None,
                     launches={"conv3d": 1, "conv3d_splitk_reduce": int(splits > 1),
-                              "conv3d_stats_reduce": int(stats)})
+                              "conv3d_stats_reduce": int(stats)}, chunk=chunk)
 
 
 def conv_flops(x_shape, cout: int) -> float:
@@ -186,7 +190,7 @@ def conv3d_plain(x: torch.Tensor, kernel: torch.Tensor, scale: Optional[torch.Te
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"jig_conv3d": [_P] * 9 + [_I] * 14 + [_P],
-             "jig_conv3d_splitk_reduce": [_P] * 5 + [_I] * 4 + [_P],
+             "jig_conv3d_splitk_reduce": [_P] * 5 + [_I] * 5 + [_P],
              "jig_conv3d_stats_reduce": [_P] * 2 + [_I] * 2 + [_P]}
 
 
@@ -241,7 +245,8 @@ def _launch_plan(plan: ConvPlan, fn, ptrs: Dict[str, Optional[int]], shape, cout
     conv3d_igemm.launches += 1
     if plan.splits > 1:
         err = fn("jig_conv3d_splitk_reduce")(ptrs["split"], ptrs["bias"], ptrs["residual"], ptrs["out"],
-                                             ptrs["partial"], b * d * h * w, cout, plan.splits, flags, stream)
+                                             ptrs["partial"], b * d * h * w, cout, plan.splits, flags,
+                                             _DTYPE_CODES[dtype], stream)
         _raise_on(err, "conv3d split-K reduce", shape, cout, dtype)
         conv3d_igemm.splitk_launches += 1
     if flags & _STATS:
@@ -258,9 +263,11 @@ def conv3d_igemm(x: torch.Tensor, kernel: torch.Tensor, scale: Optional[torch.Te
     (`conv3d_igemm.splitk_launches`) and, with `want_stats`, the reduce of
     the per-block partial sums (`channel_stats_reduce.launches`).
 
-    The kernel takes the weight as its (Cout, 27*Cin) transpose in x's dtype,
-    made here per call (`kernel.permute(4, 0, 1, 2, 3)`): one pass over the
-    weight, as the unfused path's per-op cast of its fp32 parameters is."""
+    The bf16 kernel takes the weight as its (Cout, 27*Cin) transpose in x's
+    dtype, made here per call (`kernel.permute(4, 0, 1, 2, 3)`): one pass
+    over the weight, as the unfused path's per-op cast of its fp32
+    parameters is.  The fp32 kernel takes the DHWIO kernel as it is,
+    reshaped to (27*Cin, Cout)."""
     who = "conv3d_igemm"
     _check(x, kernel, scale, shift, bias, residual, who)
     if x.device.type != "cuda":
@@ -272,7 +279,10 @@ def conv3d_igemm(x: torch.Tensor, kernel: torch.Tensor, scale: Optional[torch.Te
     if x.numel() >= 2**31 or b * d * h * w * cout >= 2**31 or 27 * cin * cout >= 2**31:
         raise ValueError(f"{who}: tensors too large for 32-bit indexing: {tuple(x.shape)} -> {cout}")
     x = x.contiguous()
-    wt = kernel.permute(4, 0, 1, 2, 3).reshape(cout, 27 * cin).to(x.dtype).contiguous()
+    if x.dtype == torch.float32:
+        wt = kernel.float().reshape(27 * cin, cout).contiguous()
+    else:
+        wt = kernel.permute(4, 0, 1, 2, 3).reshape(cout, 27 * cin).to(x.dtype).contiguous()
     f32 = lambda t: None if t is None else t.float().contiguous()
     scale, shift, bias = f32(scale), f32(shift), f32(bias)
     if residual is not None:

@@ -7,7 +7,8 @@ Counterpart of `jointimagegeneration_tpu/ops/pallas/flash_attention.py`.
     `_flash_kernel_pipelined`, entered through `_flash_forward`): O =
     softmax(q.k^T).v with an online softmax in fp32, plus the fp32 logsumexp.
     How it runs on the card (head width, warpgroups per block, shared
-    memory) is decided on the host by `plan_flash_fwd`.
+    memory; in fp32 the splits of the key loop, whose partial states
+    `flash_fwd_merge` combines) is decided on the host by `plan_flash_fwd`.
   * Backward (`csrc/flash_bwd.cu`, wrappers `flash_bwd_dq` and `flash_bwd_dkv`,
     joined by `flash_backward`) replaces `_bwd_dkv_kernel` and
     `_bwd_dq_kernel` (entered through `_flash_backward`): dK, dV and dQ
@@ -43,7 +44,7 @@ __all__ = ["flash_forward", "flash_attention_plain", "flash_backward", "flash_ba
            "flash_bwd_dkv", "flash_bwd_dq", "FlashAttention", "flash_attention", "flash_eligible",
            "FLASH_SOURCE", "FLASH_BWD_SOURCE", "FlashFwdPlan", "plan_flash_fwd", "BwdKernelPlan",
            "FlashBwdPlan", "plan_flash_bwd", "flash_bwd_reduce", "flash_bwd_reduce_plain", "f32_bwd_rows",
-           "f32_bwd_splits"]
+           "f32_bwd_splits", "f32_fwd_rows", "flash_fwd_merge", "flash_fwd_merge_plain"]
 
 FLASH_SOURCE = "flash_fwd"
 FLASH_BWD_SOURCE = "flash_bwd"
@@ -109,7 +110,8 @@ SMS = 132
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (227 KB)
 TILE = 64             # q rows (forward, dq) or keys (dkv) per block, rows per streamed tile
 STAGES = 2            # stages in each warpgroup's ring of streamed tiles
-_F32_TILE = 32        # keys per shared-memory tile of the fp32 forward kernel
+F32_THREADS = 256     # threads of an fp32 block (forward and backward)
+F32_MAX_SPLITS = 16   # bounds the workspace (splits x the output) and the merge's or reduce's reads
 _HEAD_WIDTHS = (16, 32, 64, 128, 256)
 
 
@@ -121,11 +123,13 @@ def _head_width(d: int) -> int:
 class FlashFwdPlan:
     """How one forward call runs on the card: the head width `head_width` D
     is padded to (16, 32, 64, 128 or 256), the output head columns `chunk` of
-    one block (and of one swizzle atom), the bytes `swizzle` of a swizzled
-    tile row (bf16: 32, 64 or 128; fp32: 0), `warpgroups` of 128 threads per
-    block (0 for the fp32 kernel, one thread per q row), `threads` and
-    `smem_bytes` per block, and `grid` blocks: one per (bh, 64-row q tile,
-    head-column chunk)."""
+    one block (and, in bf16, of one swizzle atom), the bytes `swizzle` of a
+    swizzled tile row (bf16: 32, 64 or 128; fp32: 0), `warpgroups` of 128
+    threads per block (0 for the fp32 kernel, blocks of F32_THREADS threads),
+    `threads` and `smem_bytes` per block, `grid` blocks: one per (bh, 64-row q
+    tile, head-column chunk, split), `rows` keys per streamed tile, and
+    `splits` blocks sharing each block's key loop (1 in bf16; fp32 partial
+    states combined by one merge launch where it is > 1)."""
 
     head_width: int
     chunk: int
@@ -134,6 +138,14 @@ class FlashFwdPlan:
     threads: int
     smem_bytes: int
     grid: int
+    rows: int = TILE
+    splits: int = 1
+
+    @property
+    def merge_launches(self) -> int:
+        """Launches of the split merge this call adds: 1 where the key loop
+        is split, else 0."""
+        return int(self.splits > 1)
 
 
 def _fwd_smem(hd: int, warpgroups: int) -> int:
@@ -155,19 +167,27 @@ def plan_flash_fwd(bh: int, tq: int, tk: int, d: int, dtype: torch.dtype) -> Fla
     where one-warpgroup blocks would number at most two per SM (SMS * 2) and
     D < 256: as for the backward's dq, that doubles the warpgroups in flight
     whose exponentials and products interleave; at more blocks a second
-    warpgroup per block only adds the merge.  fp32: one thread per q row, 64
-    a block, two buffers of K and V tiles of 32 keys and the scores in shared
-    memory."""
+    warpgroup per block only adds the merge.
+
+    fp32: blocks of F32_THREADS threads own 64 q rows and one output chunk of
+    min(D, 64) head columns (each recomputing S over all of D) and stream K
+    and V tiles of `f32_fwd_rows(hd)` keys; `f32_bwd_splits` splits each
+    block's key loop over blocks, so that the grid fills the card where the
+    work allows, and the merge kernel combines the splits' partial (m, l, O)
+    in split order.  (`scripts/bench_flash_fwd.py --fp32` on an H100: the
+    rule's count was the fastest of 1, 2, 3, 4 and 8 splits at (8, 512, 64)
+    and (8, 2048, 32), and 4% behind 4 splits at (8, 640, 64).)"""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"plan_flash_fwd: bf16 or fp32, got {dtype}")
     if min(bh, tq, tk, d) < 1 or d > _MAX_D:
         raise ValueError(f"plan_flash_fwd: unsupported shape bh={bh} tq={tq} tk={tk} d={d}")
     hd = _head_width(d)
-    if dtype == torch.float32:
-        return FlashFwdPlan(hd, hd, 0, 0, TILE, 4 * _F32_TILE * hd * 4 + _F32_TILE * TILE * 4,
-                            _cdiv(tq, TILE) * bh)
     chunk = min(hd, 64)
     blocks = _cdiv(tq, TILE) * bh * (hd // chunk)
+    if dtype == torch.float32:
+        rt = f32_fwd_rows(hd)
+        splits = f32_bwd_splits(blocks, _cdiv(tk, rt))
+        return FlashFwdPlan(hd, chunk, 0, 0, F32_THREADS, _f32_fwd_smem(hd), blocks * splits, rt, splits)
     wg = 2 if hd < 256 and blocks <= 2 * SMS else 1
     return FlashFwdPlan(hd, chunk, 2 * chunk, wg, 128 * wg, _fwd_smem(hd, wg), blocks)
 
@@ -224,8 +244,18 @@ def _bwd_smem(kernel: str, hd: int, warpgroups: int) -> int:
     return 2048 + 2 * tile + warpgroups * STAGES * (2 * tile + (1024 if kernel == "dkv" else 0))
 
 
-F32_THREADS = 256  # threads of an fp32 backward block
-F32_MAX_SPLITS = 16  # bounds the workspace (splits x the gradient) and the reduce's reads
+def f32_fwd_rows(hd: int) -> int:
+    """Keys of an fp32 forward kernel's streamed K / V tile (csrc/flash_fwd.cu's
+    `f32_fwd_rows`): 64 up to D = 64, 32 up to 128, 16 at 256."""
+    return 64 if hd <= 64 else (32 if hd <= 128 else 16)
+
+
+def _f32_fwd_smem(hd: int) -> int:
+    """csrc/flash_fwd.cu's `F32FwdSmem`, in bytes: the block's Q tile of 64
+    rows, two stages of (K tile, V tile) of `f32_fwd_rows` rows (rows of hd + 4
+    floats), and P as (rows, 64 + 4)."""
+    rt, ld = f32_fwd_rows(hd), hd + 4
+    return 4 * (TILE * ld + 2 * 2 * rt * ld + rt * (TILE + 4))
 
 
 def f32_bwd_rows(hd: int) -> int:
@@ -303,7 +333,8 @@ def plan_flash_bwd(bh: int, tq: int, tk: int, d: int, dtype: torch.dtype) -> Fla
 # C entry point -> (source under csrc/, ctypes argument types); the
 # kernels' entries take pointers, then ints, then the stream
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ENTRY_POINTS = {"jig_flash_fwd": (FLASH_SOURCE, [_P] * 5 + [_I] * 7 + [_P]),
+_ENTRY_POINTS = {"jig_flash_fwd": (FLASH_SOURCE, [_P] * 7 + [_I] * 8 + [_P]),
+                 "jig_flash_fwd_merge": (FLASH_SOURCE, [_P] * 4 + [ctypes.c_longlong, _I, _I, _P]),
                  "jig_flash_bwd_dkv": (FLASH_BWD_SOURCE, [_P] * 9 + [_I] * 8 + [_P]),
                  "jig_flash_bwd_dq": (FLASH_BWD_SOURCE, [_P] * 9 + [_I] * 8 + [_P]),
                  "jig_flash_bwd_reduce": (FLASH_BWD_SOURCE, [_P, _P, ctypes.c_longlong, _I, _P])}
@@ -377,26 +408,26 @@ def _call(name: str, args: tuple, device: torch.device, what: str) -> None:
 def _launch(name: str, tensors, q: torch.Tensor, k: torch.Tensor, plan) -> None:
     """Calls the kernel entry point `name` with the tensors' pointers (None:
     a null pointer), the shape, the dtype code and the plan's (warpgroups,
-    smem_bytes; a backward plan's splits between them)."""
+    splits, smem_bytes)."""
     bh, tq, d = q.shape
-    ints = (plan.warpgroups, plan.splits, plan.smem_bytes) if isinstance(plan, BwdKernelPlan) else (
-        plan.warpgroups, plan.smem_bytes)
     args = (*(None if t is None else t.data_ptr() for t in tensors), bh, tq, k.shape[1], d,
-            _DTYPE_CODES[q.dtype], *ints)
+            _DTYPE_CODES[q.dtype], plan.warpgroups, plan.splits, plan.smem_bytes)
     _call(name, args, q.device, f"q={tuple(q.shape)} k={tuple(k.shape)} {q.dtype}")
 
 
 def _tma_padded(forward, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """forward(q, k, v) where the bf16 kernel's TMA loads take the tensors:
-    rows of a multiple of 16 bytes (D % 8 == 0) and 16-byte aligned
-    tensors.  Elsewhere it runs on copies padded with zero head columns (a
-    zero column adds nothing to q.k^T, and P.V's extra columns are dropped)
-    and O is sliced back; LSE is the same."""
+    """forward(q, k, v) where the kernels' tile loads take the tensors: bf16
+    by TMA, rows of a multiple of 16 bytes (D % 8 == 0); fp32 by 16-byte
+    cp.async, D % 4 == 0; both 16-byte aligned tensors.  Elsewhere it runs on
+    copies padded with zero head columns (a zero column adds nothing to
+    q.k^T, and P.V's extra columns are dropped) and O is sliced back; LSE is
+    the same."""
     d = q.shape[2]
-    if q.dtype != torch.bfloat16 or not (d % 8 or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16):
+    mult = 8 if q.dtype == torch.bfloat16 else 4
+    if q.dtype not in _DTYPE_CODES or not (d % mult or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16):
         return forward(q, k, v)
-    o, lse = forward(*(torch.nn.functional.pad(t, (0, -d % 8)) for t in (q, k, v)))
+    o, lse = forward(*(torch.nn.functional.pad(t, (0, -d % mult)) for t in (q, k, v)))
     return o[..., :d].contiguous(), lse
 
 
@@ -404,8 +435,14 @@ def _forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[
     plan = plan_flash_fwd(q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.dtype)
     o = torch.empty_like(q)
     lse = torch.empty((q.shape[0], q.shape[1], 1), dtype=torch.float32, device=q.device)
-    _launch("jig_flash_fwd", (q, k, v, o, lse), q, k, plan)
+    ws_o = ws_ml = None
+    if plan.splits > 1:  # the fp32 splits' partial states, for flash_fwd_merge
+        ws_o = torch.empty((plan.splits, *q.shape), dtype=torch.float32, device=q.device)
+        ws_ml = torch.empty((plan.splits, q.shape[0], q.shape[1], 2), dtype=torch.float32, device=q.device)
+    _launch("jig_flash_fwd", (q, k, v, o, lse, ws_o, ws_ml), q, k, plan)
     flash_forward.launches += 1
+    if ws_o is not None:
+        flash_fwd_merge(ws_o, ws_ml, o, lse)
     return o, lse
 
 
@@ -414,10 +451,11 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """(BH, Tq, D) x (BH, Tk, D) -> (O, LSE (BH, Tq, 1) fp32); q pre-scaled.
 
     On a CUDA tensor this launches the Hopper kernel on `plan_flash_fwd`'s
-    plan (and counts the launch in `flash_forward.launches`) or raises; in
-    bf16 where D % 8 != 0 (or a view is misaligned) it runs on copies padded
-    with zero columns (`_tma_padded`).  On a CPU tensor it computes the plain
-    version."""
+    plan (and counts the launch in `flash_forward.launches`; in fp32 where
+    the plan splits the key loop, `flash_fwd_merge` then combines the splits)
+    or raises; where D % 8 (bf16) or D % 4 (fp32) is not 0, or a view is
+    misaligned, it runs on copies padded with zero columns (`_tma_padded`).
+    On a CPU tensor it computes the plain version."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
@@ -426,6 +464,51 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 flash_forward.launches = 0
+
+
+def flash_fwd_merge_plain(o_parts: torch.Tensor, ml_parts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fp32 forward's split merge, as the kernel
+    sums: from the splits' unnormalised O (splits, BH, Tq, D) and (m, l)
+    (splits, BH, Tq, 2), m = max_s m_s, a_s = exp(m_s - m), l = sum_s l_s
+    a_s and O = sum_s O_s a_s / l, each sum in split order; returns (O, LSE
+    = m + log l (BH, Tq, 1)).  A split that saw no key (m_s = -1e30, l_s =
+    0, O_s = 0) adds nothing."""
+    m = ml_parts[..., :1].amax(dim=0)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(o_parts[0])
+    for o_s, ml_s in zip(o_parts, ml_parts):
+        a = torch.exp(ml_s[..., :1] - m)
+        l = l + ml_s[..., 1:] * a
+        o = o + o_s * a
+    return o / l, m + torch.log(l)
+
+
+def flash_fwd_merge(o_parts: torch.Tensor, ml_parts: torch.Tensor, o: torch.Tensor, lse: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Combines the fp32 forward's split partial states into o (BH, Tq, D)
+    and lse (BH, Tq, 1), fp32, contiguous, D % 4 == 0: o_parts (splits >= 2,
+    BH, Tq, D), ml_parts (splits, BH, Tq, 2) as the kernel writes them.  On
+    CUDA tensors it launches the merge kernel (and counts the launch in
+    `flash_fwd_merge.launches`) or raises; on CPU tensors it computes the
+    plain version into o and lse."""
+    splits, bh, tq, d = o_parts.shape
+    if (any(t.dtype != torch.float32 for t in (o_parts, ml_parts, o, lse)) or splits < 2
+            or ml_parts.shape != (splits, bh, tq, 2) or o.shape != (bh, tq, d) or lse.shape != (bh, tq, 1)):
+        raise ValueError(f"flash_fwd_merge: o_parts {tuple(o_parts.shape)}, ml_parts {tuple(ml_parts.shape)} do "
+                         f"not split o {tuple(o.shape)}, lse {tuple(lse.shape)} (all fp32)")
+    if o_parts.device.type == "cpu" and o.device.type == "cpu":
+        want_o, want_lse = flash_fwd_merge_plain(o_parts, ml_parts)
+        return o.copy_(want_o), lse.copy_(want_lse)
+    _check_cuda("flash_fwd_merge", o_parts, ml_parts, o, lse)
+    if d % 4 or any(t.data_ptr() % 16 for t in (o_parts, ml_parts, o)):
+        raise ValueError(f"flash_fwd_merge: wants D % 4 == 0 and 16-byte aligned tensors, got D = {d}")
+    _call("jig_flash_fwd_merge", (o_parts.data_ptr(), ml_parts.data_ptr(), o.data_ptr(), lse.data_ptr(), bh * tq,
+                                  d, splits), o.device, f"o_parts={tuple(o_parts.shape)}")
+    flash_fwd_merge.launches += 1
+    return o, lse
+
+
+flash_fwd_merge.launches = 0
 
 
 def _bwd_plan(q: torch.Tensor, k: torch.Tensor, plan: Optional[FlashBwdPlan]) -> FlashBwdPlan:

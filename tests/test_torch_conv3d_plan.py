@@ -1,7 +1,8 @@
 """PyTorch port: the conv kernel's launch planner (`ops/conv3d.py`
 `plan_conv3d`), checked on the CPU at the 19 distinct convs of the fused
 stage-1 path (`configs/sample_two_stage.yml`: base 64, mult (1, 2, 2, 4, 5),
-64x128x128), `chip_smoke.py`'s edge shapes and the fp32 torso.
+64x128x128) in bf16 and in fp32 (the fused path in fp32), `chip_smoke.py`'s
+edge shapes and the fp32 torso.
 
 For each plan: the output tiles cover every voxel and channel exactly once
 (by the block -> tile mapping `ConvPlan` documents and csrc/conv3d.cu
@@ -31,6 +32,8 @@ CASES = ([pytest.param((1, *LEVELS[lv], cin), cout, 1 | 2 | 8, torch.bfloat16, i
           for lv, cin, cout in FUSED_CONVS]
          + [pytest.param(s, c, f, torch.bfloat16, id=f"edge-{'x'.join(map(str, s))}to{c}") for s, c, f in EDGE]
          + [pytest.param((1, 32, 64, 64, 128), 128, 1 | 2 | 8, torch.float32, id="fp32-torso")]
+         + [pytest.param((1, *LEVELS[lv], cin), cout, 1 | 2 | 8, torch.float32, id=f"fp32-L{lv}-{cin}to{cout}")
+            for lv, cin, cout in FUSED_CONVS]
          + [pytest.param(s, c, f, torch.float32, id=f"fp32-edge-{'x'.join(map(str, s))}to{c}")
             for s, c, f in EDGE])
 
@@ -41,9 +44,6 @@ def _tile_voxels(plan, shape):
     b, d, h, w, _ = shape
     tz, ty, tx = plan.tile
     i = np.arange(plan.grid[0])[:, None]
-    if plan.tile[:2] == (1, 1):  # fp32: flattened tiles of the B*D*H*W index
-        m = i * tx + np.arange(tx)[None, :]
-        return np.where(m < b * d * h * w, m, -1)
     nx, ny, nz = -(-w // tx), -(-h // ty), -(-d // tz)
     x0, y0 = (i % nx) * tx, (i // nx % ny) * ty
     z0, bb = (i // (nx * ny) % nz) * tz, i // (nx * ny * nz)
@@ -60,14 +60,19 @@ def test_plan_covers_partitions_and_fits(shape, cout, flags, dtype):
 
     # every output voxel and channel exactly once
     vox = _tile_voxels(plan, shape)
-    assert vox.shape[1] == (64 * plan.tile[0] if dtype == torch.bfloat16 else 64) == plan.threads // 2
+    # bf16: one warpgroup per 64-voxel plane; fp32: 256 threads of 8 voxels x 8 of the 64 channels
+    assert vox.shape[1] == 64 * plan.tile[0] == (plan.threads // 2 if dtype == torch.bfloat16 else plan.threads)
+    if dtype == torch.float32:
+        assert (plan.tile, plan.bn, plan.tps, plan.stages, plan.chunk) == (tconv.F32_TILE, 64, 3, 2, 16)
+        assert 2 * (plan.smem_bytes + 1024) <= 233_472  # two blocks on an SM
     counts = np.bincount(vox[vox >= 0], minlength=b * d * h * w)
     assert counts.size == b * d * h * w and (counts == 1).all()
     chans = np.concatenate([np.arange(j * plan.bn, min((j + 1) * plan.bn, cout)) for j in range(plan.grid[1])])
     assert np.array_equal(np.sort(chans), np.arange(cout))
 
     # the K splits: contiguous iteration ranges, in order, covering [0, 27 * Cin) once
-    groups, chunks = 27 // plan.tps, -(-cin // tconv.CHUNK)
+    assert plan.chunk == (tconv.CHUNK if dtype == torch.bfloat16 else tconv.F32_CHUNK)
+    groups, chunks = 27 // plan.tps, -(-cin // plan.chunk)
     assert plan.splits == plan.grid[2] == len(plan.split_ranges)
     assert plan.split_ranges[0][0] == 0 and plan.split_ranges[-1][1] == groups * chunks
     for (lo, hi), (nxt, _) in zip(plan.split_ranges, plan.split_ranges[1:]):
@@ -76,15 +81,15 @@ def test_plan_covers_partitions_and_fits(shape, cout, flags, dtype):
     k_seen = np.zeros(27 * cin, dtype=int)
     for lo, hi in plan.split_ranges:
         for it in range(lo, hi):
-            c0 = it // groups * tconv.CHUNK
+            c0 = it // groups * plan.chunk
             for tap in range(plan.tps * (it % groups), plan.tps * (it % groups + 1)):
-                k_seen[tap * cin + c0: tap * cin + min(c0 + tconv.CHUNK, cin)] += 1
+                k_seen[tap * cin + c0: tap * cin + min(c0 + plan.chunk, cin)] += 1
     assert (k_seen == 1).all()
 
     # resources, and enough blocks where the grid would be thin
     assert plan.smem_bytes <= tconv.SMEM_LIMIT
     blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
-    if dtype == torch.bfloat16 and (d, h, w) in (LEVELS[3], LEVELS[4]):
+    if (d, h, w) in (LEVELS[3], LEVELS[4]):
         assert blocks >= tconv.SMS
     if plan.splits > 1:
         assert plan.grid[0] * plan.grid[1] < tconv.SMS

@@ -49,16 +49,28 @@ def test_plan_covers_and_fits(shape, dtype):
     assert plan == tflash.plan_flash_fwd(bh, tq, tk, d, dtype)  # a pure function
     hd = plan.head_width
     assert hd in (16, 32, 64, 128, 256) and d <= hd and (hd == 16 or d > hd // 2)
-    assert plan.chunk == (min(hd, 64) if dtype == torch.bfloat16 else hd) and hd % plan.chunk == 0
+    assert plan.chunk == min(hd, 64) and hd % plan.chunk == 0
     nch = hd // plan.chunk
-    assert plan.grid == -(-tq // tflash.TILE) * bh * nch  # one block per (bh, 64-row q tile, chunk)
+    # one block per (bh, 64-row q tile, chunk, split)
+    assert plan.grid == -(-tq // tflash.TILE) * bh * nch * plan.splits
     assert 0 < plan.smem_bytes <= tflash.SMEM_LIMIT
     if dtype == torch.bfloat16:
         assert plan.threads == 128 * plan.warpgroups and plan.warpgroups in (1, 2)
+        assert (plan.splits, plan.merge_launches) == (1, 0)
     else:
-        assert (plan.warpgroups, plan.threads, plan.swizzle) == (0, tflash.TILE, 0)
-        # two buffers of K and V tiles of 32 keys, and 32 scores of each of the block's 64 rows
-        assert plan.smem_bytes == 2 * 2 * 32 * hd * 4 + 32 * tflash.TILE * 4
+        assert (plan.warpgroups, plan.threads, plan.swizzle) == (0, tflash.F32_THREADS, 0)
+        rt = plan.rows
+        assert rt == (64 if hd <= 64 else 32 if hd == 128 else 16) == tflash.f32_fwd_rows(hd)
+        # the Q tile, two stages of K and V tiles of rt keys (rows padded by 4 floats), and P (rt, 64 + 4)
+        assert plan.smem_bytes == 4 * (64 * (hd + 4) + 2 * 2 * rt * (hd + 4) + rt * 68)
+        if hd <= 64:  # two blocks on an SM
+            assert 2 * (plan.smem_bytes + 1024) <= SM_SMEM
+        # splits: at most one per key tile and 16, and the grid within two blocks per SM where it splits
+        blocks = plan.grid // plan.splits
+        assert 1 <= plan.splits <= min(-(-tk // rt), tflash.F32_MAX_SPLITS)
+        assert plan.splits == max(1, min(-(-tk // rt), 16, 2 * tflash.SMS // blocks))
+        assert plan.splits == 1 or plan.grid <= 2 * tflash.SMS
+        assert plan.merge_launches == int(plan.splits > 1)
 
 
 @pytest.mark.parametrize("shape", [pytest.param(s, id="x".join(map(str, s))) for s in MAIN + EDGE])
@@ -135,7 +147,7 @@ def test_padding_path_passes_aligned_bf16_and_fp32_through():
     calls = []
     tflash._tma_padded(lambda *t: calls.append(t) or (t[0], None), q, q, q)
     assert calls[0][0] is q
-    f = torch.zeros(1, 8, 5)
+    f = torch.zeros(1, 8, 12)  # fp32 takes D % 4 == 0
     tflash._tma_padded(lambda *t: calls.append(t) or (t[0], None), f, f, f)
     assert calls[1][0] is f
 
