@@ -104,7 +104,30 @@ Phases, in order (any failure exits non-zero and prints no result line):
      one validation at 6 (the panels of 2 slices: three DDIM-20 chains,
      written as PNGs; then the val loss at t = T/2), then a resumed run to
      step 8; its ~2.8 GB checkpoints are deleted at the end;
- 13. real data: 3 abdominal CT cases (96 x 512 x 512 int16 HU, TotalSegmentator
+ 13. gan reference: a small fp32 AutoencoderKL (its level-1 and mid attention
+     over 1,024 tokens take the fp32 flash kernels) and a PatchGAN, one
+     `make_autoencoder_train_step` with disc_start 0 (the adaptive weight's
+     two gradients on the generator's graph, the generator's update, then the
+     discriminator's) on the card against the CPU, then step 2 on both from
+     the card's state after its step 1: losses, d_weight, gradients and
+     parameters within 1e-4 of their max;
+     latent train reference: three fp32 latent stage-2 steps
+     (`make_latent_ldm_train_step`: the pixel batch through the frozen tiny
+     KL-VAEs, then the stage-2 step on a 32x32x4 latent with T = 1024 at the
+     UNet's sites) on the card against the CPU;
+ 14. ae train path: `cli.train_ae.run` at full width (the 1-channel KL-VAE of
+     `configs/stage2_ldm_ae.yml`'s first_stage at 512x512, ch 128, with
+     `configs/stage_ae.yml`'s PatchGAN, loss and lr), cut to 4 steps with the
+     adversarial part from step 2 (disc_start 1) and a checkpoint at 4: s/step,
+     peak GiB, the checkpoint's size, no kernel launch;
+     latent train path: `cli.train_ldm.run` on `configs/stage2_ldm_ae.yml` at
+     full width (base 160, bf16, scale_by_std), its first stage the AE just
+     trained, its cond stage from its seeded init: 3 steps with a checkpoint
+     and a validation, a resume to 6; 5 flash forwards, 5 dkv and 5 dq a step
+     (the five ds-2 sites at (10, 1024, 32)) and the validation's forwards;
+     then `stage: ct` on 2 slices from its checkpoints, reading the scale
+     factor the trainer wrote; every file deleted at the end;
+ 15. real data: 3 abdominal CT cases (96 x 512 x 512 int16 HU, TotalSegmentator
      and crcseg volumes, 128-token text features) written as NIfTI with the
      port's writer, indexed by `cli.build_index` and laid out as an nnUNet
      tree; the host seconds of a train item of each dataset kind; then
@@ -117,11 +140,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
      seconds each step waited on the loader, peak GiB; every file deleted at
      the end.
 Before each main path (6 per run and the latent path, 7 per variant, 9, each
-text path of 10, 12, each run of 13) every kernel launch counter (flash_fwd,
+text path of 10, 12, each run of 14 and 15) every kernel launch counter (flash_fwd,
 flash_fwd_merge, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reduce and the conv
 kernel's) is set to 0;
 after it the counts must equal what the path implies.  The last lines are
-the sampling, latent, fused, train, text and real-data summaries, a JSON line
+the sampling, latent, fused, train, latent-train, text and real-data
+summaries, a JSON line
 with the kernel numbers, the card's name and power limit, and `{"ok": true,
 "device": {...}}`.  Imports neither JAX nor PyYAML.
 """
@@ -129,6 +153,7 @@ with the kernel numbers, the card's name and power limit, and `{"ok": true,
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import io
 import json
@@ -195,6 +220,7 @@ BWD_SHAPES = [  # (BH, T, D), dtype, where training runs it
     ((16, 1024, 32), torch.bfloat16, "stage 2 ds8, 256x256"),
     ((16, 4096, 32), torch.bfloat16, "stage 2 ds8, 512x512 (configs/stage2_ldm.yml)"),
     ((20, 1024, 32), torch.bfloat16, "stage 2 ds16, 512x512"),
+    ((10, 1024, 32), torch.bfloat16, "latent stage 2 ds2, configs/stage2_ldm_ae.yml"),
     ((8, 2048, 32), torch.float32, "fp32 torso"),
 ]
 
@@ -353,6 +379,54 @@ LDM_REF_UNET = {"model_channels": 64, "channel_mult": [1], "attention_resolution
 TRAIN_REF_UNET = {"base_channels": 64, "channel_mult": [1, 2], "attention_resolutions": [1],
                   "num_res_blocks": 1, "num_head_channels": 16}
 TRAIN_REF_TOL = 1e-4  # card vs CPU, fp32: of each tensor's max |CPU value|
+
+
+# the first-stage AE trainer at full width: configs/stage2_ldm_ae.yml's
+# first_stage.ddconfig (the 1-channel image AE that its first_stage.checkpoint
+# names), configs/stage_ae.yml's lossconfig and lr (base 4.5e-6 x batch 1).
+# Cut: disc_start 50001 -> 1 (so step 2 on runs the adversarial term, the
+# adaptive weight and the discriminator's update), 4 steps, a checkpoint at 4
+AE_TRAIN_CFG = {
+    "seed": 0,
+    "batch_size": 1,
+    "max_steps": 4,
+    "save_freq": 4,
+    "display_freq": 1,
+    "model": {"base_learning_rate": 4.5e-6, "embed_dim": 4,
+              "ddconfig": {**LATENT_CT_CFG["stage2"]["first_stage"]["ddconfig"], "dims": 2, "dropout": 0.0},
+              "lossconfig": {"kl_weight": 1.0e-6, "disc_weight": 0.5, "disc_start": 1, "disc_num_layers": 3,
+                             "disc_ndf": 64, "pixel_loss": "l1"}},
+    "dataset": {"kind": "synthetic", "slice_shape": [512, 512], "depth": 16, "num_cases": 16},
+}
+# latent stage-2 training at full width: configs/stage2_ldm_ae.yml (UNet base
+# 160 bf16 on the 64x64x4 latent, scale_by_std).  Cuts: 3 steps with a
+# checkpoint and a validation at 3, then a resume to 6 (the same again at 6);
+# first_stage.checkpoint is the AE train path's checkpoint; cond_stage (ch 96,
+# 2 channels) has no checkpoint, as no trainer of either package trains the
+# 2-channel AE, so it runs from its seeded init
+LATENT_TRAIN_CFG = {
+    "seed": 0,
+    "scale_lr": True,
+    "batch_size": 1,
+    "accumulate_grad_batches": 1,
+    "max_steps": 3,
+    "save_freq": 3,
+    "display_freq": 1,
+    "eval_every": 3,
+    "n_log_images": 2,
+    "model": {"base_learning_rate": 2.0e-06, "scale_by_std": True,
+              **{k: v for k, v in LATENT_CT_CFG["stage2"].items() if k not in ("slice_size", "dataset")}},
+    "dataset": {"kind": "synthetic", "slice_shape": [512, 512], "depth": 16, "num_cases": 16},
+}
+# the gan reference's AE and discriminator (64x64 input), 64 wide: at one
+# channel a GroupNorm group (base <= 32) the bias before the norm has an exactly
+# zero gradient, whose rounding noise has no relative error to hold; the AE's
+# level-1 and mid attention, one head of 128 over 1,024 tokens, take the fp32
+# flash kernels
+GAN_REF_AE = {"embed_dim": 4, "ddconfig": {"ch": 64, "ch_mult": [1, 2], "num_res_blocks": 1, "attn_resolutions": [32],
+                                           "z_channels": 4, "resolution": 64, "in_channels": 1, "out_ch": 1}}
+GAN_REF_DISC = {"ndf": 64, "n_layers": 3}
+GAN_REF_LR = 1e-7  # its SGD step
 
 
 # the real data phase: an index of 3 abdominal CT cases (96 slices of 512x512
@@ -2320,6 +2394,353 @@ def ldm_train_path_phase(flash, card: str) -> dict:
             "run_wall_s": wall, "val_loss_simple": val[0][1], "panel_seconds": panel_s[0], "checkpoint_gb": ckpt_gb}
 
 
+def _gan_step_run(flash, models: dict, device: str, batch, seed: int, init_sd=None) -> dict:
+    """One make_autoencoder_train_step (disc_start 0: the adaptive weight and
+    the discriminator's update run) of the gan reference's models on
+    `device`, both optimizers SGD at GAN_REF_LR (or the state `init_sd`); returns its
+    metrics, each optimizer's gradients and the parameters after it (on the
+    CPU), the flash calls of the AE's attention, the launches and the state."""
+    from jointimagegeneration_torch.train.gan import GANTrainState, make_autoencoder_train_step
+    from jointimagegeneration_torch.train.optim import build_optimizer
+
+    ae, disc = models[device]
+    state = GANTrainState(build_optimizer(list(ae.named_parameters()), "SGD", GAN_REF_LR),
+                          build_optimizer(list(disc.named_parameters()), "SGD", GAN_REF_LR))
+    if init_sd is not None:  # a copy: loading onto the CPU keeps CPU tensors, which the step updates in place
+        state.load_state_dict(copy.deepcopy(init_sd))
+    grads = {}
+    for name, opt in (("g", state.g_opt), ("d", state.d_opt)):
+        def record(gs, opt=opt, name=name, step=opt.step):
+            grads[name] = {n: g.detach().cpu().clone() for (n, _), g in zip(opt.named_params, gs)}
+            return step(gs)
+
+        opt.step = record
+    calls = []
+    hooks = _flash_attention_calls((ae,), calls)
+    before = _counts(flash)
+    step = make_autoencoder_train_step(ae, disc, kl_weight=1e-6, disc_weight=0.5, disc_start=0)
+    metrics = step(state, {"image": batch.to(device)}, _CpuDrawnNoise(seed, device))
+    launches = {k: v - before[k] for k, v in _counts(flash).items()}
+    for h in hooks:
+        h.remove()
+    for opt in (state.g_opt, state.d_opt):
+        del opt.step  # the class's step again
+    params = {f"{name}.{n}": p.detach().cpu().clone() for name, m in (("g", ae), ("d", disc))
+              for n, p in m.named_parameters()}
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads, "params": params,
+            "calls": calls, "launches": launches, "state": state}
+
+
+def _compare_gan_runs(cpu: dict, gpu: dict, label: str) -> dict:
+    """Worst relative card-vs-CPU difference of a gan reference step: each
+    metric against its |CPU value|, each gradient and parameter against its
+    tensor's max |CPU value|; fails past TRAIN_REF_TOL."""
+    worst = {"metric": 0.0, "grad": 0.0, "param": 0.0}
+    for k, want in cpu["metrics"].items():
+        rel = abs(gpu["metrics"][k] - want) / max(abs(want), 1e-30)
+        worst["metric"] = max(worst["metric"], rel)
+        check(rel <= TRAIN_REF_TOL, f"{label}: {k} {gpu['metrics'][k]} on the card, {want} on the CPU")
+    pairs = [("grad", f"{side}.{n}", gpu["grads"][side][n], w) for side in ("g", "d")
+             for n, w in cpu["grads"][side].items()]
+    pairs += [("param", n, gpu["params"][n], w) for n, w in cpu["params"].items()]
+    for kind, n, got, want in pairs:
+        rel = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        worst[kind] = max(worst[kind], rel)
+        check(rel <= TRAIN_REF_TOL, f"{label}: {kind} {n} differs by {rel:.3g} of its max (tol {TRAIN_REF_TOL})")
+    return worst
+
+
+def gan_reference_phase(flash) -> dict:
+    """A small fp32 AutoencoderKL (GAN_REF_AE at 64x64, 1 channel: its
+    level-1 and mid attention over 1,024 tokens, one 128-wide head, take the
+    fp32 flash kernels) and a PatchGAN (GAN_REF_DISC) on the card against the
+    CPU, every parameter perturbed, same weights, same posterior draws: one
+    make_autoencoder_train_step with disc_start 0 (the adaptive weight's two
+    gradients on the generator forward's graph, the generator's update, then
+    the discriminator's), then step 2 on both devices from the card's state
+    after its step 1.  SGD for both models, for the reason
+    train_reference_phase gives, at GAN_REF_LR: the pixel loss is summed over
+    the image, so its gradients run to the thousands, and at 1e-4 one step
+    moved the weights far enough that step 2's adaptive weight sat at its
+    1e4 clip (a CPU rehearsal), where its ratio is not held.  The losses, d_weight, every gradient and
+    every parameter after each step within TRAIN_REF_TOL; on the card each
+    flash-eligible attention call of the AE launches one forward, one dkv and
+    one dq (the adaptive weight's gradients stop at the decoder's conv_out and
+    reach no attention), with the fp32 merges and split reduces their plans
+    give; none on the CPU."""
+    from jointimagegeneration_torch.cli.common import build_autoencoder
+    from jointimagegeneration_torch.core.runtime import configure_precision
+    from jointimagegeneration_torch.data.datasets import SyntheticSliceDataset
+    from jointimagegeneration_torch.nn.discriminators import PatchDiscriminator
+
+    configure_precision()
+    gen = torch.Generator().manual_seed(12)
+    ds = SyntheticSliceDataset(2, (64, 64), depth=4)
+    batches = [torch.from_numpy(ds[i]["image"])[None] for i in range(2)]
+    models, init = {}, None
+    for device in ("cpu", "cuda"):
+        mods = (build_autoencoder(GAN_REF_AE, device, 3), PatchDiscriminator(1, device=device, **GAN_REF_DISC))
+        if init is None:
+            with torch.no_grad():
+                for m in mods:
+                    for p in m.parameters():
+                        p.add_(0.02 * torch.randn(p.shape, generator=gen))  # un-zero every kernel
+            init = [m.state_dict() for m in mods]
+        else:
+            for m, sd in zip(mods, init):
+                m.load_state_dict(sd)
+        models[device] = mods
+    step1 = [_gan_step_run(flash, models, d, batches[0], 13) for d in ("cpu", "cuda")]
+    after1 = step1[1]["state"].state_dict()  # the card's state after its step 1
+    worst1 = _compare_gan_runs(step1[0], step1[1], "gan reference (step 1)")
+    step2 = [_gan_step_run(flash, models, d, batches[1], 14, after1) for d in ("cpu", "cuda")]
+    worst2 = _compare_gan_runs(step2[0], step2[1], "gan reference (step 2 from the card's step 1)")
+    out = {"launches": {}}
+    for i, (cpu, gpu) in enumerate((step1, step2)):
+        calls = gpu["calls"]
+        pad = [(bh, t, -(-d // 4) * 4) for bh, t, d in calls]
+        want = {**{k: 0 for k in gpu["launches"]}, "flash_fwd": len(calls), "flash_bwd_dkv": len(calls),
+                "flash_bwd_dq": len(calls), "flash_fwd_merge": call_merges(flash, calls),
+                "flash_bwd_reduce": sum(bwd_reduces(flash, bh, t, t, d) for bh, t, d in pad)}
+        check(len(calls) > 0 and not any(cpu["launches"].values()) and gpu["launches"] == want,
+              f"gan reference (step {i + 1}): launches cpu {cpu['launches']}, card {gpu['launches']}, "
+              f"expected {want}")
+        out["launches"] = {k: out["launches"].get(k, 0) + v for k, v in gpu["launches"].items()}
+    m1, m2 = step1[1]["metrics"], step2[1]["metrics"]
+    print(f"gan reference: fp32 AE (ch 64, 64x64, {len(step1[1]['calls'])} flash attention calls a forward) + "
+          f"PatchGAN (ndf 64, 3 layers), disc_start 0, card vs CPU: step 1 loss {m1['loss']:.6g}, d_loss "
+          f"{m1['d_loss']:.6g}, d_weight {m1['d_weight']:.6g}: worst relative diff metrics {worst1['metric']:.3g}, "
+          f"gradients {worst1['grad']:.3g}, params {worst1['param']:.3g}; step 2 from the card's step 1 on both: "
+          f"d_weight {m2['d_weight']:.6g}, metrics {worst2['metric']:.3g}, gradients {worst2['grad']:.3g}, params "
+          f"{worst2['param']:.3g} (tol {TRAIN_REF_TOL}); launches on the card {out['launches']}", flush=True)
+    check(m1["d_weight"] > 0 and m1["d_loss"] > 0, f"gan reference: the adversarial terms did not run: {m1}")
+    del models, step1, step2
+    torch.cuda.empty_cache()
+    return {**out, "max_rel_err": max(worst1.values()), "stepped_max_rel_err": max(worst2.values()),
+            "d_weight": m1["d_weight"]}
+
+
+def latent_train_reference_phase(flash) -> dict:
+    """Three fp32 latent stage-2 train steps (make_latent_ldm_train_step) on
+    the card against the same steps on the CPU: the KL-VAE first and cond
+    stages of LATENT_REF_AE at 64x64 around LDM_REF_UNET on the 32x32x4
+    latent (T = 1024 at its attention sites), every parameter perturbed,
+    same slices, same draws (the posterior normal, then t and the noise).
+    SGD, for the reason train_reference_phase gives.  Loss, every UNet
+    gradient and the params after each step within TRAIN_REF_TOL; on the card
+    a flash forward for each of the UNet's and the AE encoders' eligible
+    attention calls, a dkv and a dq for the UNet's only (the AEs run frozen,
+    under no_grad), with the merges and reduces their plans give."""
+    from jointimagegeneration_torch.cli.common import build_autoencoder
+    from jointimagegeneration_torch.cli.sample import build_slice_ldm
+    from jointimagegeneration_torch.core.runtime import configure_precision
+    from jointimagegeneration_torch.data.datasets import SyntheticSliceDataset
+    from jointimagegeneration_torch.models.latent_ldm import LatentSliceLDM
+    from jointimagegeneration_torch.train.steps import make_latent_ldm_train_step
+
+    configure_precision()
+    dd = LATENT_REF_AE["ddconfig"]
+    s2 = {"bf16": False, "timesteps": 100, "channels": 4, "cond_channels": 4, "unet_config": {"params": LDM_REF_UNET}}
+    ds = SyntheticSliceDataset(3, (64, 64), depth=4)
+    batches = [{k: torch.from_numpy(item[k])[None] for k in ("image", "cond")} for item in (ds[i] for i in range(3))]
+    gen = torch.Generator().manual_seed(15)
+    runs, init, unet_calls, ae_calls = [], None, [], []
+    for device in ("cpu", "cuda"):
+        ae = build_autoencoder({**LATENT_REF_AE, "ddconfig": {**dd, "in_channels": 1, "out_ch": 1}}, device, 3)
+        cae = build_autoencoder({**LATENT_REF_AE, "ddconfig": {**dd, "in_channels": 2, "out_ch": 2}}, device, 5)
+        ldm = build_slice_ldm(s2, device)
+        mods = (ae, cae, ldm.unet)
+        if init is None:
+            with torch.no_grad():
+                for m in mods:
+                    for p in m.parameters():
+                        p.add_(0.02 * torch.randn(p.shape, generator=gen))  # un-zero every kernel
+            init = [{k: v.clone() for k, v in m.state_dict().items()} for m in mods]  # training moves the CPU's
+        else:
+            for m, sd in zip(mods, init):
+                m.load_state_dict(sd)
+        latent = LatentSliceLDM(inner=ldm, first_stage=ae.eval().requires_grad_(False),
+                                cond_stage=cae.eval().requires_grad_(False), scale_factor=0.7)
+        hooks = []
+        if device == "cuda":
+            hooks = (_flash_attention_calls((ldm.unet,), unet_calls)
+                     + _flash_attention_calls((ae.encoder, cae.encoder), ae_calls))
+        runs.append(_reference_steps(flash, "latent train reference", device, ldm.named_parameters(),
+                                     make_latent_ldm_train_step(latent), batches))
+        for h in hooks:
+            h.remove()
+    n_cpu, n_gpu = runs[0][3], runs[1][3]
+    pad = [(bh, t, -(-d // 4) * 4) for bh, t, d in unet_calls]
+    want = {**{k: 0 for k in n_gpu}, "flash_fwd": len(unet_calls) + len(ae_calls), "flash_bwd_dkv": len(unet_calls),
+            "flash_bwd_dq": len(unet_calls), "flash_fwd_merge": call_merges(flash, unet_calls + ae_calls),
+            "flash_bwd_reduce": sum(bwd_reduces(flash, bh, t, t, d) for bh, t, d in pad)}
+    check(unet_calls and ae_calls and not any(n_cpu.values()) and n_gpu == want,
+          f"latent train reference: launches cpu {n_cpu}, card {n_gpu}, expected {want}")
+    worst = _compare_reference_steps(runs, "latent train reference")
+    print(f"latent train reference: 3 fp32 latent stage-2 steps (KL-VAEs ch 8 at 64x64, base 64 UNet on the 32x32x4 "
+          f"latent, T = 1024 at its attention sites), card vs CPU: worst relative diff loss {worst['loss']:.3g}, "
+          f"gradient {worst['grad']:.3g}, params {worst['param']:.3g} (tol {TRAIN_REF_TOL}); {len(unet_calls)} UNet "
+          f"and {len(ae_calls)} AE-encoder flash calls; launches on the card {n_gpu} = expected", flush=True)
+    torch.cuda.empty_cache()
+    return {"max_rel_err": max(worst.values()), "launches": n_gpu}
+
+
+def ae_train_path_phase(flash, card: str) -> dict:
+    """The first-stage AE trainer at full width through `cli.train_ae.run`
+    (AE_TRAIN_CFG: the 1-channel KL-VAE of configs/stage2_ldm_ae.yml's
+    first_stage at 512x512, ch 128, mult (1,2,4,4), fp32; the PatchGAN of
+    configs/stage_ae.yml, ndf 64, 3 layers), 4 steps, the adversarial part
+    from step 2 on.  No kernel launches: the AE's mid attention is one head of
+    512 (beyond the flash rule's 256, the plain attention of the JAX
+    package's XLA route) and its convs and the discriminator's are cuDNN's.
+    Prints s/step, peak GiB and the checkpoint's size; returns the numbers
+    and the checkpoint directory, which the latent train path reads."""
+    from jointimagegeneration_torch.cli.train_ae import run
+
+    cfg = json.loads(json.dumps(AE_TRAIN_CFG))
+    out_dir = ROOT / "build" / "chip_smoke" / "train_ae"
+    cfg["output_path"] = str(out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    logdir = out_dir / "smoke"
+    n_steps = cfg["max_steps"]
+    torch.cuda.reset_peak_memory_stats()
+    state, launches, wall, _ = _train_run(flash, run, cfg, "smoke")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(not any(launches.values()), f"ae train path: kernel launches {launches}, expected none")
+    recs = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+    check([r["step"] for r in recs] == list(range(1, n_steps + 1)), f"ae train path: logged steps {recs}")
+    check(all(math.isfinite(r[f"train/{k}"]) for r in recs for k in ("loss", "d_loss", "nll", "kl", "d_weight")),
+          f"ae train path: a metric is not finite: {recs}")
+    check(recs[0]["train/d_weight"] == recs[0]["train/d_loss"] == 0.0
+          and all(r["train/d_weight"] > 0 and r["train/d_loss"] > 0 for r in recs[1:]),
+          f"ae train path: the adversarial part did not start at step 2: {recs}")
+    ckdir = logdir / "checkpoints"
+    check(sorted(p.name for p in ckdir.glob("*.pt")) == [f"{n_steps}.pt"], "ae train path: checkpoints")
+    ckpt_gb = (ckdir / f"{n_steps}.pt").stat().st_size / 1e9
+    n_g, n_d = (sum(p.numel() for p in ps) for ps in (state.g_params, state.d_params))
+    sec = sorted(r["train/step_seconds"] for r in recs[1:])  # step 1 carries cuDNN's first-call setup
+    s_per_step = sec[len(sec) // 2]
+    dd, size = cfg["model"]["ddconfig"], cfg["dataset"]["slice_shape"][0]
+    print(f"ae train path: KL-VAE ({size}x{size}, ch {dd['ch']}, mult {tuple(dd['ch_mult'])}, {n_g / 1e6:.1f}M "
+          f"params, fp32) + PatchGAN "
+          f"({n_d / 1e6:.2f}M) {n_steps} steps, adversarial from step 2 (disc_start cut 50001 -> 1), "
+          f"{s_per_step:.4f} s/step (median of steps 2-{n_steps}; step 1 {recs[0]['train/step_seconds']:.3f} s "
+          f"without the adversarial part), losses {[round(r['train/loss'], 2) for r in recs]}, d_weight "
+          f"{[round(r['train/d_weight'], 4) for r in recs]}, peak torch.cuda.max_memory_allocated {peak_gib:.2f} "
+          f"GiB, checkpoint {ckpt_gb:.3f} GB, run() wall {wall:.2f} s; no kernel launches (plain mid attention, "
+          f"cuDNN convs); card {card}", flush=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"s_per_step": s_per_step, "step1_s": recs[0]["train/step_seconds"], "peak_gib": peak_gib,
+            "checkpoint_gb": ckpt_gb, "run_wall_s": wall, "checkpoint": str(ckdir), "launches": launches}
+
+
+def latent_train_path_phase(flash, card: str, ae_ckpt: str) -> dict:
+    """Latent stage-2 training at full width through `cli.train_ldm.run`
+    (LATENT_TRAIN_CFG: configs/stage2_ldm_ae.yml, the base-160 UNet in bf16
+    on the 64x64x4 latent, scale_by_std), its first stage the AE train
+    path's checkpoint, its cond stage from its seeded init (warned): 3 steps
+    with a checkpoint and a validation at 3, then a resume to 6.  Launches:
+    per step 5 flash forwards, 5 dkv and 5 dq (the five ds-2 sites, 32x32 =
+    1,024 tokens of 10 heads of 32); per validation 5 x (20 DDIM-20 calls + 1
+    val-loss call) forwards at b = 2; the AEs' mid attention is plain.  Then
+    `cli.sample.run` with `stage: ct` on 2 slices (DDIM-50) from those
+    checkpoints: 500 forwards, and the scale factor it reads equals the one
+    the trainer wrote.  The files are deleted at the end, the AE's too."""
+    from jointimagegeneration_torch.cli.sample import run as sample_run
+    from jointimagegeneration_torch.cli.train_ldm import run
+
+    cfg = json.loads(json.dumps(LATENT_TRAIN_CFG))
+    out_dir = ROOT / "build" / "chip_smoke" / "train_latent"
+    cfg["output_path"] = str(out_dir)
+    cfg["model"]["first_stage"]["checkpoint"] = ae_ckpt
+    shutil.rmtree(out_dir, ignore_errors=True)
+    logdir = out_dir / "smoke"
+    lat = cfg["dataset"]["slice_shape"][0] // 2 ** (len(cfg["model"]["first_stage"]["ddconfig"]["ch_mult"]) - 1)
+    sites = flash_sites([lat, lat], cfg["model"]["unet_config"]["params"], "channel_mult")
+    check(sites == 5, f"latent train path: {sites} flash sites a UNet call, expected the five ds-2 sites")
+    n_steps = cfg["max_steps"]
+    val_calls = min(cfg.get("log_ddim_steps", 20), cfg["model"]["timesteps"] // 2) + 1
+    expected = {"flash_fwd": sites * (n_steps + val_calls), "flash_fwd_merge": 0, "flash_bwd_dkv": sites * n_steps,
+                "flash_bwd_dq": sites * n_steps, "flash_bwd_reduce": 0, "conv3d": 0, "conv3d_splitk_reduce": 0,
+                "conv3d_stats_reduce": 0}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        state, launches, wall, printed = _train_run(flash, run, cfg, "smoke")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check(launches == expected, f"latent train path: launches {launches}, expected {expected}")
+        check(f"AE checkpoint: g_params weights of {ae_ckpt}" in printed, "latent train path: the AE was not read")
+        check(printed.count("FRESH-INIT") == 1, "latent train path: expected one fresh-init AE (the cond stage)")
+        factor = json.loads((logdir / "checkpoints" / "latent_scale.json").read_text())["scale_factor"]
+        check(f"scale_by_std: calibrated scale_factor={factor!r}" in printed and math.isfinite(factor) and factor > 0,
+              f"latent train path: scale factor {factor}")
+        recs = _train_records(logdir, "latent train path", n_steps)
+        val = [(r["step"], r["val/loss_simple"]) for r in recs if "val/loss_simple" in r]
+        check(len(val) == 1 and val[0][0] == n_steps and math.isfinite(val[0][1]), f"latent train path: val {val}")
+        train = [r for r in recs if "train/loss" in r]
+        sec = sorted(r["train/step_seconds"] for r in train[1:])
+        s_per_step = sec[len(sec) // 2]
+        n_params = sum(p.numel() for p in state.params)
+        size, base = cfg["dataset"]["slice_shape"][0], cfg["model"]["unet_config"]["params"]["model_channels"]
+        print(f"latent train path: stage 2 on the {lat}x{lat}x4 latent ({size}x{size} slices, UNet base {base}, "
+              f"{n_params / 1e6:.1f}M params, bf16; AEs fp32 frozen), scale_by_std factor {factor!r}, {n_steps} "
+              f"steps, {s_per_step:.4f} "
+              f"s/step (median of steps 2-{n_steps}; step 1 {train[0]['train/step_seconds']:.3f} s), losses "
+              f"{[round(r['train/loss'], 4) for r in train]}, val/loss_simple {val[0][1]:.4f}, peak "
+              f"torch.cuda.max_memory_allocated {peak_gib:.2f} GiB, run() wall {wall:.2f} s; launches {launches} = "
+              f"expected; card {card}", flush=True)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg2 = dict(cfg, resume=True, max_steps=2 * n_steps)
+        state2, launches2, wall2, printed2 = _train_run(flash, run, cfg2, "smoke")
+        check(f"resumed from step {n_steps}" in printed2 and state2.step == 2 * n_steps,
+              f"latent train path: the rerun did not resume from step {n_steps} to {2 * n_steps}")
+        check(launches2 == expected, f"latent train path (resumed): launches {launches2}, expected {expected}")
+        factor = json.loads((logdir / "checkpoints" / "latent_scale.json").read_text())["scale_factor"]
+        check(f"scale_by_std: calibrated scale_factor={factor!r}" in printed2, "latent train path: resumed factor")
+        print(f"latent train path: resumed from step {n_steps} to {state2.step} in {wall2:.2f} s (scale factor "
+              f"recalibrated from the same batch: {factor!r}); launches {launches2} = expected", flush=True)
+        del state2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        s2 = {**cfg["model"], "slice_size": cfg["dataset"]["slice_shape"][0], "checkpoint": str(logdir / "checkpoints"),
+              "dataset": cfg["dataset"]}
+        del s2["scale_by_std"]
+        scfg = {"stage": "ct", "seed": 1024, "n_cases": 1, "slices": 2, "ddim_steps": 50, "metrics": False,
+                "output_path": str(out_dir / "samples"), "stage2": s2}
+        out = io.StringIO()
+        _reset_counts(flash)
+        with contextlib.redirect_stdout(out):
+            result = sample_run(scfg, device="cuda")
+        sys.stdout.write(out.getvalue())
+        counts = _counts(flash)
+        want = {**{k: 0 for k in counts}, "flash_fwd": sites * scfg["ddim_steps"] * scfg["slices"]}
+        check(counts == want, f"latent train path (stage: ct): launches {counts}, expected {want}")
+        check(f"latent scale_factor {factor!r} from {logdir / 'checkpoints' / 'latent_scale.json'}" in out.getvalue(),
+              "latent train path (stage: ct): the sampler did not read the trainer's scale factor")
+        check(f"checkpoint: EMA weights of {logdir / 'checkpoints' / '6.pt'}" in out.getvalue(),
+              "latent train path (stage: ct): the sampler did not read the step-6 weights")
+        ct = result["ct"]
+        check(ct.shape == (1, scfg["slices"], size, size) and bool(np.isfinite(ct).all())
+              and float(ct.min()) >= 0.0 and float(ct.max()) <= 1.0, f"latent train path (stage: ct): CT {ct.shape}")
+        s_slice = result["seconds"]["stage2"] / scfg["slices"]
+        print(f"latent train path (stage: ct): 2 slices, DDIM-50, from the step-6 checkpoint with scale factor "
+              f"{factor!r} read from latent_scale.json, {s_slice:.4f} s/slice; launches {counts} = expected",
+              flush=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(Path(ae_ckpt).parents[1], ignore_errors=True)  # the AE train path's run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": launches, "launches_resumed": launches2, "ct_launches": counts, "s_per_step": s_per_step,
+            "peak_gib": peak_gib, "run_wall_s": wall, "val_loss_simple": val[0][1], "scale_factor": factor,
+            "ct_s_per_slice": s_slice}
+
+
 def write_real_fixture(root: Path) -> dict:
     """The real data phase's fixture under `root`, written with the port's
     NIfTI writer: per case `cases/<case>/{image,totalseg,crcseg}.nii.gz` and
@@ -2676,6 +3097,10 @@ def main() -> int:
           flush=True)
     ldm_train_reference_phase(flash)
     ldm_train = ldm_train_path_phase(flash, card)
+    gan_ref = gan_reference_phase(flash)
+    latent_train_ref = latent_train_reference_phase(flash)
+    ae_train = ae_train_path_phase(flash, card)
+    latent_train = latent_train_path_phase(flash, card, ae_train["checkpoint"])
     real = real_data_phase(flash, card)
 
     main_row = rows[1]  # (16, 1024, 32): the stage-2 site, most of the sampling path's launches
@@ -2687,6 +3112,11 @@ def main() -> int:
                     "latent_ct_sampling": latent["launches"],
                     "stage1_training": train["launches"]["flash_fwd"],
                     "stage2_training": ldm_train["launches"]["flash_fwd"],
+                    "gan_reference": gan_ref["launches"]["flash_fwd"],
+                    "latent_train_reference": latent_train_ref["launches"]["flash_fwd"],
+                    "latent_stage2_training": latent_train["launches"]["flash_fwd"],
+                    "latent_stage2_training_resumed": latent_train["launches_resumed"]["flash_fwd"],
+                    "latent_ct_sampling_from_training": latent_train["ct_launches"]["flash_fwd"],
                     "text_reference": text_ref["launches"]["flash_fwd"],
                     "text_mask_sampling": text_mask["launches"],
                     "text_two_stage_sampling": text_two_stage["launches"],
@@ -2721,7 +3151,9 @@ def main() -> int:
                       "text_reference": text_ref["launches"]["flash_fwd_merge"],
                       "text_mask_sampling": text_mask["merges"],
                       "text_two_stage_sampling": text_two_stage["merges"],
-                      "stage1_long_report_training": long_train["launches"]["flash_fwd_merge"]}
+                      "stage1_long_report_training": long_train["launches"]["flash_fwd_merge"],
+                      "gan_reference": gan_ref["launches"]["flash_fwd_merge"],
+                      "latent_train_reference": latent_train_ref["launches"]["flash_fwd_merge"]}
     merge_row = merge_rows[1]
     kernels.append({
         "name": "flash_fwd_merge",
@@ -2746,7 +3178,11 @@ def main() -> int:
                         "stage1_long_report_training": long_train["launches"][name],
                         "real_stage1_text_training": real["stage1"]["launches"][name],
                         "real_stage2_training": real["stage2"]["launches"][name],
-                        "nnunet_stage2_training": real["nnunet"]["launches"][name]}
+                        "nnunet_stage2_training": real["nnunet"]["launches"][name],
+                        "gan_reference": gan_ref["launches"][name],
+                        "latent_train_reference": latent_train_ref["launches"][name],
+                        "latent_stage2_training": latent_train["launches"][name],
+                        "latent_stage2_training_resumed": latent_train["launches_resumed"][name]}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2767,7 +3203,9 @@ def main() -> int:
     # the fp32 kernels' split reduce, as the refiner's 640-token row's dkv runs it
     reduce_row = next(r for r in bwd_rows if r["shape"] == [8, LONG_TEXT_TOKENS, LONG_TEXT_TOKENS, 64])["reduce"]
     reduce_launches = {"text_reference": text_ref["launches"]["flash_bwd_reduce"],
-                       "stage1_long_report_training": long_train["launches"]["flash_bwd_reduce"]}
+                       "stage1_long_report_training": long_train["launches"]["flash_bwd_reduce"],
+                       "gan_reference": gan_ref["launches"]["flash_bwd_reduce"],
+                       "latent_train_reference": latent_train_ref["launches"]["flash_bwd_reduce"]}
     kernels.append({
         "name": "flash_bwd_reduce",
         "route": "cuda",
@@ -2819,6 +3257,9 @@ def main() -> int:
     print(f"fused: {json.dumps({'reference': fused_ref, 'paths': fused})}")
     print(f"train: {json.dumps(train)}")
     print(f"ldm train: {json.dumps(ldm_train)}")
+    latent_summary = {"gan_reference": gan_ref, "reference": latent_train_ref, "ae_path": ae_train,
+                      "path": latent_train}
+    print(f"latent train: {json.dumps(latent_summary)}")
     text = {"reference": text_ref, "mask_path": text_mask, "two_stage_path": text_two_stage, "train_path": text_train,
             "long_report_train_path": long_train}
     print(f"text: {json.dumps(text)}")

@@ -8,10 +8,12 @@ Counterpart of the AE, checkpoint and dataset parts of
 `build_slice_dataset`, `build_mask_dataset`).  A `checkpoint:` key names one
 of three things:
 
-  * a directory of `<step>.pt` files, as a port trainer writes it
-    (`<logdir>/checkpoints/`): the newest step's EMA weights, rolling or best;
+  * a directory of `<step>.pt` files, as a port trainer or
+    `cli.convert_reference` writes it (`<logdir>/checkpoints/`): the newest
+    step's EMA weights, rolling or best (for the AEs: a `cli.train_ae`
+    state's generator weights, `g_params`, or else the EMA weights);
   * one such `.pt` file (a train state or a `trainstep/` weights snapshot):
-    its EMA weights;
+    its EMA weights (the AEs' as above);
   * a flat `.npz` of a JAX parameter tree ('/'-joined keys; the card's
     machine has no orbax): for the AEs a `cli.train_ae` state keeps them
     under `g_params`, a converted reference AE under `params`.
@@ -72,13 +74,13 @@ def build_autoencoder(m: dict, device, seed: int = 3) -> nn.Module:
     return AutoencoderKL(**kw)
 
 
-def read_port_checkpoint(ck, what: str = "checkpoint") -> Optional[Dict[str, torch.Tensor]]:
-    """The EMA weights (name -> fp32 CPU tensor) of a port checkpoint `ck`: a
-    directory of `<step>.pt` files (the newest step) or one `.pt` file, read
-    with `weights_only=True`; None for an `.npz` file.  Anything else raises
-    ValueError naming the forms accepted."""
-    forms = ("a directory of <step>.pt files as a port trainer writes it, one such .pt file, or a flat .npz of "
-             "the JAX parameter tree")
+def read_port_checkpoint(ck, what: str = "checkpoint", keys=("ema",)) -> Optional[Dict[str, torch.Tensor]]:
+    """The weights (name -> fp32 CPU tensor) under the first of `keys` that a
+    port checkpoint `ck` holds: a directory of `<step>.pt` files (the newest
+    step) or one `.pt` file, read with `weights_only=True`; None for an
+    `.npz` file.  Anything else raises ValueError naming the forms accepted."""
+    forms = ("a directory of <step>.pt files as a port trainer or cli.convert_reference writes it, one such .pt "
+             "file, or a flat .npz of the JAX parameter tree")
     path = Path(ck)
     if path.is_file() and path.suffix == ".npz":
         return None
@@ -90,18 +92,21 @@ def read_port_checkpoint(ck, what: str = "checkpoint") -> Optional[Dict[str, tor
     elif not (path.is_file() and path.suffix == ".pt"):
         raise ValueError(f"{what} {ck!r} is not {forms}")
     saved = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
-    if not isinstance(saved, dict) or not isinstance(saved.get("ema"), dict):
-        raise ValueError(f"{what} {str(path)!r} holds no 'ema' weights: expected {forms}")
-    print(f"{what}: EMA weights of {path}")
-    return dict(saved["ema"])
+    for key in keys:
+        if isinstance(saved, dict) and isinstance(saved.get(key), dict):
+            print(f"{what}: {'EMA' if key == 'ema' else key} weights of {path}")
+            return dict(saved[key])
+    raise ValueError(f"{what} {str(path)!r} holds no {' or '.join(repr(k) for k in keys)} weights: expected {forms}")
 
 
 def load_ae_weights(module: nn.Module, section: Optional[dict], fresh_init_noise: float = 0.0,
                     seed: int = 0) -> None:
-    """Load `section['checkpoint']` (a port checkpoint's EMA weights, or a
-    flat `.npz` of the JAX AE variables under `g_params` or `params`) into
-    `module`, every leaf's name and shape checked; without a checkpoint keep
-    the fresh init, say so, and fill its zero-init kernels with
+    """Load `section['checkpoint']` into `module`, every leaf's name and shape
+    checked: a port checkpoint (a `cli.train_ae` GAN state's generator
+    weights `g_params`, else the EMA weights of a `.pt` such as
+    `cli.convert_reference --ae` writes), or a flat `.npz` of the JAX AE
+    variables under `g_params` or `params`.  Without a checkpoint keep the
+    fresh init, say so, and fill its zero-init kernels with
     N(0, fresh_init_noise^2) drawn from `seed`."""
     ck = (section or {}).get("checkpoint")
     if not ck:
@@ -109,7 +114,7 @@ def load_ae_weights(module: nn.Module, section: Optional[dict], fresh_init_noise
         if fresh_init_noise:
             fill_zero_init(module, fresh_init_noise, seed)
         return
-    state = read_port_checkpoint(ck, "AE checkpoint")
+    state = read_port_checkpoint(ck, "AE checkpoint", keys=("g_params", "ema"))
     if state is not None:
         check_state(module.state_dict(), state, f"AE checkpoint {ck!r} (wrong ddconfig?)")
         module.load_state_dict(state)
@@ -160,9 +165,11 @@ def build_latent_ldm(s2: dict, inner, size: int, device, fresh_init_noise: float
             sidecar = (Path(ck) if Path(ck).is_dir() else Path(ck).parent) / LATENT_SCALE_FILE
             if sidecar.exists():
                 sf = float(json.loads(sidecar.read_text())["scale_factor"])
-                print(f"latent scale_factor {sf:.4f} from {sidecar}")
-    latent = LatentSliceLDM(inner=inner, first_stage=ae.eval(), cond_stage=None if cond_ae is None else cond_ae.eval(),
-                            scale_factor=float(sf))
+                print(f"latent scale_factor {sf!r} from {sidecar}")
+    for stage in (ae, cond_ae):  # frozen: no gradient, eval mode
+        if stage is not None:
+            stage.eval().requires_grad_(False)
+    latent = LatentSliceLDM(inner=inner, first_stage=ae, cond_stage=cond_ae, scale_factor=float(sf))
     return latent, size // ae.downsample_factor
 
 

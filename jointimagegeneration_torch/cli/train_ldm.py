@@ -28,16 +28,30 @@ then the l2 loss at t = T/2, logged as `val/loss_simple`, with the noise from
 the stream seeded for (seed, step + 1); its negation ranks the best
 checkpoints.
 
-Rejected with NotImplementedError: the latent route (`first_stage`, `cond_stage`,
-`scale_by_std`), `init_from` and `ckpt_path`, `model.remat`, cross-attention
-`context_dim` and class conditioning (the UNet's `num_classes`), and
-`profile_steps`.
+The latent (`_ae`) route (`configs/stage2_ldm_ae.yml`): a `model.first_stage`
+section (and `model.cond_stage`) builds the frozen AEs with their weights
+(`cli/common.build_latent_ldm`: a `cli.train_ae` checkpoint, a
+`cli.convert_reference --ae` one or a JAX `.npz`); each step pushes the pixel
+batch through them (`train/steps.make_latent_ldm_train_step`) and the UNet
+trains at latent size.  `model.scale_by_std` calibrates the scale factor once,
+1 / std of the first stage's mode over `train_ds[i]["image"]` for i <
+batch_size, prints it and writes it to `<logdir>/checkpoints/latent_scale.json`,
+which the sampler reads beside `stage2.checkpoint`.  Validation on this route
+logs the inputs, their reconstructions and DDIM samples decoded to pixels,
+then `val/loss_simple` in latent space (the first stage's mode, the cond
+stage's mode of the condition).
+
+Rejected with NotImplementedError: `init_from` and `ckpt_path`, `model.remat`,
+cross-attention `context_dim` and class conditioning (the UNet's
+`num_classes`), and `profile_steps`.
 """
 
 from __future__ import annotations
 
+import json
 import sys
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -52,9 +66,9 @@ from ..diffusion.noise import NoiseSource
 from ..eval.writers import image_volume_to_grid, make_grid, overlay_mask_on_image
 from ..train.optim import build_optimizer
 from ..train.state import EMATrainState
-from ..train.steps import make_ldm_train_step
+from ..train.steps import make_latent_ldm_train_step, make_ldm_train_step
 from ..train.trainer import Trainer, TrainerConfig, noise_seed
-from .common import build_slice_dataset
+from .common import LATENT_SCALE_FILE, build_latent_ldm, build_slice_dataset
 from .sample import build_slice_ldm
 
 __all__ = ["build_slice_dataset", "run", "main"]
@@ -64,9 +78,6 @@ def _reject_unported(cfg: dict, model_cfg: dict) -> None:
     def bad(what: str):
         raise NotImplementedError(f"{what} is not ported to the PyTorch trainer yet")
 
-    for key in ("first_stage", "cond_stage", "scale_by_std"):
-        if model_cfg.get(key):
-            bad(f"the latent route ({key})")
     for key in ("init_from", "ckpt_path"):
         if cfg.get(key) or model_cfg.get(key):
             bad(key)
@@ -95,16 +106,28 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
         lr = accumulate * batch_size * lr  # batch_size is the whole batch of a step
     named = model.named_parameters()
     print(f"stage-2 UNet params: {sum(p.numel() for _, p in named) / 1e6:.2f}M, lr={lr:.2e}")
-    loader = DataLoader(build_slice_dataset(cfg, "train"), batch_size, seed=seed, device=device,
-                        num_workers=int(cfg.get("num_workers", 2)))
+    train_ds = build_slice_dataset(cfg, "train")
+    logdir = Path(cfg.get("output_path", "runs")) / exp
+    latent, _ = build_latent_ldm(model_cfg, model, int(cfg.get("dataset", {}).get("slice_shape", (512, 512))[0]),
+                                 device, float(cfg.get("fresh_init_noise", 0.0)), seed + 3)
+    if latent is not None and model_cfg.get("scale_by_std", False):
+        calib = np.stack([np.asarray(train_ds[i]["image"]) for i in range(min(len(train_ds), batch_size))])
+        latent = latent.calibrate_scale_factor(torch.from_numpy(calib).to(device))
+        print(f"scale_by_std: calibrated scale_factor={latent.scale_factor!r}")
+        ckdir = logdir / "checkpoints"
+        ckdir.mkdir(parents=True, exist_ok=True)
+        (ckdir / LATENT_SCALE_FILE).write_text(json.dumps({"scale_factor": latent.scale_factor}))
+    loader = DataLoader(train_ds, batch_size, seed=seed, device=device, num_workers=int(cfg.get("num_workers", 2)))
     total_steps = int(cfg.get("max_steps", 100_000))
     sched = model_cfg.get("scheduler") or {}
     optimizer = build_optimizer(named, "AdamW", lr, lr_function=sched.get("type"), lr_params=sched.get("params"),
                                 total_steps=total_steps, accumulate_steps=accumulate)
     state = EMATrainState(optimizer, ema_decay=0.9999, ema_warmup=True)
-    step_fn = make_ldm_train_step(model, loss_type=model_cfg.get("loss_type", "l2"),
-                                  l_simple_weight=float(model_cfg.get("l_simple_weight", 1.0)),
-                                  elbo_weight=float(model_cfg.get("original_elbo_weight", 0.0)))
+    step_kw = dict(loss_type=model_cfg.get("loss_type", "l2"),
+                   l_simple_weight=float(model_cfg.get("l_simple_weight", 1.0)),
+                   elbo_weight=float(model_cfg.get("original_elbo_weight", 0.0)))
+    step_fn = (make_ldm_train_step(model, **step_kw) if latent is None
+               else make_latent_ldm_train_step(latent, **step_kw))
     val_ds = build_slice_dataset(cfg, "val")
     diff = model.diffusion
     # at most T/2 steps: the +1 subset offset would index alphas_cumprod[T]
@@ -124,9 +147,31 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
             logger.image(step, "val/overlay", make_grid(
                 [overlay_mask_on_image(samples[i], labels[i]) for i in range(samples.shape[0])]))
 
+    def latent_eval(x0: torch.Tensor, cond: torch.Tensor, step: int, logger) -> float:
+        """Pixel panels (inputs, reconstructions, DDIM samples) and the latent
+        val loss at t = T/2, as the JAX CLI's latent branch."""
+        t0 = time.perf_counter()
+        z, cond_z = latent.encode(x0), latent.encode_cond(cond)
+        panels = {"inputs": x0, "reconstruction": latent.decode(z),
+                  "samples": latent.sample_slice(NoiseSource(noise_seed(seed, step), device), cond, log_ddim)}
+        panels = {k: v[..., 0].float().cpu().numpy() for k, v in panels.items()}
+        panel_seconds = time.perf_counter() - t0  # the numpy copies waited for the device
+        t = torch.full((z.shape[0],), diff.num_timesteps // 2, dtype=torch.int64, device=device)
+        eps = NoiseSource(noise_seed(seed, step + 1), device).normal(z.shape)
+        out = model.apply_model(diff.q_sample(z, t, eps), t, cond=cond_z)
+        val_loss = float(((out.float() - eps) ** 2).mean())
+        if logger:
+            for name, img in panels.items():
+                logger.image(step, f"val/{name}", image_volume_to_grid(img))
+            logger.scalars(step, {"loss_simple": val_loss, "panel_seconds": panel_seconds}, prefix="val/")
+        return -val_loss
+
     def eval_fn(state: EMATrainState, step: int, logger) -> float:
         items = [val_ds[i] for i in range(min(len(val_ds), int(cfg.get("n_log_images", 2))))]
         x0, cond = (torch.from_numpy(np.stack([it[k] for it in items])).to(device) for k in ("image", "cond"))
+        if latent is not None:
+            with torch.no_grad(), state.ema_applied():
+                return latent_eval(x0, cond, step, logger)
         t = torch.full((x0.shape[0],), diff.num_timesteps // 2, dtype=torch.int64, device=device)
         eps = NoiseSource(noise_seed(seed, step + 1), device).normal(x0.shape)
         with torch.no_grad(), state.ema_applied():
@@ -144,7 +189,7 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
 
     trainer = Trainer(
         TrainerConfig(
-            logdir=f"{cfg.get('output_path', 'runs')}/{exp}",
+            logdir=str(logdir),
             max_steps=total_steps,
             log_every=int(cfg.get("display_freq", 50)),
             save_every=int(cfg.get("save_freq", 1000)),

@@ -1,7 +1,7 @@
 """Latent diffusion: the slice UNet inside a frozen first-stage latent space.
 
-Counterpart of `jointimagegeneration_tpu/models/latent_ldm.py` for sampling
-(the `_ae` route of `configs/sample_ct_ae.yml`): per z-slice the pixel-space
+Counterpart of `jointimagegeneration_tpu/models/latent_ldm.py` (the `_ae`
+route of `configs/sample_ct_ae.yml` and `configs/stage2_ldm_ae.yml`): per z-slice the pixel-space
 [previous slice | mask slice] pair is encoded by the cond-stage KL-VAE (its
 mode, not rescaled), the chain runs on the 4-channel latent with the pixel
 `SliceLDM`'s samplers, the latent is decoded by the first stage and min-max
@@ -17,8 +17,13 @@ latent (a cond encoder does not map zero images to zero latents).
 
 A VQ first stage diffuses in the pre-quantization latent and decodes through
 the codebook.  `scale_factor` multiplies the diffusion latent only (fixed, or
-1/std of an encoded batch by `calibrate_scale_factor`).  Not ported yet:
-`train_loss_inputs` (the latent training step).
+1/std of an encoded batch by `calibrate_scale_factor`).
+
+Training (`train_loss_inputs`): the image goes through the first stage's
+sampled posterior (one normal of the latent's shape from the noise source),
+scaled by `scale_factor`; the condition through `encode_cond` (the cond
+stage's mode, unscaled), so the UNet trains on what the samplers feed it.
+Both AEs are frozen: they run in eval mode, under `torch.no_grad()`, in fp32.
 """
 
 from __future__ import annotations
@@ -127,6 +132,16 @@ class LatentSliceLDM:
         """scale_by_std: a copy with scale_factor = 1 / std of the encoded batch."""
         z = _stage_encode(self.first_stage, batch_x.float())
         return replace(self, scale_factor=float(1.0 / torch.std(z, correction=0)))
+
+    # -- training ------------------------------------------------------------------
+
+    def train_loss_inputs(self, batch_image: torch.Tensor, noise: NoiseSource,
+                          batch_cond: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(z0, cond latent) of a pixel batch for the stage-2 loss: the scaled
+        posterior sample of the image (drawn first), the unscaled cond-stage
+        mode of the condition (None without one)."""
+        z0 = self.encode(batch_image, noise)
+        return z0, None if batch_cond is None else self.encode_cond(batch_cond)
 
     # -- sampling ------------------------------------------------------------------
 

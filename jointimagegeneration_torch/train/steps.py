@@ -1,7 +1,7 @@
 """The train steps of both stages.
 
-Counterparts of `make_mask_train_step` and `make_ldm_train_step` in
-`jointimagegeneration_tpu/train/steps.py`.  Each computes its loss, the
+Counterparts of `make_mask_train_step`, `make_ldm_train_step` and
+`make_latent_ldm_train_step` in `jointimagegeneration_tpu/train/steps.py`.  Each computes its loss, the
 gradients of every parameter the train state holds, then one optimizer + EMA
 update (skipped if any gradient is not finite).  Random draws come from the
 `NoiseSource` the caller hands in, in the JAX step's order:
@@ -14,7 +14,10 @@ update (skipped if any gradient is not finite).  Random draws come from the
   * stage 2: t ~ U[0, T) (randint), eps ~ N(0, 1) in the batch's dtype,
     x_noisy = q_sample(x0, t, eps), the UNet's output from (x_noisy, t, cond
     = the batch's [prev | mask]) against eps (or x0), the Gaussian loss with
-    the model's learned logvar when it has one.
+    the model's learned logvar when it has one;
+  * latent stage 2: the pixel batch through the frozen AEs first
+    (`LatentSliceLDM.train_loss_inputs`: the image's posterior sample, one
+    normal), then stage 2's draws on the latents (the JAX keys `ke, kl`).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from ..models.slice_ldm import SliceLDM
 from .losses import categorical_diffusion_loss, gaussian_diffusion_loss, sample_train_timesteps
 from .state import EMATrainState
 
-__all__ = ["mask_loss", "make_mask_train_step", "ldm_loss", "make_ldm_train_step"]
+__all__ = ["mask_loss", "make_mask_train_step", "ldm_loss", "make_ldm_train_step", "make_latent_ldm_train_step"]
 
 TrainStep = Callable[[EMATrainState, dict, NoiseSource], Dict[str, torch.Tensor]]
 
@@ -98,5 +101,24 @@ def make_ldm_train_step(model: SliceLDM, loss_type: str = "l2", l_simple_weight:
 
     def step(state: EMATrainState, batch: dict, noise: NoiseSource) -> Dict[str, torch.Tensor]:
         return _update(state, *ldm_loss(model, noise, batch, loss_type, l_simple_weight, elbo_weight))
+
+    return step
+
+
+def make_latent_ldm_train_step(latent_model, loss_type: str = "l2", l_simple_weight: float = 1.0,
+                               elbo_weight: float = 0.0) -> TrainStep:
+    """The latent (`_ae`) stage-2 step: batch["image"] and batch["cond"]
+    through the frozen first and cond stages of `latent_model` (a
+    `models.latent_ldm.LatentSliceLDM` that already carries its calibrated
+    scale factor), then `make_ldm_train_step`'s step on the latents.  The AE
+    weights take no gradient and are not in the train state."""
+    inner = make_ldm_train_step(latent_model.inner, loss_type, l_simple_weight, elbo_weight)
+
+    def step(state: EMATrainState, batch: dict, noise: NoiseSource) -> Dict[str, torch.Tensor]:
+        z0, cond_z = latent_model.train_loss_inputs(batch["image"], noise, batch.get("cond"))
+        latent_batch = {**batch, "image": z0}
+        if cond_z is not None:
+            latent_batch["cond"] = cond_z
+        return inner(state, latent_batch, noise)
 
     return step

@@ -51,6 +51,22 @@ def test_yaml_only_imported_inside_functions():
     assert not bad, bad
 
 
+READER_AND_AE_MODULES = ["cli/convert_reference.py", "cli/train_ae.py", "core/ref_import.py", "nn/discriminators.py",
+                         "train/gan.py", "utils/torch_convert.py"]
+
+
+@pytest.mark.parametrize("name", READER_AND_AE_MODULES)
+def test_checkpoint_reader_and_ae_trainer_modules_import_no_jax_and_yaml_lazily(name):
+    """The reference readers and the AE trainer's modules are among the
+    files the checks above walk: no JAX, flax or JAX-package import, and
+    `yaml` only inside a function (`core/ref_import._main`)."""
+    path = PORT / name
+    assert path in _port_sources()
+    found = list(_imports(path))
+    assert not [m for m, _ in found if m.split(".")[0] in FORBIDDEN], found
+    assert not [m for m, top in found if m.split(".")[0] == "yaml" and top], found
+
+
 def _scoped_imports(package: str) -> list:
     """(file, (class, method) or None) for every import of `package` in the
     port and chip_smoke.py."""
@@ -122,6 +138,13 @@ def test_entry_points_without_device_raise_on_a_cuda_less_machine():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         train_ldm_run({"output_path": "unused"}, "exp")
+    from jointimagegeneration_torch.cli.train_ae import run as train_ae_run
+    from jointimagegeneration_torch.nn.discriminators import PatchDiscriminator
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_ae_run({"output_path": "unused"}, "exp")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PatchDiscriminator(1)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

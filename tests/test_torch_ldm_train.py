@@ -454,8 +454,21 @@ UNPORTED = ["model.first_stage={type: kl}", "model.cond_stage={type: kl}", "mode
 
 @pytest.mark.parametrize("override", UNPORTED, ids=[o.split("=")[0] for o in UNPORTED])
 def test_ldm_cli_rejects_unported(tmp_path, override):
-    with pytest.raises(NotImplementedError):
-        tcli.run(apply_overrides(_tiny_cfg(tmp_path / "x"), [override]), "bad")
+    """Each key not ported raises NotImplementedError.  The latent keys are
+    ported (tests/test_torch_latent_train.py trains that route): a first stage
+    that cannot encode the 2-channel [prev slice, mask] condition raises
+    ValueError before any step, and `cond_stage` or `scale_by_std` without a
+    first stage leave the pixel route to train, as in the JAX CLI."""
+    cfg = apply_overrides(_tiny_cfg(tmp_path / "x"), [override])
+    key = override.split("=")[0]
+    if key == "model.first_stage":
+        with pytest.raises(ValueError, match="in_channels=1 but the \\[prev slice, mask\\] condition is 2-channel"):
+            tcli.run(cfg, "bad")
+    elif key in ("model.cond_stage", "model.scale_by_std"):
+        assert tcli.run({**cfg, "max_steps": 1, "validate": False}, "pixel").step == 1
+    else:
+        with pytest.raises(NotImplementedError):
+            tcli.run(cfg, "bad")
 
 
 def test_ldm_cli_needs_a_device_on_a_cuda_less_machine(tmp_path):
