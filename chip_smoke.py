@@ -138,14 +138,36 @@ Phases, in order (any failure exits non-zero and prints no result line):
      ct` from its `checkpoints/` (2 slices, DDIM-50, LPIPS against the case's
      CT), and `cli.train_ldm.run` on `nnunet` for 2 steps: s/step, the
      seconds each step waited on the loader, peak GiB; every file deleted at
-     the end.
+     the end;
+ 16. vae extras reference: the six stock VAE extras (nn/vae.py) at small
+     widths in fp32, 2D and 3D, card against CPU within 1e-4 of each
+     output's max;
+     vit reference: the full ViT-S/8 DINO extractor (seeded on the CPU) at
+     128x128 and 224x224, the key, token and attn facets, card against CPU
+     within 1e-4 of the max, fp32 with TF32 off; ms per 4-image batch;
+ 17. dino train reference: fp32 2D stage-1 steps with dense features at a
+     ResBlock site and at a down-transition, card against CPU, then step 2
+     from the card's step 1 on both (within 1e-4);
+     dino train path: `cli.train_mask.run` on configs/stage1_mask_dino.yml at
+     full width (2D 128x128, base 64, b = 4, bf16, ViT-S/8 keys at site 1),
+     4 steps, a checkpoint and a validation at 4 (eval_time_steps cut to 4),
+     then `cli.sample.run` `stage: mask` from its checkpoint: s/step, peak
+     GiB, the UNet's parameters; no kernel launch (its sites hold <= 256
+     tokens); files deleted;
+ 18. i3d reference: the port's I3D from a seeded standard-named state dict
+     converted by `cli.convert_i3d`, on a 128x256x256 volume, card against
+     CPU within 1e-4 of the features' max; ms and peak GiB;
+     fvd path: `cli.sample.run` `stage: ct` at the two-stage config's stage
+     2 (256x256, base 128, DDIM-50), 2 cases cut to 8 slices, metrics on:
+     FVD with the I3D `.npz`, then with the pyramid features; 4,000
+     flash_fwd launches a run (5 sites x 50 x 8 x 2); files deleted.
 Before each main path (6 per run and the latent path, 7 per variant, 9, each
-text path of 10, 12, each run of 14 and 15) every kernel launch counter (flash_fwd,
+text path of 10, 12, each run of 14, 15, 17 and 18) every kernel launch counter (flash_fwd,
 flash_fwd_merge, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reduce and the conv
 kernel's) is set to 0;
 after it the counts must equal what the path implies.  The last lines are
-the sampling, latent, fused, train, latent-train, text and real-data
-summaries, a JSON line
+the sampling, latent, fused, train, latent-train, text, real-data and
+dino / FVD summaries, a JSON line
 with the kernel numbers, the card's name and power limit, and `{"ok": true,
 "device": {...}}`.  Imports neither JAX nor PyYAML.
 """
@@ -1841,14 +1863,14 @@ def _fused_f32_run(flash, conv, s1: dict, state: dict, xt, t, cond, p32, per_ste
             "argmax_agree_fp32": agree, "conv_ms_by_level": conv_ms}
 
 
-def _reference_steps(flash, label: str, device: str, named, step, batches) -> tuple:
-    """Run `step` (SGD 1e-2, EMA 0.9) on `batches` in turn, recording each
+def _reference_steps(flash, label: str, device: str, named, step, batches, lr: float = 1e-2) -> tuple:
+    """Run `step` (SGD at `lr`, EMA 0.9) on `batches` in turn, recording each
     step's gradients as apply_gradients receives them: (losses, gradients,
     params after each step, kernel launches)."""
     from jointimagegeneration_torch.train.optim import build_optimizer
     from jointimagegeneration_torch.train.state import EMATrainState
 
-    state = EMATrainState(build_optimizer(named, "SGD", 1e-2), ema_decay=0.9)
+    state = EMATrainState(build_optimizer(named, "SGD", lr), ema_decay=0.9)
     grads, apply = [], state.apply_gradients
 
     def record(g, apply=apply, grads=grads):  # keep each step's gradients, then apply them
@@ -2098,8 +2120,12 @@ def train_path_phase(flash, card: str, base: dict = STAGE1_TRAIN_CFG, label: str
     sec = sorted(r["train/step_seconds"] for r in train[1:])  # step 1 carries cuDNN's first-call setup
     s_per_step = sec[len(sec) // 2]
     what = f"text, context {ctx_len} x {fce['embed_dim']}, " if text else ""
+    if fce.get("type") == "dino":
+        what = f"dino {fce['model_type']} features at site {fce['inject_idx']}, b = {cfg['batch_size']}, "
+    shape = "x".join(map(str, cfg["dataset"]["volume_shape"]))
+    width = f"base {cfg['unet_openai']['base_channels']}, {'bf16' if cfg['bf16'] else 'fp32'}"
     val = f"val/dice {dice[0]:.4f}" if dice else "no validation"
-    print(f"{label}: stage 1 (64x128x128, base 64, bf16, {what}AdamW + EMA) {n_steps} steps, warmed "
+    print(f"{label}: stage 1 ({shape}, {width}, {what}AdamW + EMA) {n_steps} steps, warmed "
           f"{s_per_step:.4f} s/step (median of steps 2-{n_steps}; step 1 {train[0]['train/step_seconds']:.3f} s), "
           f"losses {[round(r['train/loss'], 2) for r in train]}, {val}, peak "
           f"torch.cuda.max_memory_allocated {peak_gib:.2f} GiB, run() wall {wall:.2f} s (incl. model init, "
@@ -3050,6 +3076,428 @@ def real_data_phase(flash, card: str) -> dict:
     return out
 
 
+# the stock VAE extras (nn/vae.py) at small widths in fp32, 2D and 3D
+VAE_EXTRAS_TOL = 1e-4  # card vs CPU: of each output's max |CPU value|
+VIT_REF_TOL = 1e-4  # card vs CPU, fp32, TF32 off: of each map's max |CPU value|
+VIT_REF_SIZES = (128, 224)  # the dino config's images, and the grid DINO was trained at (pos-embed kept)
+VIT_REF_BATCH = 4
+# the dino train reference: the train reference's base-64 UNet in 2D on 16x16
+# images (64 tokens at its ds-2 sites: no flash kernel), dense features of
+# width 8 injected at a ResBlock site (1) and at a down-transition (2)
+DINO_REF_UNET = {"model_channels": 64, "channel_mult": (1, 2), "attention_resolutions": (2,), "num_res_blocks": 1,
+                 "num_head_channels": 16}
+DINO_REF_WIDTH = 8
+# its SGD step: at 1e-2 the first step took the site-2 model's loss from 391 to
+# 1,481 and its softmax head into saturation, where step 2's gradients (1e-5
+# of step 1's) are differences of nearly equal terms
+DINO_REF_LR = 1e-4
+# configs/stage1_mask_dino.yml (2D, base 64, mult (1,2,2,4,5), 128x128, b = 4,
+# bf16, the ViT-S/8 extractor's keys of block 11 injected at site 1).  Cuts:
+# 4 steps, a checkpoint at 4, one validation at 4 with eval_time_steps 50 -> 4
+DINO_TRAIN_CFG = {
+    "seed": 0, "num_classes": 12, "time_steps": 1000, "beta_schedule": "cosine", "dims": 2, "bf16": True,
+    "step_T_sample": "majority", "batch_size": 4, "max_steps": 4, "save_freq": 4, "display_freq": 1,
+    "validation_freq_steps": 4, "class_weights": "uniform", "polyak_alpha": 0.9999, "eval_time_steps": 4,
+    "n_validation_images": 2,
+    "optim": {"name": "AdamW", "learning_rate": 1.0e-3, "lr_function": "polynomial",
+              "lr_params": {"power": 1.0, "min_lr": 1.0e-6}},
+    "unet_openai": {"base_channels": 64, "channel_mult": [1, 2, 2, 4, 5], "attention_resolutions": [32, 16, 8],
+                    "num_res_blocks": 2, "num_head_channels": 32},
+    "feature_cond_encoder": {"type": "dino", "model_type": "vits8", "output_stride": 8, "inject_idx": 1,
+                             "layer": 11, "facet": "key"},
+    "dataset": {"kind": "synthetic", "volume_shape": [128, 128], "num_cases": 16},
+}
+DINO_SAMPLE_STEPS = 4  # stage: mask from the dino checkpoint, one batch of 4 cases
+# the I3D at the stage-2 volume of configs/sample_two_stage.yml, and FVD in
+# `stage: ct` at its stage 2 (256x256, base 128, DDIM-50) over 2 cases whose
+# depth is cut from 128 to 8 slices
+I3D_VOLUME = (128, 256, 256)
+I3D_REF_TOL = 1e-4  # card vs CPU, fp32, TF32 off: of the features' max |CPU value|
+FVD_CT_CFG = {"stage": "ct", "seed": 1024, "n_cases": 2, "ddim_steps": 50, "ddim_eta": 0.0, "fresh_init_noise": 0.02,
+              "stage2": {**TWO_STAGE_CFG["stage2"],
+                         "dataset": {"kind": "synthetic", "slice_shape": [256, 256], "depth": 8, "num_cases": 2}}}
+
+
+def _seeded_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Every parameter non-zero, from a CPU generator: kernels N(0, 1/fan_in),
+    1-D weights 1 + N(0, 0.1^2), biases N(0, 0.05^2)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            r = torch.randn(p.shape, generator=gen)
+            if name.endswith("bias"):
+                p.copy_(0.05 * r)
+            elif p.ndim == 1:
+                p.copy_(1 + 0.1 * r)
+            else:
+                p.copy_(r / math.sqrt(p[0].numel()))
+    return module
+
+
+def _event_ms(fn, reps: int = 5) -> float:
+    """Device ms per call of `fn` (eager, host included), between CUDA events
+    after one warm-up call."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _no_launches(flash, before: dict, label: str) -> None:
+    after = _counts(flash)
+    check(after == before, f"{label}: kernel launches {({k: after[k] - before[k] for k in after})}, expected none")
+
+
+def vae_extras_reference_phase(flash) -> dict:
+    """The six stock VAE extras (SimpleDecoder, UpsampleDecoder,
+    LatentRescaler, MergedRescaleEncoder / Decoder, Upsampler) at small
+    widths in fp32, 2D and 3D: the same seeded weights and input on the card
+    and the CPU, each output within VAE_EXTRAS_TOL of its max.  A 3D
+    rescaler's attention over 512 tokens or more takes the fp32 flash
+    forward on the card (its launches printed); no other kernel runs."""
+    from jointimagegeneration_torch.core.runtime import configure_precision
+    from jointimagegeneration_torch.nn import vae
+
+    configure_precision()
+    stack = dict(ch=32, num_res_blocks=1, attn_resolutions=(16,), ch_mult=(1, 2), resolution=32)
+    worst, before = {}, _counts(flash)
+    for dims in (2, 3):
+        lead = (4,) if dims == 3 else ()
+        cases = {
+            "SimpleDecoder": (lambda: vae.SimpleDecoder(32, 3, dims), (*lead, 16, 16, 32)),
+            "UpsampleDecoder": (lambda: vae.UpsampleDecoder(32, 2, 32, 1, (2, 1), dims), (*lead, 16, 16, 32)),
+            "LatentRescaler": (lambda: vae.LatentRescaler(1.5, 8, 64, 4, 2, dims), (*lead, 8, 8, 8)),
+            "MergedRescaleEncoder": (lambda: vae.MergedRescaleEncoder(in_ch=2, out_ch=4, rescale_factor=1.5, dims=dims,
+                                                                      **stack), (*lead, 32, 32, 2)),
+            "MergedRescaleDecoder": (lambda: vae.MergedRescaleDecoder(z_channels=4, out_ch=2, rescale_factor=2.0,
+                                                                      dims=dims, **stack), (*lead, 8, 8, 4)),
+            "Upsampler": (lambda: vae.Upsampler(8, 16, 8, 2, dims=dims), (*lead, 8, 8, 8)),
+        }
+        for i, (name, (build, shape)) in enumerate(cases.items()):
+            cpu = _seeded_(build(), 100 + i).eval()
+            card = copy.deepcopy(cpu).to("cuda")
+            x = torch.randn((2, *shape), generator=torch.Generator().manual_seed(200 + i))
+            with torch.no_grad():
+                want, got = cpu(x), card(x.to("cuda")).cpu()
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"vae extras: {name} {dims}D output")
+            worst[f"{name}_{dims}d"] = rel = _rel(got, want)
+            check(rel <= VAE_EXTRAS_TOL, f"vae extras reference: {name} ({dims}D) differs by {rel:.3g} of its max "
+                                         f"(tol {VAE_EXTRAS_TOL})")
+    launches = {k: v - before[k] for k, v in _counts(flash).items()}
+    check(not any(v for k, v in launches.items() if not k.startswith("flash_fwd")),
+          f"vae extras reference: kernel launches {launches}")
+    print(f"vae extras reference: 6 modules x 2D / 3D, fp32, card vs CPU: worst {max(worst.values()):.3g} of the max "
+          f"(tol {VAE_EXTRAS_TOL}); {worst}; fp32 flash forwards {launches['flash_fwd']} (merges "
+          f"{launches['flash_fwd_merge']}) at the 3D rescalers' attention", flush=True)
+    return {"max_rel_err": max(worst.values()), "by_module": worst, "flash_fwd": launches["flash_fwd"],
+            "flash_fwd_merge": launches["flash_fwd_merge"]}
+
+
+def vit_reference_phase(flash, card: str) -> dict:
+    """The full ViT-S/8 extractor (dim 384, depth 12, 6 heads; seeded on the
+    CPU from seed 11, as the dino config's seed 0 + 11) on the card and the
+    CPU: seeded non-constant images at 128x128 (the pos-embed's 28x28 grid
+    shrunk to 16x16) and 224x224, the key and token facets of block 11 and
+    the attention weights of block 11, in fp32 with TF32 off; each within
+    VIT_REF_TOL of its max.  Its attention is the plain one (no flash
+    launch).  Prints the card's ms per batch of VIT_REF_BATCH images."""
+    from jointimagegeneration_torch.core.runtime import configure_precision
+    from jointimagegeneration_torch.models.cond_encoders import build_feature_cond_encoder
+
+    configure_precision()
+    fce = DINO_TRAIN_CFG["feature_cond_encoder"]
+    cpu, _ = build_feature_cond_encoder(fce, "cpu", seed=11)
+    gpu, _ = build_feature_cond_encoder(fce, "cuda", seed=11)
+    same = all(torch.equal(a, b.cpu()) for a, b in zip(cpu.vit.parameters(), gpu.vit.parameters()))
+    check(same, "vit reference: the CPU-drawn extractor differs between the devices")
+    before = _counts(flash)
+    out, worst = {}, {}
+    for size in VIT_REF_SIZES:
+        gen = torch.Generator().manual_seed(size)
+        x = torch.rand((VIT_REF_BATCH, size, size, 3), generator=gen) * 2 - 1
+        x[:, : size // 2] = x[:, : size // 2] * 0.5 + torch.linspace(-0.5, 0.5, size // 2).view(1, -1, 1, 1)
+        xg = x.to("cuda")
+        for facet in ("key", "token", "attn"):
+            want = cpu.extract(x, layers=(11,), facet=facet)[0]
+            got = gpu.extract(xg, layers=(11,), facet=facet)[0]
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"vit reference: {facet} at {size}")
+            worst[f"{facet}_{size}"] = rel = _rel(got, want)
+            check(rel <= VIT_REF_TOL, f"vit reference: {facet} at {size}x{size} differs by {rel:.3g} of its max "
+                                      f"(tol {VIT_REF_TOL})")
+        out[f"ms_per_batch_{size}"] = _event_ms(lambda: gpu.extract(xg, layers=(11,), facet="key"))
+        gh, gw = gpu.vit.grid(size, size)
+        t, d = gh * gw + 1, gpu.vit.dim  # per block 24 T D^2 (the dense layers) + 4 T^2 D (the attention)
+        out[f"gflop_per_batch_{size}"] = VIT_REF_BATCH * (2 * gh * gw * d * 3 * gpu.vit.patch ** 2 + gpu.vit.depth
+                                                          * (24 * t * d * d + 4 * t * t * d)) / 1e9
+    _no_launches(flash, before, "vit reference")
+    grid = {size: gpu.vit.grid(size, size) for size in VIT_REF_SIZES}
+    print(f"vit reference: ViT-S/8 (384 x 12 blocks, 6 heads), fp32 TF32 off, card vs CPU: worst "
+          f"{max(worst.values()):.3g} of the max (tol {VIT_REF_TOL}) over key / token / attn at "
+          f"{' and '.join(f'{s}x{s} (grid {grid[s][0]}x{grid[s][1]})' for s in VIT_REF_SIZES)}; card "
+          + ", ".join(f"{out[f'ms_per_batch_{s}']:.3f} ms per {VIT_REF_BATCH} images at {s}x{s} "
+                      f"({out[f'gflop_per_batch_{s}']:.1f} GFLOP)" for s in VIT_REF_SIZES)
+          + f"; card {card}", flush=True)
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return {**out, "max_rel_err": max(worst.values()), "by_facet": worst}
+
+
+def dino_train_reference_phase(flash) -> dict:
+    """Two fp32 2D stage-1 train steps with dense features (a seeded (B, 16,
+    16, 8) map in the batch, as the trainer hands the step the extractor's
+    map) at a ResBlock site (1) and at a down-transition (2), each on the
+    card against the CPU from the same un-zeroed weights, then step 2 on
+    both from the card's parameters after its step 1 (as `text reference`):
+    losses, gradients and parameters within TRAIN_REF_TOL of each tensor's
+    max.  Base 64: no GroupNorm group of one channel.  No kernel launches
+    (64 tokens at the attention sites)."""
+    from jointimagegeneration_torch.core.runtime import configure_precision
+    from jointimagegeneration_torch.data.datasets import SyntheticMaskDataset
+    from jointimagegeneration_torch.models.mask_sampler import MaskSampler
+    from jointimagegeneration_torch.train.steps import make_mask_train_step
+
+    configure_precision()
+    ds = SyntheticMaskDataset(2, (16, 16), 4)
+    gen = torch.Generator().manual_seed(12)
+    out, before = {}, _counts(flash)
+    for site in (1, 2):
+        batches = [{"mask": torch.from_numpy(ds[i]["mask"])[None], "image": torch.rand((1, 16, 16, 1), generator=gen),
+                    "feature_cond": torch.randn((1, 16, 16, DINO_REF_WIDTH), generator=gen)} for i in range(2)]
+        runs, models, init = [], {}, None
+        for device in ("cpu", "cuda"):
+            model = MaskSampler.create(num_classes=4, time_steps=20, dims=2, device=device,
+                                       feature_cond_channels={site: DINO_REF_WIDTH}, **DINO_REF_UNET)
+            named = model.named_parameters()
+            with torch.no_grad():
+                if init is None:
+                    for _, p in named:
+                        p.add_(0.02 * torch.randn(p.shape, generator=gen))  # un-zero every kernel
+                    init = {n: p.detach().clone() for n, p in named}
+                else:
+                    for n, p in named:
+                        p.copy_(init[n])
+            step = make_mask_train_step(model, torch.ones(4, device=device), feature_inject_idx=site)
+            models[device] = (named, step)
+            runs.append(_reference_steps(flash, f"dino train reference (site {site})", device, named, step,
+                                         batches[:1], DINO_REF_LR))
+        worst = _compare_reference_steps(runs, f"dino train reference (site {site})")
+        stepped = []
+        for device in ("cpu", "cuda"):
+            named, step = models[device]
+            with torch.no_grad():
+                for n, p in named:
+                    p.copy_(runs[1][2][0][n])  # the card's parameters after its step 1
+            stepped.append(_reference_steps(flash, f"dino train reference (site {site}, step 2)", device, named,
+                                            step, batches[1:], DINO_REF_LR))
+        worst2 = _compare_reference_steps(stepped, f"dino train reference (site {site}, step 2 from the card's)")
+        site_conv = "down_0_0_res.conv1_kernel" if site == 1 else "down_0_ds.op.weight"
+        fed = runs[1][1][0][site_conv][:, -DINO_REF_WIDTH:].abs().max().item()  # the feature channels' gradient
+        check(fed > 0, f"dino train reference (site {site}): no gradient reaches {site_conv}'s feature channels")
+        out[site] = {"step1": max(worst.values()), "step2": max(worst2.values())}
+    _no_launches(flash, before, "dino train reference")
+    print(f"dino train reference: fp32 2D stage-1 steps (base 64, 16x16, features of width {DINO_REF_WIDTH}), card "
+          f"vs CPU, worst relative diff of losses, gradients and params: at a ResBlock site (1) step 1 "
+          f"{out[1]['step1']:.3g}, step 2 from the card's step 1 {out[1]['step2']:.3g}; at a down-transition (2) "
+          f"{out[2]['step1']:.3g}, {out[2]['step2']:.3g} (tol {TRAIN_REF_TOL}); no kernel launch", flush=True)
+    return {"max_rel_err": max(v for o in out.values() for v in o.values()), "by_site": out}
+
+
+def dino_path_phase(flash, card: str) -> dict:
+    """`cli.train_mask.run` on configs/stage1_mask_dino.yml at full width
+    (DINO_TRAIN_CFG; `train_path_phase` checks the steps, the validation,
+    the checkpoint and that no kernel launched: the 2D sites hold at most
+    256 tokens), then `cli.sample.run` with `stage: mask` from its
+    checkpoints (DINO_SAMPLE_STEPS steps, 4 cases in one batch, the
+    extractor rebuilt from the config's seed + 11): labels in [0, 12),
+    nothing fresh-initialised.  Prints s/step, peak GiB and the UNet's
+    parameter count; every file deleted at the end."""
+    from jointimagegeneration_torch.cli.sample import build_mask_sampler, run
+
+    cfg = json.loads(json.dumps(DINO_TRAIN_CFG))
+    n_params = sum(p.numel() for _, p in build_mask_sampler(cfg, "cuda").named_parameters())
+    torch.cuda.empty_cache()
+    train = train_path_phase(flash, card, cfg, "dino train path", "train_dino", resume=False)
+    root = ROOT / "build" / "chip_smoke" / "train_dino"
+    sample_cfg = {"stage": "mask", "seed": 1024, "n_cases": 4, "batch_size": 4, "mask_steps": DINO_SAMPLE_STEPS,
+                  "output_path": str(root / "samples"),
+                  "stage1": {**cfg, "checkpoint": str(root / "smoke" / "checkpoints")}}
+    printed = io.StringIO()
+    _reset_counts(flash)
+    with contextlib.redirect_stdout(printed):
+        result = run(sample_cfg, device="cuda")
+    sys.stdout.write(printed.getvalue())
+    _no_launches(flash, {k: 0 for k in _counts(flash)}, "dino mask sampling")
+    labels = result["labels"]
+    check("FRESH-INIT" not in printed.getvalue(), "dino mask sampling: fresh-init weights")
+    check(labels.shape == (4, 1, *cfg["dataset"]["volume_shape"]) and int(labels.min()) >= 0
+          and int(labels.max()) < cfg["num_classes"],
+          f"dino mask sampling: labels {labels.shape} in [{labels.min()}, {labels.max()}]")
+    check((root / "samples" / "case_0003" / "pred.nii.gz").is_file(), "dino mask sampling: no pred.nii.gz")
+    s_step = result["seconds"]["stage1"] / DINO_SAMPLE_STEPS
+    print(f"dino train path: UNet {n_params / 1e6:.2f} M parameters (widened at site "
+          f"{cfg['feature_cond_encoder']['inject_idx']} by the ViT's width), "
+          f"{train['s_per_step']:.4f} s/step at b = 4, peak {train['peak_gib']:.2f} GiB; dino mask sampling from its "
+          f"checkpoint: 4 cases x {DINO_SAMPLE_STEPS} steps, {s_step:.4f} s/step (the ViT features once a batch), "
+          f"classes present {np.unique(labels).size}, no kernel launch; card {card}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {**train, "unet_params": n_params, "sample_s_per_step": s_step}
+
+
+def i3d_state_dict(seed: int) -> dict:
+    """A seeded torch I3D state dict in the standard `<Unit>.conv3d.weight` /
+    `<Unit>.bn.*` naming: He-scaled kernels, BN statistics near (0, 1)."""
+    from jointimagegeneration_torch.eval.i3d import I3D_MIXED_SPEC
+
+    units = [("Conv3d_1a_7x7", 3, 64, 7), ("Conv3d_2b_1x1", 64, 64, 1), ("Conv3d_2c_3x3", 64, 192, 3)]
+    cin = 192
+    for name, spec in I3D_MIXED_SPEC:
+        if spec is None:
+            continue
+        b0, b1a, b1b, b2a, b2b, b3b = spec
+        units += [(f"{name}.b0", cin, b0, 1), (f"{name}.b1a", cin, b1a, 1), (f"{name}.b1b", b1a, b1b, 3),
+                  (f"{name}.b2a", cin, b2a, 1), (f"{name}.b2b", b2a, b2b, 3), (f"{name}.b3b", cin, b3b, 1)]
+        cin = b0 + b1b + b2b + b3b
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, ci, co, k in units:
+        sd[f"{name}.conv3d.weight"] = torch.randn(co, ci, k, k, k, generator=g) * (2.0 / (ci * k ** 3)) ** 0.5
+        sd[f"{name}.bn.weight"] = torch.rand(co, generator=g) + 0.5
+        sd[f"{name}.bn.bias"] = torch.randn(co, generator=g) * 0.1
+        sd[f"{name}.bn.running_mean"] = torch.randn(co, generator=g) * 0.1
+        sd[f"{name}.bn.running_var"] = torch.rand(co, generator=g) + 0.5
+    sd["logits.conv3d.weight"] = torch.randn(400, cin, 1, 1, 1, generator=g) * (1.0 / cin) ** 0.5
+    sd["logits.conv3d.bias"] = torch.randn(400, generator=g) * 0.1
+    return sd
+
+
+def i3d_tflop(volume) -> float:
+    """TFLOP of the I3D's convs on one (D, H, W) volume: 2 x outputs x Cin x
+    taps per conv, the shapes carried through on meta tensors."""
+    from jointimagegeneration_torch.eval import i3d
+
+    params = {u: {k: torch.empty(v.shape, device="meta") for k, v in d.items()}
+              for u, d in i3d.parse_torch_i3d_sd(i3d_state_dict(0)).items()}
+    flops, conv3d = [0.0], i3d.F.conv3d
+
+    def counted(x, w, *args, **kw):
+        y = conv3d(x, w, *args, **kw)
+        flops[0] += 2.0 * y.numel() * w[0].numel()
+        return y
+
+    i3d.F.conv3d = counted
+    try:
+        i3d.i3d_features(params, torch.empty((1, *volume, 3), device="meta"))
+    finally:
+        i3d.F.conv3d = conv3d
+    return flops[0] / 1e12
+
+
+def i3d_reference_phase(flash, card: str) -> dict:
+    """The port's I3D from a seeded standard-named state dict, converted by
+    `cli.convert_i3d` into build/chip_smoke/i3d/i3d.npz, on one seeded
+    volume of I3D_VOLUME in [0, 1] (`eval.fvd.i3d_npz_feature_fn`: the
+    depth as time, RGB in [-1, 1]) on the card and the CPU: the 400 features
+    within I3D_REF_TOL of their max.  Stock F.conv3d in fp32, TF32 off; no
+    kernel launches.  Prints the card's ms and peak GiB.  Returns the
+    `.npz` path for the fvd path."""
+    from jointimagegeneration_torch.cli import convert_i3d
+    from jointimagegeneration_torch.core.runtime import configure_precision
+    from jointimagegeneration_torch.eval.fvd import i3d_npz_feature_fn
+
+    configure_precision()
+    tflop = i3d_tflop(I3D_VOLUME)
+    root = ROOT / "build" / "chip_smoke" / "i3d"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    torch.save(i3d_state_dict(0), root / "i3d.pt")
+    n_units = convert_i3d.convert(root / "i3d.pt", root / "i3d.npz")
+    check(n_units == 58, f"i3d reference: {n_units} units converted, expected 58")
+    gen = torch.Generator().manual_seed(21)
+    vol = torch.rand(I3D_VOLUME, generator=gen)
+    vol = (0.7 * vol + 0.3 * torch.linspace(0, 1, I3D_VOLUME[1]).view(1, -1, 1)).numpy()
+    before = _counts(flash)
+    want = i3d_npz_feature_fn(str(root / "i3d.npz"), "cpu")(vol)
+    fn = i3d_npz_feature_fn(str(root / "i3d.npz"), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    got = fn(vol)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reps, t0 = 3, time.perf_counter()
+    for _ in range(reps):
+        fn(vol)  # each call copies the volume to the card and the features back, so it ends synchronised
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    _no_launches(flash, before, "i3d reference")
+    check(got.shape == want.shape == (400,) and bool(np.isfinite(got).all()), f"i3d reference: features {got.shape}")
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    check(err <= I3D_REF_TOL, f"i3d reference: features differ by {err:.3g} of their max (tol {I3D_REF_TOL})")
+    print(f"i3d reference: I3D (58 units, BN folded) on a {'x'.join(map(str, I3D_VOLUME))} volume, fp32 TF32 off, "
+          f"card vs CPU: features within {err:.3g} of their max (tol {I3D_REF_TOL}); card {ms:.2f} ms a volume "
+          f"(host copies included) for its convs' {tflop:.3f} TFLOP ({tflop / ms * 1e3:.1f} TFLOP/s; fp32 peak "
+          f"{PEAK_FLOPS[torch.float32] / 1e12:.0f}), peak {peak:.2f} GiB; no kernel launch; card {card}", flush=True)
+    return {"max_rel_err": err, "ms": ms, "tflop": tflop, "peak_gib": peak, "npz": str(root / "i3d.npz")}
+
+
+def fvd_path_phase(flash, card: str, npz: str) -> dict:
+    """`cli.sample.run` with `stage: ct` at configs/sample_two_stage.yml's
+    stage 2 (256x256, base 128, bf16, DDIM-50) over 2 synthetic cases cut to
+    8 slices each, metrics on: first with `i3d_weights` = the i3d reference's
+    `.npz`, then without.  Each run: flash_fwd launches 5 x 50 x 8 x 2 (the
+    five ds-8 sites of 1,024 tokens) and no other kernel; metrics.json holds
+    a finite fvd with `fvd_feature_extractor` "i3d", then
+    "pyramid-uncalibrated".  Prints s/slice and the FVD's seconds; every file
+    deleted at the end."""
+    from jointimagegeneration_torch.cli import sample
+
+    cfg = json.loads(json.dumps(FVD_CT_CFG))
+    root = ROOT / "build" / "chip_smoke" / "fvd"
+    s2 = cfg["stage2"]
+    depth, size = s2["dataset"]["depth"], s2["slice_size"]
+    sites = flash_sites([size] * 2, s2["unet_config"]["params"], "channel_mult")
+    expected = sites * cfg["ddim_steps"] * depth * cfg["n_cases"]
+    fvd_seconds, real_summary = {}, sample._fvd_summary
+
+    def timed_summary(*args):
+        t0 = time.perf_counter()
+        out = real_summary(*args)
+        fvd_seconds[out["fvd_feature_extractor"]] = time.perf_counter() - t0
+        return out
+
+    out = {}
+    sample._fvd_summary = timed_summary
+    try:
+        for name, extra in (("i3d", {"i3d_weights": npz}), ("pyramid-uncalibrated", {})):
+            run_cfg = {**cfg, **extra, "output_path": str(root / name)}
+            _reset_counts(flash)
+            result = sample.run(run_cfg, device="cuda")
+            counts = _counts(flash)
+            check(counts == {**{k: 0 for k in counts}, "flash_fwd": expected},
+                  f"fvd path ({name}): launches {counts}, expected {expected} flash_fwd and nothing else")
+            metrics = json.loads((root / name / "metrics.json").read_text())
+            check(metrics == result["metrics"] and metrics["fvd_feature_extractor"] == metrics["fvd_backbone"] == name
+                  and math.isfinite(metrics["fvd"]) and metrics["fvd"] >= -1e-6,
+                  f"fvd path ({name}): metrics.json {metrics}")
+            ct = result["ct"]
+            check(ct.shape == (2, depth, size, size) and bool(np.isfinite(ct).all()), f"fvd path: CT {ct.shape}")
+            out[name] = {"fvd": metrics["fvd"], "launches": counts["flash_fwd"],
+                         "s_per_slice": result["seconds"]["stage2"] / (depth * cfg["n_cases"]),
+                         "fvd_seconds": fvd_seconds[name], "lpips": metrics["lpips_three_view_mean"]}
+    finally:
+        sample._fvd_summary = real_summary
+    print(f"fvd path: stage: ct, 2 cases x {depth} slices at {size}x{size} (base "
+          f"{s2['unet_config']['params']['model_channels']}, DDIM-{cfg['ddim_steps']}, flash launches {sites} "
+          f"sites x {cfg['ddim_steps']} x {depth} x 2): "
+          + "; ".join(f"{n}: fvd {o['fvd']:.6g} ({o['fvd_seconds']:.2f} s for the FVD), {o['s_per_slice']:.4f} "
+                      f"s/slice, lpips_3view {o['lpips']:.4f}, flash_fwd launches {o['launches']} = expected"
+                      for n, o in out.items()) + f"; card {card}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(Path(npz).parent, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a machine with an NVIDIA GPU",
@@ -3102,6 +3550,12 @@ def main() -> int:
     ae_train = ae_train_path_phase(flash, card)
     latent_train = latent_train_path_phase(flash, card, ae_train["checkpoint"])
     real = real_data_phase(flash, card)
+    vae_extras = vae_extras_reference_phase(flash)
+    vit_ref = vit_reference_phase(flash, card)
+    dino_ref = dino_train_reference_phase(flash)
+    dino = dino_path_phase(flash, card)
+    i3d = i3d_reference_phase(flash, card)
+    fvd = fvd_path_phase(flash, card, i3d.pop("npz"))
 
     main_row = rows[1]  # (16, 1024, 32): the stage-2 site, most of the sampling path's launches
     fwd_launches = {"two_stage_sampling": ddim_path["launches"], "fast_sampling": fast["fast path"]["launches"],
@@ -3126,7 +3580,10 @@ def main() -> int:
                     "real_mask_sampling": real["mask"]["launches"],
                     "real_stage2_training": real["stage2"]["launches"]["flash_fwd"],
                     "real_ct_sampling": real["ct"]["launches"],
-                    "nnunet_stage2_training": real["nnunet"]["launches"]["flash_fwd"]}
+                    "nnunet_stage2_training": real["nnunet"]["launches"]["flash_fwd"],
+                    "vae_extras_reference": vae_extras["flash_fwd"],
+                    "fvd_ct_sampling_i3d": fvd["i3d"]["launches"],
+                    "fvd_ct_sampling_pyramid": fvd["pyramid-uncalibrated"]["launches"]}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -3153,7 +3610,8 @@ def main() -> int:
                       "text_two_stage_sampling": text_two_stage["merges"],
                       "stage1_long_report_training": long_train["launches"]["flash_fwd_merge"],
                       "gan_reference": gan_ref["launches"]["flash_fwd_merge"],
-                      "latent_train_reference": latent_train_ref["launches"]["flash_fwd_merge"]}
+                      "latent_train_reference": latent_train_ref["launches"]["flash_fwd_merge"],
+                      "vae_extras_reference": vae_extras["flash_fwd_merge"]}
     merge_row = merge_rows[1]
     kernels.append({
         "name": "flash_fwd_merge",
@@ -3264,6 +3722,9 @@ def main() -> int:
             "long_report_train_path": long_train}
     print(f"text: {json.dumps(text)}")
     print(f"real: {json.dumps(real)}")
+    dino_fvd = {"vae_extras_reference": vae_extras, "vit_reference": vit_ref, "dino_train_reference": dino_ref,
+                "dino_path": dino, "i3d_reference": i3d, "fvd_path": fvd}
+    print(f"dino and fvd: {json.dumps(dino_fvd)}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,12 @@ of three things:
 The latent scale factor comes from `first_stage.scale_factor`, else from
 `latent_scale.json` inside the UNet's checkpoint directory or beside its
 file, else 1.0.
+
+`build_dino_feature_fn` and `feature_cond` are the dense DINO feature route
+of a stage-1 config (`feature_cond_encoder: {type: dino, inject_idx: N}`),
+as the JAX CLI's: every surface (train, sample) builds the extractor from
+`seed + 11` of the same config, drawn on the CPU, so that with uncalibrated
+weights the sampler sees the features the UNet was trained on.
 """
 
 from __future__ import annotations
@@ -36,11 +42,12 @@ from ..core.checkpoint import CheckpointManager
 from ..data.datasets import (NNUNetLayoutDataset, RuijinMaskDataset, RuijinSlicePairDataset, RuijinVolumeDataset,
                              SyntheticMaskDataset, SyntheticSliceDataset)
 from ..models.autoencoder import AutoencoderKL, VQModel
+from ..models.cond_encoders import build_feature_cond_encoder, inject_site_downsample, make_dense_feature_fn
 from ..nn.unet import ZERO_INIT_SUFFIXES
 from ..utils.jax_weights import ae_state_dict_from_jax, check_state, flat_paths
 
 __all__ = ["build_autoencoder", "read_port_checkpoint", "load_ae_weights", "build_latent_ldm", "build_slice_dataset",
-           "build_mask_dataset", "fill_zero_init", "LATENT_SCALE_FILE"]
+           "build_mask_dataset", "fill_zero_init", "build_dino_feature_fn", "feature_cond", "LATENT_SCALE_FILE"]
 
 LATENT_SCALE_FILE = "latent_scale.json"
 
@@ -217,3 +224,34 @@ def build_mask_dataset(cfg: dict, split: str = "train"):
     if kind == "ruijin_3d":
         return RuijinVolumeDataset(d["index"], split=split, volume_shape=shape, num_classes=num_classes)
     raise ValueError(f"unknown dataset kind {kind!r}")
+
+
+def build_dino_feature_fn(cfg: dict, spatial, device, seed: Optional[int] = None):
+    """(feat_fn, inject_idx, site_shape) for a stage-1 config with
+    `feature_cond_encoder: {type: dino, inject_idx (1), layer (11), facet
+    ('key'), model_type, output_stride, weights_path}`, or (None, None,
+    None) without one.  `feat_fn` maps (B, H, W, C) images to the (B, th,
+    tw, D) features at the injection site's grid (`spatial` over its
+    downsample factor), `site_shape` = (th, tw, D).  The extractor is seeded
+    with `seed`, by default the config's `seed` + 11.  2D only: `dims` other
+    than 2 raises ValueError."""
+    fce = cfg.get("feature_cond_encoder") or {}
+    if fce.get("type") != "dino":
+        return None, None, None
+    if cfg.get("dims", 3) != 2:
+        raise ValueError("dino dense feature conditioning is 2D (the extractor is a 2D ViT); set dims: 2 / use a "
+                         "2D dataset variant")
+    seed = int(cfg.get("seed", 0)) + 11 if seed is None else seed
+    enc, _ = build_feature_cond_encoder(fce, device, seed)
+    u = cfg.get("unet_openai", {})
+    idx = int(fce.get("inject_idx", 1))
+    dsf = inject_site_downsample(tuple(u.get("channel_mult", (1, 2, 2, 4, 5))), u.get("num_res_blocks", 2), idx)
+    site = (spatial[0] // dsf, spatial[1] // dsf)
+    fn = make_dense_feature_fn(enc, site, layer=fce.get("layer", 11), facet=fce.get("facet", "key"))
+    return fn, idx, (*site, enc.vit.dim)
+
+
+def feature_cond(feat_fn, feat_idx, cond) -> Optional[dict]:
+    """The {inject_idx: features} dict every surface hands the UNet (None
+    without an extractor)."""
+    return None if feat_fn is None else {feat_idx: feat_fn(cond)}

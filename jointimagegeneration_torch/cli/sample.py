@@ -60,8 +60,18 @@ A text-guided stage 1 holds the UNet's and the refiner's ({"unet",
 checked (`cli/common.py`).  Without a checkpoint the sampler uses a seeded
 fresh init and says so.
 
-Not ported here: FVD (two or more `stage: ct` cases with metrics), the `dino`
-feature encoder, stage-2 context or class conditioning, and `tile` on
+Dense DINO features: a 2D stage-1 section with `feature_cond_encoder: {type:
+dino, inject_idx: N}` builds the UNet widened at that encoder site and the
+frozen ViT extractor from the section's `seed` + 11 (the rule of the trainer,
+so an uncalibrated extractor gives the features the UNet was trained on);
+`stage: mask` and `two_stage` feed each batch's condition image through it.
+
+FVD: `stage: ct` over two or more cases with metrics adds `fvd`,
+`fvd_feature_extractor` and `fvd_backbone` to metrics.json: the port's I3D
+when `i3d_weights` names a converted `.npz` (`cli/convert_i3d.py`), else the
+uncalibrated pyramid features.
+
+Not ported here: stage-2 context or class conditioning, and `tile` on
 `two_stage` (which the JAX CLI never passes); asking for them raises.
 """
 
@@ -81,15 +91,17 @@ from ..core.runtime import configure_precision, resolve_device, synchronize
 from ..data.nifti import save_image_volume, save_label_volume
 from ..diffusion.ddim import DDIMParams
 from ..diffusion.noise import NoiseSource
+from ..eval.fvd import fvd, i3d_npz_feature_fn
 from ..eval.metrics import generalized_energy_distance, hungarian_matched_iou, per_class_dice
 from ..eval.writers import image_volume_to_grid, labels_to_grid, overlay_volume_to_grid, save_grid_png
-from ..models.cond_encoders import build_feature_cond_encoder
 from ..models.mask_sampler import MaskSampler
 from ..models.slice_ldm import SliceLDM
 from ..nn.unet import UNet
+from ..nn.vit import vit_config
 from ..pipeline.two_stage import make_chunked_two_stage_programs
 from ..utils.jax_weights import check_state, unet_state_dict_from_jax
-from .common import build_latent_ldm, build_mask_dataset, build_slice_dataset, fill_zero_init, read_port_checkpoint
+from .common import (build_dino_feature_fn, build_latent_ldm, build_mask_dataset, build_slice_dataset, feature_cond,
+                     fill_zero_init, read_port_checkpoint)
 
 __all__ = ["build_mask_sampler", "build_slice_ldm", "load_weights", "load_mask_weights", "load_text_context",
            "run", "main"]
@@ -100,14 +112,19 @@ def build_mask_sampler(cfg: dict, device, cond_channels: int = 1, seed: int = 0,
     """cfg keys mirror ccdm params.yml (unet_openai + diffusion sections);
     `seed` seeds the UNet's fresh init (the refiner's with seed + 1).
     `feature_cond_encoder: {type: selfattn}` sets the UNet's `context_dim`
-    to its `embed_dim` and adds the trainable refiner unless `train: false`.
+    to its `embed_dim` and adds the trainable refiner unless `train: false`;
+    `{type: dino}` widens the UNet at `inject_idx` (1) by the ViT's width.
     `unet_options` (`use_fused_resblock`, `use_pallas_conv`) go to
     `MaskSampler.create`; no config key sets them, as in the JAX CLI."""
     u = cfg.get("unet_openai", {})
     fce = cfg.get("feature_cond_encoder") or {}
-    selfattn = fce.get("type") == "selfattn"
-    if not selfattn:
-        build_feature_cond_encoder(fce)  # None for 'none'; raises for 'dino' (not ported) and unknown types
+    kind = fce.get("type", "none")
+    if kind not in (None, "none", "selfattn", "dino"):
+        raise ValueError(f"unknown feature_cond_encoder type {kind!r}")
+    selfattn = kind == "selfattn"
+    feature_cond_channels = None
+    if kind == "dino":
+        feature_cond_channels = {int(fce.get("inject_idx", 1)): vit_config(fce.get("model_type", "vits8"))[0]}
     return MaskSampler.create(
         num_classes=cfg.get("num_classes", 12),
         cond_channels=cond_channels,
@@ -125,6 +142,7 @@ def build_mask_sampler(cfg: dict, device, cond_channels: int = 1, seed: int = 0,
         seed=seed,
         context_dim=fce.get("embed_dim") if selfattn else None,
         text_refiner=fce if selfattn and fce.get("train", True) else None,
+        feature_cond_channels=feature_cond_channels,
         **unet_options,
     )
 
@@ -159,8 +177,6 @@ def _reject_unported(cfg: dict, s1: dict, s2: dict, stage: str) -> None:
 
     if stage not in ("mask", "ct", "two_stage"):
         raise ValueError(f"unknown stage {stage!r}: expected 'mask', 'ct', or 'two_stage'")
-    if stage == "ct" and cfg.get("metrics", True) and int(cfg.get("n_cases", 1)) >= 2:
-        bad("FVD over two or more cases (set metrics: false, or n_cases: 1)")
     u2 = s2.get("unet_config", {}).get("params", s2.get("unet", {}))
     if u2.get("context_dim") is not None or u2.get("num_classes", s2.get("adm_classes")) is not None:
         bad("stage-2 context / class conditioning")
@@ -276,12 +292,13 @@ def run(cfg: dict, device=None) -> dict:
     if stage == "ct":
         return _run_ct(cfg, s2, device, seed, noise_std, outdir)
     ms = build_mask_sampler(s1, device)
+    spatial = tuple(s1.get("dataset", {}).get("volume_shape", (64, 128, 128)))
+    features = build_dino_feature_fn(s1, spatial, device)[:2]  # (feat_fn, inject_idx), the trainer's seed rule
     load_mask_weights(ms, s1.get("checkpoint"), noise_std, seed + 1)
     context = load_text_context(cfg.get("text"), device)
     if stage == "mask":
-        return _run_mask(cfg, s1, ms, context, device, seed, outdir)
+        return _run_mask(cfg, s1, ms, context, features, device, seed, outdir)
     n_cases = int(cfg.get("n_cases", 1))
-    spatial = tuple(s1.get("dataset", {}).get("volume_shape", (64, 128, 128)))
     vshape = tuple(cfg.get("volume_shape", (128, 256, 256)))
     n_slices = int(cfg.get("slices", vshape[0]))
     chunk = int(cfg.get("chunk", n_slices))
@@ -301,7 +318,8 @@ def run(cfg: dict, device=None) -> dict:
             ctx = None if context is None else context.expand(b, -1, -1)
             mask_program, chunk_program = make_chunked_two_stage_programs(
                 ms, latent or ldm, mask_shape=(b, *spatial), volume_shape=vshape, ddim=ddim, chunk=chunk,
-                mask_steps=cfg.get("mask_steps", 250), cond=cond, context=ctx, **sample_kw)
+                mask_steps=cfg.get("mask_steps", 250), cond=cond, context=ctx,
+                feature_cond=feature_cond(*features, cond), **sample_kw)
             t0 = time.perf_counter()
             labels, mask_channel = mask_program(noise)
             synchronize(device)
@@ -326,12 +344,13 @@ def run(cfg: dict, device=None) -> dict:
             "output_path": outdir}
 
 
-def _run_mask(cfg: dict, s1: dict, ms: MaskSampler, context: Optional[torch.Tensor], device, seed: int,
-              outdir: Path) -> dict:
+def _run_mask(cfg: dict, s1: dict, ms: MaskSampler, context: Optional[torch.Tensor], features: tuple, device,
+              seed: int, outdir: Path) -> dict:
     """`stage: mask`: per batch of `batch_size` cases (the ragged last batch
     padded by repeating its last case) `samples` label volumes drawn in turn
-    from one noise source; per case its files, the mean foreground Dice of the
-    first draw against the dataset's mask, and with `samples` > 1 GED and
+    from one noise source, with the batch's dense features when `features` =
+    (feat_fn, inject_idx) holds an extractor; per case its files, the mean
+    foreground Dice of the first draw against the dataset's mask, and with `samples` > 1 GED and
     HM-IoU over the draws.  Returns {"labels": (n_cases, samples, D, H, W),
     "metrics": per case {"dice", "ged", "hm_iou"}, "seconds": {"stage1"},
     "output_path"}."""
@@ -351,7 +370,8 @@ def _run_mask(cfg: dict, s1: dict, ms: MaskSampler, context: Optional[torch.Tens
             cond = torch.from_numpy(np.stack(images)).to(device)
             ctx = None if context is None else context.expand(bs, -1, -1)
             t0 = time.perf_counter()
-            draws = [ms.sample_labels(noise, (bs, *spatial), cond=cond, context=ctx,
+            fc = feature_cond(*features, cond)
+            draws = [ms.sample_labels(noise, (bs, *spatial), cond=cond, context=ctx, feature_cond=fc,
                                       num_steps=cfg.get("mask_steps", 250)) for _ in range(n_rep)]
             synchronize(device)
             seconds += time.perf_counter() - t0
@@ -380,9 +400,20 @@ def _run_mask(cfg: dict, s1: dict, ms: MaskSampler, context: Optional[torch.Tens
             "output_path": outdir}
 
 
+def _fvd_summary(cfg: dict, real, generated, device) -> dict:
+    """FVD over the case set, with the port's I3D when `i3d_weights` names a
+    converted `.npz`, else the uncalibrated pyramid features (not comparable
+    to published I3D FVD scores, which the extractor's name says)."""
+    weights = cfg.get("i3d_weights")
+    extractor = "i3d" if weights else "pyramid-uncalibrated"
+    value = fvd(real, generated, feature_fn=i3d_npz_feature_fn(weights, device) if weights else None)
+    return {"fvd": float(value), "fvd_feature_extractor": extractor, "fvd_backbone": extractor}
+
+
 def _run_ct(cfg: dict, s2: dict, device, seed: int, noise_std: float, outdir: Path) -> dict:
     """`stage: ct`: per case the dataset's mask volume -> a CT volume, its
-    files, and the three-view LPIPS against the dataset's volume."""
+    files, and the three-view LPIPS against the dataset's volume; over two or
+    more such cases FVD (`_fvd_summary`)."""
     n_cases = int(cfg.get("n_cases", 1))
     ldm, latent, ddim, sample_kw = _stage2(cfg, s2, device, seed, noise_std)
     tcfg = cfg.get("tile") or s2.get("tile")
@@ -395,7 +426,7 @@ def _run_ct(cfg: dict, s2: dict, device, seed: int, noise_std: float, outdir: Pa
     ds = build_slice_dataset(s2, cfg.get("split", "val"))
     nc = int(cfg.get("num_classes", s2.get("num_classes", 12)))
     noise = NoiseSource(seed, device)
-    lp_metric, lpips_vals, cts, seconds = None, [], [], 0.0
+    lp_metric, lpips_vals, cts, gt_vols, metric_cases, seconds = None, [], [], [], [], 0.0
     with torch.inference_mode():
         for i in range(n_cases):
             item = ds[i % len(ds)]
@@ -425,12 +456,16 @@ def _run_ct(cfg: dict, s2: dict, device, seed: int, noise_std: float, outdir: Pa
                               "uncalibrated VGG (relative comparisons only)")
                 from ..eval.lpips import lpips_three_view
 
-                val = float(lpips_three_view(lp_metric, torch.from_numpy(vol), torch.from_numpy(gt[:n, ..., 0])))
+                gt_vols.append(np.ascontiguousarray(gt[:n, ..., 0]))
+                val = float(lpips_three_view(lp_metric, torch.from_numpy(vol), torch.from_numpy(gt_vols[-1])))
                 lpips_vals.append(val)
+                metric_cases.append(i)
                 print(f"case {i}: lpips_3view {val:.4f}")
     summary = None
     if lpips_vals:
         summary = {"lpips_three_view_mean": float(np.mean(lpips_vals)), "lpips_per_case": lpips_vals}
+        if len(gt_vols) >= 2:
+            summary.update(_fvd_summary(cfg, gt_vols, [cts[i] for i in metric_cases], device))
         (outdir / "metrics.json").write_text(json.dumps(summary, indent=1))
         print("metrics:", {k: v for k, v in summary.items() if k != "lpips_per_case"})
     print(f"{n_cases} case(s): stage 2 {seconds:.2f}s ({cts[0].shape[0]} slices x {ddim.num_steps} "

@@ -18,8 +18,15 @@ N(0, 1) context is (dataset.context_len (4), D); the refiner's dropout draws
 come from the step's noise source, and validation passes each case's context
 (no dropout).
 
-Not ported here, and rejected with NotImplementedError: the `dino` feature
-encoder, `remat`, `init_from` and `profile_steps`.
+Dense DINO features: a 2D config with `feature_cond_encoder: {type: dino,
+inject_idx: N}` (`configs/stage1_mask_dino.yml`) trains the UNet widened at
+that encoder site; the frozen ViT extractor (from the config's `seed` + 11,
+or `weights_path`) maps each batch's `image` to the site's grid before the
+step, and each validation item's image at validation.  The extractor has
+no parameters in the train state.
+
+Not ported here, and rejected with NotImplementedError: `remat`, `init_from`
+and `profile_steps`.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from ..train.optim import build_optimizer
 from ..train.state import EMATrainState
 from ..train.steps import make_mask_train_step
 from ..train.trainer import Trainer, TrainerConfig, noise_seed
-from .common import build_mask_dataset
+from .common import build_dino_feature_fn, build_mask_dataset, feature_cond
 from .sample import build_mask_sampler
 
 __all__ = ["build_mask_dataset", "run", "main"]
@@ -49,9 +56,6 @@ def _reject_unported(cfg: dict) -> None:
     def bad(what: str):
         raise NotImplementedError(f"{what} is not ported to the PyTorch trainer yet")
 
-    fce = (cfg.get("feature_cond_encoder") or {}).get("type")
-    if fce not in (None, "none", "selfattn"):
-        bad(f"feature_cond_encoder type {fce!r}")
     if cfg.get("remat"):
         bad("remat")
     if cfg.get("init_from"):
@@ -91,7 +95,13 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
     weights = cfg.get("class_weights", "uniform")
     class_weights = torch.as_tensor(np.ones(num_classes) if weights == "uniform" else weights,
                                     dtype=torch.float32, device=device)
-    step_fn = make_mask_train_step(model, class_weights)
+    feat_fn, feat_idx, _ = build_dino_feature_fn(cfg, spatial, device)
+    base_step = make_mask_train_step(model, class_weights, feature_inject_idx=feat_idx)
+    if feat_fn is None:
+        step_fn = base_step
+    else:
+        def step_fn(state: EMATrainState, batch: dict, noise: NoiseSource):
+            return base_step(state, dict(batch, feature_cond=feat_fn(batch["image"])), noise)
 
     def eval_fn(state: EMATrainState, step: int, logger) -> float:
         n_eval = min(len(val_ds), int(cfg.get("n_validation_images", 2)))
@@ -104,6 +114,7 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
                 ctx = torch.from_numpy(item["context"])[None].to(device) if "context" in item else None
                 labels = model.sample_labels(NoiseSource(noise_seed(seed, step + i), device),
                                              (1, *spatial), cond=img, context=ctx,
+                                             feature_cond=feature_cond(feat_fn, feat_idx, img),
                                              num_steps=int(cfg.get("eval_time_steps", 50)))
                 dices.append(float(per_class_dice(labels[0], gt, num_classes)[1:].mean()))
         score = float(np.mean(dices))

@@ -1,10 +1,11 @@
-"""Segmentation metrics for validation.
+"""Segmentation and distribution metrics.
 
-Counterparts of `jointimagegeneration_tpu/eval/metrics.py`'s `per_class_dice`
-(the confusion-matrix Dice, in torch) and of its distribution metrics over
-sets of sampled label volumes (numpy, host side): the pairwise 1 - IoU
-distances, the generalized energy distance (GED) and the Hungarian-matched
-IoU (HM-IoU).  FVD comes with the eval slice.
+Counterparts of `jointimagegeneration_tpu/eval/metrics.py`: the
+confusion-matrix Dice, precision and recall (in torch), the distribution
+metrics over sets of sampled label volumes (numpy, host side: the pairwise
+1 - IoU distances, the generalized energy distance (GED) and the
+Hungarian-matched IoU (HM-IoU)), and the Frechet distance between two sets of
+feature vectors, the core of FVD (numpy and scipy).
 """
 
 from __future__ import annotations
@@ -14,8 +15,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["confusion_matrix", "per_class_dice", "iou_distance_matrix", "generalized_energy_distance",
-           "hungarian_matched_iou"]
+__all__ = ["confusion_matrix", "dice_from_confusion", "per_class_dice", "per_class_precision_recall",
+           "iou_distance_matrix", "generalized_energy_distance", "hungarian_matched_iou", "frechet_distance"]
 
 
 def confusion_matrix(pred: torch.Tensor, target: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -24,16 +25,28 @@ def confusion_matrix(pred: torch.Tensor, target: torch.Tensor, num_classes: int)
     return torch.bincount(idx, minlength=num_classes * num_classes).reshape(num_classes, num_classes)
 
 
-def per_class_dice(pred: torch.Tensor, target: torch.Tensor, num_classes: int,
-                   ignore_index: Optional[int] = None) -> torch.Tensor:
+def dice_from_confusion(cm: torch.Tensor, ignore_index: Optional[int] = None) -> torch.Tensor:
     """Per-class Dice 2 tp / (2 tp + fp + fn) (0 for a class absent from both),
     fp32; `ignore_index` dropped."""
-    cm = confusion_matrix(pred, target, num_classes).float()
+    cm = cm.float()
     tp = torch.diagonal(cm)
     dice = 2 * tp / (2 * tp + (cm.sum(0) - tp) + (cm.sum(1) - tp)).clamp_min(1)
     if ignore_index is not None:
-        dice = dice[torch.arange(num_classes, device=dice.device) != ignore_index]
+        dice = dice[torch.arange(cm.shape[0], device=dice.device) != ignore_index]
     return dice
+
+
+def per_class_dice(pred: torch.Tensor, target: torch.Tensor, num_classes: int,
+                   ignore_index: Optional[int] = None) -> torch.Tensor:
+    return dice_from_confusion(confusion_matrix(pred, target, num_classes), ignore_index)
+
+
+def per_class_precision_recall(pred: torch.Tensor, target: torch.Tensor, num_classes: int):
+    """(precision, recall) per class, fp32: tp over the predicted and over the
+    target count (0 for a class absent from either)."""
+    cm = confusion_matrix(pred, target, num_classes).float()
+    tp = torch.diagonal(cm)
+    return tp / cm.sum(0).clamp_min(1), tp / cm.sum(1).clamp_min(1)
 
 
 def _iou_dist(a: np.ndarray, b: np.ndarray, num_classes: int, ignore: Sequence[int]) -> float:
@@ -74,3 +87,35 @@ def hungarian_matched_iou(samples: np.ndarray, references: np.ndarray, num_class
     d = iou_distance_matrix(samples, references, num_classes, ignore)
     rows, cols = linear_sum_assignment(d)
     return float(1.0 - d[rows, cols].mean())
+
+
+def frechet_distance(feats_a: np.ndarray, feats_b: np.ndarray, eps: float = 1e-6) -> float:
+    """||mu_a - mu_b||^2 + tr(Sa + Sb - 2 (Sa Sb)^(1/2)) of two (N, D) feature sets."""
+    mu_a, mu_b = feats_a.mean(0), feats_b.mean(0)
+    sa = np.cov(feats_a, rowvar=False)
+    sb = np.cov(feats_b, rowvar=False)
+    diff = mu_a - mu_b
+    return float(diff @ diff + np.trace(sa) + np.trace(sb) - 2 * _trace_sqrt_product(sa, sb, eps))
+
+
+def _trace_sqrt_product(sa: np.ndarray, sb: np.ndarray, eps: float) -> float:
+    """tr((Sa Sb)^(1/2)): scipy's sqrtm first; where it raises or gives
+    non-finite values (the rank-deficient covariances of a few samples, two
+    of them for instance), the PSD-safe tr((Sa^(1/2) Sb Sa^(1/2))^(1/2)) by
+    eigh, eigenvalues clipped at 0."""
+    from scipy import linalg
+
+    try:
+        covmean = linalg.sqrtm(sa @ sb)
+        if isinstance(covmean, tuple):  # older scipy returns (sqrtm, errest)
+            covmean = covmean[0]
+        if np.isfinite(covmean).all():
+            return float(np.trace(covmean.real if np.iscomplexobj(covmean) else covmean))
+    except Exception:
+        pass
+    n = sa.shape[0]
+    wa, va = np.linalg.eigh((sa + sa.T) / 2 + eps * np.eye(n))
+    root_a = (va * np.sqrt(np.clip(wa, 0, None))) @ va.T
+    m = root_a @ ((sb + sb.T) / 2 + eps * np.eye(n)) @ root_a
+    w = np.linalg.eigvalsh((m + m.T) / 2)
+    return float(np.sum(np.sqrt(np.clip(w, 0, None))))

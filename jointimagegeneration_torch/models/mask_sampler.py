@@ -13,12 +13,17 @@ prefixed `refiner.`).  The JAX sampler refines inside every step; nothing in
 the refinement is random at sampling, so `sample` refines once per call, which
 gives the same context.  `guidance_fn(probs)` subtracts a gradient from the
 posterior before the 1e-12 clamp (label-reference guidance).
+
+Dense feature conditioning (the 'dino' encoder): `feature_cond_channels`
+({site: F}, JAX `init_params(feature_cond_shapes=...)`) widens the UNet at
+those encoder sites, and `feature_cond` ({site: (B, *spatial_at_site, F)})
+goes to every UNet call of `denoise_step`, `sample` and `sample_labels`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,13 +76,16 @@ class MaskSampler:
         use_pallas_conv: bool = False,
         context_dim: Optional[int] = None,
         text_refiner: Optional[dict] = None,
+        feature_cond_channels: Optional[Dict[int, int]] = None,
     ) -> "MaskSampler":
         """UNet input = one-hot classes + `cond_channels` condition channels.
         `use_fused_resblock` / `use_pallas_conv` pick the UNet's opt-in conv
         kernel paths (see `nn.unet.UNet`).  `context_dim` makes the attention
         sites cross-attend over a text context; `text_refiner` (the
         `feature_cond_encoder` dict: embed_dim, n_heads, model_depth, d_head,
-        dropout) adds the trainable refiner, seeded with `seed` + 1."""
+        dropout) adds the trainable refiner, seeded with `seed` + 1.
+        `feature_cond_channels` ({site: F}) widens the UNet for dense
+        features at those encoder sites (`nn.unet.UNet`)."""
         if step_T_sample not in ("majority", "confidence"):
             raise ValueError(f"step_T_sample must be 'majority' or 'confidence', got {step_T_sample!r}")
         unet = UNet(
@@ -96,6 +104,7 @@ class MaskSampler:
             use_fused_resblock=use_fused_resblock,
             use_pallas_conv=use_pallas_conv,
             context_dim=context_dim,
+            feature_cond_channels=feature_cond_channels,
         )
         device = next(unet.parameters()).device
         diffusion = CategoricalDiffusion.create(schedule, time_steps, num_classes, device=device)
@@ -125,15 +134,15 @@ class MaskSampler:
     @torch.no_grad()
     def denoise_step(self, noise: NoiseSource, xt: torch.Tensor, t: torch.Tensor,
                      cond: Optional[torch.Tensor] = None, context: Optional[torch.Tensor] = None,
-                     guidance_fn: Optional[Callable] = None) -> torch.Tensor:
+                     guidance_fn: Optional[Callable] = None, feature_cond: Optional[dict] = None) -> torch.Tensor:
         """UNet x0-probs -> categorical posterior -> the next one-hot x_{t-1};
         at t <= 1 the decode rule applies instead of the draw.  `context` is
         the raw text context, refined here."""
-        return self._step(noise, xt, t, cond, self.refine_context(context), guidance_fn)
+        return self._step(noise, xt, t, cond, self.refine_context(context), guidance_fn, feature_cond)
 
-    def _step(self, noise, xt, t, cond, context, guidance_fn) -> torch.Tensor:
+    def _step(self, noise, xt, t, cond, context, guidance_fn, feature_cond=None) -> torch.Tensor:
         """`denoise_step` on an already refined context."""
-        x0pred = self.unet(xt, t.float(), cond=cond, context=context)
+        x0pred = self.unet(xt, t.float(), cond=cond, context=context, feature_cond=feature_cond)
         probs = self.diffusion.theta_post_prob(xt, x0pred, t)
         if guidance_fn is not None:
             probs = probs - guidance_fn(probs)
@@ -146,7 +155,7 @@ class MaskSampler:
     @torch.no_grad()
     def sample(self, noise: NoiseSource, shape: Sequence[int], cond: Optional[torch.Tensor] = None,
                num_steps: Optional[int] = None, context: Optional[torch.Tensor] = None,
-               guidance_fn: Optional[Callable] = None) -> torch.Tensor:
+               guidance_fn: Optional[Callable] = None, feature_cond: Optional[dict] = None) -> torch.Tensor:
         """A (B, D, H, W, C) one-hot mask volume, decoded at t = 1, from a
         uniform categorical draw; the raw `context` is refined once."""
         b = shape[0]
@@ -157,7 +166,7 @@ class MaskSampler:
         for t in sampling_t_values(self.diffusion.time_steps, num_steps):
             xt = F.one_hot(lab, self.num_classes).float()
             t_b = torch.full((b,), int(t), dtype=torch.int64, device=device)
-            lab = torch.argmax(self._step(noise, xt, t_b, cond, context, guidance_fn), dim=-1)
+            lab = torch.argmax(self._step(noise, xt, t_b, cond, context, guidance_fn, feature_cond), dim=-1)
         return F.one_hot(lab, self.num_classes).float()
 
     def sample_labels(self, noise: NoiseSource, shape: Sequence[int], **kw) -> torch.Tensor:

@@ -17,10 +17,21 @@ With `context_dim` set, every attention site is a `SequenceTransformer` of
 `transformer_depth` blocks whose `attn2` attends over the `context` (B, T,
 context_dim) that `forward` casts to the torso dtype and hands to each site
 (the text-guided stage-1 UNet); without it a context is ignored, as the flax
-UNet ignores it.  Not ported here: class ids `y`, `feature_cond` injection,
-rematerialisation, and the UNet-level `use_scale_shift_norm` /
-`resblock_updown` / `num_heads` options (ResBlock itself has scale-shift and
-up/down).
+UNet ignores it.
+
+`feature_cond` = {idx: (B, *spatial_at_site, F)} concatenates dense
+extractor features (the 'dino' encoder's) onto the activation, in its dtype,
+before encoder site `idx`: 0 is the stem (before `in_conv`), each ResBlock
+advances the index by one and so does each down-transition.  Torch shapes
+are not lazy, so the constructor takes the widths, `feature_cond_channels` =
+{idx: F}, and sizes the layers after each site: the ResBlock there takes F
+more channels; at a down-transition its conv keeps the widened width, so
+the skip it pushes, the next level's first ResBlock and the decoder ResBlock
+that pops that skip all take F more.
+
+Not ported here: class ids `y`, rematerialisation, and the UNet-level
+`use_scale_shift_norm` / `resblock_updown` / `num_heads` options (ResBlock
+itself has scale-shift and up/down).
 
 `use_fused_resblock` (False | 'xla' | 'kernel' | True) and `use_pallas_conv`
 are the JAX UNet's opt-in kernel paths (nn/unet.py:91-94 there), passed to
@@ -30,7 +41,7 @@ every ResBlock in 3D and ignored in 2D, as there; no config key turns them on.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -88,6 +99,7 @@ class UNet(nn.Module):
         use_fused_resblock=False,
         context_dim: Optional[int] = None,
         transformer_depth: int = 1,
+        feature_cond_channels: Optional[Dict[int, int]] = None,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -98,6 +110,7 @@ class UNet(nn.Module):
         self.softmax_output = softmax_output
         self.dtype = dtype
         self.context_dim = context_dim
+        fc = self.feature_cond_channels = dict(feature_cond_channels or {})
         mc = model_channels
         emb_ch = mc * 4
         res = dict(emb_ch=emb_ch, dims=dims, device=device, pallas_conv=use_pallas_conv and dims == 3,
@@ -113,20 +126,26 @@ class UNet(nn.Module):
         self.time_embed_0 = Linear(mc, emb_ch, device=device)
         self.time_embed_1 = Linear(emb_ch, emb_ch, device=device)
         ch = mc * channel_mult[0]
-        self.in_conv = Conv(in_channels, ch, 3, dims, device=device)
+        self.in_conv = Conv(in_channels + fc.get(0, 0), ch, 3, dims, device=device)
         skip_ch = [ch]
-        ds = 1
+        ds, block_idx = 1, 1
         for level, mult in enumerate(channel_mult):
             for i in range(num_res_blocks):
-                self.add_module(f"down_{level}_{i}_res", ResBlock(ch, int(mult * mc), **res))
+                self.add_module(f"down_{level}_{i}_res", ResBlock(ch + fc.get(block_idx, 0), int(mult * mc), **res))
                 ch = int(mult * mc)
                 if ds in self.attention_resolutions:
                     self.add_module(f"down_{level}_{i}_attn", attn(ch))
                 skip_ch.append(ch)
+                block_idx += 1
             if level != len(channel_mult) - 1:
+                ch += fc.get(block_idx, 0)  # the down-transition keeps the widened width
                 self.add_module(f"down_{level}_ds", Downsample(ch, dims, device=device))
                 skip_ch.append(ch)
                 ds *= 2
+                block_idx += 1
+        if set(fc) - set(range(block_idx)):
+            raise ValueError(f"feature_cond_channels sites {sorted(fc)} beyond the encoder's {block_idx} "
+                             "(0 = the stem)")
         self.mid_res1 = ResBlock(ch, ch, **res)
         self.mid_attn = attn(ch)
         self.mid_res2 = ResBlock(ch, ch, **res)
@@ -161,8 +180,17 @@ class UNet(nn.Module):
         y: Optional[torch.Tensor] = None,
         feature_cond: Optional[dict] = None,
     ) -> torch.Tensor:
-        if y is not None or feature_cond is not None:
-            raise NotImplementedError("UNet: y and feature_cond are not ported")
+        if y is not None:
+            raise NotImplementedError("UNet: class ids y are not ported")
+        if set(feature_cond or {}) != set(self.feature_cond_channels):
+            raise ValueError(f"UNet built for feature_cond sites {sorted(self.feature_cond_channels)}, given "
+                             f"{sorted(feature_cond or {})}")
+
+        def inject(h: torch.Tensor, idx: int) -> torch.Tensor:
+            if feature_cond is not None and idx in feature_cond:
+                h = torch.cat([h, feature_cond[idx].to(h.dtype)], dim=-1)
+            return h
+
         context = None if context is None or self.context_dim is None else context.to(self.dtype)
         emb = timestep_embedding(timesteps, self.model_channels)
         emb = self.time_embed_1(F.silu(self.time_embed_0(emb)))
@@ -170,20 +198,22 @@ class UNet(nn.Module):
         if cond is not None:
             x = torch.cat([x, cond.to(x.dtype)], dim=-1)
         in_dtype = x.dtype
-        h = self.in_conv(x.to(self.dtype))
+        h = self.in_conv(inject(x.to(self.dtype), 0))
         hs = [h]
-        ds = 1
+        ds, block_idx = 1, 1
         n_levels = len(self.channel_mult)
         for level in range(n_levels):
             for i in range(self.num_res_blocks):
-                h = self._block(f"down_{level}_{i}_res", h, emb)
+                h = self._block(f"down_{level}_{i}_res", inject(h, block_idx), emb)
                 if ds in self.attention_resolutions:
                     h = self._block(f"down_{level}_{i}_attn", h, emb, context)
                 hs.append(h)
+                block_idx += 1
             if level != n_levels - 1:
-                h = self._block(f"down_{level}_ds", h, emb)
+                h = self._block(f"down_{level}_ds", inject(h, block_idx), emb)
                 hs.append(h)
                 ds *= 2
+                block_idx += 1
         h = self.mid_res2(self._block("mid_attn", self.mid_res1(h, emb), emb, context), emb)
         for level in reversed(range(n_levels)):
             for i in range(self.num_res_blocks + 1):

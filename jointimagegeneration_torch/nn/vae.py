@@ -16,9 +16,14 @@ package as here (`ops.flash_attention.flash_eligible`), so those sites take
 the plain attention, the counterpart of the XLA einsum the JAX package runs
 there; nothing falls back.
 
-Not ported yet: the stock extras (`SimpleDecoder`, `UpsampleDecoder`,
-`LatentRescaler`, `MergedRescale*`, `Upsampler`) and dropout, which the
-sampling path never applies.
+The stock extras of the reference's model.py (`SimpleDecoder`,
+`UpsampleDecoder`, `LatentRescaler`, `MergedRescaleEncoder`,
+`MergedRescaleDecoder`, `Upsampler`) come over too, with the flax names; no
+config uses them.  Torch shapes are not lazy, so each takes the input width
+the flax module reads from its input (`in_channels`).  Like every AE here they
+compute in fp32 (their weights are fp32 and they cast nothing).
+
+Not ported: dropout, which the sampling path never applies.
 """
 
 from __future__ import annotations
@@ -30,9 +35,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..data.transforms import _nearest_index
 from .blocks import AttentionBlock, Conv, GroupNorm32, _nearest_up2
 
-__all__ = ["VAEResBlock", "Encoder", "Decoder", "LinearAttentionBlock", "VectorQuantizer", "make_attn"]
+__all__ = ["VAEResBlock", "Encoder", "Decoder", "LinearAttentionBlock", "VectorQuantizer", "make_attn",
+           "SimpleDecoder", "UpsampleDecoder", "LatentRescaler", "MergedRescaleEncoder", "MergedRescaleDecoder",
+           "Upsampler"]
 
 
 class LinearAttentionBlock(nn.Module):
@@ -192,3 +200,160 @@ class VectorQuantizer(nn.Module):
         zq = cb[idx].reshape(z.shape)
         loss = self.beta * torch.mean((zq.detach() - z) ** 2) + torch.mean((zq - z.detach()) ** 2)
         return z + (zq - z).detach(), loss, idx.reshape(z.shape[:-1])
+
+
+# The stock decoder extras of the reference's model.py (:634-812).
+
+
+def _out_head(h: torch.Tensor, norm_out: GroupNorm32, conv_out: Conv) -> torch.Tensor:
+    return conv_out(F.silu(norm_out(h)))
+
+
+class SimpleDecoder(nn.Module):
+    """1x1 conv -> ResBlocks C -> 2C -> 4C -> 2C -> 1x1 conv -> 2x nearest
+    upsample + conv -> GN, SiLU, `conv_out`."""
+
+    def __init__(self, in_channels: int, out_channels: int, dims: int = 2, device=None):
+        super().__init__()
+        c = in_channels
+        self.conv_a = Conv(c, c, 1, dims, device=device)
+        self.res_1 = VAEResBlock(c, 2 * c, dims, device=device)
+        self.res_2 = VAEResBlock(2 * c, 4 * c, dims, device=device)
+        self.res_3 = VAEResBlock(4 * c, 2 * c, dims, device=device)
+        self.conv_b = Conv(2 * c, c, 1, dims, device=device)
+        self.upsample_conv = Conv(c, c, 3, dims, device=device)
+        self.norm_out = GroupNorm32(c, eps=1e-6, device=device)
+        self.conv_out = Conv(c, out_channels, 3, dims, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv_b(self.res_3(self.res_2(self.res_1(self.conv_a(x)))))
+        return _out_head(self.upsample_conv(_nearest_up2(h)), self.norm_out, self.conv_out)
+
+
+class UpsampleDecoder(nn.Module):
+    """Per level `num_res_blocks` + 1 ResBlocks to ch * mult, a 2x nearest
+    upsample + conv (`up_<level>_conv`) between levels, then GN, SiLU,
+    `conv_out`."""
+
+    def __init__(self, in_channels: int, out_channels: int, ch: int, num_res_blocks: int = 2,
+                 ch_mult: Sequence[int] = (2, 2), dims: int = 2, device=None):
+        super().__init__()
+        self.levels = []
+        cur = in_channels
+        for level, mult in enumerate(ch_mult):
+            names = []
+            for i in range(num_res_blocks + 1):
+                self.add_module(f"res_{level}_{i}", VAEResBlock(cur, ch * mult, dims, device=device))
+                names.append(f"res_{level}_{i}")
+                cur = ch * mult
+            up = None
+            if level != len(ch_mult) - 1:
+                up = f"up_{level}_conv"
+                self.add_module(up, Conv(cur, cur, 3, dims, device=device))
+            self.levels.append((names, up))
+        self.norm_out = GroupNorm32(cur, eps=1e-6, device=device)
+        self.conv_out = Conv(cur, out_channels, 3, dims, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for names, up in self.levels:
+            for name in names:
+                h = getattr(self, name)(h)
+            if up is not None:
+                h = getattr(self, up)(_nearest_up2(h))
+        return _out_head(h, self.norm_out, self.conv_out)
+
+
+def _resize_nearest(x: torch.Tensor, factor: float) -> torch.Tensor:
+    """Every spatial axis of a channels-last tensor to round(n * factor) by
+    jax.image.resize's 'nearest' (source floor((i + 0.5) * n / out), as XLA
+    folds it; the reference's F.interpolate default)."""
+    for ax in range(1, x.ndim - 1):
+        n = x.shape[ax]
+        out = int(round(n * factor))
+        if out != n:
+            x = x.index_select(ax, torch.from_numpy(_nearest_index(n, out)).to(x.device))
+    return x
+
+
+class LatentRescaler(nn.Module):
+    """`conv_in` -> `depth` ResBlocks -> nearest resize by `factor` -> one-head
+    attention (GN eps 1e-6) -> `depth` ResBlocks -> 1x1 `conv_out`; 2D or 3D."""
+
+    def __init__(self, factor: float, in_channels: int, mid_channels: int, out_channels: int, depth: int = 2,
+                 dims: int = 2, device=None):
+        super().__init__()
+        self.factor, self.depth = factor, depth
+        self.conv_in = Conv(in_channels, mid_channels, 3, dims, device=device)
+        for i in range(depth):
+            self.add_module(f"res1_{i}", VAEResBlock(mid_channels, mid_channels, dims, device=device))
+        self.attn = AttentionBlock(mid_channels, num_heads=1, eps=1e-6, device=device)
+        for i in range(depth):
+            self.add_module(f"res2_{i}", VAEResBlock(mid_channels, mid_channels, dims, device=device))
+        self.conv_out = Conv(mid_channels, out_channels, 1, dims, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(x)
+        for i in range(self.depth):
+            h = getattr(self, f"res1_{i}")(h)
+        h = self.attn(_resize_nearest(h, self.factor))
+        for i in range(self.depth):
+            h = getattr(self, f"res2_{i}")(h)
+        return self.conv_out(h)
+
+
+class MergedRescaleEncoder(nn.Module):
+    """`encoder` (an Encoder without double_z, z = ch * ch_mult[-1]) then
+    `rescaler` (a LatentRescaler to `out_ch`)."""
+
+    def __init__(self, in_ch: int, ch: int, out_ch: int, num_res_blocks: int, attn_resolutions: Sequence[int] = (),
+                 ch_mult: Sequence[int] = (1, 2, 4, 8), rescale_factor: float = 1.0, rescale_module_depth: int = 1,
+                 resolution: int = 256, dims: int = 2, device=None):
+        super().__init__()
+        mid = ch * ch_mult[-1]
+        self.encoder = Encoder(in_channels=in_ch, ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
+                               attn_resolutions=attn_resolutions, z_channels=mid, double_z=False, dims=dims,
+                               resolution=resolution, device=device)
+        self.rescaler = LatentRescaler(rescale_factor, mid, mid, out_ch, depth=rescale_module_depth, dims=dims,
+                                       device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.rescaler(self.encoder(x))
+
+
+class MergedRescaleDecoder(nn.Module):
+    """`rescaler` (z_channels -> z_channels * ch_mult[-1]) then `decoder`."""
+
+    def __init__(self, z_channels: int, out_ch: int, ch: int, num_res_blocks: int,
+                 attn_resolutions: Sequence[int] = (), ch_mult: Sequence[int] = (1, 2, 4, 8),
+                 rescale_factor: float = 1.0, rescale_module_depth: int = 1, resolution: int = 256, dims: int = 2,
+                 device=None):
+        super().__init__()
+        tmp = z_channels * ch_mult[-1]
+        self.rescaler = LatentRescaler(rescale_factor, z_channels, tmp, tmp, depth=rescale_module_depth, dims=dims,
+                                       device=device)
+        self.decoder = Decoder(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
+                               attn_resolutions=attn_resolutions, z_channels=tmp, out_ch=out_ch, dims=dims,
+                               resolution=resolution, device=device)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.rescaler(z))
+
+
+class Upsampler(nn.Module):
+    """`rescaler` (factor 1 + out_size % in_size, mid 2C) then an all-up
+    `decoder` of log2(out_size // in_size) + 1 levels of `ch_mult`."""
+
+    def __init__(self, in_size: int, out_size: int, in_channels: int, out_channels: int, ch_mult: int = 2,
+                 dims: int = 2, device=None):
+        super().__init__()
+        if out_size < in_size:
+            raise ValueError(f"Upsampler: out_size {out_size} < in_size {in_size}")
+        num_blocks = int(math.log2(out_size // in_size)) + 1
+        c = in_channels
+        self.rescaler = LatentRescaler(1.0 + (out_size % in_size), c, 2 * c, c, dims=dims, device=device)
+        self.decoder = Decoder(ch=c, ch_mult=[ch_mult] * num_blocks, num_res_blocks=2, attn_resolutions=(),
+                               z_channels=c, out_ch=out_channels, dims=dims, resolution=out_size, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.rescaler(x))

@@ -17,19 +17,24 @@ import torch
 
 from .flash_attention import flash_attention, flash_eligible
 
-__all__ = ["plain_attention", "attention", "multi_head_self_attention", "multi_head_cross_attention",
+__all__ = ["plain_attention", "plain_attention_weights", "attention", "multi_head_self_attention", "multi_head_cross_attention",
            "FLASH_MIN_SEQ"]
 
 FLASH_MIN_SEQ = 512
 
 
+def plain_attention_weights(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The (B, H, Tq, Tk) fp32 softmax weights of `plain_attention`: q and k
+    each scaled by d^-1/4, fp32 logits."""
+    scale = 1.0 / math.sqrt(math.sqrt(q.shape[-1]))
+    logits = torch.matmul((q * scale).float(), (k * scale).float().transpose(-1, -2))
+    return torch.softmax(logits, dim=-1)
+
+
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(B, H, Tq, D) x (B, H, Tk, D) -> (B, H, Tq, D); fp32 logits and softmax,
     weights cast to v's dtype for the second product."""
-    scale = 1.0 / math.sqrt(math.sqrt(q.shape[-1]))
-    logits = torch.matmul((q * scale).float(), (k * scale).float().transpose(-1, -2))
-    weights = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(weights, v)
+    return torch.matmul(plain_attention_weights(q, k).to(v.dtype), v)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

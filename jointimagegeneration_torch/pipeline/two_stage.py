@@ -2,7 +2,9 @@
 
 Counterpart of `jointimagegeneration_tpu/pipeline/two_stage.py`: stage-1
 labels -> nearest-neighbour upsample to the CT grid -> the mask channel
-labels / (C - 1) -> the autoregressive stage-2 volume.  A text `context`
+labels / (C - 1) -> the autoregressive stage-2 volume.  Dense
+`feature_cond` ({site: features}, the 'dino' encoder's) goes to the mask
+sampler.  A text `context`
 goes to the mask sampler (which refines it when it has a refiner); stage 2
 takes none (the JAX pipeline hands it the same context, which its UNet
 without `context_dim` ignores).  The stage-2
@@ -69,11 +71,12 @@ class TwoStagePipeline:
     def __call__(self, noise: NoiseSource, *, mask_shape: Tuple[int, int, int, int],
                  volume_shape: Tuple[int, int, int], ddim: DDIMParams,
                  mask_steps: Optional[int] = None, cond: Optional[torch.Tensor] = None,
-                 context: Optional[torch.Tensor] = None, guidance_scale: float = 1.0,
-                 warm_start: Optional[float] = None, sampler: str = "ddim") -> Tuple[torch.Tensor, torch.Tensor]:
+                 context: Optional[torch.Tensor] = None, feature_cond: Optional[dict] = None,
+                 guidance_scale: float = 1.0, warm_start: Optional[float] = None,
+                 sampler: str = "ddim") -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (ct volume (B, D', H', W', C), labels (B, D', H', W'))."""
         labels = self.mask_sampler.sample_labels(noise, mask_shape, cond=cond, num_steps=mask_steps,
-                                                 context=context)
+                                                 context=context, feature_cond=feature_cond)
         labels_up = upsample_labels(labels, volume_shape)
         mask_channel = normalize_mask_channel(labels_up, self.mask_sampler.num_classes)
         ct = self.slice_ldm.sample_volume(noise, mask_channel, ddim, guidance_scale=guidance_scale,
@@ -87,7 +90,8 @@ def make_chunked_two_stage_programs(mask_sampler: MaskSampler, slice_ldm: Union[
                                     ddim: DDIMParams, chunk: int,
                                     mask_steps: Optional[int] = None,
                                     cond: Optional[torch.Tensor] = None,
-                                    context: Optional[torch.Tensor] = None, **sample_kw):
+                                    context: Optional[torch.Tensor] = None,
+                                    feature_cond: Optional[dict] = None, **sample_kw):
     """The two-stage pipeline as two callables:
 
       mask_program(noise) -> (labels (B, D', H', W'), mask channel (B, D', H', W', 1))
@@ -104,7 +108,8 @@ def make_chunked_two_stage_programs(mask_sampler: MaskSampler, slice_ldm: Union[
         raise ValueError(f"volume depth {d} must divide by chunk {chunk}")
 
     def mask_program(noise: NoiseSource):
-        labels = mask_sampler.sample_labels(noise, mask_shape, cond=cond, num_steps=mask_steps, context=context)
+        labels = mask_sampler.sample_labels(noise, mask_shape, cond=cond, num_steps=mask_steps, context=context,
+                                            feature_cond=feature_cond)
         up = upsample_labels(labels, volume_shape)
         return up, normalize_mask_channel(up, mask_sampler.num_classes)
 

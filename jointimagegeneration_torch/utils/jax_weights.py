@@ -24,9 +24,11 @@ a refiner sizes every `attn2`'s `to_k` / `to_v` from the query width through
 flax's lazy shapes: such a tree fails here, at that leaf.)
 
 `ae_state_dict_from_jax` does the same for an AutoencoderKL / VQModel tree
-(only `kernel` leaves change layout: the VQ codebook (n_embed, embed_dim) is
-2-D but no Dense kernel, and stays as it is), `lpips_state_dict_from_jax`
-for the LPIPS VGG16 tower (`conv0` ... `conv12`).
+and for the stock VAE extras of `nn/vae.py` (only `kernel` leaves change
+layout: the VQ codebook (n_embed, embed_dim) is 2-D but no Dense kernel, and
+stays as it is), `lpips_state_dict_from_jax` for the LPIPS VGG16 tower
+(`conv0` ... `conv12`), `vit_state_dict_from_jax` for the DINO ViT of
+`nn/vit.py` (`cls_token` and `pos_embed` keep their (1, T, D) layout).
 
 `train_state_from_jax` carries a whole JAX train state (params, EMA, an
 optax Adam / AdamW state, optionally inside optax.MultiSteps) over as an
@@ -42,7 +44,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["unet_state_dict_from_jax", "ae_state_dict_from_jax", "lpips_state_dict_from_jax", "flatten_tree",
+__all__ = ["unet_state_dict_from_jax", "ae_state_dict_from_jax", "lpips_state_dict_from_jax",
+           "vit_state_dict_from_jax", "flatten_tree",
            "flat_paths", "check_state", "train_state_from_jax"]
 
 
@@ -107,6 +110,12 @@ def ae_state_dict_from_jax(params: Union[Mapping, str, Path]) -> Dict[str, torch
 
 def lpips_state_dict_from_jax(params: Union[Mapping, str, Path]) -> Dict[str, torch.Tensor]:
     """State dict for `eval.lpips.VGG16Features` from the JAX LPIPS' `params`."""
+    return _state_dict(flat_paths(params), unet=False)
+
+
+def vit_state_dict_from_jax(params: Union[Mapping, str, Path]) -> Dict[str, torch.Tensor]:
+    """State dict for `nn.vit.ViT` from the flax variables of the JAX
+    `ViTExtractor` ({"params": ...} or the bare tree)."""
     return _state_dict(flat_paths(params), unet=False)
 
 

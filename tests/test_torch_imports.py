@@ -67,6 +67,51 @@ def test_checkpoint_reader_and_ae_trainer_modules_import_no_jax_and_yaml_lazily(
     assert not [m for m, top in found if m.split(".")[0] == "yaml" and top], found
 
 
+SLICE_15_MODULES = ["nn/vae.py", "nn/vit.py", "models/cond_encoders.py", "eval/metrics.py", "eval/i3d.py",
+                    "eval/fvd.py", "cli/convert_i3d.py", "cli/common.py"]
+
+
+@pytest.mark.parametrize("name", SLICE_15_MODULES)
+def test_vae_extras_fvd_and_dino_modules_import_no_jax_and_yaml_lazily(name):
+    """The VAE extras, the ViT and its encoder route, the FVD metric, the I3D
+    and its converter: no JAX, flax or JAX-package import (not even of the
+    JAX package's jax-free converter script), and `yaml` only inside a
+    function."""
+    path = PORT / name
+    assert path in _port_sources()
+    found = list(_imports(path))
+    assert not [m for m, _ in found if m.split(".")[0] in FORBIDDEN + ("scripts",)], found
+    assert not [m for m, top in found if m.split(".")[0] == "yaml" and top], found
+
+
+def _function_imports(package: str) -> list:
+    """(file, enclosing function or None) for every import of `package` in
+    the port and chip_smoke.py."""
+    found = []
+    for f in _port_sources():
+        tree = ast.parse(f.read_text(), filename=str(f))
+        owner = {}
+        for fn in [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)]:
+            for node in ast.walk(fn):
+                owner.setdefault(id(node), fn.name)  # ast.walk is breadth-first: the outermost function first
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) and node.level == 0 else [])
+            if any(n.split(".")[0] == package for n in names):
+                found.append((str(f.relative_to(ROOT)), owner.get(id(node))))
+    return sorted(found)
+
+
+def test_scipy_only_imported_where_used():
+    """`scipy` is imported only inside the functions that call it: the
+    Hungarian match, the Frechet distance's matrix square root and the
+    overlay's edge filter; chip_smoke.py has none."""
+    assert _function_imports("scipy") == [
+        ("jointimagegeneration_torch/eval/metrics.py", "_trace_sqrt_product"),
+        ("jointimagegeneration_torch/eval/metrics.py", "hungarian_matched_iou"),
+        ("jointimagegeneration_torch/eval/writers.py", "overlay_mask_on_image")], _function_imports("scipy")
+
+
 def _scoped_imports(package: str) -> list:
     """(file, (class, method) or None) for every import of `package` in the
     port and chip_smoke.py."""
@@ -145,6 +190,17 @@ def test_entry_points_without_device_raise_on_a_cuda_less_machine():
         train_ae_run({"output_path": "unused"}, "exp")
     with pytest.raises(RuntimeError, match="CUDA"):
         PatchDiscriminator(1)
+    from jointimagegeneration_torch.cli.common import build_dino_feature_fn
+    from jointimagegeneration_torch.eval.fvd import i3d_feature_fn, i3d_npz_feature_fn
+    from jointimagegeneration_torch.nn.vit import ViTExtractor
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ViTExtractor(model_type="vits16")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_dino_feature_fn({"dims": 2, "feature_cond_encoder": {"type": "dino"}}, (32, 32), None)
+    for fn in (i3d_npz_feature_fn, i3d_feature_fn):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn("unused")
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -159,10 +159,11 @@ def test_cli_checkpoint_and_unported_keys(tmp_path, slice_models):
                     cond=torch.zeros((*MASK_SHAPE, 1)), **opt)[0]
         np.testing.assert_allclose(got, to_numpy(ref)[:, :3, ..., 0], atol=1e-6, err_msg=str(opt))
     for bad in ({"stage1": {**cfg["stage1"], "feature_cond_encoder": {"type": "dino"}}},
-                {"stage": "mask", "stage1": {**cfg["stage1"], "feature_cond_encoder": {"type": "dino"}}},
-                {"tile": {"patch": [8, 8]}}):
-        with pytest.raises(NotImplementedError):
+                {"stage": "mask", "stage1": {**cfg["stage1"], "feature_cond_encoder": {"type": "dino"}}}):
+        with pytest.raises(ValueError, match="2D"):  # dino features are 2D; this stage 1 is 3D
             tcli.run({**cfg, **bad})
+    with pytest.raises(NotImplementedError):
+        tcli.run({**cfg, "tile": {"patch": [8, 8]}})
     # the latent first stage is ported: without a cond stage, a 1-channel first
     # stage cannot encode the [prev, mask] pair, and the CLI says so
     with pytest.raises(ValueError, match="in_channels"):

@@ -160,9 +160,9 @@ def test_ae_weights_scale_sidecar_and_guards(tmp_path):
     assert out["ct"].shape == (1, 3, 16, 16) and np.isfinite(out["ct"]).all()
 
 
-@pytest.mark.parametrize("bad,err", [
-    ({"n_cases": 2}, "metrics: false"),  # FVD over two or more cases
-    ({"stage": "mask", "stage1": {"feature_cond_encoder": {"type": "dino"}}}, "dino"),
+@pytest.mark.parametrize("bad,err", [  # FVD and dino are ported; the guards left
+    ({"stage2": {"unet_config": {"params": {**UNET, "context_dim": 8}}}}, "context"),
+    ({"stage": "two_stage", "tile": {"patch": [8, 8]}}, "tile on two_stage"),
 ])
 def test_ct_guards_raise(tmp_path, bad, err):
     with pytest.raises(NotImplementedError, match=err):

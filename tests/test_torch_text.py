@@ -154,8 +154,8 @@ def test_build_feature_cond_encoder():
     _, frozen = tce.build_feature_cond_encoder({"type": "selfattn", "train": False, "embed_dim": 16,
                                                 "model_depth": 1}, device="cpu")
     assert not frozen
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tce.build_feature_cond_encoder({"type": "dino"})
+    dino, trainable = tce.build_feature_cond_encoder({"type": "dino", "model_type": "vits16"}, device="cpu")
+    assert not trainable and (dino.vit.dim, dino.vit.patch, dino.vit.pos_grid) == (384, 16, 14)
     with pytest.raises(ValueError, match="unknown"):
         tce.build_feature_cond_encoder({"type": "clip"})
 

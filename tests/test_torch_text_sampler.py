@@ -225,7 +225,7 @@ def test_loader_checks_every_leaf(tmp_path, text_models):
     no_refiner = _save(jax.device_get(p["unet"]), tmp_path / "unet_only.npz")
     with pytest.raises(ValueError, match="lacks refiner"):
         tcli.load_mask_weights(tm, no_refiner, 0.0, 0)
-    with pytest.raises(NotImplementedError, match="dino"):
+    with pytest.raises(ValueError, match="2D"):  # dino features are 2D; this stage 1 is 3D
         tcli.run({"stage": "mask", "device": "cpu",
                   "stage1": {**_stage1_cfg(), "feature_cond_encoder": {"type": "dino"}}})
 

@@ -298,7 +298,7 @@ def test_cli_dataset_context_and_rejects(tmp_path):
             np.testing.assert_array_equal(got[k], want[k])
     assert build_mask_dataset(cfg)[0]["context"].shape == (6, 16)
     assert "context" not in build_mask_dataset({**cfg, "feature_cond_encoder": {"type": "none"}})[0]
-    with pytest.raises(NotImplementedError, match="dino"):
+    with pytest.raises(ValueError, match="2D"):  # dino features are 2D; this stage 1 is 3D
         tcli.run(_cli_cfg(tmp_path, feature_cond_encoder={"type": "dino"}), "bad")
 
 

@@ -51,14 +51,16 @@ def test_unet_matches_jax(case, dt):
 
 
 def test_unet_rejects_unported_inputs():
-    """`y` and `feature_cond` raise; a `context` is ignored without
-    `context_dim`, as the flax UNet ignores it."""
+    """`y` raises; `feature_cond` at a site the UNet was not widened for
+    raises; a `context` is ignored without `context_dim`, as the flax UNet
+    ignores it."""
     net = TUNet(in_channels=2, model_channels=8, out_channels=1, num_res_blocks=1,
                 attention_resolutions=(2,), channel_mult=(1, 2), dims=2, device="cpu")
     x = torch.randn(1, 8, 8, 2)
-    for kw in ({"y": torch.zeros(1, dtype=torch.long)}, {"feature_cond": {0: torch.zeros(1, 8, 8, 1)}}):
-        with pytest.raises(NotImplementedError):
-            net(x, torch.zeros(1), **kw)
+    with pytest.raises(NotImplementedError):
+        net(x, torch.zeros(1), y=torch.zeros(1, dtype=torch.long))
+    with pytest.raises(ValueError, match="feature_cond sites"):
+        net(x, torch.zeros(1), feature_cond={0: torch.zeros(1, 8, 8, 1)})
     with torch.no_grad():
         assert torch.equal(net(x, torch.zeros(1), context=torch.randn(1, 4, 8)), net(x, torch.zeros(1)))
 
