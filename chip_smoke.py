@@ -161,13 +161,32 @@ Phases, in order (any failure exits non-zero and prints no result line):
      2 (256x256, base 128, DDIM-50), 2 cases cut to 8 slices, metrics on:
      FVD with the I3D `.npz`, then with the pyramid features; 4,000
      flash_fwd launches a run (5 sites x 50 x 8 x 2); files deleted.
+ 19. serve reference: `cli/serve.make_handler` over a tiny fp32 server state
+     on the card and on the CPU (the same weights, CPU-drawn noise), each
+     server in a thread on 127.0.0.1: a mask request, a two-stage one and
+     the two-stage stream: labels equal, CT within 1e-3, the stream equal to
+     the volume in float16; serve path: `cli/serve.build_state` from
+     configs/sample_two_stage_fast.yml at full width (volume cut to 4
+     slices): /healthz, mask at b = 1 and 2, two_stage DPM-20 unstreamed and
+     streamed (equal bit for bit), PLMS + warm start 0.4 + guidance 2.0 at
+     b = 1 and at b = 2; elapsed_s per request, the stream's s to its first
+     slice and s/slice, peak GiB, flash_fwd launches as planned per request;
+ 20. sr train path: `cli.train_ldm.run` on configs/stage2_sr_imagenet.yml at
+     full width (256x256 RGB, base 160, b = 8, bf16): 3 steps on seeded
+     JPEGs read through the imagenet_sr kind, one validation, a resume to
+     4: s/step, peak GiB, the flash kernels at (160, 1024, 32), 6 sites a
+     forward; ddp: `cli.train_mask.run` 2 steps at the unit-test widths in a
+     subprocess under torchrun's environment for world size 1 (NCCL, the gradient
+     all-reduce, the chief's writes), its checkpoint equal bit for bit to the
+     same run's without the environment.
 Before each main path (6 per run and the latent path, 7 per variant, 9, each
-text path of 10, 12, each run of 14, 15, 17 and 18) every kernel launch counter (flash_fwd,
+text path of 10, 12, each run of 14, 15, 17, 18, each request of 19 and each
+run of 20) every kernel launch counter (flash_fwd,
 flash_fwd_merge, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reduce and the conv
 kernel's) is set to 0;
 after it the counts must equal what the path implies.  The last lines are
-the sampling, latent, fused, train, latent-train, text, real-data and
-dino / FVD summaries, a JSON line
+the sampling, latent, fused, train, latent-train, text, real-data,
+dino / FVD and serve / SR / ddp summaries, a JSON line
 with the kernel numbers, the card's name and power limit, and `{"ok": true,
 "device": {...}}`.  Imports neither JAX nor PyYAML.
 """
@@ -216,6 +235,9 @@ FWD_SHAPES = [  # (BH, T, D), dtype, where the main paths run it
     ((32, 4096, 32), torch.bfloat16, "stage 2 ds8, 512x512 validation, b = 2"),
     ((40, 1024, 32), torch.bfloat16, "stage 2 ds16, 512x512 validation, b = 2"),
     ((10, 1024, 32), torch.bfloat16, "latent stage 2 ds2, 64x64 latent (configs/sample_ct_ae.yml)"),
+    ((160, 1024, 32), torch.bfloat16, "SR training ds8, 256x256 RGB, b = 8 (configs/stage2_sr_imagenet.yml)"),
+    ((16, 2048, 32), torch.bfloat16, "serve stage 1 ds8, 64x128x128, batch 2"),
+    ((32, 1024, 32), torch.bfloat16, "serve stage 2 ds8, 256x256, batch 2"),
 ]
 FWD_EDGE_SHAPES = [  # (BH, Tq, Tk, D), dtype: ragged T, Tq != Tk, every head width, D padded
     ((3, 100, 77, 40), torch.bfloat16), ((2, 130, 200, 256), torch.bfloat16), ((2, 1088, 1088, 16), torch.bfloat16),
@@ -244,6 +266,7 @@ BWD_SHAPES = [  # (BH, T, D), dtype, where training runs it
     ((20, 1024, 32), torch.bfloat16, "stage 2 ds16, 512x512"),
     ((10, 1024, 32), torch.bfloat16, "latent stage 2 ds2, configs/stage2_ldm_ae.yml"),
     ((8, 2048, 32), torch.float32, "fp32 torso"),
+    ((160, 1024, 32), torch.bfloat16, "SR training ds8, 256x256 RGB, b = 8 (configs/stage2_sr_imagenet.yml)"),
 ]
 
 TWO_STAGE_CFG = {  # configs/sample_two_stage.yml, lengths cut
@@ -3498,6 +3521,473 @@ def fvd_path_phase(flash, card: str, npz: str) -> dict:
     return out
 
 
+# -- slice 16: the server, the stock SR config's training, data parallelism --------------------------------------
+
+# the reference phase's tiny fp32 two-stage models (attention at T >= 512, so the card runs the kernel) as a
+# server's config
+SERVE_TINY_CFG = {
+    "seed": 3, "mask_steps": 3, "ddim_steps": 4, "volume_shape": [3, 32, 32], "fresh_init_noise": 0.02,
+    "stage1": {"num_classes": 4, "time_steps": 20, "bf16": False,
+               "unet_openai": {"base_channels": 8, "channel_mult": [1, 2], "attention_resolutions": [1],
+                               "num_head_channels": 4},
+               "dataset": {"volume_shape": [8, 8, 8]}},
+    "stage2": {"slice_size": 32, "timesteps": 100, "bf16": False,
+               "unet_config": {"params": {"model_channels": 8, "channel_mult": [1, 2], "attention_resolutions": [1],
+                                          "num_head_channels": 4}}},
+}
+# `cli/serve.main`'s state from configs/sample_two_stage_fast.yml, volume_shape cut to 4 slices as FAST_CFG cuts
+# its run; the requests name the sampler (the server reads it from each request, default ddim)
+SERVE_CFG = {**{k: v for k, v in FAST_CFG.items() if k not in ("stage", "n_cases", "chunk", "slices", "sampler")},
+             "volume_shape": [4, 256, 256]}
+SERVE_REQUESTS = [  # (label, request)
+    ("mask b = 1", {"kind": "mask", "seed": 1}),
+    ("mask b = 2", {"kind": "mask", "seed": 2, "batch": 2}),
+    ("two_stage dpm", {"kind": "two_stage", "seed": 3, "sampler": "dpm"}),
+    ("two_stage dpm streamed", {"kind": "two_stage", "seed": 3, "sampler": "dpm", "stream": True}),
+    ("two_stage plms, warm 0.4, guidance 2.0",
+     {"kind": "two_stage", "seed": 4, "sampler": "plms", "warm_start": 0.4, "guidance_scale": 2.0}),
+    ("two_stage plms, warm 0.4, guidance 2.0, b = 2",
+     {"kind": "two_stage", "seed": 4, "sampler": "plms", "warm_start": 0.4, "guidance_scale": 2.0, "batch": 2}),
+]
+SR_TRAIN_CFG = {  # configs/stage2_sr_imagenet.yml, lengths cut
+    "seed": 0,
+    "scale_lr": True,
+    "batch_size": 8,
+    "max_steps": 3,
+    "save_freq": 3,
+    "display_freq": 1,
+    "eval_every": 3,
+    "n_log_images": 2,
+    "model": {
+        "base_learning_rate": 1.0e-06,
+        "timesteps": 1000,
+        "beta_schedule": "linear",
+        "linear_start": 0.0015,
+        "linear_end": 0.0195,
+        "channels": 3,
+        "cond_channels": 3,
+        "bf16": True,
+        "unet_config": {"params": {"model_channels": 160, "channel_mult": [1, 2, 2, 4],
+                                   "attention_resolutions": [16, 8], "num_res_blocks": 2,
+                                   "num_head_channels": 32}},
+    },
+    "dataset": {"kind": "imagenet_sr", "root": "build/chip_smoke/imagenet", "size": 256, "downscale_f": 4,
+                "degradation": "bsrgan_light", "min_crop_f": 0.5, "max_crop_f": 1.0},
+}
+SR_PAIRS = 16  # seeded JPEGs of the SR phase's imagenet_sr tree
+DDP_CFG = {  # the unit tests' stage-1 widths (tests/test_torch_train.py `_tiny_cfg`), 2 steps
+    "seed": 0, "num_classes": 4, "time_steps": 20, "bf16": False, "batch_size": 1, "max_steps": 2, "save_freq": 2,
+    "display_freq": 1, "validation_freq_steps": 2, "eval_time_steps": 2, "n_validation_images": 1, "mp_loaders": 1,
+    "optim": {"name": "AdamW", "learning_rate": 1e-3, "lr_function": "polynomial",
+              "lr_params": {"power": 1.0, "min_lr": 1e-6}},
+    "unet_openai": {"base_channels": 8, "channel_mult": [1, 2], "attention_resolutions": [1], "num_res_blocks": 1,
+                    "num_head_channels": 4},
+    "dataset": {"kind": "synthetic", "volume_shape": [8, 8, 8], "num_cases": 3},
+}
+
+
+@contextlib.contextmanager
+def _serving(handler):
+    """An HTTPServer on 127.0.0.1 (a free port) in a thread; yields the port."""
+    import threading
+    from http.server import HTTPServer
+
+    server = HTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server.server_address[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+
+
+def _http(port: int, method: str, path: str, body=None):
+    """(status, JSON body or NDJSON lines, seconds to each line or to the
+    body) of one request."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request(method, path, body=None if body is None else json.dumps(body))
+    resp = conn.getresponse()
+    if resp.getheader("Content-Type") != "application/x-ndjson":
+        data = json.loads(resp.read())
+        conn.close()
+        return resp.status, data, [time.perf_counter() - t0]
+    lines, times = [], []
+    for line in iter(resp.readline, b""):
+        lines.append(json.loads(line))
+        times.append(time.perf_counter() - t0)
+    conn.close()
+    return resp.status, lines, times
+
+
+def _nifti_b64(b64: str) -> np.ndarray:
+    import base64
+    import tempfile
+
+    from jointimagegeneration_torch.data.nifti import read_nifti
+
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "v.nii.gz"
+        path.write_bytes(base64.b64decode(b64))
+        return read_nifti(path)[0]
+
+
+def _stream_volume(lines) -> np.ndarray:
+    """(B, D, H, W, C) float16 from a two_stage stream's slice lines."""
+    import base64
+
+    return np.stack([np.frombuffer(base64.b64decode(ln["data_b64"]), np.float16).reshape(ln["shape"])
+                     for ln in lines if "slice" in ln], axis=1)
+
+
+def serve_reference_phase(flash) -> dict:
+    """`cli/serve.make_handler` over SERVE_TINY_CFG's state on the card and on
+    the CPU (the card's models take the CPU's weights), each server in a
+    thread on 127.0.0.1, every request's draws made on the CPU: a mask
+    request, a two-stage one and the two-stage stream, one seed.  Labels
+    equal, CT within 1e-3 (the sampler reference's limit), the card's stream
+    equal to its unstreamed volume rounded to float16, bit for bit; the
+    card's flash_fwd launches the planned sites x UNet calls."""
+    from jointimagegeneration_torch.cli import serve
+
+    s1, s2 = SERVE_TINY_CFG["stage1"], SERVE_TINY_CFG["stage2"]
+    states = {d: serve.build_state(json.loads(json.dumps(SERVE_TINY_CFG)), device=d) for d in ("cpu", "cuda")}
+    states["cuda"]["ms"].unet.load_state_dict(states["cpu"]["ms"].unet.state_dict())
+    states["cuda"]["ldm"].unet.load_state_dict(states["cpu"]["ldm"].unet.state_dict())
+    s1_calls = stage1_launches(s1, SERVE_TINY_CFG["mask_steps"])
+    s2_calls = (SERVE_TINY_CFG["ddim_steps"] * SERVE_TINY_CFG["volume_shape"][0]
+                * flash_sites([s2["slice_size"]] * 2, s2["unet_config"]["params"], "channel_mult"))
+    reqs = [("mask", {"kind": "mask", "seed": 5}, s1_calls), ("two_stage", {"kind": "two_stage", "seed": 5},
+                                                               s1_calls + s2_calls),
+            ("stream", {"kind": "two_stage", "seed": 5, "stream": True}, s1_calls + s2_calls)]
+    out, real_noise = {d: {} for d in states}, serve.request_noise
+    serve.request_noise = lambda seed, device: _CpuDrawnNoise(seed, device)
+    try:
+        for device, state in states.items():
+            with _serving(serve.make_handler(state)) as port:
+                for name, req, want in reqs:
+                    _reset_counts(flash)
+                    code, body, _ = _http(port, "POST", "/generate", req)
+                    counts = _counts(flash)
+                    check(code == 200, f"serve reference ({device}, {name}): status {code}: {str(body)[:300]}")
+                    launched = counts.pop("flash_fwd")
+                    counts.pop("flash_fwd_merge")  # the fp32 forward's split merges, where it splits
+                    check(not any(counts.values()), f"serve reference ({device}, {name}): other launches {counts}")
+                    check(launched == (want if device == "cuda" else 0),
+                          f"serve reference ({device}, {name}): flash_fwd {launched}, expected "
+                          f"{want if device == 'cuda' else 0}")
+                    out[device][name] = (body, launched)
+    finally:
+        serve.request_noise = real_noise
+    cpu, gpu = out["cpu"], out["cuda"]
+    lab = {n: (_nifti_b64(cpu[n][0]["labels_nifti_b64"]), _nifti_b64(gpu[n][0]["labels_nifti_b64"]))
+           for n in ("mask", "two_stage")}
+    stream_lab = _nifti_b64(gpu["stream"][0][0]["labels_nifti_b64"])
+    for n, (a, b) in lab.items():
+        check(np.array_equal(a, b), f"serve reference ({n}): labels differ card vs CPU on "
+                                    f"{int((a != b).sum())} voxels")
+    check(np.array_equal(stream_lab, lab["two_stage"][1]), "serve reference: the stream's labels differ")
+    ct_cpu, ct_gpu = (_nifti_b64(o["two_stage"][0]["ct_nifti_b64"]) for o in (cpu, gpu))
+    err = float(np.abs(ct_gpu - ct_cpu).max())
+    check(err <= 1e-3, f"serve reference: CT card vs CPU {err} (tol 1e-3)")
+    streamed = _stream_volume(gpu["stream"][0])
+    check(gpu["stream"][0][-1].get("done") is True, f"serve reference: stream ended {gpu['stream'][0][-1]}")
+    check(np.array_equal(streamed[0, ..., 0], ct_gpu.astype(np.float16)),
+          "serve reference: the streamed slices differ from the unstreamed volume")
+    cpu_stream = _stream_volume(cpu["stream"][0])
+    check(np.array_equal(cpu_stream[0, ..., 0], ct_cpu.astype(np.float16)), "serve reference: CPU stream differs")
+    launches = sum(v[1] for v in gpu.values())
+    print(f"serve reference: tiny fp32 server, card vs CPU, seed 5: mask and two-stage labels equal, CT max abs "
+          f"diff {err:.3g} (tol 1e-3), the card's stream equal to its volume in float16; flash_fwd launches "
+          f"{launches} on the card (mask {gpu['mask'][1]}, two-stage {gpu['two_stage'][1]}, stream "
+          f"{gpu['stream'][1]})", flush=True)
+    return {"launches": launches, "ct_max_abs_diff": err}
+
+
+def serve_path_phase(flash, card: str) -> dict:
+    """`cli/serve.build_state` (the state `cli/serve.main` serves) from
+    SERVE_CFG at full width on the card, its handler in a thread on
+    127.0.0.1: /healthz, then SERVE_REQUESTS.  Every response 200, labels in
+    [0, 12) and CT in [0, 1], the stream equal to the unstreamed volume of
+    the same seed rounded to float16, bit for bit, and flash_fwd launched the
+    planned stage-1 sites x mask steps + stage-2 sites x UNet calls per
+    request, nothing else.  Prints each request's elapsed_s, the stream's
+    seconds to its first slice and per slice, and the peak GiB."""
+    from jointimagegeneration_torch.cli import serve
+
+    cfg = json.loads(json.dumps(SERVE_CFG))
+    s1, s2 = cfg["stage1"], cfg["stage2"]
+    s1_launches = stage1_launches(s1, cfg["mask_steps"])
+    s2_sites = flash_sites([s2["slice_size"]] * 2, s2["unet_config"]["params"], "channel_mult")
+    depth = cfg["volume_shape"][0]
+
+    def planned(req):
+        if req["kind"] == "mask":
+            return s1_launches
+        run_cfg = {"ddim_steps": cfg["ddim_steps"], "slices": depth, "chunk": depth,
+                   **{k: req[k] for k in ("sampler", "warm_start", "guidance_scale") if k in req}}
+        return s1_launches + stage2_calls(run_cfg) * s2_sites
+
+    t0 = time.perf_counter()
+    state = serve.build_state(cfg, device="cuda")
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    results = {}
+    with _serving(serve.make_handler(state)) as port:
+        code, health, _ = _http(port, "GET", "/healthz")
+        check(code == 200 and health["status"] == "ok" and "cuda" in health["device"], f"serve path: /healthz {health}")
+        for label, req in SERVE_REQUESTS:
+            _reset_counts(flash)
+            code, body, times = _http(port, "POST", "/generate", req)
+            counts = _counts(flash)
+            check(code == 200, f"serve path ({label}): status {code}: {str(body)[:300]}")
+            want = {**{k: 0 for k in counts}, "flash_fwd": planned(req)}
+            check(counts == want, f"serve path ({label}): launches {counts}, expected {want}")
+            results[label] = {"body": body, "times": times, "launches": counts["flash_fwd"]}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bs = {label: req.get("batch", 1) for label, req in SERVE_REQUESTS}
+    for label, r in results.items():
+        body = r["body"]
+        if isinstance(body, list):  # the stream
+            check(body[0].get("kind") == "two_stage_stream" and body[-1].get("done") is True
+                  and sum("slice" in x for x in body) == depth, f"serve path ({label}): stream lines "
+                                                                 f"{[sorted(x) for x in body]}")
+            labels = _nifti_b64(body[0]["labels_nifti_b64"])
+            r["elapsed_s"] = body[-1]["elapsed_s"]
+            continue
+        labels = _nifti_b64(body["labels_nifti_b64"])
+        if bs[label] > 1:
+            n_ct = len(body.get("batch_ct_nifti_b64", [0] * bs[label]))
+            check(len(body["batch_labels_nifti_b64"]) == n_ct == bs[label], f"serve path ({label}): batch volumes")
+        if "ct_nifti_b64" in body:
+            ct = _nifti_b64(body["ct_nifti_b64"])
+            check(ct.shape == tuple(cfg["volume_shape"]) and bool(np.isfinite(ct).all())
+                  and float(ct.min()) >= 0.0 and float(ct.max()) <= 1.0,
+                  f"serve path ({label}): CT {ct.shape} in [{ct.min()}, {ct.max()}]")
+            r["ct"] = ct
+        r["elapsed_s"] = body["elapsed_s"]
+        check(labels.shape == (tuple(s1["dataset"]["volume_shape"]) if "ct_nifti_b64" not in body
+                               else tuple(cfg["volume_shape"])) and int(labels.max()) < s1["num_classes"],
+              f"serve path ({label}): labels {labels.shape}, max {labels.max()}")
+    stream = results["two_stage dpm streamed"]
+    streamed = _stream_volume(stream["body"])
+    check(np.array_equal(streamed[0, ..., 0], results["two_stage dpm"]["ct"].astype(np.float16)),
+          "serve path: the streamed slices differ from the unstreamed volume of the same seed")
+    first = stream["times"][1]  # the header line comes after the mask stage, then the first slice
+    per_slice = (stream["times"][depth] - stream["times"][1]) / (depth - 1)
+    size, vol1 = s2["slice_size"], "x".join(map(str, s1["dataset"]["volume_shape"]))
+    print(f"serve path: configs/sample_two_stage_fast.yml's models at full width ({depth} slices of {size}x{size}, "
+          f"base {s2['unet_config']['params']['model_channels']}; stage 1 {vol1}, base "
+          f"{s1['unet_openai']['base_channels']}, {cfg['mask_steps']} mask steps; {cfg['ddim_steps']} nodes "
+          f"{cfg['ddim_discretize']}), state built in {build_s:.2f} s; "
+          + "; ".join(f"{label}: elapsed_s {r['elapsed_s']}, client {r['times'][-1]:.3f} s, flash_fwd "
+                      f"{r['launches']}" for label, r in results.items())
+          + f"; the stream's first slice at {first:.3f} s, then {per_slice:.4f} s/slice; peak "
+          f"torch.cuda.max_memory_allocated {peak:.2f} GiB; launches = planned; card {card}", flush=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {label: r["launches"] for label, r in results.items()},
+            "elapsed_s": {label: r["elapsed_s"] for label, r in results.items()},
+            "stream_first_slice_s": first, "stream_s_per_slice": per_slice, "peak_gib": peak, "build_s": build_s}
+
+
+def _write_sr_tree(root: Path, n: int, seed: int) -> None:
+    """`n` seeded RGB JPEGs of 256-352 x 256-304 (blocky fields with noise) in
+    four `<synset>/<file>.JPEG` directories, written with PIL."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        h, w = 256 + 24 * (i % 5), 256 + 16 * (i % 4)
+        field = np.kron(rng.random((h // 16 + 1, w // 16 + 1, 3)), np.ones((16, 16, 1)))[:h, :w]
+        img = np.clip(200 * field + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+        path = root / f"n{i % 4:08d}" / f"n{i % 4:08d}_{i}.JPEG"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(img).save(path, quality=90)
+
+
+def sr_train_path_phase(flash, card: str) -> dict:
+    """`cli.train_ldm.run` on configs/stage2_sr_imagenet.yml at full width
+    (SR_TRAIN_CFG: base 160, mult (1, 2, 2, 4), attention at ds 8 = 32x32
+    tokens, 256x256 RGB, b = 8, bf16), 3 steps, one validation, a resume to
+    4, reading SR_PAIRS seeded JPEGs written to a `<synset>/<file>` tree
+    through the config's `imagenet_sr` kind itself
+    (BSRGAN-light degradation on the loader's threads).  flash launches 6
+    sites (2 encoder, mid, 3 decoder) a forward at (160, 1024, 32), each with
+    dkv and dq; the validation 6 x (1 + 3 x 20 panel forwards) at (40, 1024,
+    32).  Files deleted at the end."""
+    from jointimagegeneration_torch.cli import train_ldm
+    from jointimagegeneration_torch.core.checkpoint import CheckpointManager
+
+    cfg = json.loads(json.dumps(SR_TRAIN_CFG))
+    out_dir = ROOT / "build" / "chip_smoke" / "train_sr"
+    cfg["output_path"] = str(out_dir)
+    cfg["dataset"]["root"] = str(ROOT / cfg["dataset"]["root"])
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(cfg["dataset"]["root"], ignore_errors=True)
+    d = cfg["dataset"]
+    t0 = time.perf_counter()
+    _write_sr_tree(Path(d["root"]), SR_PAIRS, cfg["seed"])
+    data = (f"{SR_PAIRS} seeded JPEGs (256-352 x 256-304, 4 synsets) written to {d['root']} in "
+            f"{time.perf_counter() - t0:.2f} s and read through dataset kind imagenet_sr ({d['degradation']}, crops "
+            f"{d['min_crop_f']}-{d['max_crop_f']}, the loader's threads)")
+    print(f"sr train path data: {data}", flush=True)
+    u = cfg["model"]["unet_config"]["params"]
+    sites = flash_sites([d["size"]] * 2, u, "channel_mult")
+    level = max(i for i in range(len(u["channel_mult"])) if 2 ** i in u["attention_resolutions"])
+    heads = max(1, u["model_channels"] * u["channel_mult"][level] // u["num_head_channels"])
+    rows = [(b * heads, (d["size"] // 2 ** level) ** 2, u["num_head_channels"]) for b in (cfg["batch_size"],
+                                                                                            cfg["n_log_images"])]
+    n_steps, n_eval = cfg["max_steps"], cfg["max_steps"] // cfg["eval_every"]
+    panel_calls = 3 * min(cfg.get("log_ddim_steps", 20), cfg["model"]["timesteps"] // 2)
+    expected = {"flash_fwd": sites * (n_steps + n_eval * (1 + panel_calls)), "flash_fwd_merge": 0,
+                "flash_bwd_dkv": sites * n_steps, "flash_bwd_dq": sites * n_steps, "flash_bwd_reduce": 0,
+                "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        state, launches, wall, _ = _train_run(flash, train_ldm.run, cfg, "smoke")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check(launches == expected, f"sr train path: launches {launches}, expected {expected}")
+        logdir = out_dir / "smoke"
+        recs = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+        train = [r for r in recs if "train/loss" in r]
+        check([r["step"] for r in train] == list(range(1, n_steps + 1)), f"sr train path: logged steps {train}")
+        check(all(math.isfinite(r["train/loss"]) and r["train/grad_finite"] == 1.0 for r in train),
+              f"sr train path: a step's loss or gradients not finite: {train}")
+        val = [(r["step"], r["val/loss_simple"]) for r in recs if "val/loss_simple" in r]
+        check(len(val) == 1 and val[0][0] == n_steps and math.isfinite(val[0][1]), f"sr train path: val {val}")
+        pngs = sorted(p.name for p in (logdir / "images").glob("*.png"))
+        check(pngs == sorted(f"val_{n}_gs-{n_steps:06d}.png" for n in
+                             ("inputs", "samples", "inpaint", "outpaint", "denoise_row")),
+              f"sr train path: panels {pngs} (no overlay: the cond is RGB)")
+        steps = CheckpointManager(logdir / "checkpoints").all_steps()
+        check(steps["rolling"] == [n_steps] and steps["best"] == [n_steps], f"sr train path: checkpoints {steps}")
+        n_params = sum(p.numel() for p in state.params)
+        sec = sorted(r["train/step_seconds"] for r in train[1:])
+        s_per_step = sec[len(sec) // 2]
+        waited = [round(r["train/data_seconds"], 4) for r in train]
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg2 = dict(cfg, resume=True, max_steps=n_steps + 1)
+        expected2 = {k: sites if k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq") else 0 for k in expected}
+        state2, launches2, wall2, printed = _train_run(flash, train_ldm.run, cfg2, "smoke")
+        check(f"resumed from step {n_steps}" in printed and state2.step == n_steps + 1,
+              f"sr train path: the rerun did not resume from step {n_steps}")
+        check(launches2 == expected2, f"sr train path (resumed): launches {launches2}, expected {expected2}")
+        del state2
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(d["root"], ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"sr train path: configs/stage2_sr_imagenet.yml ({d['size']}x{d['size']} RGB, base {u['model_channels']}, "
+          f"{n_params / 1e6:.1f}M params, "
+          f"bf16, b = {cfg['batch_size']}, AdamW + EMA) {n_steps} steps, warmed {s_per_step:.4f} s/step (median of "
+          f"steps 2-{n_steps}; step 1 {train[0]['train/step_seconds']:.3f} s; waited for data {waited} s), losses "
+          f"{[round(r['train/loss'], 4) for r in train]}, val/loss_simple {val[0][1]:.4f}, {len(pngs)} panel PNGs, "
+          f"peak torch.cuda.max_memory_allocated {peak_gib:.2f} GiB, run() wall {wall:.2f} s; launches {launches} "
+          f"= expected ({sites} sites a forward at {rows[0]}; the validation's at {rows[1]}); resumed "
+          f"to step {n_steps + 1} in {wall2:.2f} s, launches {launches2} = expected; card {card}", flush=True)
+    return {"launches": launches, "launches_resumed": launches2, "s_per_step": s_per_step, "peak_gib": peak_gib,
+            "run_wall_s": wall, "val_loss_simple": val[0][1], "params_m": n_params / 1e6, "flash_rows": rows,
+            "data": data, "data_seconds": waited}
+
+
+DDP_SCRIPT = """
+import json, sys
+import torch
+torch.backends.cudnn.deterministic = True
+import torch.distributed as dist
+from jointimagegeneration_torch.cli.train_mask import run
+from jointimagegeneration_torch.ops import flash_attention as flash
+from jointimagegeneration_torch.parallel import mesh
+state = run(json.loads(sys.argv[1]), "ddp", device="cuda")
+print(json.dumps({"group": dist.is_initialized(), "backend": dist.get_backend() if dist.is_initialized() else None,
+                  "world": mesh.world_size(), "step": state.step,
+                  "launches": {"flash_fwd": flash.flash_forward.launches, "flash_bwd_dkv": flash.flash_bwd_dkv.launches,
+                               "flash_bwd_dq": flash.flash_bwd_dq.launches}}))
+if dist.is_initialized():
+    dist.destroy_process_group()
+"""
+
+
+def ddp_phase(flash, card: str) -> dict:
+    """`cli.train_mask.run` for 2 steps at the unit tests' stage-1 widths
+    (DDP_CFG, fp32, cuDNN deterministic) in a subprocess with torchrun's
+    environment for world size 1 (RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR,
+    a free MASTER_PORT on 127.0.0.1): the NCCL process group, the gradients'
+    all-reduce and the chief's writes; then the same run in a subprocess
+    without the environment.  Both checkpoints equal, tensor for tensor, bit
+    for bit; each subprocess's flash launches (its own counters, from 0) as
+    planned.  Files deleted at the end."""
+    import socket
+
+    from jointimagegeneration_torch.core.checkpoint import CheckpointManager
+
+    root = ROOT / "build" / "chip_smoke" / "ddp"
+    shutil.rmtree(root, ignore_errors=True)
+    sites = stage1_launches(DDP_CFG, 1)
+    n_steps = DDP_CFG["max_steps"]
+    planned = {"flash_fwd": sites * n_steps + stage1_launches(DDP_CFG, DDP_CFG["eval_time_steps"]),
+               "flash_bwd_dkv": sites * n_steps, "flash_bwd_dq": sites * n_steps}
+    launch_env = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+    runs = {}
+    try:
+        for name in ("torchrun", "plain"):
+            env = {k: v for k, v in os.environ.items() if k not in launch_env}
+            if name == "torchrun":
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", 0))
+                    port = s.getsockname()[1]
+                env.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            cfg = {**DDP_CFG, "output_path": str(root / name)}
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", DDP_SCRIPT, json.dumps(cfg)], cwd=ROOT, env=env,
+                                  capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"ddp ({name}): exit {proc.returncode}: {proc.stderr[-2000:]}")
+            info = json.loads(proc.stdout.strip().splitlines()[-1])
+            check(info["launches"] == planned, f"ddp ({name}): launches {info['launches']}, planned {planned}")
+            check(info["step"] == n_steps, f"ddp ({name}): ended at step {info['step']}")
+            logdir = root / name / "ddp"
+            check((logdir / "metrics.jsonl").stat().st_size > 0 and (logdir / "configs" / "run-config.json").exists(),
+                  f"ddp ({name}): the chief wrote no metrics or run config")
+            sd = torch.load(CheckpointManager(logdir / "checkpoints").step_path(), map_location="cpu",
+                            weights_only=True)
+            runs[name] = {"info": info, "wall": wall, "sd": sd}
+        check(runs["torchrun"]["info"]["group"] and runs["torchrun"]["info"]["backend"] == "nccl"
+              and not runs["plain"]["info"]["group"], f"ddp: process groups {[r['info'] for r in runs.values()]}")
+
+        def tensors(tree, prefix=""):
+            if isinstance(tree, torch.Tensor):
+                yield prefix, tree
+            elif isinstance(tree, dict):
+                for k, v in tree.items():
+                    yield from tensors(v, f"{prefix}/{k}")
+            elif isinstance(tree, (list, tuple)):
+                for i, v in enumerate(tree):
+                    yield from tensors(v, f"{prefix}/{i}")
+
+        a, b = dict(tensors(runs["torchrun"]["sd"])), dict(tensors(runs["plain"]["sd"]))
+        check(sorted(a) == sorted(b) and len(a) > 0, "ddp: the checkpoints hold different trees")
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        check(not differ, f"ddp: {len(differ)} checkpoint tensors differ, e.g. {differ[:3]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"ddp: cli.train_mask {n_steps} steps at the unit-test widths under torchrun's environment (world size 1, "
+          f"NCCL, the gradients all-reduced) and without it: checkpoints equal bit for bit ({len(a)} tensors), "
+          f"launches {runs['torchrun']['info']['launches']} = planned in each; subprocess wall "
+          f"{runs['torchrun']['wall']:.2f} / {runs['plain']['wall']:.2f} s; card {card}", flush=True)
+    return {"launches": runs["torchrun"]["info"]["launches"], "tensors": len(a),
+            "wall_s": {k: r["wall"] for k, r in runs.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a machine with an NVIDIA GPU",
@@ -3556,6 +4046,10 @@ def main() -> int:
     dino = dino_path_phase(flash, card)
     i3d = i3d_reference_phase(flash, card)
     fvd = fvd_path_phase(flash, card, i3d.pop("npz"))
+    serve_ref = serve_reference_phase(flash)
+    serve_path = serve_path_phase(flash, card)
+    sr_train = sr_train_path_phase(flash, card)
+    ddp = ddp_phase(flash, card)
 
     main_row = rows[1]  # (16, 1024, 32): the stage-2 site, most of the sampling path's launches
     fwd_launches = {"two_stage_sampling": ddim_path["launches"], "fast_sampling": fast["fast path"]["launches"],
@@ -3583,7 +4077,12 @@ def main() -> int:
                     "nnunet_stage2_training": real["nnunet"]["launches"]["flash_fwd"],
                     "vae_extras_reference": vae_extras["flash_fwd"],
                     "fvd_ct_sampling_i3d": fvd["i3d"]["launches"],
-                    "fvd_ct_sampling_pyramid": fvd["pyramid-uncalibrated"]["launches"]}
+                    "fvd_ct_sampling_pyramid": fvd["pyramid-uncalibrated"]["launches"],
+                    "serve_reference": serve_ref["launches"],
+                    **{f"serve {label}": n for label, n in serve_path["launches"].items()},
+                    "sr_training": sr_train["launches"]["flash_fwd"],
+                    "sr_training_resumed": sr_train["launches_resumed"]["flash_fwd"],
+                    "ddp_stage1_training_subprocess": ddp["launches"]["flash_fwd"]}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -3640,7 +4139,10 @@ def main() -> int:
                         "gan_reference": gan_ref["launches"][name],
                         "latent_train_reference": latent_train_ref["launches"][name],
                         "latent_stage2_training": latent_train["launches"][name],
-                        "latent_stage2_training_resumed": latent_train["launches_resumed"][name]}
+                        "latent_stage2_training_resumed": latent_train["launches_resumed"][name],
+                        "sr_training": sr_train["launches"][name],
+                        "sr_training_resumed": sr_train["launches_resumed"][name],
+                        "ddp_stage1_training_subprocess": ddp["launches"][name]}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -3725,6 +4227,8 @@ def main() -> int:
     dino_fvd = {"vae_extras_reference": vae_extras, "vit_reference": vit_ref, "dino_train_reference": dino_ref,
                 "dino_path": dino, "i3d_reference": i3d, "fvd_path": fvd}
     print(f"dino and fvd: {json.dumps(dino_fvd)}")
+    slice16 = {"serve_reference": serve_ref, "serve_path": serve_path, "sr_train_path": sr_train, "ddp": ddp}
+    print(f"serve, sr and ddp: {json.dumps(slice16)}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -183,9 +183,15 @@ def build_latent_ldm(s2: dict, inner, size: int, device, fresh_init_noise: float
 def build_slice_dataset(cfg: dict, split: str):
     """The stage-2 dataset of `cfg['dataset']`, as the JAX CLI's
     `build_slice_dataset`: `synthetic` (splits other than 'train' carry the
-    whole volumes), `ruijin` (`index`: the JSON index) or `nnunet` (`root`:
-    the nnUNet tree).  The stock kinds raise NotImplementedError, any other
-    kind ValueError."""
+    whole volumes), `ruijin` (`index`: the JSON index), `nnunet` (`root`:
+    the nnUNet tree), and the stock kinds of `data/stock.py`: `lsun`
+    (`txt_file` + `data_root`, or a `category`), `imagenet` (`root`: a
+    `<synset>/<file>` tree, optional `filelist` and `synsets`) and
+    `imagenet_sr` (the same tree as SR pairs: `size`, `degradation`,
+    `downscale_f`, `min_crop_f`, `max_crop_f`).  A stock kind's `size`
+    falls back to `slice_shape[0]`; `imagenet` and `imagenet_sr` crop at
+    random and `lsun` flips (p = `flip_p`, 0.5) only on the 'train' split.
+    Any other kind raises ValueError."""
     d = cfg.get("dataset", {})
     kind = d.get("kind", "synthetic")
     shape = tuple(d.get("slice_shape", (512, 512)))
@@ -196,9 +202,26 @@ def build_slice_dataset(cfg: dict, split: str):
         return RuijinSlicePairDataset(d["index"], split=split, slice_shape=shape)
     if kind == "nnunet":
         return NNUNetLayoutDataset(d["root"], split=split, slice_shape=shape, num_classes=cfg.get("num_classes", 12))
-    if kind in ("lsun", "imagenet", "imagenet_sr"):
-        raise NotImplementedError(f"dataset kind {kind!r} is not ported yet (the stock datasets, ROADMAP.md "
-                                  "section 1, item 10)")
+    if kind == "lsun":  # unconditional: pair with cond_channels 0, channels 3
+        from ..data.stock import LSUNBase, lsun_dataset
+
+        if "txt_file" in d:
+            return LSUNBase(d["txt_file"], d["data_root"], size=d.get("size", shape[0]),
+                            flip_p=d.get("flip_p", 0.5 if split == "train" else 0.0))
+        return lsun_dataset(d["category"], "train" if split == "train" else "val", size=d.get("size", shape[0]))
+    if kind == "imagenet":
+        from ..data.stock import ImageNetLocal
+
+        return ImageNetLocal(d["root"], filelist=d.get("filelist"), size=d.get("size", shape[0]),
+                             synsets=d.get("synsets"), random_crop=split == "train")
+    if kind == "imagenet_sr":  # HR target, cond the bicubic-upsampled LR (imagenet.py:272-374)
+        from ..data.stock import ImageNetLocal, SRDataset, SRToLDMAdapter
+
+        base = ImageNetLocal(d["root"], filelist=d.get("filelist"), process_images=False, synsets=d.get("synsets"))
+        return SRToLDMAdapter(SRDataset(base, size=d.get("size", shape[0]),
+                                        degradation=d.get("degradation", "bsrgan_light"),
+                                        downscale_f=d.get("downscale_f", 4), min_crop_f=d.get("min_crop_f", 0.5),
+                                        max_crop_f=d.get("max_crop_f", 1.0), random_crop=split == "train"))
     raise ValueError(f"unknown dataset kind {kind!r}")
 
 

@@ -71,8 +71,9 @@ FVD: `stage: ct` over two or more cases with metrics adds `fvd`,
 when `i3d_weights` names a converted `.npz` (`cli/convert_i3d.py`), else the
 uncalibrated pyramid features.
 
-Not ported here: stage-2 context or class conditioning, and `tile` on
-`two_stage` (which the JAX CLI never passes); asking for them raises.
+Not ported here: stage-2 context or class conditioning; asking for it raises.
+`tile:` on `two_stage` is ignored with a warning and the volume sampled
+untiled, as the JAX CLI ignores it there.
 """
 
 from __future__ import annotations
@@ -180,8 +181,6 @@ def _reject_unported(cfg: dict, s1: dict, s2: dict, stage: str) -> None:
     u2 = s2.get("unet_config", {}).get("params", s2.get("unet", {}))
     if u2.get("context_dim") is not None or u2.get("num_classes", s2.get("adm_classes")) is not None:
         bad("stage-2 context / class conditioning")
-    if stage == "two_stage" and (cfg.get("tile") or s2.get("tile")):
-        bad("tile on two_stage (a `stage: ct` key)")
 
 
 def _checkpoint_state(ckpt) -> dict:
@@ -306,6 +305,8 @@ def run(cfg: dict, device=None) -> dict:
         raise ValueError(f"slices ({n_slices}) must be in [1, {vshape[0]}] and a multiple of chunk ({chunk})")
 
     ldm, latent, ddim, sample_kw = _stage2(cfg, s2, device, seed, noise_std)
+    if cfg.get("tile") or s2.get("tile"):
+        print("WARNING: `tile:` is ignored on two_stage (a `stage: ct` key); sampling untiled")
     noise = NoiseSource(seed, device)
     bs = max(1, min(int(cfg.get("batch_size", 1)), n_cases))
     cts, labels_all = [], []

@@ -23,8 +23,9 @@ The AE trains on `batch["image"]` only, as the JAX trainer does.  A
 ValueError before the first step: `configs/stage_ae.yml` sets 2 (the
 [previous slice, mask] pair, the dataset's `cond`), which neither package
 trains an AE on; `model.ddconfig.in_channels=1 model.ddconfig.out_ch=1`
-trains the image AE.  `init_from` raises NotImplementedError (ROADMAP.md
-section 1, item 9).  The VAE's `ddconfig.dropout` is inert here, as in the
+trains the image AE.  Under torchrun each process trains on batch_size / N
+rows and only rank 0 writes (`parallel/mesh.py`).  `init_from` raises
+NotImplementedError (ROADMAP.md section 1, item 9).  The VAE's `ddconfig.dropout` is inert here, as in the
 JAX step, which runs its model deterministically.
 """
 
@@ -44,6 +45,8 @@ from ..core.runtime import configure_precision, resolve_device, synchronize
 from ..data.loader import DataLoader
 from ..diffusion.noise import NoiseSource
 from ..nn.discriminators import PatchDiscriminator
+from ..parallel.mesh import (is_chief, local_batch_size, maybe_initialize_distributed, mean_over_ranks, rank_rows,
+                             world_size)
 from ..train.gan import GANTrainState, make_autoencoder_train_step, make_vq_train_step
 from ..train.trainer import noise_seed
 from .common import build_autoencoder, build_slice_dataset
@@ -65,7 +68,7 @@ def check_image_channels(dataset, in_channels: int) -> None:
 
 def run(cfg: dict, exp: str = "exp", device=None) -> GANTrainState:
     """Train as the config says; returns the final GAN state."""
-    device = resolve_device(cfg.get("device", device))
+    device = maybe_initialize_distributed(resolve_device(cfg.get("device", device)))
     configure_precision()
     if cfg.get("init_from"):
         raise NotImplementedError("init_from is not ported to the PyTorch trainers yet (ROADMAP.md section 1, "
@@ -95,14 +98,16 @@ def run(cfg: dict, exp: str = "exp", device=None) -> GANTrainState:
                                               feature_matching_weight=float(loss_cfg.get("gan_feat_weight", 0.0)),
                                               **loss_kw)
 
-    loader = DataLoader(train_ds, batch_size, seed=seed, device=device, num_workers=int(cfg.get("num_workers", 2)))
+    loader = DataLoader(train_ds, local_batch_size(batch_size), seed=seed, device=device,
+                        num_workers=int(cfg.get("num_workers", 2)))
     logdir = Path(cfg.get("output_path", "runs")) / exp
-    logger = MetricLogger(logdir)
-    ckpt = CheckpointManager(logdir / "checkpoints")
+    chief = is_chief()  # only rank 0 writes, as the JAX CLI's logger
+    logger = MetricLogger(logdir) if chief else None
+    ckpt = CheckpointManager(logdir / "checkpoints") if chief else None
     tput = Throughput()
     max_steps = int(cfg.get("max_steps", 100_000))
     display, save = int(cfg.get("display_freq", 50)), int(cfg.get("save_freq", 1000))
-    noise = NoiseSource(noise_seed(seed, 0), device)
+    noise = rank_rows(NoiseSource(noise_seed(seed, 0), device))
     try:
         while state.step < max_steps:
             for batch in loader:
@@ -110,18 +115,20 @@ def run(cfg: dict, exp: str = "exp", device=None) -> GANTrainState:
                     break
                 t0 = time.perf_counter()
                 metrics = step_fn(state, {"image": batch["image"]}, noise)
-                tput.update(batch["image"].shape[0])
+                tput.update(batch["image"].shape[0] * world_size())
                 if state.step % display == 0:
                     synchronize(device)
-                    vals = {k: float(v) for k, v in metrics.items()}
+                    vals = mean_over_ranks(metrics, device)  # the global batch's, on every rank
                     vals["step_seconds"] = time.perf_counter() - t0
                     vals["imgs_per_sec"] = tput.rate()
-                    logger.scalars(state.step, vals, "train/")
+                    if chief:
+                        logger.scalars(state.step, vals, "train/")
                     tput.reset()
-                if state.step % save == 0:
+                if state.step % save == 0 and chief:
                     ckpt.save(state.step, state.state_dict())
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state
 
 

@@ -9,8 +9,12 @@ the top, the model under `model:`) and trains under `<output_path>/<exp_name>/`:
 `run(cfg, exp)` is the same entry point for a config that is already a dict.
 `resume: true` resumes from the latest checkpoint.  The data is
 `dataset.kind` `synthetic`, `ruijin` (an index of NIfTI CT and label
-volumes) or `nnunet` (an nnUNet tree), as `cli/common.py` builds it: the
-loader reads the 'train' split, validation the 'val' split.
+volumes), `nnunet` (an nnUNet tree), or a stock kind: `lsun`, `imagenet`
+(unconditional RGB, `cond_channels: 0`) or `imagenet_sr` (HR RGB with the
+upsampled LR as a 3-channel cond, `configs/stage2_sr_imagenet.yml`), as
+`cli/common.py` builds it: the loader reads the 'train' split, validation the
+'val' split.  Under torchrun each process trains on batch_size / N rows of
+the global `batch_size` and only rank 0 writes (`parallel/mesh.py`).
 
 As the JAX CLI: AdamW with lr = accumulate_grad_batches x batch_size x
 base_learning_rate (unless `scale_lr: false`), `model.scheduler` as the lr
@@ -21,8 +25,9 @@ warmup EMA (0.9999), the learned per-timestep logvar with
 `n_log_images` validation items as one batch: the `SliceLDM.log_images`
 panels (DDIM-`log_ddim_steps`, default 20, at most T/2; `log_progressive`
 adds the full-T progression) written as PNGs under `<logdir>/images/`
-(inputs, samples, inpaint, outpaint, denoise_row, progressive_row, and with a
-2-channel cond one mask overlay per sample), drawn from the noise stream
+(inputs, samples, inpaint, outpaint, denoise_row, progressive_row, channel 0
+of an RGB image, and with a 2-channel cond one mask overlay per sample; items
+without a cond are sampled from a zero one), drawn from the noise stream
 seeded for (seed, step), their host seconds logged as `val/panel_seconds`;
 then the l2 loss at t = T/2, logged as `val/loss_simple`, with the noise from
 the stream seeded for (seed, step + 1); its negation ranks the best
@@ -64,6 +69,7 @@ from ..data.loader import DataLoader
 from ..diffusion.ddim import DDIMParams
 from ..diffusion.noise import NoiseSource
 from ..eval.writers import image_volume_to_grid, make_grid, overlay_mask_on_image
+from ..parallel.mesh import is_chief, local_batch_size, maybe_initialize_distributed
 from ..train.optim import build_optimizer
 from ..train.state import EMATrainState
 from ..train.steps import make_latent_ldm_train_step, make_ldm_train_step
@@ -92,7 +98,7 @@ def _reject_unported(cfg: dict, model_cfg: dict) -> None:
 
 def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
     """Train as the config says; returns the final train state."""
-    device = resolve_device(cfg.get("device", device))
+    device = maybe_initialize_distributed(resolve_device(cfg.get("device", device)))
     configure_precision()
     model_cfg = cfg.get("model", cfg)
     _reject_unported(cfg, model_cfg)
@@ -114,10 +120,12 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
         calib = np.stack([np.asarray(train_ds[i]["image"]) for i in range(min(len(train_ds), batch_size))])
         latent = latent.calibrate_scale_factor(torch.from_numpy(calib).to(device))
         print(f"scale_by_std: calibrated scale_factor={latent.scale_factor!r}")
-        ckdir = logdir / "checkpoints"
-        ckdir.mkdir(parents=True, exist_ok=True)
-        (ckdir / LATENT_SCALE_FILE).write_text(json.dumps({"scale_factor": latent.scale_factor}))
-    loader = DataLoader(train_ds, batch_size, seed=seed, device=device, num_workers=int(cfg.get("num_workers", 2)))
+        if is_chief():
+            ckdir = logdir / "checkpoints"
+            ckdir.mkdir(parents=True, exist_ok=True)
+            (ckdir / LATENT_SCALE_FILE).write_text(json.dumps({"scale_factor": latent.scale_factor}))
+    loader = DataLoader(train_ds, local_batch_size(batch_size), seed=seed, device=device,
+                        num_workers=int(cfg.get("num_workers", 2)))
     total_steps = int(cfg.get("max_steps", 100_000))
     sched = model_cfg.get("scheduler") or {}
     optimizer = build_optimizer(named, "AdamW", lr, lr_function=sched.get("type"), lr_params=sched.get("params"),
@@ -141,17 +149,22 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
         for row in ("denoise_row", "progressive_row"):
             if row in panels:
                 logger.image(step, f"val/{row}", image_volume_to_grid(panels[row][:, 0, ..., 0]))
-        if cond.shape[-1] == 2:  # [previous slice, mask slice]: the mask is labels / (C - 1)
+        if cond is not None and cond.shape[-1] == 2:  # [previous slice, mask slice]: the mask is labels / (C - 1)
             labels = np.rint(cond[..., 1].float().cpu().numpy() * (num_classes - 1)).astype(np.int64)
             samples = np.clip(panels["samples"][..., 0], 0, 1)
             logger.image(step, "val/overlay", make_grid(
                 [overlay_mask_on_image(samples[i], labels[i]) for i in range(samples.shape[0])]))
 
-    def latent_eval(x0: torch.Tensor, cond: torch.Tensor, step: int, logger) -> float:
+    def latent_eval(x0: torch.Tensor, cond: Optional[torch.Tensor], step: int, logger) -> float:
         """Pixel panels (inputs, reconstructions, DDIM samples) and the latent
-        val loss at t = T/2, as the JAX CLI's latent branch."""
+        val loss at t = T/2, as the JAX CLI's latent branch (without a cond,
+        the samples' condition is zeros of the cond encoder's channels)."""
         t0 = time.perf_counter()
-        z, cond_z = latent.encode(x0), latent.encode_cond(cond)
+        z = latent.encode(x0)
+        cond_z = None if cond is None else latent.encode_cond(cond)
+        if cond is None:
+            cond = torch.zeros(x0.shape[:-1] + ((latent.cond_stage or latent.first_stage).in_channels,),
+                               device=device)
         panels = {"inputs": x0, "reconstruction": latent.decode(z),
                   "samples": latent.sample_slice(NoiseSource(noise_seed(seed, step), device), cond, log_ddim)}
         panels = {k: v[..., 0].float().cpu().numpy() for k, v in panels.items()}
@@ -168,7 +181,10 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
 
     def eval_fn(state: EMATrainState, step: int, logger) -> float:
         items = [val_ds[i] for i in range(min(len(val_ds), int(cfg.get("n_log_images", 2))))]
-        x0, cond = (torch.from_numpy(np.stack([it[k] for it in items])).to(device) for k in ("image", "cond"))
+        # the stock lsun / imagenet items carry no cond: stack the keys present, as the JAX CLI
+        batch = {k: torch.from_numpy(np.stack([it[k] for it in items])).to(device)
+                 for k in ("image", "cond") if k in items[0]}
+        x0, cond = batch["image"], batch.get("cond")
         if latent is not None:
             with torch.no_grad(), state.ema_applied():
                 return latent_eval(x0, cond, step, logger)
@@ -176,8 +192,8 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
         eps = NoiseSource(noise_seed(seed, step + 1), device).normal(x0.shape)
         with torch.no_grad(), state.ema_applied():
             t0 = time.perf_counter()
-            panels = model.log_images(NoiseSource(noise_seed(seed, step), device), {"image": x0, "cond": cond},
-                                      log_ddim, progressive=bool(cfg.get("log_progressive", False)))
+            panels = model.log_images(NoiseSource(noise_seed(seed, step), device), batch, log_ddim,
+                                      progressive=bool(cfg.get("log_progressive", False)))
             panel_seconds = time.perf_counter() - t0  # log_images returns host arrays: the device is done
             out = model.apply_model(diff.q_sample(x0, t, eps), t, cond=cond)
         target = eps if diff.parameterization == "eps" else x0

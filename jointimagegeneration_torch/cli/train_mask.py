@@ -25,6 +25,11 @@ or `weights_path`) maps each batch's `image` to the site's grid before the
 step, and each validation item's image at validation.  The extractor has
 no parameters in the train state.
 
+Data parallel: under torchrun (`torchrun --nproc_per_node N -m
+jointimagegeneration_torch.cli.train_mask ...`) each process trains on
+batch_size / N rows of the global `batch_size` (`parallel/mesh.py`) and only
+rank 0 writes.
+
 Not ported here, and rejected with NotImplementedError: `remat`, `init_from`
 and `profile_steps`.
 """
@@ -42,6 +47,7 @@ from ..core.runtime import configure_precision, resolve_device
 from ..data.loader import DataLoader
 from ..diffusion.noise import NoiseSource
 from ..eval.metrics import per_class_dice
+from ..parallel.mesh import local_batch_size, maybe_initialize_distributed
 from ..train.optim import build_optimizer
 from ..train.state import EMATrainState
 from ..train.steps import make_mask_train_step
@@ -64,7 +70,7 @@ def _reject_unported(cfg: dict) -> None:
 
 def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
     """Train as the config says; returns the final train state."""
-    device = resolve_device(cfg.get("device", device))
+    device = maybe_initialize_distributed(resolve_device(cfg.get("device", device)))
     configure_precision()
     _reject_unported(cfg)
     seed = int(cfg.get("seed", 0))
@@ -74,7 +80,7 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
     print(f"stage-1 UNet params: {n_params / 1e6:.2f}M")
     dataset, val_ds = build_mask_dataset(cfg, "train"), build_mask_dataset(cfg, "val")
     spatial = dataset.volume_shape
-    loader = DataLoader(dataset, int(cfg.get("batch_size", 1)), seed=seed, device=device,
+    loader = DataLoader(dataset, local_batch_size(int(cfg.get("batch_size", 1))), seed=seed, device=device,
                         num_workers=int(cfg.get("mp_loaders", 2)))
 
     opt_cfg = cfg.get("optim", {})

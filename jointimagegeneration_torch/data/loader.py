@@ -1,10 +1,13 @@
 """Batching loader with thread-pool item decode and prefetch to the device.
 
-Counterpart of `jointimagegeneration_tpu/data/loader.py` for one process:
-each epoch draws the permutation `default_rng(seed + epoch)`, items are
-loaded by `num_workers` threads with `num_workers + prefetch` batches in
-flight, and each batch is stacked and sent to `device` (from pinned memory,
-non-blocking, on CUDA).  Process sharding (torch.distributed) is not ported.
+Counterpart of `jointimagegeneration_tpu/data/loader.py`: each epoch draws
+the permutation `default_rng(seed + epoch)` and this process keeps its
+contiguous shard of it (rank r of W from `parallel/mesh.py`: the n // W
+indices from r (n // W), the DistributedSampler's role),
+items are loaded by `num_workers` threads with `num_workers + prefetch`
+batches in flight, and each batch is stacked and sent to `device` (from
+pinned memory, non-blocking, on CUDA).  `batch_size` is this process's rows
+(the trainers pass the global batch over W).
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..parallel import mesh
 
 __all__ = ["DataLoader"]
 
@@ -32,9 +37,11 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, drop_last: bool = True,
                  seed: int = 0, device: Optional[torch.device] = None, prefetch: int = 2,
                  num_workers: int = 2):
-        if drop_last and len(dataset) < batch_size:
+        self.rank, self.world = mesh.rank(), mesh.world_size()
+        per_process = len(dataset) // self.world
+        if drop_last and per_process < batch_size:
             # zero batches per epoch would spin the train loop forever
-            raise ValueError(f"dataset ({len(dataset)} items) smaller than batch_size ({batch_size}); "
+            raise ValueError(f"dataset shard ({per_process} items) smaller than batch_size ({batch_size}); "
                              "reduce batch_size or set drop_last=False")
         self.dataset = dataset
         self.batch_size = batch_size
@@ -47,7 +54,7 @@ class DataLoader:
         self.epoch = 0
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self.dataset) // self.world
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def set_epoch(self, epoch: int) -> None:
@@ -57,7 +64,8 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             idx = np.random.default_rng(self.seed + self.epoch).permutation(idx)
-        return idx
+        per = len(idx) // self.world
+        return idx[self.rank * per:(self.rank + 1) * per]
 
     def _to_device(self, batch: dict) -> dict:
         def put(v):

@@ -23,6 +23,10 @@ JAX step re-runs the forward inside `heads`; the value is the same.  Before
 forward is skipped and its Adam step takes zero gradients, which leave its
 parameters as they are and count the step, as the JAX step's update does.
 
+Under data parallelism (`parallel/mesh.py`) both updates and the adaptive
+weight's two gradients are averaged over the ranks first, so the weight is
+the global batch's, as under the JAX step's psum.
+
 The KL step draws one normal of the posterior's shape from the `NoiseSource`
 (the JAX step's `k_sample`); the VQ step draws nothing.  The JAX steps'
 `perceptual_fn` and `adaptive_d_weight=False`, which no caller there sets, are
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..diffusion.noise import NoiseSource
+from ..parallel.mesh import average_gradients
 from .optim import Optimizer, build_optimizer
 
 __all__ = ["GANTrainState", "make_autoencoder_train_step", "make_vq_train_step", "hinge_d_loss", "vanilla_d_loss",
@@ -102,6 +107,7 @@ def adaptive_d_weight(nll: torch.Tensor, g_adv: torch.Tensor, last_layer: torch.
     backward."""
     nll_g, = torch.autograd.grad(nll, last_layer, retain_graph=True)
     adv_g, = torch.autograd.grad(g_adv, last_layer, retain_graph=True)
+    average_gradients([nll_g, adv_g])  # the global batch's gradients under data parallelism
     ratio = torch.linalg.vector_norm(nll_g) / (torch.linalg.vector_norm(adv_g) + 1e-4)
     return (torch.clamp(ratio, 0.0, 1e4) * disc_weight).detach()
 
@@ -116,11 +122,13 @@ def _gan_update(state: GANTrainState, discriminator: nn.Module, x: torch.Tensor,
     """The generator's Adam step on `loss`, then the discriminator's on the
     detached `rec`; returns the discriminator's loss."""
     grads = torch.autograd.grad(loss, state.g_params, allow_unused=True)
+    average_gradients(grads)
     state.g_opt.step([torch.zeros_like(p) if g is None else g for p, g in zip(state.g_params, grads)])
     rec = rec.detach()
     if disc_factor:
         d_loss = disc_factor * d_loss_fn(discriminator(x), discriminator(rec))
         d_grads = torch.autograd.grad(d_loss, state.d_params)
+        average_gradients(d_grads)
     else:  # 0 x the loss: zero gradients, and Adam still counts the step
         d_loss = torch.zeros((), device=x.device)
         d_grads = [torch.zeros_like(p) for p in state.d_params]

@@ -13,6 +13,10 @@ call is a micro-step, as in the JAX state: `step` advances on each, the EMA
 moves toward the params on each finite one (which change only on every k-th),
 and a non-finite one leaves the accumulated gradients as they were.
 
+Under data parallelism `apply_gradients` first averages the gradients over
+the ranks (`parallel/mesh.average_gradients`, the JAX step's psum over
+'data'), so every rank clips, checks and applies the same update.
+
 The parameters (the module's, as the optimizer holds them) are updated in
 place; the EMA tensors are separate fp32 tensors on their device.
 """
@@ -24,6 +28,7 @@ from typing import Dict, Iterator, Mapping
 
 import torch
 
+from ..parallel.mesh import average_gradients
 from .optim import Optimizer
 
 __all__ = ["EMATrainState"]
@@ -46,6 +51,7 @@ class EMATrainState:
         Returns whether every gradient was finite (if not, nothing but `step`
         and `nonfinite_count` changes)."""
         gs = [grads[n] for n in self.names]
+        average_gradients(gs)  # the mean over the data-parallel ranks (a no-op on one)
         finite = bool(torch.stack([torch.isfinite(g).all() for g in gs]).all())
         step = self.step
         self.step += 1

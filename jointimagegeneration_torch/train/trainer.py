@@ -8,6 +8,15 @@ Counterpart of `jointimagegeneration_tpu/train/trainer.py`, run eagerly:
   `save_weights_every` steps a weight-only snapshot -> every `eval_every`
   steps `eval_fn`, whose score goes into the best-k checkpoints.
 
+Under data parallelism (`parallel/mesh.py`, one process per GPU) every rank
+runs this loop on its rows of each batch, with the step's noise source cut to
+its rows (`rank_rows`), the gradients averaged in the train state and the
+logged metrics averaged over the ranks (`mean_over_ranks`: the loss is the
+global batch's, as the JAX step's psum gives it); only the chief (rank 0)
+writes the metrics, the checkpoints and the run config
+(the JAX trainer's `is_chief()` gates), while validation runs on every rank
+with no logger on the others.  Every rank restores the checkpoint on resume.
+
 Failure handling as in the JAX package: a logged non-finite loss, or any
 skipped non-finite update, saves a debug checkpoint (the last good state:
 EMATrainState never applies a non-finite update) and raises
@@ -35,6 +44,7 @@ from ..core.checkpoint import CheckpointManager
 from ..core.logging import MetricLogger, Throughput, hbm_stats
 from ..core.runtime import synchronize
 from ..diffusion.noise import NoiseSource
+from ..parallel.mesh import is_chief, mean_over_ranks, rank_rows, world_size
 from .state import EMATrainState
 
 __all__ = ["Trainer", "TrainerConfig", "noise_seed"]
@@ -74,13 +84,16 @@ class Trainer:
         self.train_loader = train_loader
         self.device = device
         self.eval_fn = eval_fn
-        self.logger = MetricLogger(config.logdir)
-        self.ckpt = CheckpointManager(Path(config.logdir) / "checkpoints", config.keep_checkpoints,
-                                      best_mode=config.best_mode, best_k=config.keep_best)
-        if resume and self.ckpt.latest_step() is not None:
+        self.chief = is_chief()
+        self.logger = MetricLogger(config.logdir) if self.chief else None
+        ckdir = Path(config.logdir) / "checkpoints"
+        # the other ranks only read it, on resume
+        self.ckpt = (CheckpointManager(ckdir, config.keep_checkpoints, best_mode=config.best_mode,
+                                       best_k=config.keep_best) if self.chief or ckdir.is_dir() else None)
+        if resume and self.ckpt is not None and self.ckpt.latest_step() is not None:
             self.state.load_state_dict(self.ckpt.restore())
             print(f"resumed from step {self.state.step}")
-        if run_config is not None:
+        if run_config is not None and self.chief:
             # the merged config of the run; the JAX trainer writes it as YAML
             cfg_dir = Path(config.logdir) / "configs"
             cfg_dir.mkdir(parents=True, exist_ok=True)
@@ -100,12 +113,17 @@ class Trainer:
         finally:
             for sig, old in handlers.items():
                 signal.signal(sig, old)
-            self.logger.close()
+            if self.logger is not None:
+                self.logger.close()
+
+    def _save(self, step: int, score: Optional[float] = None) -> None:
+        if self.chief:
+            self.ckpt.save(step, self.state.state_dict(), score=score)
 
     def _fit(self) -> EMATrainState:
         cfg, state = self.cfg, self.state
         step = state.step
-        noise = NoiseSource(noise_seed(cfg.seed, step), self.device)
+        noise = rank_rows(NoiseSource(noise_seed(cfg.seed, step), self.device))
         tput = Throughput()
         try:
             while step < cfg.max_steps:
@@ -121,43 +139,44 @@ class Trainer:
                     t0 = time.perf_counter()
                     metrics = self.train_step(state, arrays, noise)
                     step += 1
-                    tput.update(next(iter(arrays.values())).shape[0])
+                    tput.update(next(iter(arrays.values())).shape[0] * world_size())  # the global batch
                     if log_now:
                         synchronize(self.device)
-                        metrics = {k: float(v) for k, v in metrics.items()}
+                        metrics = mean_over_ranks(metrics, self.device)
                         metrics["step_seconds"] = time.perf_counter() - t0
                         metrics["data_seconds"] = data_seconds
                         metrics["nonfinite_skipped"] = float(state.nonfinite_count)
                         if not math.isfinite(metrics.get("loss", 0.0)) or state.nonfinite_count > 0:
-                            self.ckpt.save(step, state.state_dict())
+                            self._save(step)
                             raise FloatingPointError(f"non-finite loss/grads at step {step}: {metrics}")
                         metrics["imgs_per_sec"] = tput.rate()
                         metrics.update(hbm_stats(self.device))
-                        self.logger.scalars(step, metrics, "train/")
+                        if self.logger is not None:
+                            self.logger.scalars(step, metrics, "train/")
                         tput.reset()
 
                     saved = False
                     if step % cfg.save_every == 0 or self._usr1:
-                        self.ckpt.save(step, state.state_dict())
+                        self._save(step)
                         self._usr1, saved = False, True
                     if self._term:
                         if not saved:
-                            self.ckpt.save(step, state.state_dict())
+                            self._save(step)
                         print(f"SIGTERM: checkpointed step {step}, stopping")
                         return state
-                    if cfg.save_weights_every and step % cfg.save_weights_every == 0:
+                    if cfg.save_weights_every and step % cfg.save_weights_every == 0 and self.chief:
                         sd = state.state_dict()
                         self.ckpt.save_weights(step, {k: sd[k] for k in ("params", "ema", "step")})
                     if self.eval_fn is not None and step % cfg.eval_every == 0:
                         score = self.eval_fn(state, step, self.logger)
                         if score is not None:
-                            self.ckpt.save(step, state.state_dict(), score=float(score))
+                            self._save(step, score=float(score))
                     waited_from = time.perf_counter()
                 if epoch_batches == 0:
                     raise RuntimeError("train_loader yielded no batches this epoch: empty dataset "
                                        "or exhausted one-shot iterator?")
         except KeyboardInterrupt:
             print("interrupted: saving checkpoint")
-            self.ckpt.save(step, state.state_dict())
+            self._save(step)
             raise
         return state

@@ -4,7 +4,8 @@ The port and chip_smoke.py import neither JAX, flax nor the JAX package (the
 machine with the card has none of them), the port imports PyYAML only when a
 config file is read and `transformers` only inside
 `FrozenBERTEmbedder.__init__` (nor has it `transformers`), `h5py` only inside
-the slice dataset's optional cache (nor has it `h5py`), and an entry point
+the slice dataset's optional cache and `H5Dataset` (nor has it `h5py`), cv2
+and PIL only inside the stock datasets' functions, and an entry point
 asked for no device on a machine without CUDA raises instead of running on
 the CPU."""
 
@@ -104,9 +105,13 @@ def _function_imports(package: str) -> list:
 
 def test_scipy_only_imported_where_used():
     """`scipy` is imported only inside the functions that call it: the
+    degradations' mirror convolution, kernel shift and correlated noise, the
     Hungarian match, the Frechet distance's matrix square root and the
     overlay's edge filter; chip_smoke.py has none."""
     assert _function_imports("scipy") == [
+        ("jointimagegeneration_torch/data/degradation.py", "_add_gaussian_noise_light"),
+        ("jointimagegeneration_torch/data/degradation.py", "_convolve_mirror"),
+        ("jointimagegeneration_torch/data/degradation.py", "_shift_pixel"),
         ("jointimagegeneration_torch/eval/metrics.py", "_trace_sqrt_product"),
         ("jointimagegeneration_torch/eval/metrics.py", "hungarian_matched_iou"),
         ("jointimagegeneration_torch/eval/writers.py", "overlay_mask_on_image")], _function_imports("scipy")
@@ -140,15 +145,54 @@ def test_transformers_only_imported_inside_frozen_bert_init():
 
 def test_h5py_only_imported_inside_the_slice_cache():
     """`h5py` is imported only where `RuijinSlicePairDataset` opens its
-    `cache_h5` file; chip_smoke.py has none."""
+    `cache_h5` file and where `data/generic.H5Dataset` opens its file (after
+    `require_packages` has named the package if it is missing);
+    chip_smoke.py has none."""
     found = _scoped_imports("h5py")
-    assert found == [("jointimagegeneration_torch/data/datasets.py", ("RuijinSlicePairDataset", "_load_case"))], found
+    assert found == [("jointimagegeneration_torch/data/datasets.py", ("RuijinSlicePairDataset", "_load_case")),
+                     ("jointimagegeneration_torch/data/generic.py", ("H5Dataset", "__init__")),
+                     ("jointimagegeneration_torch/data/generic.py", ("H5Dataset", "_file"))], found
+
+
+def test_cv2_and_pil_only_imported_where_used():
+    """The stock datasets import cv2 and PIL inside the functions that call
+    them, as the JAX package does, so the port imports where neither is
+    installed (the datasets check at construction, through `importlib`,
+    that they import); chip_smoke.py imports PIL only in `_write_sr_tree`."""
+    assert _function_imports("cv2") == sorted(
+        [("jointimagegeneration_torch/data/degradation.py", f) for f in
+         ("gaussian_blur", "jpeg_compress", "downsample_up", "degradation_pipeline", "_cv2_resize", "_add_jpeg_noise")]
+        + [("jointimagegeneration_torch/data/stock.py", f) for f in ("_smallest_max_size", "__getitem__",
+                                                                      "__getitem__")]), _function_imports("cv2")
+    assert _function_imports("PIL") == [
+        ("chip_smoke.py", "_write_sr_tree"),
+        ("jointimagegeneration_torch/data/generic.py", "__getitem__"),
+        ("jointimagegeneration_torch/data/generic.py", "_default_loader"),
+        ("jointimagegeneration_torch/data/stock.py", "_load_rgb"),
+        ("jointimagegeneration_torch/data/stock.py", "_pil_resize")], _function_imports("PIL")
+
+
+SLICE_16_MODULES = ["data/degradation.py", "data/stock.py", "data/generic.py", "cli/serve.py", "parallel/mesh.py",
+                    "parallel/__init__.py", "data/loader.py", "train/trainer.py"]
+
+
+@pytest.mark.parametrize("name", SLICE_16_MODULES)
+def test_serve_stock_data_and_mesh_modules_import_no_jax_and_yaml_lazily(name):
+    """The server, the stock and generic datasets, the degradations, the
+    data-parallel module and the modules it reaches: no JAX, flax or
+    JAX-package import (the JAX loader's `jax.process_count` has its
+    torch.distributed counterpart), and `yaml` only inside a function."""
+    path = PORT / name
+    assert path in _port_sources()
+    found = list(_imports(path))
+    assert not [m for m, _ in found if m.split(".")[0] in FORBIDDEN], found
+    assert not [m for m, top in found if m.split(".")[0] == "yaml" and top], found
 
 
 def test_package_imports_with_jax_and_yaml_blocked():
     modules = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts) for p in PORT.rglob("*.py"))
     code = ("import sys\n"
-            "for m in ('jax', 'flax', 'jointimagegeneration_tpu', 'yaml', 'h5py', 'transformers'):\n"
+            "for m in ('jax', 'flax', 'jointimagegeneration_tpu', 'yaml', 'h5py', 'transformers', 'cv2', 'PIL'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {modules!r}:\n"

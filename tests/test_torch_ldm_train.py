@@ -454,7 +454,8 @@ UNPORTED = ["model.first_stage={type: kl}", "model.cond_stage={type: kl}", "mode
 
 @pytest.mark.parametrize("override", UNPORTED, ids=[o.split("=")[0] for o in UNPORTED])
 def test_ldm_cli_rejects_unported(tmp_path, override):
-    """Each key not ported raises NotImplementedError.  The latent keys are
+    """Each key not ported raises NotImplementedError; `dataset.kind=lsun` is
+    ported, and without a `category` or `txt_file` it raises KeyError.  The latent keys are
     ported (tests/test_torch_latent_train.py trains that route): a first stage
     that cannot encode the 2-channel [prev slice, mask] condition raises
     ValueError before any step, and `cond_stage` or `scale_by_std` without a
@@ -466,6 +467,9 @@ def test_ldm_cli_rejects_unported(tmp_path, override):
             tcli.run(cfg, "bad")
     elif key in ("model.cond_stage", "model.scale_by_std"):
         assert tcli.run({**cfg, "max_steps": 1, "validate": False}, "pixel").step == 1
+    elif key == "dataset.kind":  # the stock kinds are ported (tests/test_torch_stock_data.py trains them):
+        with pytest.raises(KeyError, match="category"):  # an lsun config names its category or txt_file
+            tcli.run(cfg, "bad")
     else:
         with pytest.raises(NotImplementedError):
             tcli.run(cfg, "bad")

@@ -162,8 +162,8 @@ def test_cli_checkpoint_and_unported_keys(tmp_path, slice_models):
                 {"stage": "mask", "stage1": {**cfg["stage1"], "feature_cond_encoder": {"type": "dino"}}}):
         with pytest.raises(ValueError, match="2D"):  # dino features are 2D; this stage 1 is 3D
             tcli.run({**cfg, **bad})
-    with pytest.raises(NotImplementedError):
-        tcli.run({**cfg, "tile": {"patch": [8, 8]}})
+    # `tile:` is a `stage: ct` key: two_stage ignores it, as the JAX CLI does, and samples untiled
+    np.testing.assert_array_equal(tcli.run({**cfg, "tile": {"patch": [8, 8]}})["ct"], out["ct"])
     # the latent first stage is ported: without a cond stage, a 1-channel first
     # stage cannot encode the [prev, mask] pair, and the CLI says so
     with pytest.raises(ValueError, match="in_channels"):

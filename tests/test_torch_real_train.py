@@ -130,18 +130,29 @@ def test_stage2_trains_on_real_data_and_validates_on_val(tmp_path, cases, monkey
     assert sorted({k for s, k in log if s == "val"}) == val_keys
 
 
-def test_dataset_kinds(cases):
-    """The kinds of the JAX CLI: the real ones build, the stock ones raise
-    NotImplementedError, an unknown one ValueError."""
+def test_dataset_kinds(cases, tmp_path):
+    """The kinds of the JAX CLI: the real ones build, the stock ones (ported
+    since; tests/test_torch_stock_data.py holds their items) build their
+    datasets over a one-image tree, an unknown one raises ValueError."""
     assert isinstance(tcommon.build_mask_dataset({"dataset": {"kind": "ruijin", "index": cases["index"]}}, "val"),
                       tds.RuijinMaskDataset)
     assert isinstance(tcommon.build_mask_dataset({"dataset": {"kind": "ruijin_3d", "index": cases["index"]}}),
                       tds.RuijinVolumeDataset)
     assert isinstance(tcommon.build_slice_dataset({"dataset": {"kind": "nnunet", "root": cases["nnunet"]}}, "val"),
                       tds.NNUNetLayoutDataset)
-    for kind in ("lsun", "imagenet", "imagenet_sr"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tcommon.build_slice_dataset({"dataset": {"kind": kind}}, "train")
+    from PIL import Image
+
+    from jointimagegeneration_torch.data import stock
+
+    (tmp_path / "n01440764").mkdir()
+    Image.fromarray(np.zeros((40, 36, 3), np.uint8)).save(tmp_path / "n01440764" / "a.JPEG")
+    (tmp_path / "list.txt").write_text("n01440764/a.JPEG\n")
+    for d, cls in (({"kind": "lsun", "txt_file": str(tmp_path / "list.txt"), "data_root": str(tmp_path)},
+                    stock.LSUNBase),
+                   ({"kind": "imagenet", "root": str(tmp_path)}, stock.ImageNetLocal),
+                   ({"kind": "imagenet_sr", "root": str(tmp_path), "size": 16}, stock.SRToLDMAdapter)):
+        ds = tcommon.build_slice_dataset({"dataset": {**d, "slice_shape": [16, 16]}}, "train")
+        assert isinstance(ds, cls) and len(ds) == 1 and ds[0]["image"].shape == (16, 16, 3)
     for build in (tcommon.build_slice_dataset, tcommon.build_mask_dataset):
         with pytest.raises(ValueError, match="unknown dataset kind"):
             build({"dataset": {"kind": "nope"}}, "train")

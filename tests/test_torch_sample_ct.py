@@ -160,9 +160,8 @@ def test_ae_weights_scale_sidecar_and_guards(tmp_path):
     assert out["ct"].shape == (1, 3, 16, 16) and np.isfinite(out["ct"]).all()
 
 
-@pytest.mark.parametrize("bad,err", [  # FVD and dino are ported; the guards left
+@pytest.mark.parametrize("bad,err", [  # FVD, dino and tile on two_stage are ported; the guard left
     ({"stage2": {"unet_config": {"params": {**UNET, "context_dim": 8}}}}, "context"),
-    ({"stage": "two_stage", "tile": {"patch": [8, 8]}}, "tile on two_stage"),
 ])
 def test_ct_guards_raise(tmp_path, bad, err):
     with pytest.raises(NotImplementedError, match=err):
@@ -181,6 +180,21 @@ TWO_STAGE = {
     "stage2": {"slice_size": 16, "timesteps": 100, "bf16": False, "channels": 4, "cond_channels": 4,
                "unet_config": {"params": UNET}, "first_stage": _ae(1), "cond_stage": _ae(2)},
 }
+
+
+def test_two_stage_tile_is_ignored_with_a_warning(tmp_path, capsys):
+    """`tile:` on `stage: two_stage` (a `stage: ct` key, which the JAX CLI
+    ignores there) warns and samples untiled: the volume and labels of the
+    run without it, bit for bit."""
+    s2 = {k: v for k, v in TWO_STAGE["stage2"].items() if k not in ("first_stage", "cond_stage")}
+    cfg = {**TWO_STAGE, "stage2": {**s2, "channels": 1, "cond_channels": 2}, "output_path": str(tmp_path / "a")}
+    ref = tcli.run(cfg)
+    assert "`tile:` is ignored" not in capsys.readouterr().out
+    got = tcli.run({**cfg, "output_path": str(tmp_path / "b"), "tile": {"patch": [8, 8], "stride": [4, 4]}})
+    assert "WARNING: `tile:` is ignored on two_stage" in capsys.readouterr().out
+    assert got["ct"].shape == (1, 4, 16, 16)
+    np.testing.assert_array_equal(got["ct"], ref["ct"])
+    np.testing.assert_array_equal(got["labels"], ref["labels"])
 
 
 def test_latent_two_stage_cli_matches_pipeline(tmp_path):
