@@ -179,14 +179,38 @@ Phases, in order (any failure exits non-zero and prints no result line):
      subprocess under torchrun's environment for world size 1 (NCCL, the gradient
      all-reduce, the chief's writes), its checkpoint equal bit for bit to the
      same run's without the environment.
+ 21. slice 17 reference: card against CPU at small widths, fp32: stage-1
+     SGD steps under remat conv_outputs (the CPU's losses equal to its
+     no-remat steps), adm stage-2 steps with `class_label`, a DDIM-4
+     cross-attention slice with guidance and an `uncond_context`, the
+     classifier's guidance gradient; remat train path: `cli.train_mask.run`
+     at full width, 2 steps each with remat off, on and conv_outputs from
+     the same init and draws (step 1's loss equal bit for bit, the params
+     after step 2 within 1e-5), s/step and peak GiB of each, then one fused
+     'kernel' step under conv_outputs against one without remat; init_from /
+     profile (run inside 12, on its checkpoint before it is deleted):
+     `cli.train_ldm.run` at 512x512 warm-started with out_conv dropped (the
+     counts line; out_conv fresh, every other leaf the source's), then 2
+     steps with profile_steps 1 (a trace whose kinds list the flash kernels;
+     whether TensorBoard events were written); adm train path:
+     `cli.train_ldm.run` on configs/stage2_ldm.yml with num_classes 4, RGB,
+     the imagenet kind over seeded JPEGs in 4 synsets, 256x256, b = 4: 3
+     steps, a validation with the class ids, a resume to 4; cross-attention
+     path: a hybrid SliceLDM at stage2_ldm.yml's widths with context_dim 768
+     and a seeded 6-block text encoder over 77 tokens, 3 train steps at
+     512x512, a guided DDIM-50 slice with the padding prompt's
+     uncond_context, and a 512-token prompt through the encoder (fp32 flash);
+     classifier guidance path: a NoisyLatentClassifier on 256x256, 3 steps,
+     then guided and unguided DDIM-50 chains of the 256x256 stage 2 from one
+     x_T.
 Before each main path (6 per run and the latent path, 7 per variant, 9, each
 text path of 10, 12, each run of 14, 15, 17, 18, each request of 19 and each
-run of 20) every kernel launch counter (flash_fwd,
+run of 20, and each run, step and chain of 21) every kernel launch counter (flash_fwd,
 flash_fwd_merge, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reduce and the conv
 kernel's) is set to 0;
 after it the counts must equal what the path implies.  The last lines are
 the sampling, latent, fused, train, latent-train, text, real-data,
-dino / FVD and serve / SR / ddp summaries, a JSON line
+dino / FVD, serve / SR / ddp and slice-17 summaries, a JSON line
 with the kernel numbers, the card's name and power limit, and `{"ok": true,
 "device": {...}}`.  Imports neither JAX nor PyYAML.
 """
@@ -238,6 +262,7 @@ FWD_SHAPES = [  # (BH, T, D), dtype, where the main paths run it
     ((160, 1024, 32), torch.bfloat16, "SR training ds8, 256x256 RGB, b = 8 (configs/stage2_sr_imagenet.yml)"),
     ((16, 2048, 32), torch.bfloat16, "serve stage 1 ds8, 64x128x128, batch 2"),
     ((32, 1024, 32), torch.bfloat16, "serve stage 2 ds8, 256x256, batch 2"),
+    ((64, 1024, 32), torch.bfloat16, "class-conditional stage 2 ds8, 256x256, b = 4"),
 ]
 FWD_EDGE_SHAPES = [  # (BH, Tq, Tk, D), dtype: ragged T, Tq != Tk, every head width, D padded
     ((3, 100, 77, 40), torch.bfloat16), ((2, 130, 200, 256), torch.bfloat16), ((2, 1088, 1088, 16), torch.bfloat16),
@@ -258,6 +283,9 @@ CROSS_SHAPES = [
     ((8, 2048, 640, 32), torch.bfloat16, "stage 1 ds8 cross-attention, a 640-token report"),
     ((8, 512, 512, 64), torch.float32, "text refiner, a 512-token report"),
     ((8, 640, 640, 64), torch.float32, "text refiner, a 640-token report"),
+    ((16, 4096, 77, 32), torch.bfloat16, "stage 2 ds8 cross-attention, a 77-token context, 512x512"),
+    ((20, 1024, 77, 32), torch.bfloat16, "stage 2 ds16 cross-attention, a 77-token context, 512x512"),
+    ((16, 1024, 1, 32), torch.bfloat16, "stage 2 ds8 cross-attention, a ClassEmbedder's one-token context, 256x256"),
 ]
 BWD_SHAPES = [  # (BH, T, D), dtype, where training runs it
     ((8, 2048, 32), torch.bfloat16, "stage 1 ds8, 64x128x128"),
@@ -267,6 +295,7 @@ BWD_SHAPES = [  # (BH, T, D), dtype, where training runs it
     ((10, 1024, 32), torch.bfloat16, "latent stage 2 ds2, configs/stage2_ldm_ae.yml"),
     ((8, 2048, 32), torch.float32, "fp32 torso"),
     ((160, 1024, 32), torch.bfloat16, "SR training ds8, 256x256 RGB, b = 8 (configs/stage2_sr_imagenet.yml)"),
+    ((64, 1024, 32), torch.bfloat16, "class-conditional stage 2 ds8, 256x256, b = 4"),
 ]
 
 TWO_STAGE_CFG = {  # configs/sample_two_stage.yml, lengths cut
@@ -680,7 +709,12 @@ def compare_bwd(flash, q, k, v, o, lse, do, label: str) -> dict:
     """Max abs error of dQ, dK, dV from the kernels against the plain version
     on the same inputs; fails past BWD_REL_TOL of each gradient's max |plain|,
     and unless a second call gives bitwise-equal gradients (both kernels sum
-    in a fixed order, with no atomics)."""
+    in a fixed order, with no atomics).  Over one key (Tk = 1) the softmax
+    is the constant 1, so dS = P(dP - delta) and with it dQ and dK are zero
+    in exact arithmetic, and a limit relative to their max would be one on
+    rounding noise: they are held to zero within twice the rounding bound of
+    dP - delta (two D-term fp32 sums that cancel, each off by at most
+    D 2^-24 sum|dO v|) carried through dQ = dS K and dK = dS^T Q."""
     got = flash.flash_backward(q, k, v, o, lse, do)
     again = flash.flash_backward(q, k, v, o, lse, do)
     torch.cuda.synchronize()
@@ -691,6 +725,10 @@ def compare_bwd(flash, q, k, v, o, lse, do, label: str) -> dict:
         check(torch.equal(a, a2), f"flash backward {name}: two calls differ at {label}")
         err = (a.float() - b.float()).abs().max().item()
         tol = BWD_REL_TOL[q.dtype] * b.float().abs().max().item()
+        if k.shape[1] == 1 and name in ("dq", "dk"):
+            e = 2 * q.shape[-1] * 2.0**-24 * (do.float().abs() @ v.float().abs().transpose(-1, -2))  # (BH, Tq, 1)
+            bound = (e * k.float().abs()) if name == "dq" else (e.transpose(-1, -2) @ q.float().abs())
+            err, tol = a.float().abs().max().item(), 2 * bound.amax().item()
         check(err <= tol, f"flash backward {name} disagrees at {label}: {err} (tol {tol})")
         out[f"err_{name}"], out[f"tol_{name}"] = err, tol
     return out
@@ -2360,11 +2398,12 @@ def text_two_stage_phase(flash, card: str, ddim_path: dict) -> dict:
     return out
 
 
-def ldm_train_path_phase(flash, card: str) -> dict:
+def ldm_train_path_phase(flash, card: str, after=None) -> dict:
     """Stage-2 training at full width through `cli.train_ldm.run`, then a
     resumed run; returns the first run's launch counts and numbers.  The
     checkpoints (params, EMA and AdamW's two moments in fp32: ~2.8 GB each)
-    are deleted at the end."""
+    are deleted at the end, after `after(checkpoints directory)` has read
+    them (its result under "after")."""
     from jointimagegeneration_torch.cli.sample import build_slice_ldm
     from jointimagegeneration_torch.cli.train_ldm import run
     from jointimagegeneration_torch.core.checkpoint import CheckpointManager
@@ -2435,12 +2474,16 @@ def ldm_train_path_phase(flash, card: str) -> dict:
         print(f"ldm train path: resumed from step {n_steps} to {state2.step} in {wall2:.2f} s; launches "
               f"{launches2} = expected", flush=True)
         del state2
+        gc.collect()
+        torch.cuda.empty_cache()
+        extra = after(logdir / "checkpoints") if after is not None else None
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
     return {"launches": launches, "launches_resumed": launches2, "s_per_step": s_per_step, "peak_gib": peak_gib,
-            "run_wall_s": wall, "val_loss_simple": val[0][1], "panel_seconds": panel_s[0], "checkpoint_gb": ckpt_gb}
+            "run_wall_s": wall, "val_loss_simple": val[0][1], "panel_seconds": panel_s[0], "checkpoint_gb": ckpt_gb,
+            "after": extra}
 
 
 def _gan_step_run(flash, models: dict, device: str, batch, seed: int, init_sd=None) -> dict:
@@ -3988,6 +4031,551 @@ def ddp_phase(flash, card: str) -> dict:
             "wall_s": {k: r["wall"] for k, r in runs.items()}}
 
 
+# ------------------------------------------------------------------ slice 17 --
+
+REMAT_SETTINGS = [("off", {"remat": False}), ("remat", {"remat": True}),
+                  ("remat conv_outputs", {"remat": True, "remat_policy": "conv_outputs"})]
+# the params after step 2 of the three remat runs: within this fraction of
+# each tensor's max (the recompute changes no forward value, but cuDNN's
+# weight gradients may sum in another order).  SGD: Adam's first step is a
+# sign, lr * g / |g|, and turns the summation noise of an exactly zero
+# gradient (the attention's key bias) into +-lr (the watch list)
+REMAT_TOL = 1e-5
+REMAT_OPTIM = {"name": "SGD", "learning_rate": 1.0e-2}
+ADM_CLASSES = 4
+ADM_IMAGES = 16  # seeded JPEGs in ADM_CLASSES synsets
+ADM_TRAIN_CFG = {  # configs/stage2_ldm.yml with the UNet's num_classes, RGB, no cond, on the imagenet kind
+    **{k: v for k, v in STAGE2_TRAIN_CFG.items() if k not in ("model", "dataset")},
+    "batch_size": 4, "max_steps": 3, "save_freq": 3, "eval_every": 3,
+    "model": {**STAGE2_TRAIN_CFG["model"], "channels": 3, "cond_channels": 0,
+              "unet_config": {"params": {**STAGE2_TRAIN_CFG["model"]["unet_config"]["params"],
+                                         "num_classes": ADM_CLASSES}}},
+    "dataset": {"kind": "imagenet", "root": "build/chip_smoke/imagenet_adm", "size": 256},
+}
+TEXT_ENCODER = {"vocab_size": 30522, "embed_dim": 768, "depth": 6, "n_heads": 8, "d_head": 64, "max_len": 512}
+CROSS_TOKENS = 77  # a CLIP-length prompt
+CROSS_TRAIN_STEPS = 3
+GUIDED_DDIM_STEPS = 50
+CLASSIFIER = {"num_classes": 4, "model_channels": 32, "channel_mult": (1, 2, 4)}  # the JAX defaults
+CLASSIFIER_STEPS = 3
+CLASSIFIER_SIZE = 256  # the two-stage config's stage-2 slices
+SLICE17_REF_TOL = 1e-4  # card vs CPU, fp32: of each tensor's max |CPU value|
+
+
+def _metrics(logdir: Path) -> list:
+    return [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+
+
+def remat_train_phase(flash, card: str) -> dict:
+    """`cli.train_mask.run` on STAGE1_TRAIN_CFG (64x128x128, base 64, b = 1,
+    bf16) for 2 steps with `remat: false`, `remat: true` and `remat: true,
+    remat_policy: conv_outputs`, each from the same seeded init, data and
+    draws (SGD, REMAT_OPTIM): step 1's losses equal bit for bit, the params
+    after step 2 within REMAT_TOL of each tensor's max, the same flash
+    launches (attention is never rematerialised); s/step and peak GiB of
+    each.  Then one step of the fused 'kernel' route (the conv kernel) under
+    conv_outputs against the same step without remat: the same loss, params
+    within REMAT_TOL, and the same conv launches (conv_outputs recomputes no
+    conv)."""
+    from jointimagegeneration_torch.cli.common import build_mask_dataset
+    from jointimagegeneration_torch.cli.sample import build_mask_sampler
+    from jointimagegeneration_torch.cli.train_mask import run
+    from jointimagegeneration_torch.diffusion.noise import NoiseSource
+    from jointimagegeneration_torch.train.optim import build_optimizer
+    from jointimagegeneration_torch.train.state import EMATrainState
+    from jointimagegeneration_torch.train.steps import make_mask_train_step
+
+    base = json.loads(json.dumps(STAGE1_TRAIN_CFG))
+    out_dir = ROOT / "build" / "chip_smoke" / "remat"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    base.update(output_path=str(out_dir), max_steps=2, save_freq=1000, validate=False, optim=REMAT_OPTIM)
+    sites = stage1_launches(base, 1)
+    expected = {"flash_fwd": 2 * sites, "flash_fwd_merge": 0, "flash_bwd_dkv": 2 * sites, "flash_bwd_dq": 2 * sites,
+                "flash_bwd_reduce": 0, "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
+    runs, ref = {}, None
+    try:
+        for label, extra in REMAT_SETTINGS:
+            exp = label.replace(" ", "_")
+            torch.cuda.reset_peak_memory_stats()
+            state, launches, wall, _ = _train_run(flash, run, {**base, **extra}, exp)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            check(launches == expected, f"remat train path ({label}): launches {launches}, expected {expected}")
+            train = [r for r in _metrics(out_dir / exp) if "train/loss" in r]
+            check([r["step"] for r in train] == [1, 2] and all(math.isfinite(r["train/loss"]) for r in train),
+                  f"remat train path ({label}): {train}")
+            params = [p.detach().clone() for p in state.params]
+            if ref is None:
+                ref, worst = (train[0]["train/loss"], params), 0.0
+            else:
+                check(train[0]["train/loss"] == ref[0], f"remat train path ({label}): step 1 loss "
+                                                        f"{train[0]['train/loss']!r} != {ref[0]!r}")
+                worst = max((p - q).abs().max().item() / max(q.abs().max().item(), 1e-30)
+                            for p, q in zip(params, ref[1]))
+                check(worst <= REMAT_TOL, f"remat train path ({label}): params after step 2 differ by {worst:.3g} "
+                                          f"of a tensor's max (tol {REMAT_TOL})")
+            runs[label] = {"s_per_step": train[1]["train/step_seconds"], "peak_gib": peak,
+                           "loss_step1": train[0]["train/loss"], "params_rel_diff": worst, "launches": launches}
+            print(f"remat train path ({label}): stage 1 ({'x'.join(map(str, base['dataset']['volume_shape']))}, "
+                  f"base {base['unet_openai']['base_channels']}, bf16, SGD) 2 steps, step 2 "
+                  f"{runs[label]['s_per_step']:.4f} s, peak torch.cuda.max_memory_allocated {peak:.2f} GiB, step 1 "
+                  f"loss {train[0]['train/loss']!r}, params after step 2 {worst:.3g} of a tensor's max from remat "
+                  f"off; launches {launches} = expected; card {card}", flush=True)
+            del state, params
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the fused 'kernel' route, one step, conv_outputs against no remat
+        ds = build_mask_dataset(base, "train")
+        item = ds[0]
+        batch = {k: torch.from_numpy(item[k])[None].to("cuda") for k in ("mask", "image")}
+        fused, init = {}, None
+        for label, extra in (REMAT_SETTINGS[0], REMAT_SETTINGS[2]):
+            model = build_mask_sampler({**base, **extra}, "cuda", seed=0, use_fused_resblock="kernel")
+            if init is None:
+                init = {k: v.clone() for k, v in model.unet.state_dict().items()}
+            model.unet.load_state_dict(init)
+            state = EMATrainState(build_optimizer(model.named_parameters(), "SGD", 1e-2), ema_decay=0.9)
+            step = make_mask_train_step(model, torch.ones(base["num_classes"], device="cuda"))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts(flash)
+            t0 = time.perf_counter()
+            metrics = step(state, batch, NoiseSource(7, "cuda"))
+            torch.cuda.synchronize()
+            fused[label] = {"loss": float(metrics["loss"]), "s": time.perf_counter() - t0, "launches": _counts(flash),
+                            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                            "params": [p.detach().clone() for p in state.params]}
+            del model, state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = fused["off"], fused["remat conv_outputs"]
+        worst = max((p - q).abs().max().item() / max(q.abs().max().item(), 1e-30)
+                    for p, q in zip(b["params"], a["params"]))
+        check(a["loss"] == b["loss"] and worst <= REMAT_TOL and a["launches"] == b["launches"]
+              and a["launches"]["conv3d"] > 0,
+              f"remat fused path: loss {a['loss']!r} vs {b['loss']!r}, params {worst:.3g}, launches {a['launches']} "
+              f"vs {b['launches']}")
+        print(f"remat fused path ('kernel', conv_outputs vs off): one step, loss {b['loss']!r} equal, params "
+              f"{worst:.3g} of a tensor's max, launches {b['launches']} equal (no conv recomputed); step "
+              f"{a['s']:.3f} s / {b['s']:.3f} s, peak {a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB; card {card}",
+              flush=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {**runs, "fused": {k: {kk: vv for kk, vv in v.items() if kk != "params"} for k, v in fused.items()},
+            "fused_params_rel_diff": worst}
+
+
+def init_from_profile_phase(flash, card: str, ckdir: Path) -> dict:
+    """`cli.train_ldm.run` at STAGE2_TRAIN_CFG's widths (512x512) with
+    `init_from: {path: <the ldm train path's checkpoints>, ignore_keys:
+    [out_conv]}`: with no step (max_steps 0) the state holds the warm start,
+    `out_conv` at the fresh init and every other leaf equal to the
+    checkpoint's params, and the counts line printed; then 2 steps with
+    `profile_steps: 1`: `<logdir>/profile/` holds a trace whose kinds
+    (`core.logging.summarize_trace`) include the flash kernels.  Reports
+    whether TensorBoard events were written and whether tensorboardX
+    imports."""
+    import importlib.util
+
+    from jointimagegeneration_torch.cli.sample import build_slice_ldm
+    from jointimagegeneration_torch.cli.train_ldm import run
+    from jointimagegeneration_torch.core.checkpoint import CheckpointManager
+    from jointimagegeneration_torch.core.logging import summarize_trace
+
+    saved = torch.load(CheckpointManager(ckdir).step_path(), map_location="cpu", weights_only=True)["params"]
+    out_dir = ROOT / "build" / "chip_smoke" / "init_from"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = json.loads(json.dumps(STAGE2_TRAIN_CFG))
+    cfg.update(output_path=str(out_dir), validate=False, save_freq=1000, max_steps=0,
+               init_from={"path": str(ckdir), "ignore_keys": ["out_conv"]})
+    sites = flash_sites(cfg["dataset"]["slice_shape"], cfg["model"]["unet_config"]["params"], "channel_mult")
+    try:
+        state, launches, _, printed = _train_run(flash, run, cfg, "warm")
+        n = len(state.names)
+        line = (f"init_from: restored {n - 2}/{n} leaves from {ckdir} (2 missing, 0 unexpected, "
+                f"0 shape-mismatched)")
+        check(line in printed, f"init_from path: no '{line}' in the output")
+        fresh = dict(build_slice_ldm(cfg["model"], "cuda", seed=cfg["seed"]).named_parameters())
+        for name, p in zip(state.names, state.params):
+            want = fresh[name] if name.startswith("out_conv") else saved[name].to("cuda")
+            check(torch.equal(p.detach(), want.detach()), f"init_from path: leaf {name} is not the "
+                                                          f"{'fresh init' if name.startswith('out_conv') else 'source'}")
+        del state, fresh, saved
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg2 = dict(cfg, max_steps=2, profile_steps=1)
+        state2, launches2, wall2, printed2 = _train_run(flash, run, cfg2, "profile")
+        expected = {k: 2 * sites if k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq") else 0 for k in launches2}
+        check(launches2 == expected, f"init_from path: launches {launches2}, expected {expected}")
+        check("profiler: 1-step trace" in printed2, "init_from path: no profiler summary printed")
+        traces = list((out_dir / "profile" / "profile").glob("trace_step*.json"))
+        check(len(traces) == 1, f"init_from path: traces {traces}")
+        rows = summarize_trace(traces[0], top_k=50)
+        kinds = {k: ms for k, ms, _ in rows}
+        check("flash_fwd" in kinds and "flash_bwd" in kinds, f"init_from path: trace kinds {sorted(kinds)}")
+        tb = bool(list((out_dir / "profile").glob("events.out.tfevents.*")))
+        tbx = importlib.util.find_spec("tensorboardX") is not None
+        del state2
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    top = sorted(kinds.items(), key=lambda kv: -kv[1])[:6]
+    size = "x".join(map(str, cfg["dataset"]["slice_shape"]))
+    print(f"init_from path: {size} stage 2 warm-started from the ldm train path's checkpoint, out_conv dropped: "
+          f"'{line}', out_conv at the fresh init and {n - 2} leaves equal to the source; then 2 steps with "
+          f"profile_steps 1 in {wall2:.2f} s: {traces[0].name}, device ms by kind {[(k, round(v, 3)) for k, v in top]}; "
+          f"launches {launches2} = expected; TensorBoard events written {tb} (tensorboardX imports: {tbx}); card "
+          f"{card}", flush=True)
+    return {"restored": n - 2, "of": n, "launches": launches2, "trace_kinds_ms": kinds, "tensorboard_events": tb,
+            "tensorboardx_imports": tbx}
+
+
+def adm_train_path_phase(flash, card: str) -> dict:
+    """`cli.train_ldm.run` on ADM_TRAIN_CFG (configs/stage2_ldm.yml's widths
+    with the UNet's num_classes 4, RGB, no cond, 256x256, b = 4, bf16) over
+    ADM_IMAGES seeded JPEGs in 4 synsets read through the imagenet kind (its
+    `class_label` the class ids): 3 steps, one validation (its panels and val
+    loss take the items' class ids), a resume to 4.  flash at the 5 ds-8
+    sites of (64, 1024, 32) a step, forward and backward; the validation's
+    at (32, 1024, 32).  The label embedding must move.  Files deleted."""
+    from jointimagegeneration_torch.cli import train_ldm
+
+    cfg = json.loads(json.dumps(ADM_TRAIN_CFG))
+    out_dir = ROOT / "build" / "chip_smoke" / "train_adm"
+    cfg["output_path"] = str(out_dir)
+    d = cfg["dataset"]
+    d["root"] = str(ROOT / d["root"])
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(d["root"], ignore_errors=True)
+    _write_sr_tree(Path(d["root"]), ADM_IMAGES, cfg["seed"])
+    u = cfg["model"]["unet_config"]["params"]
+    sites = flash_sites([d["size"]] * 2, u, "channel_mult")
+    n_steps, n_eval = cfg["max_steps"], cfg["max_steps"] // cfg["eval_every"]
+    panel_calls = 3 * min(cfg.get("log_ddim_steps", 20), cfg["model"]["timesteps"] // 2)
+    expected = {"flash_fwd": sites * (n_steps + n_eval * (1 + panel_calls)), "flash_fwd_merge": 0,
+                "flash_bwd_dkv": sites * n_steps, "flash_bwd_dq": sites * n_steps, "flash_bwd_reduce": 0,
+                "conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        state, launches, wall, _ = _train_run(flash, train_ldm.run, cfg, "smoke")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check(launches == expected, f"adm train path: launches {launches}, expected {expected}")
+        recs = _metrics(out_dir / "smoke")
+        train = [r for r in recs if "train/loss" in r]
+        check([r["step"] for r in train] == list(range(1, n_steps + 1))
+              and all(math.isfinite(r["train/loss"]) and r["train/grad_finite"] == 1.0 for r in train),
+              f"adm train path: {train}")
+        val = [r["val/loss_simple"] for r in recs if "val/loss_simple" in r]
+        check(len(val) == 1 and math.isfinite(val[0]), f"adm train path: val {val}")
+        pngs = sorted(p.name for p in (out_dir / "smoke" / "images").glob("*.png"))
+        check(len(pngs) == 5, f"adm train path: panels {pngs}")
+        label_emb = state.params[state.names.index("label_emb.weight")]
+        check(tuple(label_emb.shape) == (ADM_CLASSES, 4 * u["model_channels"]), "adm train path: label_emb shape")
+        ema = state.ema[state.names.index("label_emb.weight")]
+        check((label_emb - ema).abs().max().item() > 0, "adm train path: the label embedding did not move")
+        sec = sorted(r["train/step_seconds"] for r in train[1:])
+        s_per_step = sec[len(sec) // 2]
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        state2, launches2, wall2, printed = _train_run(flash, train_ldm.run, dict(cfg, resume=True,
+                                                                                  max_steps=n_steps + 1), "smoke")
+        expected2 = {k: sites if k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq") else 0 for k in expected}
+        check(f"resumed from step {n_steps}" in printed and state2.step == n_steps + 1 and launches2 == expected2,
+              f"adm train path: resume {launches2}")
+        del state2
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(d["root"], ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"adm train path: configs/stage2_ldm.yml with num_classes {ADM_CLASSES} (256x256 RGB, no cond, bf16, "
+          f"b = {cfg['batch_size']}) on {ADM_IMAGES} seeded JPEGs in {ADM_CLASSES} synsets through the imagenet kind: "
+          f"{n_steps} steps, warmed {s_per_step:.4f} s/step, losses {[round(r['train/loss'], 4) for r in train]}, "
+          f"val/loss_simple {val[0]:.4f} with the items' class ids, {len(pngs)} panels, peak {peak_gib:.2f} GiB, "
+          f"run() wall {wall:.2f} s; launches {launches} = expected ({sites} flash sites a forward at b = "
+          f"{cfg['batch_size']}); resumed to {n_steps + 1} in {wall2:.2f} s, launches {launches2}; card {card}",
+          flush=True)
+    return {"launches": launches, "launches_resumed": launches2, "s_per_step": s_per_step, "peak_gib": peak_gib,
+            "val_loss_simple": val[0], "run_wall_s": wall}
+
+
+def cross_attention_path_phase(flash, card: str) -> dict:
+    """The 'hybrid' mode at stage2_ldm.yml's widths: a bf16 SliceLDM with
+    `context_dim` 768 and the concat cond [prev | mask], its context a seeded
+    TransformerTextEncoder (TEXT_ENCODER, fp32) over CROSS_TOKENS tokens.
+    CROSS_TRAIN_STEPS AdamW steps at 512x512 (b = 1), then one DDIM-50 slice
+    with guidance 2.0 and `uncond_context` the encoding of an all-padding
+    prompt; also one 512-token prompt, so the encoder's self-attention runs
+    the fp32 flash forward at (8, 512, 512, 64).  At every UNet site attn1
+    and attn2 both take the flash rule: 2 launches a site, the cross one at
+    (16, 4096, 77, 32) and (20, 1024, 77, 32)."""
+    from jointimagegeneration_torch.cli.common import fill_zero_init
+    from jointimagegeneration_torch.data.datasets import SyntheticSliceDataset
+    from jointimagegeneration_torch.diffusion.ddim import DDIMParams
+    from jointimagegeneration_torch.diffusion.noise import NoiseSource
+    from jointimagegeneration_torch.models.slice_ldm import SliceLDM
+    from jointimagegeneration_torch.nn.text import TransformerTextEncoder
+    from jointimagegeneration_torch.train.optim import build_optimizer
+    from jointimagegeneration_torch.train.state import EMATrainState
+    from jointimagegeneration_torch.train.steps import make_ldm_train_step
+
+    m, size = STAGE2_TRAIN_CFG["model"], STAGE2_TRAIN_CFG["dataset"]["slice_shape"][0]
+    u = m["unet_config"]["params"]
+    ldm = SliceLDM.create(cond_channels=2, model_channels=u["model_channels"], channel_mult=u["channel_mult"],
+                          attention_resolutions=u["attention_resolutions"], num_res_blocks=u["num_res_blocks"],
+                          num_head_channels=u["num_head_channels"], context_dim=TEXT_ENCODER["embed_dim"],
+                          dtype=torch.bfloat16, device="cuda", seed=0)
+    fill_zero_init(ldm.unet, 0.02, 3)  # every site's proj_out and the head carry signal from the start
+    enc = TransformerTextEncoder(**TEXT_ENCODER, device="cuda", seed=11).eval()
+    gen = torch.Generator().manual_seed(12)
+    tokens = torch.randint(1, TEXT_ENCODER["vocab_size"], (1, CROSS_TOKENS), generator=gen).to("cuda")
+    long = torch.randint(1, TEXT_ENCODER["vocab_size"], (1, TEXT_ENCODER["max_len"]), generator=gen).to("cuda")
+    _reset_counts(flash)
+    with torch.no_grad():
+        ctx, uctx = enc(tokens), enc(torch.zeros_like(tokens))
+        check(flash.flash_forward.launches == 0, "cross-attention path: a 77-token encoder call took the flash rule")
+        t0 = time.perf_counter()
+        long_ctx = enc(long)
+        torch.cuda.synchronize()
+        long_ms = (time.perf_counter() - t0) * 1e3
+    enc_launches = _counts(flash)
+    depth, heads, d_head = TEXT_ENCODER["depth"], TEXT_ENCODER["n_heads"], TEXT_ENCODER["d_head"]
+    check(enc_launches["flash_fwd"] == 2 * depth
+          and enc_launches["flash_fwd_merge"] == 2 * depth * fwd_merges(flash, heads, 512, 512, d_head),
+          f"cross-attention path: the 512-token encoder launched {enc_launches}")
+    check(bool(torch.isfinite(ctx).all() and torch.isfinite(long_ctx).all()), "cross-attention path: encoder output")
+    sites = flash_sites([size, size], u, "channel_mult")
+    ds = SyntheticSliceDataset(2, (size, size), depth=4)
+    item = ds[0]
+    batch = {"image": torch.from_numpy(item["image"])[None].to("cuda"), "cond": torch.from_numpy(item["cond"])[None].to("cuda"),
+             "context": ctx}
+    state = EMATrainState(build_optimizer(ldm.named_parameters(), "AdamW", m["base_learning_rate"]), ema_warmup=True)
+    step = make_ldm_train_step(ldm)
+    noise = NoiseSource(0, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(flash)
+    losses, secs = [], []
+    for _ in range(CROSS_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(state, batch, noise)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        check(float(metrics["grad_finite"]) == 1.0 and math.isfinite(losses[-1]), "cross-attention path: a step")
+    train_launches = _counts(flash)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    per = 2 * sites * CROSS_TRAIN_STEPS
+    check(train_launches == {**{k: 0 for k in train_launches}, "flash_fwd": per, "flash_bwd_dkv": per,
+                             "flash_bwd_dq": per}, f"cross-attention path: train launches {train_launches}")
+    ddim = DDIMParams.create(ldm.diffusion, GUIDED_DDIM_STEPS)
+    _reset_counts(flash)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        x = ldm.sample_slice(NoiseSource(1, "cuda"), batch["cond"], ddim, context=ctx, guidance_scale=2.0,
+                             uncond_context=uctx)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    sample_launches = _counts(flash)
+    check(sample_launches["flash_fwd"] == GUIDED_DDIM_STEPS * 2 * 2 * sites and x.shape == (1, size, size, 1)
+          and bool(torch.isfinite(x).all()), f"cross-attention path: sampling {sample_launches}, {tuple(x.shape)}")
+    del state, step, ldm, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"cross-attention path: hybrid SliceLDM ({size}x{size}, stage2_ldm.yml widths, context_dim 768, bf16) "
+          f"with a seeded 6-block text encoder over {CROSS_TOKENS} tokens: {CROSS_TRAIN_STEPS} AdamW steps, losses "
+          f"{[round(v, 4) for v in losses]}, {sorted(secs)[1]:.4f} s/step (median), peak {peak_gib:.2f} GiB, launches "
+          f"{train_launches}; DDIM-{GUIDED_DDIM_STEPS} with guidance 2.0 and the padding prompt's uncond_context "
+          f"{sample_s:.2f} s, {sample_launches['flash_fwd']} flash_fwd launches = {GUIDED_DDIM_STEPS} x 2 calls x 2 x "
+          f"{sites} sites, "
+          f"output finite; the 512-token prompt through the encoder {long_ms:.1f} ms, {enc_launches['flash_fwd']} "
+          f"fp32 flash launches + {enc_launches['flash_fwd_merge']} merges; card {card}", flush=True)
+    return {"train_launches": train_launches, "sample_launches": sample_launches, "encoder_launches": enc_launches,
+            "s_per_step": sorted(secs)[1], "peak_gib": peak_gib, "losses": losses, "sample_s": sample_s,
+            "encoder_512_ms": long_ms}
+
+
+def classifier_guidance_phase(flash, card: str) -> dict:
+    """A NoisyLatentClassifier (base 32, mult (1, 2, 4), 4 classes, fp32) on
+    256x256 slices, CLASSIFIER_STEPS AdamW steps, then a DDIM-50 chain of the
+    two-stage config's stage-2 UNet (256x256, base 128, bf16, seeded) guided
+    through its `guidance_fn` (class 1, scale 2), beside the unguided chain
+    from the same x_T: both finite, different, 5 flash sites a UNet call
+    (the classifier has no attention)."""
+    from jointimagegeneration_torch.cli.sample import build_slice_ldm, load_weights
+    from jointimagegeneration_torch.data.datasets import SyntheticSliceDataset
+    from jointimagegeneration_torch.diffusion.ddim import DDIMParams
+    from jointimagegeneration_torch.diffusion.noise import NoiseSource
+    from jointimagegeneration_torch.models.classifier import NoisyLatentClassifier
+    from jointimagegeneration_torch.train.optim import build_optimizer
+    from jointimagegeneration_torch.train.state import EMATrainState
+
+    s2 = TWO_STAGE_CFG["stage2"]
+    size = CLASSIFIER_SIZE
+    ldm = build_slice_ldm(s2, "cuda")
+    load_weights(ldm.unet, None, TWO_STAGE_CFG["fresh_init_noise"], 21)
+    clf = NoisyLatentClassifier.create(CLASSIFIER["num_classes"], ldm.diffusion,
+                                       model_channels=CLASSIFIER["model_channels"],
+                                       channel_mult=CLASSIFIER["channel_mult"], in_channels=1, device="cuda", seed=22)
+    ds = SyntheticSliceDataset(4, (size, size), depth=4)
+    x0 = torch.from_numpy(np.stack([ds[i]["image"] for i in range(4)])).to("cuda")
+    labels = torch.arange(4, device="cuda") % CLASSIFIER["num_classes"]
+    named = list(clf.net.named_parameters())
+    state = EMATrainState(build_optimizer(named, "AdamW", 1e-4), ema_decay=0.9)
+    noise = NoiseSource(3, "cuda")
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(CLASSIFIER_STEPS):
+        loss, m = clf.loss(noise, x0, labels)
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        check(state.apply_gradients(dict(zip([n for n, _ in named], grads))), "classifier: non-finite gradients")
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    train_s = (time.perf_counter() - t0) / CLASSIFIER_STEPS
+    ddim = DDIMParams.create(ldm.diffusion, GUIDED_DDIM_STEPS)
+    cond = torch.from_numpy(ds[1]["cond"])[None].to("cuda")
+    x_T = NoiseSource(4, "cuda").normal((1, size, size, 1))
+    sites = flash_sites([size, size], s2["unet_config"]["params"], "channel_mult")
+    out = {}
+    for label, fn in (("guided", clf.guidance_fn(1, 2.0)), ("unguided", None)):
+        _reset_counts(flash)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[label] = ldm.sample_slice(NoiseSource(5, "cuda"), cond, ddim, x_T=x_T.clone(), guidance_fn=fn)
+        torch.cuda.synchronize()
+        launches = _counts(flash)
+        check(launches["flash_fwd"] == GUIDED_DDIM_STEPS * sites and bool(torch.isfinite(out[label]).all()),
+              f"classifier guidance path ({label}): launches {launches}")
+        out[f"{label}_s"] = time.perf_counter() - t0
+    diff = (out["guided"].float() - out["unguided"].float()).abs().max().item()
+    check(diff > 0, "classifier guidance path: the guidance moved nothing")
+    print(f"classifier guidance path: NoisyLatentClassifier (base 32, mult (1, 2, 4), 4 classes, fp32) on {size}x{size}, "
+          f"{CLASSIFIER_STEPS} AdamW steps at b = 4, {train_s:.4f} s/step, losses {[round(v, 4) for v in losses]}; "
+          f"DDIM-{GUIDED_DDIM_STEPS} of the {size}x{size} stage 2 guided to class 1 at scale 2 in {out['guided_s']:.2f} s "
+          f"against {out['unguided_s']:.2f} s unguided from the same x_T, both finite, max |difference| {diff:.4g}; "
+          f"{GUIDED_DDIM_STEPS * sites} flash_fwd launches each; card {card}", flush=True)
+    del ldm, clf, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": GUIDED_DDIM_STEPS * sites, "guided_s": out["guided_s"], "unguided_s": out["unguided_s"],
+            "train_s_per_step": train_s, "losses": losses, "max_abs_diff": diff}
+
+
+def slice17_reference_phase(flash) -> dict:
+    """Card against CPU at small widths, fp32, the same weights and draws:
+    two stage-1 SGD steps of TRAIN_REF_UNET under remat conv_outputs (the
+    CPU's also against its no-remat steps: the same losses); three stage-2
+    SGD steps of an adm LDM_REF_UNET (4 classes) with `class_label`; a
+    DDIM-4 slice of a cross-attention LDM_REF_UNET (context_dim 64, a
+    77-token context, guidance 2.0 with an uncond_context); the classifier's
+    guidance gradient.  Each within SLICE17_REF_TOL of its max (the slice
+    within SAMPLER_REF_TOL)."""
+    from jointimagegeneration_torch.cli.sample import build_mask_sampler, build_slice_ldm
+    from jointimagegeneration_torch.core.runtime import configure_precision
+    from jointimagegeneration_torch.data.datasets import SyntheticMaskDataset, SyntheticSliceDataset
+    from jointimagegeneration_torch.diffusion.ddim import DDIMParams
+    from jointimagegeneration_torch.diffusion.gaussian import GaussianDiffusion
+    from jointimagegeneration_torch.models.classifier import NoisyLatentClassifier
+    from jointimagegeneration_torch.models.slice_ldm import SliceLDM
+    from jointimagegeneration_torch.train.steps import make_ldm_train_step, make_mask_train_step
+
+    configure_precision()
+    out = {}
+    gen = torch.Generator().manual_seed(31)
+    # remat
+    ds = SyntheticMaskDataset(2, (8, 8, 8), 4)
+    batches = [{"mask": torch.from_numpy(ds[i]["mask"])[None], "image": torch.rand((1, 8, 8, 8, 1), generator=gen)}
+               for i in range(2)]
+    runs, init = {}, None
+    for device, remat in (("cpu", False), ("cpu", True), ("cuda", True)):
+        cfg = {"num_classes": 4, "time_steps": 20, "bf16": False, "unet_openai": TRAIN_REF_UNET, "remat": remat,
+               "remat_policy": "conv_outputs" if remat else None}
+        model = build_mask_sampler(cfg, device)
+        if init is None:
+            with torch.no_grad():
+                for p in model.unet.parameters():
+                    p.add_(0.02 * torch.randn(p.shape, generator=gen))
+            init = {k: v.clone() for k, v in model.unet.state_dict().items()}
+        else:
+            model.unet.load_state_dict(init)
+        step = make_mask_train_step(model, torch.ones(4, device=device))
+        runs[device, remat] = _reference_steps(flash, "remat reference", device, list(model.unet.named_parameters()),
+                                               step, batches)
+    check(runs["cpu", False][0] == runs["cpu", True][0], f"remat reference: CPU losses {runs['cpu', False][0]} "
+                                                          f"without remat, {runs['cpu', True][0]} with")
+    n_remat = _check_flash_only([runs["cpu", True], runs["cuda", True]], "remat reference",
+                                bwd_reduces(flash, 4, 512, 512, 16))
+    worst = _compare_reference_steps([runs["cpu", True], runs["cuda", True]], "remat reference")
+    out["remat"] = {"max_rel_err": max(worst.values()), "launches": n_remat}
+    # adm
+    ads = SyntheticSliceDataset(3, (32, 32), depth=4)
+    batches = [{"image": torch.from_numpy(ads[i]["image"])[None], "cond": torch.from_numpy(ads[i]["cond"])[None],
+                "class_label": torch.tensor([i % 4])} for i in range(3)]
+    runs2, init = [], None
+    for device in ("cpu", "cuda"):
+        model = build_slice_ldm({"bf16": False, "unet_config": {"params": {**LDM_REF_UNET, "num_classes": 4}}}, device)
+        named = model.named_parameters()
+        with torch.no_grad():
+            if init is None:
+                for _, p in named:
+                    p.add_(0.02 * torch.randn(p.shape, generator=gen))
+                init = {n: p.detach().clone() for n, p in named}
+            else:
+                for n, p in named:
+                    p.copy_(init[n])
+        runs2.append(_reference_steps(flash, "adm reference", device, named, make_ldm_train_step(model), batches))
+    n_adm = _check_flash_only(runs2, "adm reference", bwd_reduces(flash, 4, 1024, 1024, 16))
+    worst = _compare_reference_steps(runs2, "adm reference")
+    out["adm"] = {"max_rel_err": max(worst.values()), "launches": n_adm}
+    # cross-attention slice
+    ctx = torch.randn((1, CROSS_TOKENS, 64), generator=gen)
+    uctx = torch.randn((1, CROSS_TOKENS, 64), generator=gen) * 0.1
+    cond = torch.rand((1, 32, 32, 2), generator=gen)
+    res, init = [], None
+    for device in ("cpu", "cuda"):
+        ldm = SliceLDM.create(timesteps=100, context_dim=64, device=device, **{k: v for k, v in LDM_REF_UNET.items()})
+        if init is None:
+            with torch.no_grad():
+                for p in ldm.unet.parameters():
+                    p.add_(0.02 * torch.randn(p.shape, generator=gen))
+            init = ldm.unet.state_dict()
+        else:
+            ldm.unet.load_state_dict(init)
+        before = flash.flash_forward.launches
+        with torch.no_grad():
+            y = ldm.sample_slice(_CpuDrawnNoise(6, device), cond.to(device), DDIMParams.create(ldm.diffusion, 4),
+                                 context=ctx.to(device), guidance_scale=2.0, uncond_context=uctx.to(device))
+        res.append((y.float().cpu(), flash.flash_forward.launches - before))
+    err = (res[1][0] - res[0][0]).abs().max().item()
+    sites = flash_sites([32, 32], LDM_REF_UNET, "channel_mult")
+    check(err <= SAMPLER_REF_TOL and res[0][1] == 0 and res[1][1] == 4 * 2 * 2 * sites,
+          f"cross-attention reference: err {err}, launches cpu {res[0][1]}, card {res[1][1]}")
+    out["cross_attention"] = {"max_abs_err": err, "launches": res[1][1]}
+    # the classifier's guidance gradient
+    grads, init = [], None
+    x = torch.randn((2, 64, 64, 1), generator=gen)
+    for device in ("cpu", "cuda"):
+        diffusion = GaussianDiffusion.create("linear", 1000, linear_start=0.0015, linear_end=0.0195)
+        clf = NoisyLatentClassifier.create(4, diffusion, in_channels=1, device=device, seed=23)
+        if init is None:  # the CPU's seeded init on both (the card's generator draws other numbers)
+            init = clf.net.state_dict()
+        else:
+            clf.net.load_state_dict(init)
+        with torch.no_grad():
+            y = clf.guidance_fn(2, 3.0)(x.to(device), torch.tensor([17, 640], device=device))
+        grads.append(y.cpu())
+    rel = (grads[1] - grads[0]).abs().max().item() / grads[0].abs().max().item()
+    check(rel <= SLICE17_REF_TOL and float(grads[0].abs().max()) > 0, f"classifier reference: {rel}")
+    out["classifier"] = {"max_rel_err": rel}
+    print(f"slice 17 reference (card vs CPU, fp32): remat conv_outputs steps {out['remat']['max_rel_err']:.3g} "
+          f"(the CPU's losses equal to no remat's; launches {n_remat}), adm steps {out['adm']['max_rel_err']:.3g} "
+          f"(launches {n_adm}), cross-attention DDIM-4 slice with guidance {err:.3g} (tol {SAMPLER_REF_TOL}; "
+          f"{res[1][1]} flash_fwd launches = 4 x 2 calls x 2 x {sites} sites), classifier guidance gradient "
+          f"{rel:.3g} (tol {SLICE17_REF_TOL})", flush=True)
+    out["launches"] = {k: n_remat[k] + n_adm[k] + (res[1][1] if k == "flash_fwd" else 0) for k in n_remat}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a machine with an NVIDIA GPU",
@@ -4034,7 +4622,8 @@ def main() -> int:
           f"{text_train['peak_gib']:.2f} GiB, no fp32 flash backward (its refiner attention is plain); card {card}",
           flush=True)
     ldm_train_reference_phase(flash)
-    ldm_train = ldm_train_path_phase(flash, card)
+    ldm_train = ldm_train_path_phase(flash, card, after=lambda ckdir: init_from_profile_phase(flash, card, ckdir))
+    init_from = ldm_train.pop("after")
     gan_ref = gan_reference_phase(flash)
     latent_train_ref = latent_train_reference_phase(flash)
     ae_train = ae_train_path_phase(flash, card)
@@ -4050,6 +4639,11 @@ def main() -> int:
     serve_path = serve_path_phase(flash, card)
     sr_train = sr_train_path_phase(flash, card)
     ddp = ddp_phase(flash, card)
+    ref17 = slice17_reference_phase(flash)
+    remat = remat_train_phase(flash, card)
+    adm = adm_train_path_phase(flash, card)
+    cross = cross_attention_path_phase(flash, card)
+    guided = classifier_guidance_phase(flash, card)
 
     main_row = rows[1]  # (16, 1024, 32): the stage-2 site, most of the sampling path's launches
     fwd_launches = {"two_stage_sampling": ddim_path["launches"], "fast_sampling": fast["fast path"]["launches"],
@@ -4082,7 +4676,17 @@ def main() -> int:
                     **{f"serve {label}": n for label, n in serve_path["launches"].items()},
                     "sr_training": sr_train["launches"]["flash_fwd"],
                     "sr_training_resumed": sr_train["launches_resumed"]["flash_fwd"],
-                    "ddp_stage1_training_subprocess": ddp["launches"]["flash_fwd"]}
+                    "ddp_stage1_training_subprocess": ddp["launches"]["flash_fwd"],
+                    "slice17_reference": ref17["launches"]["flash_fwd"],
+                    **{f"stage1_training {label}": remat[label]["launches"]["flash_fwd"] for label, _ in REMAT_SETTINGS},
+                    "stage2_training_init_from_profile": init_from["launches"]["flash_fwd"],
+                    "adm_training": adm["launches"]["flash_fwd"],
+                    "adm_training_resumed": adm["launches_resumed"]["flash_fwd"],
+                    "text_encoder_512_tokens": cross["encoder_launches"]["flash_fwd"],
+                    "cross_attention_training": cross["train_launches"]["flash_fwd"],
+                    "cross_attention_guided_sampling": cross["sample_launches"]["flash_fwd"],
+                    "classifier_guided_sampling": guided["launches"],
+                    "classifier_unguided_sampling": guided["launches"]}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -4110,7 +4714,8 @@ def main() -> int:
                       "stage1_long_report_training": long_train["launches"]["flash_fwd_merge"],
                       "gan_reference": gan_ref["launches"]["flash_fwd_merge"],
                       "latent_train_reference": latent_train_ref["launches"]["flash_fwd_merge"],
-                      "vae_extras_reference": vae_extras["flash_fwd_merge"]}
+                      "vae_extras_reference": vae_extras["flash_fwd_merge"],
+                      "text_encoder_512_tokens": cross["encoder_launches"]["flash_fwd_merge"]}
     merge_row = merge_rows[1]
     kernels.append({
         "name": "flash_fwd_merge",
@@ -4142,7 +4747,13 @@ def main() -> int:
                         "latent_stage2_training_resumed": latent_train["launches_resumed"][name],
                         "sr_training": sr_train["launches"][name],
                         "sr_training_resumed": sr_train["launches_resumed"][name],
-                        "ddp_stage1_training_subprocess": ddp["launches"][name]}
+                        "ddp_stage1_training_subprocess": ddp["launches"][name],
+                        "slice17_reference": ref17["launches"][name],
+                        **{f"stage1_training {label}": remat[label]["launches"][name]
+                           for label, _ in REMAT_SETTINGS},
+                        "stage2_training_init_from_profile": init_from["launches"][name],
+                        "adm_training": adm["launches"][name], "adm_training_resumed": adm["launches_resumed"][name],
+                        "cross_attention_training": cross["train_launches"][name]}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -4165,7 +4776,8 @@ def main() -> int:
     reduce_launches = {"text_reference": text_ref["launches"]["flash_bwd_reduce"],
                        "stage1_long_report_training": long_train["launches"]["flash_bwd_reduce"],
                        "gan_reference": gan_ref["launches"]["flash_bwd_reduce"],
-                       "latent_train_reference": latent_train_ref["launches"]["flash_bwd_reduce"]}
+                       "latent_train_reference": latent_train_ref["launches"]["flash_bwd_reduce"],
+                       "slice17_reference": ref17["launches"]["flash_bwd_reduce"]}
     kernels.append({
         "name": "flash_bwd_reduce",
         "route": "cuda",
@@ -4183,6 +4795,8 @@ def main() -> int:
     bare_rows = [r for r in conv_rows + conv_edge if "activate" in r["options"] or not r["options"]]
     fused_launches = {f"fused_{m}_sampling": fused[m]["launches"]["conv3d"] for m in ("kernel", "xla")}
     fused_launches["fused_kernel_fp32_sampling"] = fused["kernel fp32"]["launches"]["conv3d"]
+    for label in ("off", "remat conv_outputs"):
+        fused_launches[f"fused_kernel_training_step {label}"] = remat["fused"][label]["launches"]["conv3d"]
     pallas_launches = {"pallas_conv_sampling": fused["pallas_conv"]["launches"]["conv3d"]}
     for name, line, row, launches, errs in (
             ("conv3d_fused_resblock", "fused_resblock.py:51", conv_rows[0], fused_launches, fused_rows),
@@ -4229,6 +4843,9 @@ def main() -> int:
     print(f"dino and fvd: {json.dumps(dino_fvd)}")
     slice16 = {"serve_reference": serve_ref, "serve_path": serve_path, "sr_train_path": sr_train, "ddp": ddp}
     print(f"serve, sr and ddp: {json.dumps(slice16)}")
+    slice17 = {"reference": ref17, "remat": remat, "init_from_profile": init_from, "adm": adm, "cross_attention": cross,
+               "classifier_guidance": guided}
+    print(f"trainers and stage-2 conditioning: {json.dumps(slice17)}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,12 @@ The latent scale factor comes from `first_stage.scale_factor`, else from
 `latent_scale.json` inside the UNet's checkpoint directory or beside its
 file, else 1.0.
 
+`maybe_init_from` applies a config's `init_from:` warm start (JAX
+`cli/common.maybe_init_from`): `init_from: <path>` or `{path, ignore_keys,
+only_model, source}` through `core.checkpoint.load_partial`, copied into the
+fresh parameters in place before the train state (and so its EMA) is built;
+a resuming run ignores it, as its checkpoint restores everything later.
+
 `build_dino_feature_fn` and `feature_cond` are the dense DINO feature route
 of a stage-1 config (`feature_cond_encoder: {type: dino, inject_idx: N}`),
 as the JAX CLI's: every surface (train, sample) builds the extractor from
@@ -38,7 +44,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..core.checkpoint import CheckpointManager
+from ..core.checkpoint import CheckpointManager, load_partial
 from ..data.datasets import (NNUNetLayoutDataset, RuijinMaskDataset, RuijinSlicePairDataset, RuijinVolumeDataset,
                              SyntheticMaskDataset, SyntheticSliceDataset)
 from ..models.autoencoder import AutoencoderKL, VQModel
@@ -47,9 +53,36 @@ from ..nn.unet import ZERO_INIT_SUFFIXES
 from ..utils.jax_weights import ae_state_dict_from_jax, check_state, flat_paths
 
 __all__ = ["build_autoencoder", "read_port_checkpoint", "load_ae_weights", "build_latent_ldm", "build_slice_dataset",
-           "build_mask_dataset", "fill_zero_init", "build_dino_feature_fn", "feature_cond", "LATENT_SCALE_FILE"]
+           "build_mask_dataset", "fill_zero_init", "build_dino_feature_fn", "feature_cond", "LATENT_SCALE_FILE",
+           "maybe_init_from"]
 
 LATENT_SCALE_FILE = "latent_scale.json"
+
+
+def maybe_init_from(cfg: dict, named_params, resume_key: str = "load_from", bridge=None) -> bool:
+    """Apply `cfg['init_from']` to `named_params` ((name, parameter) pairs,
+    updated in place); returns whether anything was read.  Ignored, with the
+    JAX note, when `cfg[resume_key]` or `cfg['resume']` is set.  `bridge`
+    maps a JAX `.npz` tree to the parameters' names (the UNet's by
+    default)."""
+    spec = cfg.get("init_from")
+    if not spec:
+        return False
+    if cfg.get(resume_key) or cfg.get("resume"):
+        print("init_from: ignored — run is resuming from its own checkpoints")
+        return False
+    if isinstance(spec, str):
+        spec = {"path": spec}
+    params = dict(named_params)
+    template = {n: p.detach() for n, p in params.items()}
+    merged = load_partial(template, spec["path"], ignore_keys=tuple(spec.get("ignore_keys", ())),
+                          only_model=bool(spec.get("only_model", False)), source=spec.get("source", "params"),
+                          bridge=bridge)
+    with torch.no_grad():
+        for name, p in params.items():
+            if merged[name] is not template[name]:
+                p.copy_(merged[name])
+    return True
 
 
 def fill_zero_init(module: nn.Module, std: float, seed: int) -> None:

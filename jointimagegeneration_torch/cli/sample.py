@@ -141,6 +141,9 @@ def build_mask_sampler(cfg: dict, device, cond_channels: int = 1, seed: int = 0,
         step_T_sample=cfg.get("step_T_sample", "majority"),
         device=device,
         seed=seed,
+        remat=bool(cfg.get("remat", False)),
+        remat_levels=cfg.get("remat_levels"),
+        remat_policy=cfg.get("remat_policy"),
         context_dim=fce.get("embed_dim") if selfattn else None,
         text_refiner=fce if selfattn and fce.get("train", True) else None,
         feature_cond_channels=feature_cond_channels,
@@ -151,7 +154,12 @@ def build_mask_sampler(cfg: dict, device, cond_channels: int = 1, seed: int = 0,
 def build_slice_ldm(cfg: dict, device, seed: int = 1, **options) -> SliceLDM:
     """cfg keys mirror the LDM yaml model.params section; `seed` seeds the
     UNet's fresh init (1 for sampling, the run's seed for training), and
-    `options` (`learn_logvar`, `logvar_init`) go to `SliceLDM.create`."""
+    `options` (`learn_logvar`, `logvar_init`) go to `SliceLDM.create`.  The
+    UNet config's `context_dim` builds the cross-attention sites, sized as
+    the JAX CLIs' init sizes them without a context shape (`context_free`:
+    no CLI hands stage 2 a context), its `num_classes` (or the section's
+    `adm_classes`) the 'adm' label embedding; `remat`, `remat_policy` and `remat_levels` are read from the
+    section."""
     u = cfg.get("unet_config", {}).get("params", cfg.get("unet", {}))
     return SliceLDM.create(
         image_channels=cfg.get("channels", 1),
@@ -165,22 +173,33 @@ def build_slice_ldm(cfg: dict, device, seed: int = 1, **options) -> SliceLDM:
         attention_resolutions=tuple(u.get("attention_resolutions", (32, 16, 8))),
         num_res_blocks=u.get("num_res_blocks", 2),
         num_head_channels=u.get("num_head_channels", 32),
+        context_dim=u.get("context_dim"),
+        context_free=True,
+        transformer_depth=u.get("transformer_depth", 1),
+        adm_classes=u.get("num_classes", cfg.get("adm_classes")),
         dtype=torch.bfloat16 if cfg.get("bf16", True) else torch.float32,
+        remat=bool(cfg.get("remat", False)),
+        remat_levels=cfg.get("remat_levels"),
+        remat_policy=cfg.get("remat_policy"),
         device=device,
         seed=seed,
         **options,
     )
 
 
-def _reject_unported(cfg: dict, s1: dict, s2: dict, stage: str) -> None:
-    def bad(what: str):
-        raise NotImplementedError(f"{what} is not ported to the PyTorch sampler yet")
-
+def _check_stage(cfg: dict, s1: dict, s2: dict, stage: str) -> None:
+    """A known stage, and no class-conditional stage-2 UNet: the CLI, as the
+    JAX one, hands stage 2 no class ids, where the JAX UNet's assert stops
+    the run; here a ValueError names the missing `y` before any step.  A
+    `context_dim` UNet samples without a context (attn2 over x itself), as
+    the JAX CLI passes none."""
     if stage not in ("mask", "ct", "two_stage"):
         raise ValueError(f"unknown stage {stage!r}: expected 'mask', 'ct', or 'two_stage'")
     u2 = s2.get("unet_config", {}).get("params", s2.get("unet", {}))
-    if u2.get("context_dim") is not None or u2.get("num_classes", s2.get("adm_classes")) is not None:
-        bad("stage-2 context / class conditioning")
+    if stage != "mask" and u2.get("num_classes", s2.get("adm_classes")) is not None:
+        raise ValueError(f"stage {stage!r}: the stage-2 UNet is class-conditional (num_classes="
+                         f"{u2.get('num_classes', s2.get('adm_classes'))}) but the sampling CLI has no class ids `y` "
+                         "to give it; sample it through SliceLDM.sample_volume(..., y=...)")
 
 
 def _checkpoint_state(ckpt) -> dict:
@@ -282,7 +301,7 @@ def run(cfg: dict, device=None) -> dict:
     s1, s2 = cfg.get("stage1", cfg), cfg.get("stage2", cfg)
     if "step_T_sample" in cfg and "step_T_sample" not in s1:
         s1 = {**s1, "step_T_sample": cfg["step_T_sample"]}
-    _reject_unported(cfg, s1, s2, stage)
+    _check_stage(cfg, s1, s2, stage)
 
     outdir = Path(cfg.get("output_path", "samples"))
     outdir.mkdir(parents=True, exist_ok=True)

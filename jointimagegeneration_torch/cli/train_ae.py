@@ -24,8 +24,9 @@ ValueError before the first step: `configs/stage_ae.yml` sets 2 (the
 [previous slice, mask] pair, the dataset's `cond`), which neither package
 trains an AE on; `model.ddconfig.in_channels=1 model.ddconfig.out_ch=1`
 trains the image AE.  Under torchrun each process trains on batch_size / N
-rows and only rank 0 writes (`parallel/mesh.py`).  `init_from` raises
-NotImplementedError (ROADMAP.md section 1, item 9).  The VAE's `ddconfig.dropout` is inert here, as in the
+rows and only rank 0 writes (`parallel/mesh.py`).  `init_from` warm-starts the
+generator (`cli/common.maybe_init_from`: a `cli.train_ae` checkpoint's
+`g_params`, a port `.pt`'s weights, or a JAX `.npz` of AE variables).  The VAE's `ddconfig.dropout` is inert here, as in the
 JAX step, which runs its model deterministically.
 """
 
@@ -49,7 +50,8 @@ from ..parallel.mesh import (is_chief, local_batch_size, maybe_initialize_distri
                              world_size)
 from ..train.gan import GANTrainState, make_autoencoder_train_step, make_vq_train_step
 from ..train.trainer import noise_seed
-from .common import build_autoencoder, build_slice_dataset
+from ..utils.jax_weights import ae_state_dict_from_jax
+from .common import build_autoencoder, build_slice_dataset, maybe_init_from
 
 __all__ = ["run", "main"]
 
@@ -70,9 +72,6 @@ def run(cfg: dict, exp: str = "exp", device=None) -> GANTrainState:
     """Train as the config says; returns the final GAN state."""
     device = maybe_initialize_distributed(resolve_device(cfg.get("device", device)))
     configure_precision()
-    if cfg.get("init_from"):
-        raise NotImplementedError("init_from is not ported to the PyTorch trainers yet (ROADMAP.md section 1, "
-                                  "item 9)")
     m = cfg.get("model", {})
     dd, loss_cfg = m.get("ddconfig", {}), m.get("lossconfig", {})
     seed = int(cfg.get("seed", 0))
@@ -84,6 +83,7 @@ def run(cfg: dict, exp: str = "exp", device=None) -> GANTrainState:
                               device=device, seed=seed + 2)
     batch_size = int(cfg.get("batch_size", 1))
     lr = float(m.get("base_learning_rate", 4.5e-6)) * batch_size
+    maybe_init_from(cfg, model.named_parameters(), bridge=ae_state_dict_from_jax)  # the generator, as JAX's
     state = GANTrainState.create(model, disc, lr)
     n_g, n_d = (sum(p.numel() for p in ps) for ps in (state.g_params, state.d_params))
     print(f"AE params: {n_g / 1e6:.2f}M, discriminator {n_d / 1e6:.2f}M, lr={lr:.2e}")

@@ -46,9 +46,17 @@ logs the inputs, their reconstructions and DDIM samples decoded to pixels,
 then `val/loss_simple` in latent space (the first stage's mode, the cond
 stage's mode of the condition).
 
-Rejected with NotImplementedError: `init_from` and `ckpt_path`, `model.remat`,
-cross-attention `context_dim` and class conditioning (the UNet's
-`num_classes`), and `profile_steps`.
+Conditioning: the UNet config's `num_classes` trains the class-conditional
+('adm') UNet on the batch's `class_label` (the stock `imagenet` kind's) or
+`y`; validation passes the items' class ids to the panels and the val loss.
+`context_dim` builds the cross-attention sites; the step reads a batch's
+`context` (the stock datasets carry none, so through this CLI such a UNet
+trains with attn2 over x itself, as the JAX CLI's).  `model.remat`
+(`remat_policy`, `remat_levels`) rematerialises the UNet's ResBlocks;
+`init_from` warm-starts the fresh parameters (`cli/common.maybe_init_from`;
+ignored when `resume` is set); `ckpt_path` is not read, as the JAX CLI reads
+none (`core/ref_import` points it at `init_from.path`); `profile_steps: N`
+traces N steps (`train/trainer.py`).
 """
 
 from __future__ import annotations
@@ -74,26 +82,11 @@ from ..train.optim import build_optimizer
 from ..train.state import EMATrainState
 from ..train.steps import make_latent_ldm_train_step, make_ldm_train_step
 from ..train.trainer import Trainer, TrainerConfig, noise_seed
-from .common import LATENT_SCALE_FILE, build_latent_ldm, build_slice_dataset
+from ..utils.misc import count_params
+from .common import LATENT_SCALE_FILE, build_latent_ldm, build_slice_dataset, maybe_init_from
 from .sample import build_slice_ldm
 
 __all__ = ["build_slice_dataset", "run", "main"]
-
-
-def _reject_unported(cfg: dict, model_cfg: dict) -> None:
-    def bad(what: str):
-        raise NotImplementedError(f"{what} is not ported to the PyTorch trainer yet")
-
-    for key in ("init_from", "ckpt_path"):
-        if cfg.get(key) or model_cfg.get(key):
-            bad(key)
-    if model_cfg.get("remat"):
-        bad("remat")
-    u = model_cfg.get("unet_config", {}).get("params", model_cfg.get("unet", {}))
-    if u.get("context_dim") is not None:
-        bad("cross-attention context (context_dim)")
-    if u.get("num_classes", model_cfg.get("adm_classes")) is not None:
-        bad("class conditioning (num_classes)")
 
 
 def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
@@ -101,7 +94,6 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
     device = maybe_initialize_distributed(resolve_device(cfg.get("device", device)))
     configure_precision()
     model_cfg = cfg.get("model", cfg)
-    _reject_unported(cfg, model_cfg)
     seed = int(cfg.get("seed", 0))
     model = build_slice_ldm(model_cfg, device, seed=seed, learn_logvar=bool(model_cfg.get("learn_logvar", False)),
                             logvar_init=float(model_cfg.get("logvar_init", 0.0)))
@@ -111,7 +103,8 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
     if cfg.get("scale_lr", True):
         lr = accumulate * batch_size * lr  # batch_size is the whole batch of a step
     named = model.named_parameters()
-    print(f"stage-2 UNet params: {sum(p.numel() for _, p in named) / 1e6:.2f}M, lr={lr:.2e}")
+    print(f"stage-2 UNet params: {count_params(p for _, p in named) / 1e6:.2f}M, lr={lr:.2e}")
+    maybe_init_from(cfg, named, resume_key="resume")
     train_ds = build_slice_dataset(cfg, "train")
     logdir = Path(cfg.get("output_path", "runs")) / exp
     latent, _ = build_latent_ldm(model_cfg, model, int(cfg.get("dataset", {}).get("slice_shape", (512, 512))[0]),
@@ -155,7 +148,8 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
             logger.image(step, "val/overlay", make_grid(
                 [overlay_mask_on_image(samples[i], labels[i]) for i in range(samples.shape[0])]))
 
-    def latent_eval(x0: torch.Tensor, cond: Optional[torch.Tensor], step: int, logger) -> float:
+    def latent_eval(x0: torch.Tensor, cond: Optional[torch.Tensor], y: Optional[torch.Tensor], step: int,
+                    logger) -> float:
         """Pixel panels (inputs, reconstructions, DDIM samples) and the latent
         val loss at t = T/2, as the JAX CLI's latent branch (without a cond,
         the samples' condition is zeros of the cond encoder's channels)."""
@@ -166,12 +160,12 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
             cond = torch.zeros(x0.shape[:-1] + ((latent.cond_stage or latent.first_stage).in_channels,),
                                device=device)
         panels = {"inputs": x0, "reconstruction": latent.decode(z),
-                  "samples": latent.sample_slice(NoiseSource(noise_seed(seed, step), device), cond, log_ddim)}
+                  "samples": latent.sample_slice(NoiseSource(noise_seed(seed, step), device), cond, log_ddim, y=y)}
         panels = {k: v[..., 0].float().cpu().numpy() for k, v in panels.items()}
         panel_seconds = time.perf_counter() - t0  # the numpy copies waited for the device
         t = torch.full((z.shape[0],), diff.num_timesteps // 2, dtype=torch.int64, device=device)
         eps = NoiseSource(noise_seed(seed, step + 1), device).normal(z.shape)
-        out = model.apply_model(diff.q_sample(z, t, eps), t, cond=cond_z)
+        out = model.apply_model(diff.q_sample(z, t, eps), t, cond=cond_z, y=y)
         val_loss = float(((out.float() - eps) ** 2).mean())
         if logger:
             for name, img in panels.items():
@@ -181,13 +175,15 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
 
     def eval_fn(state: EMATrainState, step: int, logger) -> float:
         items = [val_ds[i] for i in range(min(len(val_ds), int(cfg.get("n_log_images", 2))))]
-        # the stock lsun / imagenet items carry no cond: stack the keys present, as the JAX CLI
-        batch = {k: torch.from_numpy(np.stack([it[k] for it in items])).to(device)
-                 for k in ("image", "cond") if k in items[0]}
+        # the stock lsun / imagenet items carry no cond: stack the keys present, as the JAX CLI; and the
+        # class ids of an adm UNet (the JAX CLI's eval batch drops them, and its UNet's assert fires)
+        batch = {k: torch.from_numpy(np.stack([np.asarray(it[k]) for it in items])).to(device)
+                 for k in ("image", "cond", "y", "class_label") if k in items[0]}
         x0, cond = batch["image"], batch.get("cond")
+        y = batch.get("y", batch.get("class_label"))
         if latent is not None:
             with torch.no_grad(), state.ema_applied():
-                return latent_eval(x0, cond, step, logger)
+                return latent_eval(x0, cond, y, step, logger)
         t = torch.full((x0.shape[0],), diff.num_timesteps // 2, dtype=torch.int64, device=device)
         eps = NoiseSource(noise_seed(seed, step + 1), device).normal(x0.shape)
         with torch.no_grad(), state.ema_applied():
@@ -195,7 +191,7 @@ def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
             panels = model.log_images(NoiseSource(noise_seed(seed, step), device), batch, log_ddim,
                                       progressive=bool(cfg.get("log_progressive", False)))
             panel_seconds = time.perf_counter() - t0  # log_images returns host arrays: the device is done
-            out = model.apply_model(diff.q_sample(x0, t, eps), t, cond=cond)
+            out = model.apply_model(diff.q_sample(x0, t, eps), t, cond=cond, y=y)
         target = eps if diff.parameterization == "eps" else x0
         val_loss = float(((out - target) ** 2).mean())
         if logger:

@@ -30,8 +30,12 @@ jointimagegeneration_torch.cli.train_mask ...`) each process trains on
 batch_size / N rows of the global `batch_size` (`parallel/mesh.py`) and only
 rank 0 writes.
 
-Not ported here, and rejected with NotImplementedError: `remat`, `init_from`
-and `profile_steps`.
+`remat: true` (with `remat_policy`, `remat_levels`) rematerialises the UNet's
+ResBlocks in the backward (`nn/unet.py`); `init_from` warm-starts the fresh
+parameters from a checkpoint (`cli/common.maybe_init_from`; ignored when
+`load_from` resumes); `profile_steps: N` traces N steps into
+`<logdir>/profile/` and prints the top kernel categories
+(`train/trainer.py`).
 """
 
 from __future__ import annotations
@@ -52,32 +56,22 @@ from ..train.optim import build_optimizer
 from ..train.state import EMATrainState
 from ..train.steps import make_mask_train_step
 from ..train.trainer import Trainer, TrainerConfig, noise_seed
-from .common import build_dino_feature_fn, build_mask_dataset, feature_cond
+from ..utils.misc import count_params
+from .common import build_dino_feature_fn, build_mask_dataset, feature_cond, maybe_init_from
 from .sample import build_mask_sampler
 
 __all__ = ["build_mask_dataset", "run", "main"]
-
-
-def _reject_unported(cfg: dict) -> None:
-    def bad(what: str):
-        raise NotImplementedError(f"{what} is not ported to the PyTorch trainer yet")
-
-    if cfg.get("remat"):
-        bad("remat")
-    if cfg.get("init_from"):
-        bad("init_from")
 
 
 def run(cfg: dict, exp: str = "exp", device=None) -> EMATrainState:
     """Train as the config says; returns the final train state."""
     device = maybe_initialize_distributed(resolve_device(cfg.get("device", device)))
     configure_precision()
-    _reject_unported(cfg)
     seed = int(cfg.get("seed", 0))
     num_classes = int(cfg.get("num_classes", 12))
     model = build_mask_sampler(cfg, device, cond_channels=1, seed=seed)
-    n_params = sum(p.numel() for _, p in model.named_parameters())
-    print(f"stage-1 UNet params: {n_params / 1e6:.2f}M")
+    print(f"stage-1 UNet params: {count_params(p for _, p in model.named_parameters()) / 1e6:.2f}M")
+    maybe_init_from(cfg, model.named_parameters())
     dataset, val_ds = build_mask_dataset(cfg, "train"), build_mask_dataset(cfg, "val")
     spatial = dataset.volume_shape
     loader = DataLoader(dataset, local_batch_size(int(cfg.get("batch_size", 1))), seed=seed, device=device,

@@ -16,8 +16,8 @@ vs step budgets, torch checkpoint paths that need
 `jointimagegeneration_torch.cli.convert_reference`) — are returned as
 human-readable warnings so nothing is dropped silently.  The trees are the JAX
 importer's, `remat: true` and `init_from` included, which the port's trainers
-reject until they are ported (ROADMAP.md section 1, item 9): override them
-(`remat=false`).  `yaml` is imported only by `_main`.
+run (`nn/unet.py`'s remat, `cli/common.maybe_init_from`).  `yaml` is
+imported only by `_main`.
 """
 
 from __future__ import annotations

@@ -7,7 +7,10 @@ indices from r (n // W), the DistributedSampler's role),
 items are loaded by `num_workers` threads with `num_workers + prefetch`
 batches in flight, and each batch is stacked and sent to `device` (from
 pinned memory, non-blocking, on CUDA).  `batch_size` is this process's rows
-(the trainers pass the global batch over W).
+(the trainers pass the global batch over W).  Arrays are stacked, numbers
+(the stock `imagenet` kind's `class_label`) become an array too, so that an
+'adm' UNet's class ids reach the train step (the JAX loader keeps them a list,
+which its trainer drops); strings stay lists.
 """
 
 from __future__ import annotations
@@ -29,7 +32,12 @@ def _stack_batch(items) -> dict:
     out = {}
     for k in items[0]:
         vals = [it[k] for it in items]
-        out[k] = np.stack(vals) if isinstance(vals[0], np.ndarray) else vals  # strings stay lists
+        if isinstance(vals[0], np.ndarray):
+            out[k] = np.stack(vals)
+        elif isinstance(vals[0], (int, float, np.number)) and not isinstance(vals[0], bool):
+            out[k] = np.asarray(vals)  # numbers (class_label) as an array, so they reach the step
+        else:
+            out[k] = vals  # strings stay lists
     return out
 
 

@@ -161,7 +161,8 @@ class LatentSliceLDM:
 
     def _volume_slice_step(self, noise: NoiseSource, prev: torch.Tensor, mask_slice: torch.Tensor,
                            ddim: DDIMParams, guidance_scale: float = 1.0, prev_raw: Optional[torch.Tensor] = None,
-                           warm_index: Optional[int] = None, sampler: str = "ddim"
+                           warm_index: Optional[int] = None, sampler: str = "ddim",
+                           context: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One z-step: cond encode, the latent chain, decode, min-max
         normalisation.  Returns (normalised pixel slice, raw latent).  With
@@ -177,21 +178,24 @@ class LatentSliceLDM:
             x_T = float(np.sqrt(a)) * prev_raw + float(np.sqrt(np.float32(1.0) - a)) * eps
             start = warm_index
         if sampler != "ddim":
-            z = self.inner._sample_slice_multistep(noise, cond_z, ddim, sampler, guidance_scale=guidance_scale,
-                                                   uncond_cond=uncond_z, x_T=x_T, start_index=start)
+            z = self.inner._sample_slice_multistep(noise, cond_z, ddim, sampler, context=context, y=y,
+                                                   guidance_scale=guidance_scale, uncond_cond=uncond_z, x_T=x_T,
+                                                   start_index=start)
         else:
-            z = self.inner.sample_slice(noise, cond_z, ddim, guidance_scale=guidance_scale, uncond_cond=uncond_z,
-                                        x_T=x_T, start_index=start)
+            z = self.inner.sample_slice(noise, cond_z, ddim, context=context, y=y, guidance_scale=guidance_scale,
+                                        uncond_cond=uncond_z, x_T=x_T, start_index=start)
         return _minmax_slice(self.decode(z)), z
 
     @torch.no_grad()
     def stream_volume(self, noise: NoiseSource, mask_volume: torch.Tensor, ddim: DDIMParams,
                       init_slice: Optional[torch.Tensor] = None, guidance_scale: float = 1.0,
-                      warm_start: Optional[float] = None, sampler: str = "ddim") -> Iterator[torch.Tensor]:
+                      warm_start: Optional[float] = None, sampler: str = "ddim",
+                      context: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None
+                      ) -> Iterator[torch.Tensor]:
         """Yield the decoded (B, H, W, out_ch) slices of a (B, D, H, W, 1) pixel
         mask channel one at a time; the first is conditioned on `init_slice`
         (zeros by default) and runs the full chain, `warm_start` and `sampler`
-        as in `SliceLDM.stream_volume`."""
+        as in `SliceLDM.stream_volume`, and so are `context` and `y`."""
         SliceLDM._check_sampler(sampler, None, ddim)
         warm = SliceLDM.warm_start_index(ddim, warm_start)
         b, d, h, w, _ = mask_volume.shape
@@ -201,13 +205,14 @@ class LatentSliceLDM:
         for z in range(d):
             prev, prev_raw = self._volume_slice_step(
                 noise, prev, mask_volume[:, z], ddim, guidance_scale=guidance_scale, prev_raw=prev_raw,
-                warm_index=warm if z > 0 else None, sampler=sampler)
+                warm_index=warm if z > 0 else None, sampler=sampler, context=context, y=y)
             yield prev
 
     def sample_volume(self, noise: NoiseSource, mask_volume: torch.Tensor, ddim: DDIMParams,
                       init_slice: Optional[torch.Tensor] = None, guidance_scale: float = 1.0,
-                      warm_start: Optional[float] = None, sampler: str = "ddim") -> torch.Tensor:
+                      warm_start: Optional[float] = None, sampler: str = "ddim",
+                      context: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None) -> torch.Tensor:
         """All D slices of `stream_volume`, stacked: (B, D, H, W, out_ch)."""
         return torch.stack(list(self.stream_volume(noise, mask_volume, ddim, init_slice=init_slice,
                                                    guidance_scale=guidance_scale, warm_start=warm_start,
-                                                   sampler=sampler)), dim=1)
+                                                   sampler=sampler, context=context, y=y)), dim=1)

@@ -77,6 +77,9 @@ class MaskSampler:
         context_dim: Optional[int] = None,
         text_refiner: Optional[dict] = None,
         feature_cond_channels: Optional[Dict[int, int]] = None,
+        remat: bool = False,
+        remat_levels: Optional[Sequence[int]] = None,
+        remat_policy: Optional[str] = None,
     ) -> "MaskSampler":
         """UNet input = one-hot classes + `cond_channels` condition channels.
         `use_fused_resblock` / `use_pallas_conv` pick the UNet's opt-in conv
@@ -85,7 +88,9 @@ class MaskSampler:
         `feature_cond_encoder` dict: embed_dim, n_heads, model_depth, d_head,
         dropout) adds the trainable refiner, seeded with `seed` + 1.
         `feature_cond_channels` ({site: F}) widens the UNet for dense
-        features at those encoder sites (`nn.unet.UNet`)."""
+        features at those encoder sites (`nn.unet.UNet`).  `remat`,
+        `remat_levels` and `remat_policy` rematerialise the UNet's ResBlocks
+        under autograd (`nn.unet.UNet`)."""
         if step_T_sample not in ("majority", "confidence"):
             raise ValueError(f"step_T_sample must be 'majority' or 'confidence', got {step_T_sample!r}")
         unet = UNet(
@@ -105,6 +110,9 @@ class MaskSampler:
             use_pallas_conv=use_pallas_conv,
             context_dim=context_dim,
             feature_cond_channels=feature_cond_channels,
+            remat=remat,
+            remat_levels=remat_levels,
+            remat_policy=remat_policy,
         )
         device = next(unet.parameters()).device
         diffusion = CategoricalDiffusion.create(schedule, time_steps, num_classes, device=device)

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_self_attention
 from ..ops.conv3d import conv3d_3x3_v2
@@ -42,7 +43,10 @@ __all__ = [
     "AttentionBlock",
     "Upsample",
     "Downsample",
+    "REMAT_MODES",
 ]
+
+REMAT_MODES = (None, "full", "conv_outputs")
 
 _CONV = {2: F.conv2d, 3: F.conv3d}
 
@@ -175,8 +179,9 @@ class ResBlock(nn.Module):
     `up` / `down` resample inside the block (nearest 2x / 2x average pool).
 
     `fused` (False | 'xla' | 'kernel' | True) runs the block as two conv
-    kernel calls where `can_fuse` holds (3D, no up/down, batch 1, H % 8 == 0;
-    the port has no dropout, so the JAX rule's dropout clause always holds):
+    kernel calls where `can_fuse` holds (3D, no up/down, batch 1, H % 8 == 0)
+    and no dropout mask is drawn (the JAX rule's `dropout == 0 or
+    deterministic`):
       * 'kernel' / True: GN1's moments in one pass (`group_moments`) folded
         into a per-channel affine that the kernel applies with SiLU to its
         input; conv1's bias is b1 + emb_out in fp32 and its epilogue emits
@@ -186,14 +191,34 @@ class ResBlock(nn.Module):
         counterpart.  The prologues silu(GN(x)) and silu(y1 * a2 + s2) are
         plain PyTorch ops (XLA fusions there), and the kernel runs without
         its affine (`fused_conv3d`).
-    `pallas_conv` routes the unfused path's convs through `_raw_conv`."""
+    `pallas_conv` routes the unfused path's convs through `_raw_conv`.
+
+    `dropout` > 0 drops the activation before conv2 in training (a `noise`
+    source given), as flax's `nn.Dropout` there; the mask is drawn before any
+    checkpointed segment runs, so a recompute draws nothing.
+
+    `remat` (None | 'full' | 'conv_outputs') rematerialises the block under
+    autograd (JAX `nn.remat(ResBlock, policy=...)`):
+      * 'full': the whole block runs under `torch.utils.checkpoint`; the
+        backward recomputes it from the block's input;
+      * 'conv_outputs': only the glue between the convs is checkpointed
+        (GroupNorm, SiLU, the embedding add and the dropout; on the fused
+        paths the GroupNorm moments and their affine fold), so the convs'
+        inputs and outputs stay saved and the backward recomputes the
+        bandwidth-bound glue alone -- JAX's `save_only_these_names('conv_out')`.
+        Segments rather than a dispatch-mode policy, so the rule holds on the
+        cuDNN path and through the conv kernel's autograd function alike."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_ch: int, dims: int,
                  use_scale_shift_norm: bool = False, up: bool = False, down: bool = False,
-                 pallas_conv: bool = False, fused=False, device=None):
+                 pallas_conv: bool = False, fused=False, dropout: float = 0.0, remat: Optional[str] = None,
+                 device=None):
         super().__init__()
         if fused not in (False, True, "xla", "kernel"):
             raise ValueError(f"ResBlock: fused must be False, 'xla', 'kernel' or True, got {fused!r}")
+        if remat not in REMAT_MODES:
+            raise ValueError(f"ResBlock: remat must be one of {REMAT_MODES}, got {remat!r}")
+        self.dropout, self.remat = float(dropout), remat
         self.in_ch, self.out_ch, self.dims = in_ch, out_ch, dims
         self.use_scale_shift_norm, self.up, self.down = use_scale_shift_norm, up, down
         self.pallas_conv, self.fused = pallas_conv, fused
@@ -220,56 +245,86 @@ class ResBlock(nn.Module):
         return bool(self.fused and self.dims == 3 and not (self.up or self.down) and x.shape[0] == 1
                     and x.shape[2] % 8 == 0)
 
-    def _fused_forward(self, x: torch.Tensor, emb_out: torch.Tensor) -> torch.Tensor:
-        n = math.prod(x.shape[1:4])
-        dhwio = lambda w: w.permute(2, 3, 4, 1, 0)  # (O, I, 3, 3, 3) -> (3, 3, 3, I, O)
-        k1, k2 = dhwio(self.conv1_kernel), dhwio(self.conv2_kernel)
+    def _gn2_affine(self, st: torch.Tensor, emb_out: torch.Tensor, n: int):
+        """GN2's per-channel (scale, shift) from conv1's [sum, sumsq], with FiLM."""
+        mean2, var2 = moments_from_channel_sums(st, n, self.g2)
+        a2, s2 = gn_affine_from_moments(mean2, var2, self.norm2_scale, self.norm2_bias, self.g2)
         if self.use_scale_shift_norm:
             film_scale, film_shift = emb_out[0].chunk(2)
-            bias1 = self.conv1_bias
-        else:
-            bias1 = self.conv1_bias + emb_out[0]  # fp32, where the unfused path adds emb in x's dtype
-        residual = x if self.in_ch == self.out_ch else conv_nd(x, self.skip_kernel, self.skip_bias)
+            a2, s2 = a2 * (1 + film_scale), s2 * (1 + film_scale) + film_shift
+        return a2, s2
 
-        def gn2_affine(st: torch.Tensor):
-            mean2, var2 = moments_from_channel_sums(st, n, self.g2)
-            a2, s2 = gn_affine_from_moments(mean2, var2, self.norm2_scale, self.norm2_bias, self.g2)
-            if self.use_scale_shift_norm:
-                a2, s2 = a2 * (1 + film_scale), s2 * (1 + film_scale) + film_shift
-            return a2, s2
-
-        if self.fused == "xla":
-            t1 = F.silu(group_norm(x, self.norm1_scale, self.norm1_bias, self.g1))
-            y1, st = fused_conv3d(t1, k1, bias1, None, True)
-            a2, s2 = gn2_affine(st)
-            t2 = F.silu(y1.float() * a2 + s2).to(y1.dtype)
-            return fused_conv3d(t2, k2, self.conv2_bias, residual, False)
+    def _gn1_affine(self, x: torch.Tensor):
         mean1, var1 = group_moments(x, self.g1)
-        a1, s1 = gn_affine_from_moments(mean1, var1, self.norm1_scale, self.norm1_bias, self.g1)
-        y1, st = fused_affine_silu_conv3d(x, k1, a1, s1, bias1, None, True)
-        a2, s2 = gn2_affine(st)
-        return fused_affine_silu_conv3d(y1, k2, a2, s2, self.conv2_bias, residual, False)
+        return gn_affine_from_moments(mean1, var1, self.norm1_scale, self.norm1_bias, self.g1)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        emb_out = F.linear(F.silu(emb.float()), self.emb_kernel, self.emb_bias)  # fp32
-        if self.can_fuse(x):
-            return self._fused_forward(x, emb_out)
-        h = F.silu(group_norm(x, self.norm1_scale, self.norm1_bias, self.g1))
-        if self.up:
-            h, x = _nearest_up2(h), _nearest_up2(x)
-        elif self.down:
-            h, x = _avg_pool2(h), _avg_pool2(x)
-        h = _raw_conv(h, self.conv1_kernel, self.conv1_bias, self.pallas_conv)
+    def _glue1(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(group_norm(x, self.norm1_scale, self.norm1_bias, self.g1))
+
+    def _glue2(self, h: torch.Tensor, emb_out: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+        """silu(GN2(h + emb)) (or GN2 with FiLM), then the drawn dropout mask."""
         eo = emb_out.to(h.dtype).reshape(emb_out.shape[:1] + (1,) * (h.ndim - 2) + emb_out.shape[1:])
         if self.use_scale_shift_norm:
             scale, shift = eo.chunk(2, dim=-1)
             h = group_norm(h, self.norm2_scale, self.norm2_bias, self.g2) * (1 + scale) + shift
         else:
             h = group_norm(h + eo, self.norm2_scale, self.norm2_bias, self.g2)
-        h = _raw_conv(F.silu(h), self.conv2_kernel, self.conv2_bias, self.pallas_conv)
+        h = F.silu(h)
+        if keep is not None:
+            h = torch.where(keep, h / (1.0 - self.dropout), torch.zeros_like(h))
+        return h
+
+    def _fused_forward(self, x: torch.Tensor, emb_out: torch.Tensor, seg) -> torch.Tensor:
+        n = math.prod(x.shape[1:4])
+        dhwio = lambda w: w.permute(2, 3, 4, 1, 0)  # (O, I, 3, 3, 3) -> (3, 3, 3, I, O)
+        k1, k2 = dhwio(self.conv1_kernel), dhwio(self.conv2_kernel)
+        if self.use_scale_shift_norm:
+            bias1 = self.conv1_bias
+        else:
+            bias1 = self.conv1_bias + emb_out[0]  # fp32, where the unfused path adds emb in x's dtype
+        residual = x if self.in_ch == self.out_ch else conv_nd(x, self.skip_kernel, self.skip_bias)
+        if self.fused == "xla":
+            y1, st = fused_conv3d(seg(self._glue1, x), k1, bias1, None, True)
+            a2, s2 = seg(self._gn2_affine, st, emb_out, n)
+            t2 = seg(lambda y, a, s: F.silu(y.float() * a + s).to(y.dtype), y1, a2, s2)
+            return fused_conv3d(t2, k2, self.conv2_bias, residual, False)
+        a1, s1 = seg(self._gn1_affine, x)
+        y1, st = fused_affine_silu_conv3d(x, k1, a1, s1, bias1, None, True)
+        a2, s2 = seg(self._gn2_affine, st, emb_out, n)
+        return fused_affine_silu_conv3d(y1, k2, a2, s2, self.conv2_bias, residual, False)
+
+    def _dropout_keep(self, x: torch.Tensor, noise) -> Optional[torch.Tensor]:
+        """The keep mask of the dropout before conv2 (flax `nn.Dropout`: keep
+        where a uniform < 1 - rate), drawn from `noise` at conv1's output
+        shape; None at rate 0 or without a noise source."""
+        if noise is None or self.dropout <= 0.0:
+            return None
+        spatial = [s * 2 if self.up else s // 2 if self.down else s for s in x.shape[1:-1]]
+        return noise.uniform((x.shape[0], *spatial, self.out_ch)).to(x.device) < 1.0 - self.dropout
+
+    def _forward(self, x: torch.Tensor, emb: torch.Tensor, keep: Optional[torch.Tensor], seg) -> torch.Tensor:
+        emb_out = F.linear(F.silu(emb.float()), self.emb_kernel, self.emb_bias)  # fp32
+        if self.can_fuse(x) and keep is None:
+            return self._fused_forward(x, emb_out, seg)
+        h = seg(self._glue1, x)
+        if self.up:
+            h, x = _nearest_up2(h), _nearest_up2(x)
+        elif self.down:
+            h, x = _avg_pool2(h), _avg_pool2(x)
+        h = _raw_conv(h, self.conv1_kernel, self.conv1_bias, self.pallas_conv)
+        h = _raw_conv(seg(self._glue2, h, emb_out, keep), self.conv2_kernel, self.conv2_bias, self.pallas_conv)
         if self.in_ch != self.out_ch:
             x = conv_nd(x, self.skip_kernel, self.skip_bias)
         return (x + h).to(h.dtype)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, noise=None) -> torch.Tensor:
+        keep = self._dropout_keep(x, noise)
+        direct = lambda fn, *args: fn(*args)
+        if self.remat is None or not torch.is_grad_enabled():
+            return self._forward(x, emb, keep, direct)
+        if self.remat == "full":
+            return checkpoint(self._forward, x, emb, keep, direct, use_reentrant=False)
+        return self._forward(x, emb, keep, lambda fn, *args: checkpoint(fn, *args, use_reentrant=False))
 
 
 class AttentionBlock(nn.Module):

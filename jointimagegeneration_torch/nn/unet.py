@@ -17,7 +17,11 @@ With `context_dim` set, every attention site is a `SequenceTransformer` of
 `transformer_depth` blocks whose `attn2` attends over the `context` (B, T,
 context_dim) that `forward` casts to the torso dtype and hands to each site
 (the text-guided stage-1 UNet); without it a context is ignored, as the flax
-UNet ignores it.
+UNet ignores it.  flax sizes each `attn2`'s `to_k` / `to_v` from what the
+init call passes: a tree initialised without a context shape (the JAX
+CLIs' stage-2 init) takes the site's own width there, and attends over x.
+`context_free=True` builds that tree (torch shapes are not lazy); it then
+takes no context.
 
 `feature_cond` = {idx: (B, *spatial_at_site, F)} concatenates dense
 extractor features (the 'dino' encoder's) onto the activation, in its dtype,
@@ -29,9 +33,19 @@ more channels; at a down-transition its conv keeps the widened width, so
 the skip it pushes, the next level's first ResBlock and the decoder ResBlock
 that pops that skip all take F more.
 
-Not ported here: class ids `y`, rematerialisation, and the UNet-level
-`use_scale_shift_norm` / `resblock_updown` / `num_heads` options (ResBlock
-itself has scale-shift and up/down).
+`adm_classes` ('adm' class conditioning) adds an fp32 `label_emb`
+embedding of the class ids `y` to the time embedding before its cast to the
+torso dtype; the forward raises without `y`, as the JAX UNet's assert.
+
+`remat` rematerialises every ResBlock under autograd (or those of the levels
+in `remat_levels`; the middle block counts as the last level), attention
+sites never, as the JAX UNet's `nn.remat`: with `remat_policy=None` whole
+blocks, with 'conv_outputs' only the glue between the convs (see
+`nn.blocks.ResBlock`).  Any other policy raises ValueError.
+
+Not ported here: the UNet-level `dropout` (no config sets it; ResBlock itself
+has it), `use_scale_shift_norm` / `resblock_updown` / `num_heads` options
+(ResBlock itself has scale-shift and up/down) and `spatial_axis`.
 
 `use_fused_resblock` (False | 'xla' | 'kernel' | True) and `use_pallas_conv`
 are the JAX UNet's opt-in kernel paths (nn/unet.py:91-94 there), passed to
@@ -100,9 +114,17 @@ class UNet(nn.Module):
         context_dim: Optional[int] = None,
         transformer_depth: int = 1,
         feature_cond_channels: Optional[Dict[int, int]] = None,
+        adm_classes: Optional[int] = None,
+        context_free: bool = False,
+        remat: bool = False,
+        remat_levels: Optional[Sequence[int]] = None,
+        remat_policy: Optional[str] = None,
     ):
         super().__init__()
+        if remat_policy not in (None, "conv_outputs"):
+            raise ValueError(f"unknown remat_policy {remat_policy!r}")
         device = resolve_device(device)
+        self.adm_classes = adm_classes
         self.model_channels = model_channels
         self.num_res_blocks = num_res_blocks
         self.attention_resolutions = tuple(attention_resolutions)
@@ -113,25 +135,32 @@ class UNet(nn.Module):
         fc = self.feature_cond_channels = dict(feature_cond_channels or {})
         mc = model_channels
         emb_ch = mc * 4
-        res = dict(emb_ch=emb_ch, dims=dims, device=device, pallas_conv=use_pallas_conv and dims == 3,
-                   fused=use_fused_resblock if dims == 3 else False)
+        res_kw = dict(emb_ch=emb_ch, dims=dims, device=device, pallas_conv=use_pallas_conv and dims == 3,
+                      fused=use_fused_resblock if dims == 3 else False)
+        block_remat = "full" if remat_policy is None else remat_policy
+
+        def res(level: int) -> dict:
+            on = remat and (remat_levels is None or level in remat_levels)
+            return dict(res_kw, remat=block_remat if on else None)
 
         def attn(ch: int) -> nn.Module:
             if context_dim is None:
                 return AttentionBlock(ch, num_head_channels=num_head_channels, device=device)
             heads = max(1, ch // num_head_channels)
-            return SequenceTransformer(ch, heads, ch // heads, depth=transformer_depth, context_dim=context_dim,
-                                       device=device)
+            return SequenceTransformer(ch, heads, ch // heads, depth=transformer_depth,
+                                       context_dim=None if context_free else context_dim, device=device)
 
         self.time_embed_0 = Linear(mc, emb_ch, device=device)
         self.time_embed_1 = Linear(emb_ch, emb_ch, device=device)
+        if adm_classes is not None:
+            self.label_emb = nn.Embedding(adm_classes, emb_ch, device=device)
         ch = mc * channel_mult[0]
         self.in_conv = Conv(in_channels + fc.get(0, 0), ch, 3, dims, device=device)
         skip_ch = [ch]
         ds, block_idx = 1, 1
         for level, mult in enumerate(channel_mult):
             for i in range(num_res_blocks):
-                self.add_module(f"down_{level}_{i}_res", ResBlock(ch + fc.get(block_idx, 0), int(mult * mc), **res))
+                self.add_module(f"down_{level}_{i}_res", ResBlock(ch + fc.get(block_idx, 0), int(mult * mc), **res(level)))
                 ch = int(mult * mc)
                 if ds in self.attention_resolutions:
                     self.add_module(f"down_{level}_{i}_attn", attn(ch))
@@ -146,12 +175,12 @@ class UNet(nn.Module):
         if set(fc) - set(range(block_idx)):
             raise ValueError(f"feature_cond_channels sites {sorted(fc)} beyond the encoder's {block_idx} "
                              "(0 = the stem)")
-        self.mid_res1 = ResBlock(ch, ch, **res)
+        self.mid_res1 = ResBlock(ch, ch, **res(len(channel_mult) - 1))
         self.mid_attn = attn(ch)
-        self.mid_res2 = ResBlock(ch, ch, **res)
+        self.mid_res2 = ResBlock(ch, ch, **res(len(channel_mult) - 1))
         for level, mult in reversed(list(enumerate(channel_mult))):
             for i in range(num_res_blocks + 1):
-                self.add_module(f"up_{level}_{i}_res", ResBlock(ch + skip_ch.pop(), int(mult * mc), **res))
+                self.add_module(f"up_{level}_{i}_res", ResBlock(ch + skip_ch.pop(), int(mult * mc), **res(level)))
                 ch = int(mult * mc)
                 if ds in self.attention_resolutions:
                     self.add_module(f"up_{level}_{i}_attn", attn(ch))
@@ -180,8 +209,8 @@ class UNet(nn.Module):
         y: Optional[torch.Tensor] = None,
         feature_cond: Optional[dict] = None,
     ) -> torch.Tensor:
-        if y is not None:
-            raise NotImplementedError("UNet: class ids y are not ported")
+        if self.adm_classes is not None and y is None:
+            raise ValueError("UNet: adm_classes set but no class ids `y` given")
         if set(feature_cond or {}) != set(self.feature_cond_channels):
             raise ValueError(f"UNet built for feature_cond sites {sorted(self.feature_cond_channels)}, given "
                              f"{sorted(feature_cond or {})}")
@@ -194,6 +223,8 @@ class UNet(nn.Module):
         context = None if context is None or self.context_dim is None else context.to(self.dtype)
         emb = timestep_embedding(timesteps, self.model_channels)
         emb = self.time_embed_1(F.silu(self.time_embed_0(emb)))
+        if self.adm_classes is not None:
+            emb = emb + self.label_emb(y.to(device=emb.device, dtype=torch.long))
         emb = emb.to(self.dtype)
         if cond is not None:
             x = torch.cat([x, cond.to(x.dtype)], dim=-1)

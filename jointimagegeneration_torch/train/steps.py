@@ -14,8 +14,9 @@ update (skipped if any gradient is not finite).  Random draws come from the
     encoder site), the KL + CE loss on the categorical posterior;
   * stage 2: t ~ U[0, T) (randint), eps ~ N(0, 1) in the batch's dtype,
     x_noisy = q_sample(x0, t, eps), the UNet's output from (x_noisy, t, cond
-    = the batch's [prev | mask]) against eps (or x0), the Gaussian loss with
-    the model's learned logvar when it has one;
+    = the batch's [prev | mask], the batch's cross-attention `context`, the
+    class ids `y` or `class_label` of 'adm' mode) against eps (or x0), the
+    Gaussian loss with the model's learned logvar when it has one;
   * latent stage 2: the pixel batch through the frozen AEs first
     (`LatentSliceLDM.train_loss_inputs`: the image's posterior sample, one
     normal), then stage 2's draws on the latents (the JAX keys `ke, kl`).
@@ -81,14 +82,15 @@ def make_mask_train_step(model: MaskSampler, class_weights: Optional[torch.Tenso
 def ldm_loss(model: SliceLDM, noise: NoiseSource, batch: Dict[str, torch.Tensor], loss_type: str = "l2",
              l_simple_weight: float = 1.0, elbo_weight: float = 0.0):
     """(loss, metrics) of one batch {"image": x0 (B, H, W, C), "cond": (B, H,
-    W, cond_channels)}."""
-    if batch.get("context") is not None or batch.get("y", batch.get("class_label")) is not None:
-        raise NotImplementedError("stage-2 context and class conditioning are not ported to training yet")
+    W, cond_channels)}, with a cross-attention "context" and the class ids
+    of 'adm' mode under "y" or "class_label" where the model takes them.
+    The draws: t, then the noise (the JAX keys `kt, kn`)."""
     diff = model.diffusion
     x0 = batch["image"]
     t = noise.randint(0, diff.num_timesteps, (x0.shape[0],)).to(x0.device)
     eps = noise.normal(x0.shape).to(device=x0.device, dtype=x0.dtype)
-    model_out = model.apply_model(diff.q_sample(x0, t, eps), t, cond=batch.get("cond"))
+    model_out = model.apply_model(diff.q_sample(x0, t, eps), t, cond=batch.get("cond"), context=batch.get("context"),
+                                  y=batch.get("y", batch.get("class_label")))
     target = eps if diff.parameterization == "eps" else x0
     return gaussian_diffusion_loss(model_out, target, t, diff.buffer("lvlb_weights", x0.device), loss_type,
                                    logvar=model.logvar, l_simple_weight=l_simple_weight,

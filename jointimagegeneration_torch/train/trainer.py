@@ -20,8 +20,17 @@ with no logger on the others.  Every rank restores the checkpoint on resume.
 Failure handling as in the JAX package: a logged non-finite loss, or any
 skipped non-finite update, saves a debug checkpoint (the last good state:
 EMATrainState never applies a non-finite update) and raises
-FloatingPointError; SIGUSR1 saves at the next step; SIGTERM saves and stops
-cleanly; KeyboardInterrupt saves before it propagates.  `resume` restores the
+FloatingPointError; SIGUSR1 saves at the next step; SIGUSR2 drops into `pdb`;
+SIGTERM saves and stops cleanly; KeyboardInterrupt saves before it
+propagates.  The chief archives the code (`utils.misc.archive_code`, failures
+swallowed) into the logdir at start.
+
+`profile_steps: N` (chief only) traces N steps with `torch.profiler` (CPU
+activity, and CUDA on the card), from the third step after the start, or
+from the first when the run has no more than N + 3 steps left, as the JAX
+trainer decides; the chrome trace goes to `<logdir>/profile/` and the top
+kernel kinds of its device time are printed (`core.logging.summarize_trace`;
+a CPU run's top-level ops where no device kernel ran).  `resume` restores the
 latest checkpoint, and the noise stream is seeded from (seed, restored step),
 so a resumed run continues the random draws instead of replaying them.
 """
@@ -61,7 +70,7 @@ class TrainerConfig:
     keep_best: int = 1
     best_mode: str = "max"
     save_weights_every: Optional[int] = None  # weight-only snapshots, kept forever; None = off
-    profile_steps: int = 0  # not ported: scripts/profile_torch_path.py profiles the port
+    profile_steps: int = 0  # steps traced into <logdir>/profile; 0 = off
     seed: int = 0
 
 
@@ -76,8 +85,6 @@ class Trainer:
                  train_loader, device: torch.device,
                  eval_fn: Optional[Callable] = None,  # (state, step, logger) -> score
                  resume: bool = False, run_config: Optional[dict] = None):
-        if config.profile_steps:
-            raise NotImplementedError("profile_steps: the port is profiled by scripts/profile_torch_path.py")
         self.cfg = config
         self.state = state
         self.train_step = train_step
@@ -93,6 +100,13 @@ class Trainer:
         if resume and self.ckpt is not None and self.ckpt.latest_step() is not None:
             self.state.load_state_dict(self.ckpt.restore())
             print(f"resumed from step {self.state.step}")
+        if self.chief:
+            try:
+                from ..utils.misc import archive_code
+
+                archive_code(config.logdir)
+            except Exception:
+                pass
         if run_config is not None and self.chief:
             # the merged config of the run; the JAX trainer writes it as YAML
             cfg_dir = Path(config.logdir) / "configs"
@@ -102,11 +116,13 @@ class Trainer:
         self._term = False
 
     def fit(self) -> EMATrainState:
-        """Train to `max_steps`; installs the SIGUSR1 / SIGTERM handlers for
-        the duration (in the main thread) and restores the previous ones."""
+        """Train to `max_steps`; installs the SIGUSR1 / SIGUSR2 / SIGTERM
+        handlers for the duration (in the main thread) and restores the
+        previous ones."""
         handlers = {}
         if threading.current_thread() is threading.main_thread():
             handlers[signal.SIGUSR1] = signal.signal(signal.SIGUSR1, lambda *_: setattr(self, "_usr1", True))
+            handlers[signal.SIGUSR2] = signal.signal(signal.SIGUSR2, self._divein)
             handlers[signal.SIGTERM] = signal.signal(signal.SIGTERM, lambda *_: setattr(self, "_term", True))
         try:
             return self._fit()
@@ -115,6 +131,44 @@ class Trainer:
                 signal.signal(sig, old)
             if self.logger is not None:
                 self.logger.close()
+
+    @staticmethod
+    def _divein(*_):
+        import pdb
+
+        pdb.set_trace()
+
+    def _profile_start(self, step: int) -> Optional[int]:
+        """The step number the trace starts at (the JAX window), or None."""
+        n = self.cfg.profile_steps
+        if not n or not self.chief:
+            return None
+        return step + 3 if self.cfg.max_steps - step > n + 3 else step + 1
+
+    def _profile_stop(self, prof, step: int) -> None:
+        synchronize(self.device)
+        prof.__exit__(None, None, None)
+        out = Path(self.cfg.logdir) / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        trace = out / f"trace_step{step}.json"
+        prof.export_chrome_trace(str(trace))
+        self._print_trace_summary(trace)
+
+    def _print_trace_summary(self, trace, top_k: int = 10) -> None:
+        from ..core.logging import summarize_trace
+
+        try:
+            rows = summarize_trace(trace, top_k=top_k)
+        except Exception as e:
+            print(f"profiler: trace summary unavailable: {e}")
+            return
+        if not rows:
+            print(f"profiler: trace written to {trace} (no events parsed)")
+            return
+        total = sum(r[1] for r in rows)
+        print(f"profiler: {self.cfg.profile_steps}-step trace ({trace}), top categories:")
+        for key, ms, count in rows[:top_k]:
+            print(f"  {key:<28s} {ms:9.2f} ms ({100 * ms / max(total, 1e-9):5.1f}%)  n={count}")
 
     def _save(self, step: int, score: Optional[float] = None) -> None:
         if self.chief:
@@ -125,6 +179,7 @@ class Trainer:
         step = state.step
         noise = rank_rows(NoiseSource(noise_seed(cfg.seed, step), self.device))
         tput = Throughput()
+        prof_start, prof = self._profile_start(step), None
         try:
             while step < cfg.max_steps:
                 epoch_batches = 0
@@ -136,9 +191,18 @@ class Trainer:
                         break
                     arrays = {k: v for k, v in batch.items() if not isinstance(v, list)}
                     log_now = (step + 1) % cfg.log_every == 0
+                    if prof_start is not None and prof is None and step + 1 == prof_start:
+                        acts = [torch.profiler.ProfilerActivity.CPU]
+                        if self.device.type == "cuda":
+                            acts.append(torch.profiler.ProfilerActivity.CUDA)
+                        prof = torch.profiler.profile(activities=acts)
+                        prof.__enter__()
                     t0 = time.perf_counter()
                     metrics = self.train_step(state, arrays, noise)
                     step += 1
+                    if prof is not None and step >= prof_start + cfg.profile_steps - 1:
+                        self._profile_stop(prof, step)
+                        prof, prof_start = None, None
                     tput.update(next(iter(arrays.values())).shape[0] * world_size())  # the global batch
                     if log_now:
                         synchronize(self.device)
@@ -179,4 +243,7 @@ class Trainer:
             print("interrupted: saving checkpoint")
             self._save(step)
             raise
+        finally:
+            if prof is not None:  # the run ended inside the window
+                prof.__exit__(None, None, None)
         return state

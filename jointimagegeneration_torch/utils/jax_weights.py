@@ -15,7 +15,18 @@ tree paths joined by '/'.  Layout changes:
     tree>} (`MaskSampler.init_params` there), gives the UNet's keys and the
     refiner's as `refiner.<name>`, the names of `MaskSampler.named_parameters`;
     the transformer leaves follow the rules above (Dense kernels transposed,
-    LayerNorm `scale` -> `weight`), and every `params` level is dropped.
+    LayerNorm `scale` -> `weight`), and every `params` level is dropped;
+  * flax `Embed` tables (`embedding`, (num, features)) keep their layout as
+    `nn.Embedding.weight`: the 'adm' UNet's `label_emb`, the text encoder's
+    `tok_emb`, the ClassEmbedder's `embedding`; the text encoder's
+    `pos_emb` (max_len, D) is no Dense kernel and stays as it is;
+  * a round-1 tree whose ResBlocks are nested submodules (`in_norm`,
+    `in_conv`, `emb_proj`, `out_norm`, `out_conv`, `skip`) is first rewritten
+    into the flat layout (`utils.misc.convert_legacy_resblock_params`).
+The same names carry the 2D cross-attention UNet's `SequenceTransformer`
+sites, the stage-2 conditioners of `nn/text.py` (the SpatialRescaler's
+bias-free 1x1 `channel_mapper` is a conv kernel) and the classifier of
+`models/classifier.py` (`unet_state_dict_from_jax` for all of them).
 
 `check_state` holds a bridged state dict against a model's parameters and
 names the first leaf that is missing, extra or of another shape; it reshapes
@@ -82,7 +93,21 @@ def flat_paths(params: Union[Mapping, str, Path]) -> Dict[Tuple[str, ...], np.nd
     return {tuple(k[0].split("/")) if len(k) == 1 else k: v for k, v in flatten_tree(params).items()}
 
 
+def _unflatten(flat: Mapping[Tuple[str, ...], np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
 def _state_dict(flat: Mapping[Tuple[str, ...], np.ndarray], unet: bool) -> Dict[str, torch.Tensor]:
+    if unet and any("emb_proj" in path for path in flat):  # the round-1 ResBlock layout
+        from .misc import convert_legacy_resblock_params
+
+        flat = flatten_tree(convert_legacy_resblock_params(_unflatten(flat)))
     state = {}
     for path, arr in flat.items():
         path = [p for p in path if p not in ("GroupNorm_0", "params")]
@@ -91,7 +116,7 @@ def _state_dict(flat: Mapping[Tuple[str, ...], np.ndarray], unet: bool) -> Dict[
         leaf = path[-1]
         if leaf == "kernel" or (unet and leaf.endswith("_kernel")):
             arr = _to_torch_layout(arr)
-        if leaf in ("kernel", "scale"):
+        if leaf in ("kernel", "scale", "embedding"):
             leaf = "weight"
         state[".".join(path[:-1] + [leaf])] = torch.tensor(np.asarray(arr, np.float32))
     return state

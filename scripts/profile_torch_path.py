@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import subprocess
 import sys
 import time
@@ -41,6 +40,7 @@ from chip_smoke import (STAGE1_TRAIN_CFG, STAGE2_TRAIN_CFG, TEXT_TRAIN_CFG, TWO_
                         fused_conv_calls)
 from jointimagegeneration_torch.cli.common import build_mask_dataset  # noqa: E402
 from jointimagegeneration_torch.cli.sample import build_mask_sampler, build_slice_ldm, load_weights  # noqa: E402
+from jointimagegeneration_torch.core.logging import kind_of  # noqa: E402
 from jointimagegeneration_torch.core.runtime import configure_precision  # noqa: E402
 from jointimagegeneration_torch.data.datasets import SyntheticSliceDataset  # noqa: E402
 from jointimagegeneration_torch.diffusion.ddim import DDIMParams, ddim_step  # noqa: E402
@@ -52,27 +52,8 @@ from jointimagegeneration_torch.train.optim import build_optimizer  # noqa: E402
 from jointimagegeneration_torch.train.state import EMATrainState  # noqa: E402
 from jointimagegeneration_torch.train.steps import make_ldm_train_step, make_mask_train_step  # noqa: E402
 
-KINDS = [  # (kind, pattern on the kernel name), first match wins
-    ("conv3d_kernel", r"conv3d_wgmma_kernel|conv3d_ffma_kernel|splitk_reduce_kernel|stats_reduce_kernel"),
-    ("flash_fwd", r"flash_fwd"),
-    ("flash_bwd", r"flash_bwd|delta_f32_kernel|splits_reduce_f32_kernel"),
-    ("optimizer", r"multi_tensor_apply|foreach|adam"),
-    ("conv", r"xmma_fprop|implicit_gemm|conv|cudnn|wgrad|dgrad"),
-    ("matmul", r"gemm|cutlass|cublas"),
-    ("norm_reduce", r"reduce_kernel|welford"),
-    ("copy_cast", r"copy_kernel|catarray|cat_batched"),
-    ("elementwise", r"elementwise|silu|softmax|index"),
-]
-
 S1, S2 = TWO_STAGE_CFG["stage1"], TWO_STAGE_CFG["stage2"]  # the widths chip_smoke.py drives
 NOISE = TWO_STAGE_CFG["fresh_init_noise"]
-
-
-def kind_of(name: str) -> str:
-    for kind, pat in KINDS:
-        if re.search(pat, name, re.IGNORECASE):
-            return kind
-    return "other"
 
 
 def conv_ms_by_level(prof, steps: int) -> dict:

@@ -259,7 +259,7 @@ def test_cli_rejects_a_two_channel_ae_on_one_channel_images(tmp_path):
     with pytest.raises(ValueError, match=r"in_channels is 2 but the dataset's 'image' has 1 channel.*'cond'"):
         tcli.run(cfg, "bad", device="cpu")
     assert not (tmp_path / "runs" / "bad").exists()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="unsupported checkpoint format"):  # init_from is ported: a bad path
         tcli.run({**_cli_cfg(tmp_path), "init_from": {"path": "x"}}, "init", device="cpu")
 
 

@@ -189,10 +189,41 @@ def test_serve_stock_data_and_mesh_modules_import_no_jax_and_yaml_lazily(name):
     assert not [m for m, top in found if m.split(".")[0] == "yaml" and top], found
 
 
+SLICE_17_MODULES = ["utils/misc.py", "models/classifier.py", "nn/text.py", "core/logging.py", "core/checkpoint.py",
+                    "nn/unet.py", "nn/blocks.py", "models/slice_ldm.py", "models/latent_ldm.py", "train/steps.py",
+                    "cli/train_ldm.py", "cli/train_mask.py", "utils/jax_weights.py"]
+
+
+@pytest.mark.parametrize("name", SLICE_17_MODULES)
+def test_trainer_extras_and_stage2_conditioning_modules_import_no_jax_and_yaml_lazily(name):
+    """The misc utilities, the classifier, the stage-2 conditioners, the
+    logger with its TensorBoard / W&B mirrors, the checkpoint surgery, the
+    remat UNet and the conditioned samplers and steps: no JAX, flax or
+    JAX-package import (not even of the JAX package's jax-free `utils/misc.py`),
+    and `yaml` only inside a function."""
+    path = PORT / name
+    assert path in _port_sources()
+    found = list(_imports(path))
+    assert not [m for m, _ in found if m.split(".")[0] in FORBIDDEN + ("scripts",)], found
+    assert not [m for m, top in found if m.split(".")[0] == "yaml" and top], found
+
+
+def test_tensorboard_and_wandb_only_imported_where_asked_for():
+    """`wandb` is imported only in `MetricLogger.__init__` when a project is
+    given, TensorBoard's writers only by name inside `_tensorboard_writer`
+    (so the port imports where neither is installed); chip_smoke.py imports
+    neither."""
+    assert _scoped_imports("wandb") == [("jointimagegeneration_torch/core/logging.py", ("MetricLogger", "__init__"))]
+    assert _scoped_imports("tensorboardX") == [] and _function_imports("tensorboard") == []
+    src = (PORT / "core" / "logging.py").read_text()
+    assert '("tensorboardX", "torch.utils.tensorboard")' in src
+
+
 def test_package_imports_with_jax_and_yaml_blocked():
     modules = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts) for p in PORT.rglob("*.py"))
     code = ("import sys\n"
-            "for m in ('jax', 'flax', 'jointimagegeneration_tpu', 'yaml', 'h5py', 'transformers', 'cv2', 'PIL'):\n"
+            "for m in ('jax', 'flax', 'jointimagegeneration_tpu', 'yaml', 'h5py', 'transformers', 'cv2', 'PIL',\n"
+            "          'wandb', 'tensorboardX'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {modules!r}:\n"

@@ -209,8 +209,11 @@ def test_ldm_loss_and_grads_match_jax_value_and_grad(ldm_setup, dtype, with_logv
         np.testing.assert_allclose(float(metrics[k].detach()), float(jmetrics[k]), rtol=loss_tol)
     for n, g in grads.items():
         _assert_scaled(to_numpy(g), want[n].numpy(), grad_tol, n)
-    with pytest.raises(NotImplementedError):
-        ldm_loss(ts, noise, {**{k: to_torch(v) for k, v in batch.items()}, "y": torch.zeros(2)})
+    # class ids on a UNet without adm_classes are ignored, as the flax UNet ignores them
+    again = ReplayNoise(_ldm_draws(jax.random.key(11), SHAPE[0], 1000, (*SHAPE, 1)))
+    loss_y, _ = ldm_loss(ts, again, {**{k: to_torch(v) for k, v in batch.items()}, "y": torch.zeros(2)},
+                         elbo_weight=elbo)
+    assert float(loss_y.detach()) == float(loss.detach())
 
 
 # ---------------------------------------------------- gradient accumulation --
@@ -453,15 +456,29 @@ UNPORTED = ["model.first_stage={type: kl}", "model.cond_stage={type: kl}", "mode
 
 
 @pytest.mark.parametrize("override", UNPORTED, ids=[o.split("=")[0] for o in UNPORTED])
-def test_ldm_cli_rejects_unported(tmp_path, override):
-    """Each key not ported raises NotImplementedError; `dataset.kind=lsun` is
-    ported, and without a `category` or `txt_file` it raises KeyError.  The latent keys are
-    ported (tests/test_torch_latent_train.py trains that route): a first stage
-    that cannot encode the 2-channel [prev slice, mask] condition raises
+def test_ldm_cli_rejects_unported(tmp_path, override, capsys):
+    """Every key of the list is ported now.  `dataset.kind=lsun` without a
+    `category` or `txt_file` raises KeyError.  The latent keys
+    (tests/test_torch_latent_train.py trains that route): a first stage that
+    cannot encode the 2-channel [prev slice, mask] condition raises
     ValueError before any step, and `cond_stage` or `scale_by_std` without a
-    first stage leave the pixel route to train, as in the JAX CLI."""
+    first stage leave the pixel route to train, as in the JAX CLI.
+    `init_from` warm-starts from a port checkpoint, `ckpt_path` is not read
+    (as the JAX CLI reads none), `model.remat` and a `context_dim` UNet
+    train (the synthetic slices carry no context: attn2 attends over x),
+    `num_classes` without class ids in the data raises ValueError naming `y`
+    (the JAX UNet's assert), `profile_steps` writes a trace."""
     cfg = apply_overrides(_tiny_cfg(tmp_path / "x"), [override])
     key = override.split("=")[0]
+    one = {"max_steps": 1, "validate": False}
+    if key == "init_from":
+        src = build_slice_ldm(cfg["model"], "cpu", seed=5, learn_logvar=True)
+        torch.save({"params": {n: p.detach() for n, p in src.named_parameters()}}, tmp_path / "init.pt")
+        cfg["init_from"] = str(tmp_path / "init.pt")
+        n = len(src.named_parameters())
+        assert tcli.run({**cfg, **one, "accumulate_grad_batches": 1}, "init").step == 1
+        assert f"init_from: restored {n}/{n} leaves" in capsys.readouterr().out
+        return
     if key == "model.first_stage":
         with pytest.raises(ValueError, match="in_channels=1 but the \\[prev slice, mask\\] condition is 2-channel"):
             tcli.run(cfg, "bad")
@@ -470,9 +487,15 @@ def test_ldm_cli_rejects_unported(tmp_path, override):
     elif key == "dataset.kind":  # the stock kinds are ported (tests/test_torch_stock_data.py trains them):
         with pytest.raises(KeyError, match="category"):  # an lsun config names its category or txt_file
             tcli.run(cfg, "bad")
-    else:
-        with pytest.raises(NotImplementedError):
-            tcli.run(cfg, "bad")
+    elif key == "model.unet_config.params.num_classes":
+        with pytest.raises(ValueError, match="class ids `y`"):
+            tcli.run({**cfg, **one}, "adm")
+    elif key == "profile_steps":
+        assert tcli.run({**cfg, "max_steps": 2, "validate": False}, "prof").step == 2
+        assert list((tmp_path / "x" / "prof" / "profile").glob("trace_step*.json"))
+        assert "profiler: 2-step trace" in capsys.readouterr().out
+    else:  # ckpt_path, model.remat, context_dim
+        assert tcli.run({**cfg, **one}, "ok").step == 1
 
 
 def test_ldm_cli_needs_a_device_on_a_cuda_less_machine(tmp_path):

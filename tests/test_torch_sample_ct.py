@@ -160,12 +160,20 @@ def test_ae_weights_scale_sidecar_and_guards(tmp_path):
     assert out["ct"].shape == (1, 3, 16, 16) and np.isfinite(out["ct"]).all()
 
 
-@pytest.mark.parametrize("bad,err", [  # FVD, dino and tile on two_stage are ported; the guard left
+@pytest.mark.parametrize("bad,err", [  # FVD, dino, tile on two_stage and stage-2 conditioning are ported
     ({"stage2": {"unet_config": {"params": {**UNET, "context_dim": 8}}}}, "context"),
 ])
 def test_ct_guards_raise(tmp_path, bad, err):
-    with pytest.raises(NotImplementedError, match=err):
-        tcli.run({**_ct_cfg(tmp_path, True), **bad})
+    """A `context_dim` stage 2 samples without a context, as the JAX CLI
+    (its attn2 sized from the site's width, as the JAX CLI's init sizes
+    it); a class-conditional one raises ValueError naming the missing `y`
+    before any step; an unknown stage raises."""
+    s2 = _ct_cfg(tmp_path, True)["stage2"]
+    out = tcli.run({**_ct_cfg(tmp_path, True), "stage2": {**s2, **bad["stage2"]}})
+    assert np.isfinite(out["ct"]).all()
+    adm = {**s2, "unet_config": {"params": {**UNET, "num_classes": 3}}}
+    with pytest.raises(ValueError, match="class ids `y`"):
+        tcli.run({**_ct_cfg(tmp_path, True), "stage2": adm})
     with pytest.raises(ValueError, match="unknown stage"):
         tcli.run({**_ct_cfg(tmp_path, True), "stage": "volume"})
 

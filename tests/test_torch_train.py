@@ -411,9 +411,14 @@ def test_cli_halts_on_non_finite_and_rejects_unported(tmp_path):
     with pytest.raises(FloatingPointError):
         tcli.run(cfg, "nan")
     assert CheckpointManager(tmp_path / "r" / "nan" / "checkpoints").all_steps()["rolling"] == [2]
-    for bad in ({"remat": True}, {"init_from": {"path": "x"}}, {"profile_steps": 2}):
-        with pytest.raises(NotImplementedError):
-            tcli.run(_tiny_cfg(tmp_path / "x", **bad), "bad")
+    # remat, init_from and profile_steps are ported: each trains (tests/test_torch_remat.py,
+    # test_torch_init_from.py, test_torch_trainer_extras.py hold them against the JAX package)
+    src = tcli.build_mask_sampler(_tiny_cfg(tmp_path / "x"), "cpu", seed=9)
+    torch.save({"params": {n: p.detach() for n, p in src.named_parameters()}}, tmp_path / "init.pt")
+    for i, ok in enumerate(({"remat": True}, {"init_from": {"path": str(tmp_path / "init.pt")}},
+                            {"profile_steps": 2})):
+        assert tcli.run(_tiny_cfg(tmp_path / "x", max_steps=2, validate=False, **ok), f"ok{i}").step == 2
+    assert list((tmp_path / "x" / "ok2" / "profile").glob("trace_step*.json"))
     with pytest.raises(ValueError, match="2D"):  # dino is ported, for 2D stage 1 only
         tcli.run(_tiny_cfg(tmp_path / "x", feature_cond_encoder={"type": "dino"}), "bad")
     with pytest.raises(ValueError, match="unknown dataset kind"):  # the real kinds are ported; as the JAX CLI

@@ -51,14 +51,29 @@ def test_unet_matches_jax(case, dt):
 
 
 def test_unet_rejects_unported_inputs():
-    """`y` raises; `feature_cond` at a site the UNet was not widened for
-    raises; a `context` is ignored without `context_dim`, as the flax UNet
-    ignores it."""
+    """Class ids `y` are ignored without `adm_classes` and, with it, match the
+    JAX UNet's label embedding (fp32, within 5e-4 as above; without `y` it
+    raises, as the JAX assert); `feature_cond` at a site the UNet was not
+    widened for raises; a `context` is ignored without `context_dim`, as the
+    flax UNet ignores it."""
     net = TUNet(in_channels=2, model_channels=8, out_channels=1, num_res_blocks=1,
                 attention_resolutions=(2,), channel_mult=(1, 2), dims=2, device="cpu")
     x = torch.randn(1, 8, 8, 2)
-    with pytest.raises(NotImplementedError):
-        net(x, torch.zeros(1), y=torch.zeros(1, dtype=torch.long))
+    with torch.no_grad():
+        assert torch.equal(net(x, torch.zeros(1), y=torch.zeros(1, dtype=torch.long)), net(x, torch.zeros(1)))
+    kw = dict(model_channels=8, out_channels=1, num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+              dims=2, num_head_channels=4, adm_classes=3)
+    xs, ts, ys = np.random.RandomState(3).randn(2, 8, 8, 2).astype(np.float32), np.array([5.0, 90.0], np.float32), \
+        np.array([2, 0], np.int32)
+    jnet = UNet(**kw)
+    p = init_flax(jnet, jnp.asarray(xs), jnp.asarray(ts), y=jnp.asarray(ys))
+    want = np.asarray(jax_apply(jnet, p, jnp.asarray(xs), jnp.asarray(ts), y=jnp.asarray(ys)))
+    adm = load_port(TUNet(in_channels=2, device="cpu", **kw), p)
+    with torch.no_grad():
+        got = to_numpy(adm(to_torch(xs), to_torch(ts), y=torch.from_numpy(ys)))
+    np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-4 * np.abs(want).max())
+    with pytest.raises(ValueError, match="class ids"):
+        adm(to_torch(xs), to_torch(ts))
     with pytest.raises(ValueError, match="feature_cond sites"):
         net(x, torch.zeros(1), feature_cond={0: torch.zeros(1, 8, 8, 1)})
     with torch.no_grad():
