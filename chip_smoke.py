@@ -203,14 +203,22 @@ Phases, in order (any failure exits non-zero and prints no result line):
      classifier guidance path: a NoisyLatentClassifier on 256x256, 3 steps,
      then guided and unguided DDIM-50 chains of the 256x256 stage 2 from one
      x_T.
+ 22. spatial: the mesh's 'model' axis on the one card (`devices=[cuda:0] *
+     k`, the whole partitioned program): stage 2 at 512x512 full width,
+     DDIM-4 at 'model' = 1, 2 and 4 in fp32 and bf16 and one train step's
+     gradients at 'model' = 4 against 1; stage 1 at 64x128x128 full width, 2
+     denoise steps at 'model' = 1, 2 and 4 (probabilities and labels), an
+     fp32 forward, a fused 'kernel' forward at 'model' = 2, and a batch of 2
+     over a data axis of 2; s/step, peak GiB and the flash launches at each
+     shard shape (the flash rows of phase 2 include those shapes).
 Before each main path (6 per run and the latent path, 7 per variant, 9, each
 text path of 10, 12, each run of 14, 15, 17, 18, each request of 19 and each
-run of 20, and each run, step and chain of 21) every kernel launch counter (flash_fwd,
+run of 20, each run, step and chain of 21, and each run of 22) every kernel launch counter (flash_fwd,
 flash_fwd_merge, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reduce and the conv
 kernel's) is set to 0;
 after it the counts must equal what the path implies.  The last lines are
 the sampling, latent, fused, train, latent-train, text, real-data,
-dino / FVD, serve / SR / ddp and slice-17 summaries, a JSON line
+dino / FVD, serve / SR / ddp, slice-17 and spatial summaries, a JSON line
 with the kernel numbers, the card's name and power limit, and `{"ok": true,
 "device": {...}}`.  Imports neither JAX nor PyYAML.
 """
@@ -650,7 +658,7 @@ def flash_phase(flash) -> list:
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     rows = []
-    for (bh, t, tk, d), dtype, where in _full_shapes(FWD_SHAPES):
+    for (bh, t, tk, d), dtype, where in _full_shapes(FWD_SHAPES) + SPATIAL_FWD_SHAPES:
         q = (torch.randn(bh, t, d, generator=g, device="cuda") / math.sqrt(d)).to(dtype)
         k = torch.randn(bh, tk, d, generator=g, device="cuda").to(dtype)
         v = torch.randn(bh, tk, d, generator=g, device="cuda").to(dtype)
@@ -764,7 +772,7 @@ def bwd_phase(flash) -> list:
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
     rows = []
-    for (bh, t, tk, d), dtype, where in _full_shapes(BWD_SHAPES):
+    for (bh, t, tk, d), dtype, where in _full_shapes(BWD_SHAPES) + SPATIAL_BWD_SHAPES:
         q, k, v, do = _attention_inputs(g, bh, t, tk, d, dtype)
         o, lse = flash.flash_forward(q, k, v)
         dname = str(dtype).replace("torch.", "")
@@ -4576,6 +4584,364 @@ def slice17_reference_phase(flash) -> dict:
     return out
 
 
+SPATIAL_FWD_SHAPES = [  # (BH, Tq, Tk, D), dtype, where: a shard's queries against its site's every key
+    ((16, 2048, 4096, 32), torch.bfloat16, "stage 2 ds8, 512x512, 'model' = 2"),
+    ((20, 512, 1024, 32), torch.bfloat16, "stage 2 ds16, 512x512, 'model' = 2"),
+    ((16, 1024, 4096, 32), torch.bfloat16, "stage 2 ds8, 512x512, 'model' = 4"),
+    ((20, 256, 1024, 32), torch.bfloat16, "stage 2 ds16, 512x512, 'model' = 4"),
+    ((8, 1024, 2048, 32), torch.bfloat16, "stage 1 ds8, 64x128x128, 'model' = 2"),
+    ((8, 512, 2048, 32), torch.bfloat16, "stage 1 ds8, 64x128x128, 'model' = 4"),
+]
+SPATIAL_BWD_SHAPES = SPATIAL_FWD_SHAPES[2:4]  # the sharded stage-2 train step's
+SPATIAL_MODELS = (1, 2, 4)
+SPATIAL_DDIM_STEPS = 4
+SPATIAL_MASK_STEPS = 2
+# sharded against unsharded on the card.  fp32: within 1e-4 of the output's
+# max |value| (every shard sums in another order: cuDNN's convs at the
+# shard's shape, GroupNorm per shard then over the shards, the flash
+# kernels' plans at the shard's Tq).  fp32 gradients: within 1e-3 of each
+# tensor's max, or of 1e-3 of the largest gradient's where a tensor's own is
+# rounding noise (the attention's key bias, which softmax cancels): a bias's
+# gradient sums 512^2 terms that cancel, in another order in each program
+# (7.2e-5 of its max at 64^2 and base 32 in a CPU rehearsal).  bf16 stage-1
+# probabilities: within 2^-5 (the fused path's bf16 variants differ from the
+# unfused one by up to 0.0095 there, one program rounding at other places
+# than the other); a label may differ only where each program's top two
+# probabilities lie within it of each other.  The bf16 stage-2 slice and
+# gradients: at most twice as far from the fp32 unsharded run as the bf16
+# unsharded run is, plus 1e-3 of the fp32 result's max (L2 norm for the
+# gradients).
+SPATIAL_F32_TOL = 1e-4
+SPATIAL_GRAD_TOL = 1e-3
+SPATIAL_BF16_PROB_TOL = 2**-5
+
+
+def spatial_flash_calls(spatial, cfg_unet: dict, mult_key: str, k: int, batch: int = 1) -> dict:
+    """{(BH, Tq, Tk, D): launches} of one UNet forward with its activations
+    sharded k ways: a flash site (T >= 512 tokens) launches once per shard,
+    at T / k queries, where its level is sharded (from level 0 on, while the
+    level's leading extent splits into k equal parts, even ones where a
+    Downsample follows), else once; heads of 32."""
+    from jointimagegeneration_torch.ops.attention import FLASH_MIN_SEQ
+
+    mult, nrb, base = cfg_unet[mult_key], cfg_unet.get("num_res_blocks", 2), cfg_unet.get(
+        "model_channels", cfg_unet.get("base_channels"))
+    calls, sharded, extent = {}, True, spatial[0]
+    for level in range(len(mult)):
+        last = level == len(mult) - 1
+        sharded = sharded and k > 1 and extent % k == 0 and (last or extent // k % 2 == 0)
+        tokens = math.prod(s // 2 ** level for s in spatial)
+        # the encoder's nrb sites and the decoder's nrb + 1 at an attention level, and the mid block's
+        n = (2 * nrb + 1 if 2 ** level in cfg_unet["attention_resolutions"] else 0) + last
+        if n and tokens >= FLASH_MIN_SEQ:
+            shape = (batch * base * mult[level] // 32, tokens // k if sharded else tokens, tokens, 32)
+            calls[shape] = calls.get(shape, 0) + n * (k if sharded else 1)
+        extent = (extent + 1) // 2
+    return calls
+
+
+def _label_flips(p: torch.Tensor, q: torch.Tensor, tol: float) -> int:
+    """Voxels whose argmax differs between two probability fields; each must
+    have its top two probabilities within `tol` of each other in both."""
+    flip = p.argmax(-1) != q.argmax(-1)
+    for r in (p, q):
+        top2 = r[flip].topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).max().item() if len(top2) else 0.0
+        check(gap <= tol, f"spatial: a label flips where the top two probabilities lie {gap} apart (tol {tol})")
+    return int(flip.sum())
+
+
+def spatial_phase(flash, card: str, cards: int = 1) -> dict:
+    """The mesh's 'model' axis on the one card, `devices=[cuda:0] * k`: the
+    whole partitioned program, its kernels at the shard shapes.
+      * stage 2 at 512x512, full width (STAGE2_TRAIN_CFG's UNet, fresh init
+        with its zero-init kernels filled), DDIM-4 from the same draws at
+        'model' = 1, 2 and 4, in fp32 and bf16: s/step, peak GiB, the flash
+        launches by shape, each against 'model' = 1; then one train step's
+        gradients (MSE against a seeded eps at t = 500) at 'model' = 4
+        against 'model' = 1, fp32 and bf16;
+      * stage 1 at 64x128x128, full width (TWO_STAGE_CFG's), bf16: 2 denoise
+        steps at 'model' = 1, 2 and 4 from the unsharded chain's states (s per
+        step, peak GiB, the UNet's probabilities and labels against 'model' =
+        1), an fp32 forward at 'model' = 4 against 1, one fused 'kernel'
+        forward at 'model' = 2 against the unsharded fused one (the fused
+        ResBlocks run whole: the same conv launches), and a batch of 2 over a
+        data axis of 2 against the unsplit batch.
+    Every count of kernel launches is set to 0 before each run and checked
+    after it against `spatial_flash_calls`.  `cards` > 1 places shard i on
+    card i % cards instead (the same checks over distinct cards; s/step on
+    the host's clock after every card is synchronised, peak GiB the largest
+    card's)."""
+    from jointimagegeneration_torch.cli.sample import build_mask_sampler, build_slice_ldm, load_weights
+    from jointimagegeneration_torch.core.runtime import configure_precision
+    from jointimagegeneration_torch.diffusion.ddim import DDIMParams
+    from jointimagegeneration_torch.diffusion.noise import NoiseSource
+    from jointimagegeneration_torch.models.mask_sampler import sampling_t_values
+    from jointimagegeneration_torch.ops import attention as attn
+    from jointimagegeneration_torch.parallel.mesh import make_mesh
+
+    check(torch.cuda.device_count() >= cards, f"spatial: {cards} cards asked for, {torch.cuda.device_count()} here")
+    configure_precision()
+    seed, noise_std = TWO_STAGE_CFG["seed"], TWO_STAGE_CFG["fresh_init_noise"]
+    t_start = time.perf_counter()
+    tally, real_flash = {}, attn.flash_attention
+
+    def tallied(q, k, v):
+        key = (q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3])
+        tally[key] = tally.get(key, 0) + 1
+        return real_flash(q, k, v)
+
+    def place(unet, k: int, data: int = 1) -> None:
+        devices = [f"cuda:{i % cards}" for i in range(k * data)]
+        unet.set_mesh(None if k * data == 1 else make_mesh(data=data, model=k, devices=devices),
+                      "model" if k > 1 else None)
+
+    def sync() -> None:
+        for i in range(cards):
+            torch.cuda.synchronize(i)
+
+    def peak_gib() -> float:
+        return max(torch.cuda.max_memory_allocated(i) for i in range(cards)) / 2**30
+
+    def start() -> float:
+        sync()
+        _reset_counts(flash)
+        tally.clear()
+        for i in range(cards):
+            torch.cuda.reset_peak_memory_stats(i)
+        return time.perf_counter()
+
+    def launches_as(label: str, calls: dict, n: int, f32: bool, bwd: bool, conv: dict = None) -> dict:
+        got = _counts(flash)
+        want = {"flash_fwd": n * sum(calls.values()),
+                "flash_fwd_merge": n * sum(c * fwd_merges(flash, *s) for s, c in calls.items()) if f32 else 0,
+                "flash_bwd_dkv": n * sum(calls.values()) if bwd else 0,
+                "flash_bwd_dq": n * sum(calls.values()) if bwd else 0,
+                "flash_bwd_reduce": n * sum(c * bwd_reduces(flash, *s) for s, c in calls.items()) if f32 and bwd else 0,
+                **(conv or {"conv3d": 0, "conv3d_splitk_reduce": 0, "conv3d_stats_reduce": 0})}
+        check(got == want, f"spatial ({label}): launches {got}, expected {want}")
+        check(tally == {s: n * c for s, c in calls.items()}, f"spatial ({label}): flash calls by shape {tally}, "
+              f"expected {calls} x {n}")
+        return got
+
+    attn.flash_attention = tallied
+    out = {"stage2": {}, "stage1": {}}
+    try:
+        # ---- stage 2, 512x512, full width --------------------------------
+        s2 = STAGE2_TRAIN_CFG["model"]
+        u2 = {**s2["unet_config"]["params"]}
+        size = STAGE2_TRAIN_CFG["dataset"]["slice_shape"][0]
+        models = {}
+        for dt in ("fp32", "bf16"):
+            models[dt] = build_slice_ldm({**s2, "bf16": dt == "bf16"}, "cuda")
+            load_weights(models[dt].unet, None, noise_std, seed + 2)
+        models["bf16"].unet.load_state_dict(models["fp32"].unet.state_dict())
+        gen = torch.Generator().manual_seed(7)
+        cond = torch.rand((1, size, size, 2), generator=gen).cuda()
+        ddim = DDIMParams.create(models["fp32"].diffusion, SPATIAL_DDIM_STEPS)
+        slices = {}
+        for dt, ldm in models.items():
+            for k in SPATIAL_MODELS:
+                place(ldm.unet, k)
+                calls = spatial_flash_calls((size, size), u2, "channel_mult", k)
+                with torch.inference_mode():
+                    ldm.sample_slice(NoiseSource(seed, "cuda"), cond, DDIMParams.create(ldm.diffusion, 1))  # warm-up
+                    t0 = start()
+                    x = ldm.sample_slice(NoiseSource(seed, "cuda"), cond, ddim).float()
+                    sync()
+                sec = (time.perf_counter() - t0) / SPATIAL_DDIM_STEPS
+                launches = launches_as(f"stage 2 {dt} model {k}", calls, SPATIAL_DDIM_STEPS, dt == "fp32", False)
+                check(tuple(x.shape) == (1, size, size, 1) and bool(torch.isfinite(x).all()),
+                      f"spatial: stage-2 slice {tuple(x.shape)}, finite {bool(torch.isfinite(x).all())}")
+                slices[dt, k] = x
+                out["stage2"][f"ddim {dt} model {k}"] = {
+                    "s_per_step": sec, "peak_gib": peak_gib(), "launches": launches,
+                    "flash_calls_by_shape": {str(list(s)): c for s, c in tally.items()}}
+        ref, scale = slices["fp32", 1], slices["fp32", 1].abs().max().item()
+        d_bf16 = (slices["bf16", 1] - ref).abs().max().item()
+        for (dt, k), x in slices.items():
+            row = out["stage2"][f"ddim {dt} model {k}"]
+            row["max_abs_vs_model_1"] = (x - slices[dt, 1]).abs().max().item()
+            row["max_abs_vs_fp32_model_1"] = (x - ref).abs().max().item()
+            limit = SPATIAL_F32_TOL * scale if dt == "fp32" else 2 * d_bf16 + 1e-3 * scale
+            err = row["max_abs_vs_model_1" if dt == "fp32" else "max_abs_vs_fp32_model_1"]
+            row["limit"] = limit
+            check(err <= limit, f"spatial: stage-2 DDIM {dt} at model {k}: {err} (limit {limit})")
+            print(f"spatial stage 2 DDIM-{SPATIAL_DDIM_STEPS} {size}x{size} {dt} model {k}: "
+                  f"{row['s_per_step']:.4f} s/step, "
+                  f"peak {row['peak_gib']:.2f} GiB; max abs vs model 1 {row['max_abs_vs_model_1']:.3g}, vs fp32 "
+                  f"model 1 {row['max_abs_vs_fp32_model_1']:.3g} (limit {limit:.3g}, |x| max {scale:.3g}); flash "
+                  f"calls {row['flash_calls_by_shape']}; launches {row['launches']}; card {card}", flush=True)
+        del slices
+        x_in = torch.randn((1, size, size, 1), generator=gen).cuda()
+        eps = torch.randn((1, size, size, 1), generator=gen).cuda()
+        t = torch.full((1,), 500.0, device="cuda")
+        grads = {}
+        for dt, k in (("fp32", 1), ("fp32", 4), ("bf16", 1), ("bf16", 4)):
+            unet = models[dt].unet
+            place(unet, k)
+            calls = spatial_flash_calls((size, size), u2, "channel_mult", k)
+            for _ in range(2):  # a warm-up step, then the timed one
+                unet.zero_grad(set_to_none=True)
+                t0 = start()
+                loss = (unet(x_in, t, cond=cond).float() - eps).square().mean()
+                loss.backward()
+                sync()
+                sec = time.perf_counter() - t0
+            launches = launches_as(f"stage 2 train step {dt} model {k}", calls, 1, dt == "fp32", True)
+            grads[dt, k] = {n: p.grad.detach().clone() for n, p in unet.named_parameters()}
+            unet.zero_grad(set_to_none=True)
+            out["stage2"][f"train step {dt} model {k}"] = {
+                "s": sec, "peak_gib": peak_gib(), "loss": loss.item(),
+                "launches": launches, "flash_calls_by_shape": {str(list(s)): c for s, c in tally.items()}}
+        g32 = grads["fp32", 1]
+        big = max(g.abs().max().item() for g in g32.values())
+        worst, worst_name = max(((grads["fp32", 4][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-3 * big),
+                                 n) for n, g in g32.items())
+        check(worst <= SPATIAL_GRAD_TOL, f"spatial: fp32 gradients at model 4: {worst_name} {worst} of its max (tol "
+              f"{SPATIAL_GRAD_TOL})")
+        l2 = lambda a, b: math.sqrt(sum((a[n] - b[n]).square().sum().item() for n in b))
+        norm = math.sqrt(sum(g.square().sum().item() for g in g32.values()))
+        d1, d4 = l2(grads["bf16", 1], g32), l2(grads["bf16", 4], g32)
+        check(d4 <= 2 * d1 + 1e-3 * norm, f"spatial: bf16 gradients at model 4 {d4} from fp32, model 1 {d1}")
+        out["stage2"]["gradients"] = {"fp32_model4_worst_rel": worst, "fp32_model4_worst": worst_name,
+                                      "bf16_l2_from_fp32": {"model 1": d1, "model 4": d4}, "fp32_l2_norm": norm}
+        for key in ("fp32 model 1", "fp32 model 4", "bf16 model 1", "bf16 model 4"):
+            r = out["stage2"][f"train step {key}"]
+            print(f"spatial stage 2 train step {size}x{size} {key}: {r['s']:.4f} s, peak {r['peak_gib']:.2f} GiB, loss "
+                  f"{r['loss']:.6f}; flash calls {r['flash_calls_by_shape']}; launches {r['launches']}", flush=True)
+        print(f"spatial stage 2 gradients: fp32 model 4 within {worst:.3g} of each tensor's max ({worst_name}; tol "
+              f"{SPATIAL_GRAD_TOL}); bf16 L2 distance from fp32 model 1 {d4:.4g} at model 4, {d1:.4g} at model 1 "
+              f"(|g| {norm:.4g}); card {card}", flush=True)
+        del models, grads, g32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- stage 1, 64x128x128, full width -------------------------------
+        s1 = TWO_STAGE_CFG["stage1"]
+        u1 = s1["unet_openai"]
+        spatial = tuple(s1["dataset"]["volume_shape"])
+        shape = (1, *spatial)
+        ms = build_mask_sampler(s1, "cuda")
+        load_weights(ms.unet, None, noise_std, seed + 1)
+        state = ms.unet.state_dict()
+        xt = torch.nn.functional.one_hot(torch.randint(0, 12, shape, generator=gen), 12).float().cuda()
+        cond1 = torch.rand((*shape, 1), generator=gen).cuda()
+        ts = sampling_t_values(1000, 4)[:SPATIAL_MASK_STEPS]
+        noise = NoiseSource(seed, "cuda")
+        rows = {k: {"s": 0.0, "peak_gib": 0.0, "max_abs": 0.0, "label_flips": 0, "launches": {},
+                    "flash_calls_by_shape": {}} for k in SPATIAL_MODELS}
+        with torch.inference_mode():
+            for k in SPATIAL_MODELS:  # warm-up at every placement
+                place(ms.unet, k)
+                ms.denoise_step(NoiseSource(seed, "cuda"), xt, torch.full((1,), int(ts[0]), device="cuda"), cond=cond1)
+            for t_val in ts:
+                t1 = torch.full((1,), int(t_val), dtype=torch.int64, device="cuda")
+                probs, nxt = {}, None
+                for k in SPATIAL_MODELS:
+                    place(ms.unet, k)
+                    probs[k] = ms.unet(xt, t1.float(), cond=cond1).float()
+                    t0 = start()
+                    step = ms.denoise_step(NoiseSource(seed + int(t_val), "cuda"), xt, t1, cond=cond1)
+                    sync()
+                    rows[k]["s"] += (time.perf_counter() - t0) / SPATIAL_MASK_STEPS
+                    rows[k]["peak_gib"] = max(rows[k]["peak_gib"], peak_gib())
+                    got = launches_as(f"stage 1 model {k}", spatial_flash_calls(spatial, u1, "channel_mult", k), 1,
+                                      False, False)
+                    for key, part in (("launches", got), ("flash_calls_by_shape",
+                                                          {str(list(s)): c for s, c in tally.items()})):
+                        rows[k][key] = {n: rows[k][key].get(n, 0) + c for n, c in part.items()}
+                    nxt = step if k == 1 else nxt
+                for k in SPATIAL_MODELS[1:]:
+                    err = (probs[k] - probs[1]).abs().max().item()
+                    check(err <= SPATIAL_BF16_PROB_TOL, f"spatial: stage-1 probabilities at model {k}: {err} "
+                                                        f"(tol {SPATIAL_BF16_PROB_TOL})")
+                    rows[k]["max_abs"] = max(rows[k]["max_abs"], err)
+                    rows[k]["label_flips"] += _label_flips(probs[k], probs[1], SPATIAL_BF16_PROB_TOL)
+                xt = nxt
+            place(ms.unet, 1)
+        f32 = build_mask_sampler({**s1, "bf16": False}, "cuda")
+        f32.unet.load_state_dict(state)
+        with torch.inference_mode():
+            t1 = torch.full((1,), float(ts[0]), device="cuda")
+            p1 = f32.unet(xt, t1, cond=cond1)
+            place(f32.unet, 4)
+            p4 = f32.unet(xt, t1, cond=cond1)
+            f32_err = (p4 - p1).abs().max().item()
+            check(f32_err <= SPATIAL_F32_TOL, f"spatial: stage-1 fp32 probabilities at model 4: {f32_err}")
+            del f32, p1, p4
+            torch.cuda.empty_cache()
+        for k, r in rows.items():
+            out["stage1"][f"model {k}"] = r
+            print(f"spatial stage 1 {'x'.join(map(str, spatial))} bf16 model {k}: {r['s']:.4f} s per denoise step "
+                  f"({SPATIAL_MASK_STEPS} steps), peak "
+                  f"{r['peak_gib']:.2f} GiB; probabilities max abs vs model 1 {r['max_abs']:.3g} (tol "
+                  f"{SPATIAL_BF16_PROB_TOL}), {r['label_flips']} label(s) of {2 * math.prod(spatial)} flipped; flash "
+                  f"calls {r['flash_calls_by_shape']}; launches {r['launches']}; card {card}", flush=True)
+        print(f"spatial stage 1 fp32 forward model 4 vs 1: max abs {f32_err:.3g} (tol {SPATIAL_F32_TOL})", flush=True)
+        out["stage1"]["fp32_model4_max_abs"] = f32_err
+
+        from jointimagegeneration_torch.ops import conv3d as conv
+
+        fused = build_mask_sampler(s1, "cuda", use_fused_resblock="kernel")
+        fused.unet.load_state_dict(state)
+        conv_calls = planned_launches(conv, fused_conv_calls(u1, spatial, "kernel"))
+        conv_want = {key: conv_calls.get(key, 0) for key in ("conv3d", "conv3d_splitk_reduce", "conv3d_stats_reduce")}
+        fused_probs = {}
+        with torch.inference_mode():
+            for k in (1, 2):
+                place(fused.unet, k)
+                fused.unet(xt, t1, cond=cond1)  # warm-up
+                t0 = start()
+                fused_probs[k] = fused.unet(xt, t1, cond=cond1).float()
+                sync()
+                sec = time.perf_counter() - t0
+                out["stage1"][f"fused kernel model {k}"] = {
+                    "s": sec, "peak_gib": peak_gib(),
+                    "launches": launches_as(f"fused kernel model {k}", spatial_flash_calls(
+                        spatial, u1, "channel_mult", k), 1, False, False, conv_want)}
+        err = (fused_probs[2] - fused_probs[1]).abs().max().item()
+        check(err <= SPATIAL_BF16_PROB_TOL, f"spatial: fused 'kernel' probabilities at model 2: {err}")
+        flips = _label_flips(fused_probs[2], fused_probs[1], SPATIAL_BF16_PROB_TOL)
+        out["stage1"]["fused kernel model 2"].update(max_abs=err, label_flips=flips)
+        print(f"spatial fused 'kernel' forward model 2 vs 1: {out['stage1']['fused kernel model 2']['s']:.4f} s "
+              f"against {out['stage1']['fused kernel model 1']['s']:.4f}; max abs {err:.3g} (tol "
+              f"{SPATIAL_BF16_PROB_TOL}), {flips} label(s) flipped; conv launches "
+              f"{out['stage1']['fused kernel model 2']['launches']['conv3d']} each", flush=True)
+        del fused, fused_probs
+        torch.cuda.empty_cache()
+
+        other = torch.nn.functional.one_hot(torch.randint(0, 12, shape, generator=gen), 12).float()
+        xt2 = torch.cat([xt, other.cuda()])
+        cond2 = torch.cat([cond1, torch.rand((*shape, 1), generator=gen).cuda()])
+        t2 = torch.tensor([float(ts[0]), float(ts[1])], device="cuda")
+        batch_probs = {}
+        with torch.inference_mode():
+            for data in (1, 2):
+                place(ms.unet, 1, data)
+                start()
+                batch_probs[data] = ms.unet(xt2, t2, cond=cond2).float()
+                rows_calls = spatial_flash_calls(spatial, u1, "channel_mult", 1, batch=2 // data)
+                out["stage1"][f"batch 2 data {data}"] = {"launches": launches_as(
+                    f"batch 2 over data {data}", rows_calls, data, False, False)}
+        place(ms.unet, 1)
+        err = (batch_probs[2] - batch_probs[1]).abs().max().item()
+        check(err <= SPATIAL_BF16_PROB_TOL, f"spatial: the batch of 2 over data 2: {err}")
+        flips = _label_flips(batch_probs[2], batch_probs[1], SPATIAL_BF16_PROB_TOL)
+        out["stage1"]["batch 2 data 2"].update(max_abs=err, label_flips=flips)
+        print(f"spatial data axis: a batch of 2 over data 2 vs unsplit: max abs {err:.3g} (tol "
+              f"{SPATIAL_BF16_PROB_TOL}), {flips} label(s) flipped; launches "
+              f"{out['stage1']['batch 2 data 2']['launches']['flash_fwd']} (a row each)", flush=True)
+        del ms, batch_probs
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        attn.flash_attention = real_flash
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"spatial phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a machine with an NVIDIA GPU",
@@ -4644,6 +5010,7 @@ def main() -> int:
     adm = adm_train_path_phase(flash, card)
     cross = cross_attention_path_phase(flash, card)
     guided = classifier_guidance_phase(flash, card)
+    spatial = spatial_phase(flash, card)
 
     main_row = rows[1]  # (16, 1024, 32): the stage-2 site, most of the sampling path's launches
     fwd_launches = {"two_stage_sampling": ddim_path["launches"], "fast_sampling": fast["fast path"]["launches"],
@@ -4686,7 +5053,9 @@ def main() -> int:
                     "cross_attention_training": cross["train_launches"]["flash_fwd"],
                     "cross_attention_guided_sampling": cross["sample_launches"]["flash_fwd"],
                     "classifier_guided_sampling": guided["launches"],
-                    "classifier_unguided_sampling": guided["launches"]}
+                    "classifier_unguided_sampling": guided["launches"],
+                    **{f"spatial {part} {label}": r["launches"]["flash_fwd"] for part in ("stage2", "stage1")
+                       for label, r in spatial[part].items() if isinstance(r, dict) and "launches" in r}}
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -4715,7 +5084,9 @@ def main() -> int:
                       "gan_reference": gan_ref["launches"]["flash_fwd_merge"],
                       "latent_train_reference": latent_train_ref["launches"]["flash_fwd_merge"],
                       "vae_extras_reference": vae_extras["flash_fwd_merge"],
-                      "text_encoder_512_tokens": cross["encoder_launches"]["flash_fwd_merge"]}
+                      "text_encoder_512_tokens": cross["encoder_launches"]["flash_fwd_merge"],
+                      **{f"spatial stage2 {label}": r["launches"]["flash_fwd_merge"]
+                         for label, r in spatial["stage2"].items() if "launches" in r}}
     merge_row = merge_rows[1]
     kernels.append({
         "name": "flash_fwd_merge",
@@ -4753,7 +5124,9 @@ def main() -> int:
                            for label, _ in REMAT_SETTINGS},
                         "stage2_training_init_from_profile": init_from["launches"][name],
                         "adm_training": adm["launches"][name], "adm_training_resumed": adm["launches_resumed"][name],
-                        "cross_attention_training": cross["train_launches"][name]}
+                        "cross_attention_training": cross["train_launches"][name],
+                        **{f"spatial stage2 {label}": r["launches"][name]
+                           for label, r in spatial["stage2"].items() if label.startswith("train step")}}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -4777,7 +5150,9 @@ def main() -> int:
                        "stage1_long_report_training": long_train["launches"]["flash_bwd_reduce"],
                        "gan_reference": gan_ref["launches"]["flash_bwd_reduce"],
                        "latent_train_reference": latent_train_ref["launches"]["flash_bwd_reduce"],
-                       "slice17_reference": ref17["launches"]["flash_bwd_reduce"]}
+                       "slice17_reference": ref17["launches"]["flash_bwd_reduce"],
+                       **{f"spatial stage2 {label}": r["launches"]["flash_bwd_reduce"]
+                          for label, r in spatial["stage2"].items() if label.startswith("train step")}}
     kernels.append({
         "name": "flash_bwd_reduce",
         "route": "cuda",
@@ -4797,6 +5172,9 @@ def main() -> int:
     fused_launches["fused_kernel_fp32_sampling"] = fused["kernel fp32"]["launches"]["conv3d"]
     for label in ("off", "remat conv_outputs"):
         fused_launches[f"fused_kernel_training_step {label}"] = remat["fused"][label]["launches"]["conv3d"]
+    for k in (1, 2):
+        fused_launches[f"spatial fused kernel model {k}"] = \
+            spatial["stage1"][f"fused kernel model {k}"]["launches"]["conv3d"]
     pallas_launches = {"pallas_conv_sampling": fused["pallas_conv"]["launches"]["conv3d"]}
     for name, line, row, launches, errs in (
             ("conv3d_fused_resblock", "fused_resblock.py:51", conv_rows[0], fused_launches, fused_rows),
@@ -4846,6 +5224,7 @@ def main() -> int:
     slice17 = {"reference": ref17, "remat": remat, "init_from_profile": init_from, "adm": adm, "cross_attention": cross,
                "classifier_guidance": guided}
     print(f"trainers and stage-2 conditioning: {json.dumps(slice17)}")
+    print(f"spatial: {json.dumps(spatial)}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

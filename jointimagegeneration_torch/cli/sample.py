@@ -12,7 +12,14 @@ per case `pred.nii.gz`, `pred.png` (the first of `samples` draws) and
 `gt.nii.gz`, and prints the mean foreground Dice, with GED and HM-IoU over the
 draws when `samples` > 1; its cases run in batches of `batch_size`, a ragged
 last batch padded by repeating its last case.  Runs on CUDA unless
-`device=cpu` is given.  `run(cfg)` is the same entry point for a config that
+`device=cpu` is given.  With `batch_size` > 1, `stage: mask` and
+`two_stage` cut each batch's rows over the data axis of
+`parallel.mesh.make_mesh_for_batch` (the local cards: the largest number of
+them that divides the batch), as the JAX CLI shards its batch: each UNet
+call runs its rows on their own card with its copy of the weights, the
+samplers' arithmetic and draws on the whole batch on `device`; on one card
+the mesh is 1 x 1 and nothing changes.  The AEs and the text refiner run on
+`device`.  `run(cfg)` is the same entry point for a config that
 is already a dict.
 
 Text guidance: a stage-1 section with `feature_cond_encoder: {type: selfattn,
@@ -99,6 +106,7 @@ from ..models.mask_sampler import MaskSampler
 from ..models.slice_ldm import SliceLDM
 from ..nn.unet import UNet
 from ..nn.vit import vit_config
+from ..parallel.mesh import make_mesh_for_batch
 from ..pipeline.two_stage import make_chunked_two_stage_programs
 from ..utils.jax_weights import check_state, unet_state_dict_from_jax
 from .common import (build_dino_feature_fn, build_latent_ldm, build_mask_dataset, build_slice_dataset, feature_cond,
@@ -328,6 +336,10 @@ def run(cfg: dict, device=None) -> dict:
         print("WARNING: `tile:` is ignored on two_stage (a `stage: ct` key); sampling untiled")
     noise = NoiseSource(seed, device)
     bs = max(1, min(int(cfg.get("batch_size", 1)), n_cases))
+    if bs > 1:
+        mesh = make_mesh_for_batch(bs, device=device)
+        ms.unet.set_mesh(mesh)
+        ldm.unet.set_mesh(mesh)
     cts, labels_all = [], []
     seconds = {"stage1": 0.0, "stage2": 0.0}
     with torch.inference_mode():
@@ -378,6 +390,8 @@ def _run_mask(cfg: dict, s1: dict, ms: MaskSampler, context: Optional[torch.Tens
     ds = build_mask_dataset(s1, cfg.get("split", "val"))
     spatial = ds.volume_shape
     bs = int(cfg.get("batch_size", 1))
+    if bs > 1:
+        ms.unet.set_mesh(make_mesh_for_batch(bs, device=device))
     nc = ms.num_classes
     noise = NoiseSource(seed, device)
     labels_all, metrics, seconds = [], [], 0.0

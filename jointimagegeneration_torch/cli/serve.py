@@ -7,7 +7,11 @@ response contract.  stdlib `http.server`, one single-threaded `HTTPServer`:
 one program runs on the card at a time; a request's `batch` is one batched
 call.  The models and their weights are built once at start-up
 (`build_state`), on CUDA unless `device=cpu` is given; without CUDA and
-without `device=cpu` the server refuses to start.
+without `device=cpu` the server refuses to start.  A request with `batch`
+> 1 cuts its rows over the data axis of `make_mesh_for_batch(batch)`
+(`_batched_mesh`, one mesh per batch size; each card's copy of the UNets'
+weights is made once), as the JAX server does; on one card that mesh is
+1 x 1 and changes nothing.
 
 POST /generate {"kind": "mask" | "two_stage", "seed": int (0), "batch": int (1),
                 "mask_steps": int (the config's, 250), "stream": bool,
@@ -53,6 +57,7 @@ from ..core.config import load_yaml_config
 from ..core.runtime import configure_precision, resolve_device
 from ..data.nifti import write_nifti
 from ..diffusion.noise import NoiseSource
+from ..parallel.mesh import make_mesh_for_batch
 from ..pipeline.two_stage import TwoStagePipeline, normalize_mask_channel, upsample_labels
 from .common import build_dino_feature_fn, feature_cond
 from .sample import _stage2, build_mask_sampler, load_mask_weights
@@ -77,6 +82,17 @@ def _nifti_b64(vol: np.ndarray) -> str:
         path = Path(d) / "v.nii.gz"
         write_nifti(path, vol)
         return base64.b64encode(path.read_bytes()).decode()
+
+
+def _batched_mesh(state: dict, bs: int):
+    """The data mesh of a `batch: bs` request (None at 1), made once per
+    batch size and cached in `state`."""
+    if bs == 1:
+        return None
+    cache = state.setdefault("_mesh_cache", {})
+    if bs not in cache:
+        cache[bs] = make_mesh_for_batch(bs, device=state["device"])
+    return cache[bs]
 
 
 def build_state(cfg: dict, device=None) -> dict:
@@ -168,6 +184,10 @@ def make_handler(state: dict):
                 noise = request_noise(int(req.get("seed", 0)), device)
                 bs = max(1, int(req.get("batch", 1)))
                 steps = int(req.get("mask_steps", state["mask_steps"]))
+                mesh = _batched_mesh(state, bs)
+                for model in (state["ms"], state.get("ldm")):
+                    if model is not None:
+                        model.unet.set_mesh(mesh)
                 with torch.inference_mode():
                     cond = torch.zeros((bs, *state["spatial"], 1), device=device)
                     fc = feature_cond(state["feat_fn"], state["feat_idx"], cond)

@@ -80,6 +80,8 @@ class MaskSampler:
         remat: bool = False,
         remat_levels: Optional[Sequence[int]] = None,
         remat_policy: Optional[str] = None,
+        spatial_axis: Optional[str] = None,
+        mesh=None,
     ) -> "MaskSampler":
         """UNet input = one-hot classes + `cond_channels` condition channels.
         `use_fused_resblock` / `use_pallas_conv` pick the UNet's opt-in conv
@@ -90,7 +92,9 @@ class MaskSampler:
         `feature_cond_channels` ({site: F}) widens the UNet for dense
         features at those encoder sites (`nn.unet.UNet`).  `remat`,
         `remat_levels` and `remat_policy` rematerialise the UNet's ResBlocks
-        under autograd (`nn.unet.UNet`)."""
+        under autograd (`nn.unet.UNet`).  `mesh` and `spatial_axis` place the
+        UNet's calls on a device mesh (`nn.unet.UNet`); the sampler's own
+        arithmetic and its draws stay on the whole tensors, on `device`."""
         if step_T_sample not in ("majority", "confidence"):
             raise ValueError(f"step_T_sample must be 'majority' or 'confidence', got {step_T_sample!r}")
         unet = UNet(
@@ -113,6 +117,8 @@ class MaskSampler:
             remat=remat,
             remat_levels=remat_levels,
             remat_policy=remat_policy,
+            spatial_axis=spatial_axis,
+            mesh=mesh,
         )
         device = next(unet.parameters()).device
         diffusion = CategoricalDiffusion.create(schedule, time_steps, num_classes, device=device)

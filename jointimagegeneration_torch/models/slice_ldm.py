@@ -99,11 +99,15 @@ class SliceLDM:
         context_free: bool = False,
         device=None,
         seed: int = 1,
+        spatial_axis: Optional[str] = None,
+        mesh=None,
     ) -> "SliceLDM":
         """`adm_classes` enables class-conditional ('adm') mode, `context_dim`
         the cross-attention sites (`context_free`: sized as a JAX tree
         initialised without a context, see `nn.unet.UNet`); `remat*` go to
-        the UNet."""
+        the UNet, and so do `mesh` and `spatial_axis` (the UNet's calls on a
+        device mesh; the samplers' arithmetic and draws stay on the whole
+        tensors, on `device`)."""
         unet = UNet(
             in_channels=image_channels + cond_channels,
             model_channels=model_channels,
@@ -124,6 +128,8 @@ class SliceLDM:
             remat=remat,
             remat_levels=remat_levels,
             remat_policy=remat_policy,
+            spatial_axis=spatial_axis,
+            mesh=mesh,
         )
         diffusion = GaussianDiffusion.create(beta_schedule, timesteps, linear_start=linear_start,
                                              linear_end=linear_end, parameterization=parameterization)

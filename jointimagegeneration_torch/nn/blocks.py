@@ -15,6 +15,19 @@ ResBlock's opt-in kernel paths follow the JAX package's rules exactly:
 (`ops.fused_resblock`) where the block is eligible, and `pallas_conv` routes
 single 3x3x3 convs at Cin = 128, H >= 64 to `ops.conv3d.conv3d_3x3_v2`
 (`_raw_conv`).
+
+Spatial sharding (the mesh's 'model' axis, `parallel/spatial.py`): every
+block takes a `Sharded` activation, split along its leading spatial axis,
+where it takes a tensor.  A 3x3 conv runs on each shard with its neighbours'
+edge planes and is VALID along that axis (`_conv_sharded`; the stride-2
+Downsample needs only the plane before a shard, which starts at an even
+index); GroupNorm normalises with statistics over every shard
+(`spatial.group_stats`); attention attends with each shard's queries
+against every shard's keys and values; a dropout mask is drawn for the
+whole tensor and cut like it, so the draws are the unsharded program's.  A
+ResBlock that would run a conv kernel (`fused`, `pallas_conv`) runs whole on
+the first shard's device and is split again after it, as XLA runs a Pallas
+call that it cannot partition.
 """
 
 from __future__ import annotations
@@ -27,10 +40,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import multi_head_self_attention
+from ..ops.attention import multi_head_cross_attention
 from ..ops.conv3d import conv3d_3x3_v2
 from ..ops.fused_resblock import (fused_affine_silu_conv3d, fused_conv3d, gn_affine_from_moments,
                                   group_moments, moments_from_channel_sums)
+from ..parallel import spatial
+from ..parallel.spatial import Sharded, each
 
 __all__ = [
     "timestep_embedding",
@@ -63,11 +78,17 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10
     return emb
 
 
-def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
-               eps: float = 1e-5) -> torch.Tensor:
+def group_norm(x, scale: torch.Tensor, bias: torch.Tensor, groups: int, eps: float = 1e-5):
     """Per-sample GroupNorm of a channels-last tensor, computed in fp32 and
-    cast back to x's dtype."""
+    cast back to x's dtype; of a `Sharded` one with every shard's
+    statistics."""
     b, c = x.shape[0], x.shape[-1]
+    if isinstance(x, Sharded):
+        xs = [p.float().reshape(b, -1, groups, c // groups) for p in x.parts]
+        means, variances = spatial.group_stats(xs)
+        return each(lambda p, xf, mean, var, g, h: (((xf - mean) * torch.rsqrt(var + eps)).reshape(p.shape)
+                                                      * g.float() + h.float()).to(p.dtype),
+                    x, xs, means, variances, scale, bias)
     xf = x.float().reshape(b, -1, groups, c // groups)
     var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, correction=0)
     xn = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
@@ -75,10 +96,10 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups:
 
 
 def conv_nd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-            stride: int = 1, padding: Optional[int] = None) -> torch.Tensor:
+            stride: int = 1, padding=None) -> torch.Tensor:
     """Zero-padded convolution of a channels-last tensor with a (O, I, *k)
-    kernel, k//2 on every side unless `padding` says ('SAME' for stride 1);
-    computes in x's dtype."""
+    kernel, k//2 on every side unless `padding` (an int, or one per spatial
+    axis) says ('SAME' for stride 1); computes in x's dtype."""
     dims = x.ndim - 2
     y = _CONV[dims](x.movedim(-1, 1), weight.to(x.dtype),
                     None if bias is None else bias.to(x.dtype),
@@ -86,12 +107,28 @@ def conv_nd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     return y.movedim(1, -1).contiguous()
 
 
-def _raw_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-              pallas: bool = False) -> torch.Tensor:
+def _conv_sharded(x: Sharded, weight: torch.Tensor, bias: Optional[torch.Tensor], stride: int = 1,
+                  padding: Optional[int] = None) -> Sharded:
+    """`conv_nd` of a tensor sharded along its leading spatial axis: each
+    shard with the planes the conv reads from its neighbours (`spatial.halo`:
+    `padding` before it, k - stride - padding after it) and no padding along
+    that axis.  A shard must start at a multiple of `stride`: its parts are
+    equal, and even where the stride is 2."""
+    k = weight.shape[-1]
+    pad = k // 2 if padding is None else padding
+    valid = (0,) + (pad,) * (x.ndim - 3)
+    parts = spatial.halo(x, pad, max(0, k - stride - pad))
+    return each(lambda _, p, w, b: conv_nd(p, w, b, stride, valid), x, parts, weight, bias)
+
+
+def _raw_conv(x, weight: torch.Tensor, bias: Optional[torch.Tensor], pallas: bool = False):
     """'SAME' conv of a ResBlock's unfused path (nn/blocks.py:97-112 in the
     JAX package): with `pallas`, a 3D 3x3x3 conv at Cin = 128, H >= 64 and
     H % 8 == 0 goes to the conv kernel (`conv3d_3x3_v2`, then + bias in x's
-    dtype), every other one to `conv_nd`."""
+    dtype), every other one to `conv_nd` (`_conv_sharded` for a `Sharded`
+    x, which never takes the kernel: `ResBlock` gathers such blocks)."""
+    if isinstance(x, Sharded):
+        return _conv_sharded(x, weight, bias)
     dims = x.ndim - 2
     if (pallas and dims == 3 and weight.shape[-1] == 3 and x.shape[-1] == 128 and x.shape[2] >= 64
             and x.shape[2] % 8 == 0):
@@ -140,15 +177,19 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, *(kernel,) * dims, device=device))
         self.bias = nn.Parameter(torch.zeros(out_ch, device=device)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        if isinstance(x, Sharded):
+            return _conv_sharded(x, self.weight, self.bias, self.stride, self.padding)
         return conv_nd(x, self.weight, self.bias, self.stride, self.padding)
 
 
 class Linear(nn.Linear):
-    """nn.Linear with fp32 params cast to the input dtype per call."""
+    """nn.Linear with fp32 params cast to the input dtype (and moved to its
+    device, for a shard on another card) per call."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), None if self.bias is None else self.bias.to(x.dtype))
+        return F.linear(x, self.weight.to(x.device, x.dtype),
+                        None if self.bias is None else self.bias.to(x.device, x.dtype))
 
 
 class Upsample(nn.Module):
@@ -158,8 +199,8 @@ class Upsample(nn.Module):
         super().__init__()
         self.conv = Conv(channels, channels, 3, dims, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(_nearest_up2(x))
+    def forward(self, x):
+        return self.conv(each(_nearest_up2, x))
 
 
 class Downsample(nn.Module):
@@ -258,20 +299,21 @@ class ResBlock(nn.Module):
         mean1, var1 = group_moments(x, self.g1)
         return gn_affine_from_moments(mean1, var1, self.norm1_scale, self.norm1_bias, self.g1)
 
-    def _glue1(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(group_norm(x, self.norm1_scale, self.norm1_bias, self.g1))
+    def _glue1(self, x):
+        return each(F.silu, group_norm(x, self.norm1_scale, self.norm1_bias, self.g1))
 
-    def _glue2(self, h: torch.Tensor, emb_out: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+    def _glue2(self, h, emb_out: torch.Tensor, keep):
         """silu(GN2(h + emb)) (or GN2 with FiLM), then the drawn dropout mask."""
         eo = emb_out.to(h.dtype).reshape(emb_out.shape[:1] + (1,) * (h.ndim - 2) + emb_out.shape[1:])
         if self.use_scale_shift_norm:
             scale, shift = eo.chunk(2, dim=-1)
-            h = group_norm(h, self.norm2_scale, self.norm2_bias, self.g2) * (1 + scale) + shift
+            h = each(lambda g, a, b: g * (1 + a) + b, group_norm(h, self.norm2_scale, self.norm2_bias, self.g2),
+                     scale, shift)
         else:
-            h = group_norm(h + eo, self.norm2_scale, self.norm2_bias, self.g2)
-        h = F.silu(h)
+            h = group_norm(each(torch.add, h, eo), self.norm2_scale, self.norm2_bias, self.g2)
+        h = each(F.silu, h)
         if keep is not None:
-            h = torch.where(keep, h / (1.0 - self.dropout), torch.zeros_like(h))
+            h = each(lambda a, k: torch.where(k, a / (1.0 - self.dropout), torch.zeros_like(a)), h, keep)
         return h
 
     def _fused_forward(self, x: torch.Tensor, emb_out: torch.Tensor, seg) -> torch.Tensor:
@@ -293,31 +335,36 @@ class ResBlock(nn.Module):
         a2, s2 = seg(self._gn2_affine, st, emb_out, n)
         return fused_affine_silu_conv3d(y1, k2, a2, s2, self.conv2_bias, residual, False)
 
-    def _dropout_keep(self, x: torch.Tensor, noise) -> Optional[torch.Tensor]:
+    def _dropout_keep(self, x, noise):
         """The keep mask of the dropout before conv2 (flax `nn.Dropout`: keep
-        where a uniform < 1 - rate), drawn from `noise` at conv1's output
-        shape; None at rate 0 or without a noise source."""
+        where a uniform < 1 - rate), drawn from `noise` at conv1's whole
+        output shape (cut like a `Sharded` x); None at rate 0 or without a
+        noise source."""
         if noise is None or self.dropout <= 0.0:
             return None
-        spatial = [s * 2 if self.up else s // 2 if self.down else s for s in x.shape[1:-1]]
-        return noise.uniform((x.shape[0], *spatial, self.out_ch)).to(x.device) < 1.0 - self.dropout
+        spatial_shape = [s * 2 if self.up else s // 2 if self.down else s for s in x.shape[1:-1]]
+        keep = noise.uniform((x.shape[0], *spatial_shape, self.out_ch)) < 1.0 - self.dropout
+        return spatial.split(keep, x.devices) if isinstance(x, Sharded) else keep.to(x.device)
 
-    def _forward(self, x: torch.Tensor, emb: torch.Tensor, keep: Optional[torch.Tensor], seg) -> torch.Tensor:
+    def _forward(self, x, emb: torch.Tensor, keep, seg):
         emb_out = F.linear(F.silu(emb.float()), self.emb_kernel, self.emb_bias)  # fp32
-        if self.can_fuse(x) and keep is None:
+        if not isinstance(x, Sharded) and self.can_fuse(x) and keep is None:
             return self._fused_forward(x, emb_out, seg)
         h = seg(self._glue1, x)
         if self.up:
-            h, x = _nearest_up2(h), _nearest_up2(x)
+            h, x = each(_nearest_up2, h), each(_nearest_up2, x)
         elif self.down:
-            h, x = _avg_pool2(h), _avg_pool2(x)
+            h, x = each(_avg_pool2, h), each(_avg_pool2, x)
         h = _raw_conv(h, self.conv1_kernel, self.conv1_bias, self.pallas_conv)
         h = _raw_conv(seg(self._glue2, h, emb_out, keep), self.conv2_kernel, self.conv2_bias, self.pallas_conv)
         if self.in_ch != self.out_ch:
-            x = conv_nd(x, self.skip_kernel, self.skip_bias)
-        return (x + h).to(h.dtype)
+            x = each(conv_nd, x, self.skip_kernel, self.skip_bias)
+        return each(lambda a, b: (a + b).to(b.dtype), x, h)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor, noise=None) -> torch.Tensor:
+    def forward(self, x, emb: torch.Tensor, noise=None):
+        if isinstance(x, Sharded) and (self.pallas_conv or self.can_fuse(x)):
+            # the conv kernel paths run on the whole block
+            return spatial.split(self.forward(spatial.gather(x, emb.device), emb, noise), x.devices)
         keep = self._dropout_keep(x, noise)
         direct = lambda fn, *args: fn(*args)
         if self.remat is None or not torch.is_grad_enabled():
@@ -340,8 +387,13 @@ class AttentionBlock(nn.Module):
         self.qkv = Linear(channels, 3 * channels, device=device)
         self.proj_out = Linear(channels, channels, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         b, c = x.shape[0], x.shape[-1]
-        seq = x.reshape(b, -1, c)
-        a = multi_head_self_attention(self.qkv(self.norm(seq)), self.heads)
-        return (seq + self.proj_out(a)).reshape(x.shape)
+        seq = each(lambda p: p.reshape(b, -1, c), x)
+        qkv = each(self.qkv, self.norm(seq))
+        q, k, v = (each(lambda t, i=i: t.chunk(3, dim=-1)[i], qkv) for i in range(3))
+        tq = None
+        if isinstance(qkv, Sharded):  # each shard's queries against every shard's keys and values
+            k, v, tq = spatial.gather_tokens(k), spatial.gather_tokens(v), q.shape[1]
+        a = each(lambda q_, k_, v_: multi_head_cross_attention(q_, k_, v_, self.heads, tq), q, k, v)
+        return each(lambda s, o, p: (s + self.proj_out(o)).reshape(p.shape), seq, a, x)

@@ -22,6 +22,14 @@ given) each value is kept with probability 1 - p, the kept ones scaled by
 1 / (1 - p); the masks come from the `NoiseSource` in the order the forward
 meets them (a block's attn1 output, attn2 output, then the feed-forward's
 hidden layer).  They cannot replay flax's per-module dropout keys.
+
+Every block takes a `Sharded` input (`parallel/spatial.py`: the UNet's
+'model' axis, the tokens of a spatially sharded site): LayerNorm, the
+projections and the feed-forward run shard by shard; a self-attention
+(`attn1`, or `attn2` without a context) gathers every shard's keys and
+values and dispatches on the site's whole query count; a cross-attention
+over the replicated context stays on each shard; a dropout mask is drawn
+for the whole tensor and cut like it.
 """
 
 from __future__ import annotations
@@ -33,23 +41,26 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_cross_attention
+from ..parallel import spatial
+from ..parallel.spatial import Sharded, each
 from .blocks import GroupNorm32, Linear
 
 __all__ = ["dropout", "LayerNorm", "GEGLU", "FeedForward", "CrossAttention", "BasicTransformerBlock",
            "SequenceTransformer"]
 
 
-def dropout(x: torch.Tensor, rate: float, noise=None) -> torch.Tensor:
+def dropout(x, rate: float, noise=None):
     """flax `nn.Dropout(rate)`: the identity without a noise source (sampling,
     validation); else keep where a uniform draw < 1 - rate, scaled by
-    1 / (1 - rate), zero elsewhere."""
+    1 / (1 - rate), zero elsewhere.  A `Sharded` x draws its whole shape."""
     if noise is None or rate <= 0.0:
         return x
     if rate >= 1.0:
-        return torch.zeros_like(x)
+        return each(torch.zeros_like, x)
     keep_prob = 1.0 - rate
-    keep = noise.uniform(x.shape).to(x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+    keep = noise.uniform(x.shape) < keep_prob
+    keep = spatial.split(keep, x.devices) if isinstance(x, Sharded) else keep.to(x.device)
+    return each(lambda a, k: torch.where(k, a / keep_prob, torch.zeros_like(a)), x, keep)
 
 
 class LayerNorm(nn.Module):
@@ -63,7 +74,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, self.eps).to(x.dtype)
+        return F.layer_norm(x.float(), self.weight.shape, self.weight.to(x.device), self.bias.to(x.device),
+                            self.eps).to(x.dtype)
 
 
 class GEGLU(nn.Module):
@@ -85,8 +97,8 @@ class FeedForward(nn.Module):
         self.GEGLU_0 = GEGLU(dim, dim * mult, device=device)
         self.Dense_0 = Linear(dim * mult, dim, device=device)
 
-    def forward(self, x: torch.Tensor, noise=None) -> torch.Tensor:
-        return self.Dense_0(dropout(self.GEGLU_0(x), self.rate, noise))
+    def forward(self, x, noise=None):
+        return each(self.Dense_0, dropout(each(self.GEGLU_0, x), self.rate, noise))
 
 
 class CrossAttention(nn.Module):
@@ -104,10 +116,14 @@ class CrossAttention(nn.Module):
         self.to_v = Linear(ctx, inner, bias=False, device=device)
         self.to_out = Linear(inner, query_dim, device=device)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None, noise=None) -> torch.Tensor:
+    def forward(self, x, context: Optional[torch.Tensor] = None, noise=None):
         ctx = x if context is None else context
-        out = multi_head_cross_attention(self.to_q(x), self.to_k(ctx), self.to_v(ctx), self.heads)
-        return dropout(self.to_out(out), self.rate, noise)
+        q, k, v = each(self.to_q, x), each(self.to_k, ctx), each(self.to_v, ctx)
+        if isinstance(k, Sharded):  # self-attention: every shard's keys and values
+            k, v = spatial.gather_tokens(k), spatial.gather_tokens(v)
+        tq = x.shape[1] if isinstance(x, Sharded) else None
+        out = each(lambda q_, k_, v_: multi_head_cross_attention(q_, k_, v_, self.heads, tq), q, k, v)
+        return dropout(each(self.to_out, out), self.rate, noise)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -128,10 +144,10 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, device=device)
         self.ff = FeedForward(dim, dropout=dropout, device=device)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None, noise=None) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x), context if self.disable_self_attn else None, noise)
-        x = x + self.attn2(self.norm2(x), context, noise)
-        return x + self.ff(self.norm3(x), noise)
+    def forward(self, x, context: Optional[torch.Tensor] = None, noise=None):
+        x = each(torch.add, x, self.attn1(each(self.norm1, x), context if self.disable_self_attn else None, noise))
+        x = each(torch.add, x, self.attn2(each(self.norm2, x), context, noise))
+        return each(torch.add, x, self.ff(each(self.norm3, x), noise))
 
 
 class SequenceTransformer(nn.Module):
@@ -151,9 +167,9 @@ class SequenceTransformer(nn.Module):
                                                                 disable_self_attn, device=device))
         self.proj_out = Linear(inner, channels, device=device)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None, noise=None) -> torch.Tensor:
+    def forward(self, x, context: Optional[torch.Tensor] = None, noise=None):
         b, c = x.shape[0], x.shape[-1]
-        h = self.proj_in(self.norm(x).reshape(b, -1, c))
+        h = each(lambda n: self.proj_in(n.reshape(b, -1, c)), self.norm(x))
         for i in range(self.depth):
             h = getattr(self, f"block_{i}")(h, context, noise)
-        return x + self.proj_out(h).reshape(x.shape)
+        return each(lambda p, o: p + self.proj_out(o).reshape(p.shape), x, h)

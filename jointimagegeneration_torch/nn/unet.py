@@ -44,8 +44,33 @@ blocks, with 'conv_outputs' only the glue between the convs (see
 `nn.blocks.ResBlock`).  Any other policy raises ValueError.
 
 Not ported here: the UNet-level `dropout` (no config sets it; ResBlock itself
-has it), `use_scale_shift_norm` / `resblock_updown` / `num_heads` options
-(ResBlock itself has scale-shift and up/down) and `spatial_axis`.
+has it) and the `use_scale_shift_norm` / `resblock_updown` / `num_heads`
+options (ResBlock itself has scale-shift and up/down).
+
+`mesh` (`parallel.mesh.Mesh`) and `spatial_axis` are the JAX UNet's mesh
+placement (`P("data", spatial_axis, None, ...)` on its activations), passed
+explicitly where JAX reads the mesh of a `with mesh:` block; `set_mesh`
+changes them.  The forward takes whole tensors and returns a whole one on
+the input's device.  A batch's rows are cut over the data axis
+(`parallel.mesh.shard_batch`), each row of the mesh running on its own
+devices with its copy of the weights (`parallel.mesh.replicate`, once per
+device, made again when the weights change); no gradient reaches this
+module through a copy, so a mesh with rows on other devices runs only
+without autograd (ValueError otherwise: the trainers' data axis is
+torchrun's).  With `spatial_axis="model"` a row's activations are also
+split along their leading spatial axis (D in 3D, H in 2D) over its 'model'
+devices, after the `cond` concatenation; the parameters of a shard's ops
+move to its device per call (free where the device repeats), so a
+sharded step's gradients land on the row's module.  Every block takes the
+shards (`nn.blocks`, `parallel/spatial.py`), `feature_cond` maps are split at
+their sites and the skips stay sharded.  A level is sharded while its
+extent splits into equal shards, even ones where a Downsample follows (a
+shard that starts at an odd index would need the plane after it too);
+deeper levels run gathered on the row's first device and are split again
+on the way up.  The fp32 head runs on the shards, which are gathered after
+it.  Sharding adds no parameter: the same state dict loads either way.
+`spatial_axis` without a mesh raises ValueError, and so does a 'model' axis
+wider than 1 without `spatial_axis`.
 
 `use_fused_resblock` (False | 'xla' | 'kernel' | True) and `use_pallas_conv`
 are the JAX UNet's opt-in kernel paths (nn/unet.py:91-94 there), passed to
@@ -62,6 +87,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.runtime import resolve_device
+from ..parallel import spatial
+from ..parallel.mesh import Mesh, replicate, shard_batch
+from ..parallel.spatial import Sharded, each
 from .blocks import AttentionBlock, Conv, Downsample, GroupNorm32, Linear, ResBlock, Upsample, timestep_embedding
 from .transformer import SequenceTransformer
 
@@ -119,6 +147,8 @@ class UNet(nn.Module):
         remat: bool = False,
         remat_levels: Optional[Sequence[int]] = None,
         remat_policy: Optional[str] = None,
+        spatial_axis: Optional[str] = None,
+        mesh: Optional[Mesh] = None,
     ):
         super().__init__()
         if remat_policy not in (None, "conv_outputs"):
@@ -192,6 +222,43 @@ class UNet(nn.Module):
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
         init_weights(self, generator)
+        self._replicas, self._replica_version = {}, None
+        self.set_mesh(mesh, spatial_axis)
+
+    def set_mesh(self, mesh: Optional[Mesh] = None, spatial_axis: Optional[str] = None) -> None:
+        """Run later calls over `mesh` (None: on this module's device), with
+        the activations sharded over its 'model' axis when `spatial_axis` is
+        "model" (see the module docstring)."""
+        if spatial_axis is not None and mesh is None:
+            raise ValueError("UNet: spatial_axis needs a mesh")
+        if spatial_axis not in (None, "model"):
+            raise ValueError(f"UNet: spatial_axis must be the mesh's 'model' axis, got {spatial_axis!r}")
+        if mesh is not None and mesh.shape["model"] > 1 and spatial_axis is None:
+            raise ValueError(f"UNet: a {mesh.shape} mesh shards activations only with spatial_axis='model'")
+        self.mesh, self.spatial_axis = mesh, spatial_axis
+
+    def _replica(self, device: torch.device) -> "UNet":
+        """This module's copy on `device` (itself on its own device), kept
+        across meshes and made again after an in-place change of any
+        parameter (a load, an optimizer step).  Parameters made in inference
+        mode count no changes, so a module built there keeps its copies."""
+        version = sum(p._version for p in self.parameters() if not p.is_inference())
+        copies = self._replicas if version == self._replica_version else {}
+        self._replicas = {}  # a copy carries none of the others
+        if device not in copies:
+            copies.update(replicate(Mesh([[device]]), self))
+        self._replicas, self._replica_version = copies, version
+        return copies[device]
+
+    def _sharded_levels(self, extent: int, k: int) -> list:
+        """Per level, whether it runs sharded over k devices, from the input's
+        leading spatial extent."""
+        out = []
+        for level in range(len(self.channel_mult)):
+            last = level == len(self.channel_mult) - 1
+            out.append(k > 1 and extent % k == 0 and (last or extent // k % 2 == 0) and all(out))
+            extent = (extent + 1) // 2
+        return out
 
     def _block(self, name: str, h: torch.Tensor, emb: torch.Tensor,
                context: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -214,10 +281,41 @@ class UNet(nn.Module):
         if set(feature_cond or {}) != set(self.feature_cond_channels):
             raise ValueError(f"UNet built for feature_cond sites {sorted(self.feature_cond_channels)}, given "
                              f"{sorted(feature_cond or {})}")
+        mesh = self.mesh
+        if mesh is None or mesh.devices == [[self.time_embed_0.weight.device]]:
+            return self._run(x, timesteps, cond, context, y, feature_cond, None)
+        if torch.is_grad_enabled() and any(row[0] != self.time_embed_0.weight.device for row in mesh.devices):
+            raise ValueError(f"UNet: the rows of {mesh} on other devices run weight copies, which no gradient "
+                             "reaches; call it without autograd (train data-parallel over torchrun)")
+        sites = sorted(feature_cond or {})
+        cut = [[None] * len(mesh.devices) if t is None else shard_batch(mesh, t)
+               for t in (x, timesteps, cond, context, y, *(feature_cond[i] for i in sites))]
+        outs = []
+        for r, row in enumerate(mesh.devices):
+            xr, tr, cr, ctx, yr, *fc = (c[r] for c in cut)
+            if xr.shape[0]:
+                outs.append(self._replica(row[0])._run(xr, tr, cr, ctx, yr, dict(zip(sites, fc)) or None,
+                                                       row if self.spatial_axis else None))
+        return torch.cat([o.to(x.device) for o in outs]) if len(outs) > 1 else outs[0].to(x.device)
 
-        def inject(h: torch.Tensor, idx: int) -> torch.Tensor:
+    def _run(self, x, timesteps, cond, context, y, feature_cond, devices) -> torch.Tensor:
+        """The forward on x's device, sharded over `devices` (a mesh row's
+        'model' devices) where the levels allow."""
+        levels = self._sharded_levels(x.shape[1], len(devices) if devices else 1)
+
+        def at(level: int, h):
+            """h as `level` runs: split over the row, or whole on x's device."""
+            if levels[level] and not isinstance(h, Sharded):
+                return spatial.split(h, devices)
+            if not levels[level] and isinstance(h, Sharded):
+                return spatial.gather(h, x.device)
+            return h
+
+        def inject(h, idx: int):
             if feature_cond is not None and idx in feature_cond:
-                h = torch.cat([h, feature_cond[idx].to(h.dtype)], dim=-1)
+                fc = feature_cond[idx]
+                fc = spatial.split(fc, h.devices) if isinstance(h, Sharded) else fc
+                h = each(lambda a, f: torch.cat([a, f.to(a.dtype)], dim=-1), h, fc)
             return h
 
         context = None if context is None or self.context_dim is None else context.to(self.dtype)
@@ -229,7 +327,7 @@ class UNet(nn.Module):
         if cond is not None:
             x = torch.cat([x, cond.to(x.dtype)], dim=-1)
         in_dtype = x.dtype
-        h = self.in_conv(inject(x.to(self.dtype), 0))
+        h = self.in_conv(inject(at(0, x.to(self.dtype)), 0))
         hs = [h]
         ds, block_idx = 1, 1
         n_levels = len(self.channel_mult)
@@ -241,21 +339,24 @@ class UNet(nn.Module):
                 hs.append(h)
                 block_idx += 1
             if level != n_levels - 1:
-                h = self._block(f"down_{level}_ds", inject(h, block_idx), emb)
+                h = at(level + 1, self._block(f"down_{level}_ds", inject(h, block_idx), emb))
                 hs.append(h)
                 ds *= 2
                 block_idx += 1
         h = self.mid_res2(self._block("mid_attn", self.mid_res1(h, emb), emb, context), emb)
         for level in reversed(range(n_levels)):
             for i in range(self.num_res_blocks + 1):
-                h = self._block(f"up_{level}_{i}_res", torch.cat([h, hs.pop()], dim=-1), emb)
+                h = self._block(f"up_{level}_{i}_res", each(lambda a, b: torch.cat([a, b], dim=-1), h, hs.pop()),
+                                emb)
                 if ds in self.attention_resolutions:
                     h = self._block(f"up_{level}_{i}_attn", h, emb, context)
                 if level and i == self.num_res_blocks:
-                    h = self._block(f"up_{level}_us", h, emb)
+                    h = at(level - 1, self._block(f"up_{level}_us", h, emb))
                     ds //= 2
-        h = F.silu(self.out_norm(h.float()))
+        h = each(F.silu, self.out_norm(each(lambda p: p.float(), h)))
         h = self.out_conv(h)
         if self.softmax_output:
-            h = torch.softmax(h, dim=-1)
+            h = each(lambda p: torch.softmax(p, dim=-1), h)
+        if isinstance(h, Sharded):
+            h = spatial.gather(h, x.device)
         return h.to(in_dtype) if in_dtype != torch.float32 else h

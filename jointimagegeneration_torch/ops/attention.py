@@ -7,11 +7,17 @@ Sites with Tq >= 512 query tokens whose shape the flash rule accepts go to
 backward, on CUDA tensors; their plain versions on CPU tensors); the rest take
 the plain path, which scales q and k by d^-1/4 each and takes an fp32
 softmax, as the reference does.  Both differentiate on either device.
+
+Under spatial sharding (`parallel/spatial.py`) a shard attends with its own
+queries against every key; the rule then reads the site's whole query count
+`tq`, as the JAX program sees the global shape, and the kernel runs at the
+shard's.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -37,8 +43,10 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return torch.matmul(plain_attention_weights(q, k).to(v.dtype), v)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tq: Optional[int] = None) -> torch.Tensor:
+    """The flash kernel or the plain path by the rule above; `tq` is the
+    site's whole query count (q's own by default)."""
+    tq, tk, d = q.shape[2] if tq is None else tq, k.shape[2], q.shape[3]
     if tq >= FLASH_MIN_SEQ and flash_eligible(tq, tk, d):
         return flash_attention(q, k, v)
     return plain_attention(q, k, v)
@@ -60,7 +68,8 @@ def multi_head_self_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     return _merge_heads(attention(_split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads)))
 
 
-def multi_head_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+def multi_head_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                               tq: Optional[int] = None) -> torch.Tensor:
     """q: (B, Tq, C); k, v: (B, Tk, C) -> (B, Tq, C).  Tq and Tk may differ;
-    the flash rule reads both."""
-    return _merge_heads(attention(_split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads)))
+    the flash rule reads both (`tq`: the site's whole query count)."""
+    return _merge_heads(attention(_split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads), tq))

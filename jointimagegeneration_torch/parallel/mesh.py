@@ -1,7 +1,9 @@
-"""Data parallelism over torch.distributed: the 'data' axis of the JAX mesh.
+"""The JAX package's ('data', 'model') mesh: data parallelism over
+torch.distributed for training, and a single-controller device grid for
+sampling and spatial sharding.
 
-Counterpart of `jointimagegeneration_tpu/parallel/mesh.py` with one process
-per GPU, as torchrun starts them:
+Counterpart of `jointimagegeneration_tpu/parallel/mesh.py`.  The trainers
+run one process per GPU, as torchrun starts them:
 
   * `maybe_initialize_distributed` joins the process group that the
     launcher's environment describes (RANK, WORLD_SIZE, MASTER_ADDR and
@@ -22,19 +24,38 @@ per GPU, as torchrun starts them:
     W-rank step computes the one-process step of the concatenated batch;
   * `is_chief` gates the metrics, the checkpoints and the run config.
 
-The 'model' axis (spatial sharding of the UNet) is not ported.
+Within one process, `Mesh` is a (data, model) grid of devices that the
+process drives itself, as one JAX process drives every device of its mesh
+(the tests and the one-card smoke repeat a device):
+  * `make_mesh(data, model, devices)` lays out the grid: `devices` defaults
+    to this process's cards (under torchrun the `model` cards from
+    LOCAL_RANK * model on, the 'model' axis inside one host as the JAX layout
+    keeps it on ICI neighbours); too few devices raise ValueError;
+  * `make_mesh_for_batch(batch_size, model)` takes the largest data extent
+    that divides the batch, over the local cards (`local_devices`), as the
+    JAX CLIs' batched sampling does;
+  * `replicate` copies a module once per distinct device of a mesh; a
+    repeated device, and the module's own, share its copy;
+  * `shard_batch` cuts a batch's rows over the data axis;
+  * the 'model' axis shards the UNet's activations along their leading
+    spatial axis (`nn.unet.UNet(spatial_axis="model", mesh=...)`, the
+    exchanges in `parallel/spatial.py`).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
+from ..core.runtime import resolve_device
+
 __all__ = ["maybe_initialize_distributed", "world_size", "rank", "is_chief", "local_batch_size",
-           "average_gradients", "mean_over_ranks", "rank_rows"]
+           "average_gradients", "mean_over_ranks", "rank_rows", "Mesh", "local_devices", "make_mesh",
+           "make_mesh_for_batch", "replicate", "shard_batch"]
 
 _LAUNCH_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
 
@@ -151,3 +172,95 @@ def rank_rows(noise):
     rank's rows.  Every draw of a train step is batch-first."""
     w = world_size()
     return noise if w == 1 else _RankRows(noise, rank(), w)
+
+
+class Mesh:
+    """A ('data', 'model') grid of devices that one process drives: row r
+    holds the 'model' devices of data index r.  A device may appear more
+    than once."""
+
+    def __init__(self, devices: Sequence[Sequence[torch.device]]):
+        self.devices = [[torch.device(d) for d in row] for row in devices]
+        if not self.devices or len({len(row) for row in self.devices}) != 1 or not self.devices[0]:
+            raise ValueError(f"a mesh needs equal non-empty rows, got {devices}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": len(self.devices), "model": len(self.devices[0])}
+
+    def distinct(self) -> List[torch.device]:
+        """Each device once, in grid order."""
+        return list(dict.fromkeys(d for row in self.devices for d in row))
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, {[[str(d) for d in row] for row in self.devices]})"
+
+
+def _resolved(device: torch.device) -> torch.device:
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def local_devices(device=None) -> List[torch.device]:
+    """This process's devices of `device`'s kind: every local card for CUDA
+    (the default, through `resolve_device`'s rule), else `device` alone."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def make_mesh(data: Optional[int] = None, model: int = 1, devices: Optional[Sequence] = None,
+              device=None) -> Mesh:
+    """A data x model mesh over `devices` (default: this process's cards of
+    `device`'s kind; under torchrun with `data` unset, the `model` cards from
+    LOCAL_RANK * model on).  `data` defaults to what the devices fill;
+    ValueError unless data * model devices are given."""
+    if devices is None:
+        devices = local_devices(device)
+        if data is None and "LOCAL_RANK" in os.environ and model > 1:
+            start = int(os.environ["LOCAL_RANK"]) * model
+            devices = devices[start:start + model]
+    devices = [_resolved(torch.device(d)) for d in devices]
+    n = len(devices)
+    if model < 1 or (data is not None and data < 1):
+        raise ValueError(f"mesh axes must be >= 1, got data={data}, model={model}")
+    if data is None:
+        data = n // model
+    if data < 1 or data * model != n:
+        raise ValueError(f"a {data or '?'} x {model} mesh needs {max(data, 1) * model} devices, {n} given")
+    return Mesh([devices[r * model:(r + 1) * model] for r in range(data)])
+
+
+def make_mesh_for_batch(batch_size: int, model: int = 1, device=None) -> Mesh:
+    """The mesh of a batched sampling call: its data extent the largest one
+    (at most the local cards / `model`) that divides `batch_size`."""
+    devices = local_devices(device)
+    max_data = max(1, len(devices) // model)
+    data = max(d for d in range(1, max_data + 1) if max(1, batch_size) % d == 0)
+    use = devices[:data * model]
+    if len(use) < len(devices) and is_chief():
+        print(f"mesh: batch_size={batch_size} not divisible by {len(devices)} devices; "
+              f"using {len(use)} ({data}x{model})")
+    return make_mesh(data=data, model=model, devices=use)
+
+
+def replicate(mesh: Mesh, module: torch.nn.Module) -> Dict[torch.device, torch.nn.Module]:
+    """{device: module copy} for each distinct device of `mesh`: the module
+    itself on its own device, a copy with its parameters and buffers on
+    each other one (made outside inference mode, so it stays a normal
+    module)."""
+    own = _resolved(next(module.parameters()).device)
+    out = {}
+    with torch.inference_mode(False), torch.no_grad():
+        for d in mesh.distinct():
+            out[d] = module if d == own else copy.deepcopy(module).to(d)
+    return out
+
+
+def shard_batch(mesh: Mesh, batch: torch.Tensor) -> List[torch.Tensor]:
+    """The rows of `batch` cut over the data axis, contiguously (the last
+    rows may be fewer), each on its row's first device."""
+    rows = torch.tensor_split(batch, len(mesh.devices))
+    return [r.to(row[0]) for r, row in zip(rows, mesh.devices)]

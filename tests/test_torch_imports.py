@@ -208,6 +208,22 @@ def test_trainer_extras_and_stage2_conditioning_modules_import_no_jax_and_yaml_l
     assert not [m for m, top in found if m.split(".")[0] == "yaml" and top], found
 
 
+SLICE_18_MODULES = ["parallel/spatial.py", "parallel/mesh.py", "nn/transformer.py", "ops/attention.py",
+                    "models/mask_sampler.py", "cli/sample.py"]
+
+
+@pytest.mark.parametrize("name", SLICE_18_MODULES)
+def test_spatial_sharding_modules_import_no_jax_and_yaml_lazily(name):
+    """The 'model' axis's exchanges, the single-controller mesh and the
+    modules that take sharded activations or build a batch's data mesh: no
+    JAX, flax or JAX-package import, and `yaml` only inside a function."""
+    path = PORT / name
+    assert path in _port_sources()
+    found = list(_imports(path))
+    assert not [m for m, _ in found if m.split(".")[0] in FORBIDDEN], found
+    assert not [m for m, top in found if m.split(".")[0] == "yaml" and top], found
+
+
 def test_tensorboard_and_wandb_only_imported_where_asked_for():
     """`wandb` is imported only in `MetricLogger.__init__` when a project is
     given, TensorBoard's writers only by name inside `_tensorboard_writer`

@@ -22,7 +22,14 @@ environment on a free localhost port), one spawn for the module:
     before any step;
 then, in this process: no launcher environment, no process group; and the
 loader's per-rank shards of the epoch permutation against the JAX loader's
-`_epoch_indices` for 1, 2 and 3 processes."""
+`_epoch_indices` for 1, 2 and 3 processes.
+
+The single-controller mesh (the counterparts of `tests/test_sharding.py`'s
+fast cases), on eight stand-in cards (`torch.device("cuda", i)` names no
+card until a tensor is put there): the mesh shapes, `make_mesh_for_batch`
+at batch sizes 2, 3, 6, 8 and 16 and at model = 2, every device once, the
+errors; `replicate` and `shard_batch`; then `cli.sample`'s batched `stage:
+mask` over a data axis of two CPU devices, equal to one device."""
 
 import os
 import socket
@@ -231,3 +238,78 @@ def test_loader_shards_match_jax(monkeypatch, procs):
     monkeypatch.setattr(mesh, "rank", lambda: 0)
     with pytest.raises(ValueError, match="dataset shard"):
         DataLoader(list(range(5)), batch_size=2)
+
+
+CARDS = [torch.device("cuda", i) for i in range(8)]
+
+
+@pytest.fixture
+def eight_cards(monkeypatch):
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.setattr(mesh, "local_devices", lambda device=None: list(CARDS))
+
+
+def test_make_mesh_shapes(eight_cards, monkeypatch):
+    assert mesh.make_mesh().shape == {"data": 8, "model": 1}
+    m = mesh.make_mesh(data=4, model=2)
+    assert m.shape == {"data": 4, "model": 2}
+    assert m.devices[1] == CARDS[2:4]
+    assert mesh.make_mesh(model=4, devices=["cpu"] * 4).devices == [[torch.device("cpu")] * 4]  # a device may repeat
+    for bad in ({"data": 4, "model": 4}, {"model": 3}, {"data": 3}, {"model": 0}):
+        with pytest.raises(ValueError, match="mesh"):
+            mesh.make_mesh(**bad)
+    monkeypatch.setenv("LOCAL_RANK", "2")  # under torchrun: this rank's 'model' cards
+    assert mesh.make_mesh(model=2).devices == [CARDS[4:6]]
+
+
+@pytest.mark.parametrize("batch,model,used", [(2, 1, 2), (3, 1, 3), (6, 1, 6), (8, 1, 8), (16, 1, 8), (4, 2, 8)])
+def test_make_mesh_for_batch_uses_a_compatible_subset(eight_cards, batch, model, used):
+    m = mesh.make_mesh_for_batch(batch, model=model)
+    assert m.shape == {"data": used // model, "model": model}
+    assert batch % m.shape["data"] == 0
+    assert [d for row in m.devices for d in row] == CARDS[:used]
+
+
+def test_make_mesh_covers_every_device_once(eight_cards):
+    m = mesh.make_mesh(data=4, model=2)
+    flat = [d for row in m.devices for d in row]
+    assert sorted(flat, key=lambda d: d.index) == CARDS and m.distinct() == CARDS
+
+
+def test_replicate_and_shard_batch():
+    net = torch.nn.Linear(2, 3)
+    m = mesh.make_mesh(data=2, devices=["cpu"] * 2)
+    assert mesh.replicate(m, net) == {torch.device("cpu"): net}  # a repeated device shares the module
+    rows = mesh.shard_batch(m, torch.arange(6.0).reshape(3, 2))
+    assert [r.tolist() for r in rows] == [[[0.0, 1.0], [2.0, 3.0]], [[4.0, 5.0]]]
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_cli_batched_mask_over_two_devices_equals_one(tmp_path, monkeypatch, one_torch_thread):
+    """`stage: mask` at batch_size 2 over a data axis of two CPU devices:
+    each UNet call runs its rows apart, the draws stay the whole batch's, and
+    the labels are those of one device, bit for bit."""
+    from jointimagegeneration_torch.cli import sample
+
+    s1 = {"num_classes": 4, "time_steps": 20, "bf16": False,
+          "unet_openai": {"base_channels": 8, "channel_mult": [1, 2], "attention_resolutions": [2],
+                          "num_res_blocks": 1, "num_head_channels": 4},
+          "dataset": {"kind": "synthetic", "volume_shape": [4, 8, 8], "num_cases": 4, "seed": 1}}
+    cfg = {"stage": "mask", "device": "cpu", "seed": 3, "n_cases": 3, "batch_size": 2, "samples": 2, "mask_steps": 3,
+           "fresh_init_noise": 0.05, "stage1": s1}
+    one = sample.run({**cfg, "output_path": str(tmp_path / "one")})
+    meshes, make = [], sample.make_mesh_for_batch
+    monkeypatch.setattr(mesh, "local_devices", lambda device=None: [torch.device("cpu")] * 2)
+    monkeypatch.setattr(sample, "make_mesh_for_batch", lambda *a, **kw: meshes.append(make(*a, **kw)) or meshes[-1])
+    two = sample.run({**cfg, "output_path": str(tmp_path / "two")})
+    assert [m.shape for m in meshes] == [{"data": 2, "model": 1}]
+    assert len(np.unique(one["labels"])) > 1
+    np.testing.assert_array_equal(two["labels"], one["labels"])
