@@ -130,15 +130,21 @@ Phases, in order (any failure exits non-zero and prints no result line):
  15. real data: 3 abdominal CT cases (96 x 512 x 512 int16 HU, TotalSegmentator
      and crcseg volumes, 128-token text features) written as NIfTI with the
      port's writer, indexed by `cli.build_index` and laid out as an nnUNet
-     tree; the host seconds of a train item of each dataset kind; then
+     tree; the native data route (data/native.py, csrc/nifti_native.cc,
+     built with the CUDA sources): each dataset kind's item (and a file
+     list's) on the native route equal bit for bit to the numpy route's
+     (`datasets.native_available` patched to False), the host seconds of a
+     train item of each kind and of its parts on both routes, and the
+     trainers' loader s/item at 2 and 4 threads on both routes; then
      `cli.train_mask.run` (text-guided, full width) for 2 steps and a
      validation on the val case, `stage: mask` from its `checkpoints/`
      (labels equal to a by-hand load of the EMA weights), `cli.train_ldm.run`
      on `ruijin` (full width, 512x512) for 2 steps and a validation, `stage:
      ct` from its `checkpoints/` (2 slices, DDIM-50, LPIPS against the case's
      CT), and `cli.train_ldm.run` on `nnunet` for 2 steps: s/step, the
-     seconds each step waited on the loader, peak GiB; every file deleted at
-     the end;
+     seconds each step waited on the loader, peak GiB; every read of these
+     runs native (the native counters, no hand-over to numpy, no read
+     through the numpy reader); every file deleted at the end;
  16. vae extras reference: the six stock VAE extras (nn/vae.py) at small
      widths in fp32, 2D and 3D, card against CPU within 1e-4 of each
      output's max;
@@ -235,6 +241,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1430,11 +1437,14 @@ def sampling_run(flash, cfg: dict, label: str, card: str, ctx_len: int = 0) -> d
     stage2_calls x stage-2 sites times.  Returns the launches and stage-2
     s/slice."""
     from jointimagegeneration_torch.cli.sample import run
+    from jointimagegeneration_torch.data import native
+    from jointimagegeneration_torch.data.nifti import read_nifti
 
     s1, s2 = cfg["stage1"], cfg["stage2"]
     u2 = s2["unet_config"]["params"]
     expected = (stage1_launches(s1, cfg["mask_steps"], ctx_len)
                 + stage2_calls(cfg) * flash_sites([s2["slice_size"]] * 2, u2, "channel_mult"))
+    native.reset_counts()
     _reset_counts(flash)
     t0 = time.perf_counter()
     result = run(cfg, device="cuda")
@@ -1450,8 +1460,13 @@ def sampling_run(flash, cfg: dict, label: str, card: str, ctx_len: int = 0) -> d
     check(bool(np.isfinite(ct).all()), f"{label}: CT has non-finite values")
     check(float(ct.min()) >= 0.0 and float(ct.max()) <= 1.0, f"{label}: CT outside [0, 1]: {ct.min()} {ct.max()}")
     check(int(labels.min()) >= 0 and int(labels.max()) < s1["num_classes"], f"{label}: labels outside [0, 12)")
-    for name in ("image.nii.gz", "pred.nii.gz"):
-        check((Path(cfg["output_path"]) / "case_0000" / name).stat().st_size > 352, f"{label}: {name} not written")
+    # the writer pool's files, read back with the numpy reader, are the arrays run() returned
+    for name, vol in (("image.nii.gz", ct[0]), ("pred.nii.gz", labels[0, :cfg["slices"]].astype(np.uint8))):
+        back, _ = read_nifti(Path(cfg["output_path"]) / "case_0000" / name)
+        check(back.dtype == vol.dtype and back.shape == vol.shape and back.tobytes() == vol.tobytes(),
+              f"{label}: {name} reads back {back.dtype} {back.shape}, not the returned {vol.dtype} {vol.shape}")
+    check(native.counts()["write"] == 2 * cfg.get("n_cases", 1),
+          f"{label}: native writes {native.counts()}, expected image and pred per case")
     check(launches == expected, f"{label}: flash_fwd launched {launches} times, expected {expected}")
     sec = result["seconds"]
     route = ", ".join(f"{k} {cfg[k]}" for k in ("ddim_discretize", "warm_start", "guidance_scale") if k in cfg)
@@ -2910,13 +2925,43 @@ def _seconds(fn, *args):
     return out, min(times)
 
 
-def real_item_seconds(fixture: dict, card: str) -> dict:
-    """Host seconds of one train item of each dataset kind, and of its parts
-    (decode: read_nifti of its files; remap; resize or window + crop), each
-    the lesser of two calls."""
+@contextlib.contextmanager
+def plain_route():
+    """The datasets on their numpy route (`datasets.native_available`
+    patched to False), as the tests force it."""
     from jointimagegeneration_torch.data import datasets as D
+
+    saved = D.native_available
+    D.native_available = lambda: False
+    try:
+        yield
+    finally:
+        D.native_available = saved
+
+
+def _same(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def _same_items(got: dict, want: dict) -> bool:
+    return got.keys() == want.keys() and all(
+        _same(v, want[k]) if isinstance(v, np.ndarray) else v == want[k] for k, v in got.items())
+
+
+LOADER_THREADS = (2, 4)  # the trainers' default, and twice it
+
+
+def real_item_seconds(fixture: dict, card: str) -> dict:
+    """On the native route and on the numpy one: host seconds of one train
+    item of each dataset kind, and of its parts (decode: the reads of its
+    files; remap; resize or window + crop), each the lesser of two calls;
+    each kind's item (and a file list's read) equal bit for bit on the two
+    routes, and so each part; then the trainers' DataLoader s/item at 2 and
+    4 threads on both routes."""
+    from jointimagegeneration_torch.data import datasets as D
+    from jointimagegeneration_torch.data import native, nifti
     from jointimagegeneration_torch.data.classes import remap_totalseg_labels
-    from jointimagegeneration_torch.data.nifti import read_nifti
+    from jointimagegeneration_torch.data.generic import FileListDataset
     from jointimagegeneration_torch.data.transforms import crop_or_pad, resize_volume, window_norm
 
     index = fixture["index"]
@@ -2924,33 +2969,64 @@ def real_item_seconds(fixture: dict, card: str) -> dict:
     kinds = {"ruijin": D.RuijinMaskDataset(index, volume_shape=vshape),
              "ruijin_3d": D.RuijinVolumeDataset(index, volume_shape=vshape),
              "ruijin_slices": D.RuijinSlicePairDataset(index, slice_shape=REAL_STAGE2["dataset"]["slice_shape"]),
-             "nnunet": D.NNUNetLayoutDataset(fixture["nnunet"], slice_shape=REAL_STAGE2["dataset"]["slice_shape"])}
+             "nnunet": D.NNUNetLayoutDataset(fixture["nnunet"], slice_shape=REAL_STAGE2["dataset"]["slice_shape"]),
+             "file_list": FileListDataset(str(Path(fixture["nnunet"]) / "imagesTr" / "*_0000.nii.gz"))}
     ds = kinds["ruijin_slices"]
     case = ds.index[ds.keys[0]]
-    (seg, _), t_seg = _seconds(read_nifti, ds._resolve(case["totalseg"]))
-    (tumor, _), t_tumor = _seconds(read_nifti, ds._resolve(case["crcseg"]))
-    (img, _), t_img = _seconds(read_nifti, ds._resolve(case["image"]))
-    labels, t_remap = _seconds(remap_totalseg_labels, seg, tumor)
-    _, t_nearest = _seconds(resize_volume, labels, vshape, "nearest")
-    win, t_window = _seconds(window_norm, img)
-    _, t_linear = _seconds(resize_volume, win, vshape, "linear")
-    _, t_crop = _seconds(crop_or_pad, win, (win.shape[0], *REAL_STAGE2["dataset"]["slice_shape"]))
-    parts = {"ruijin": {"decode_s": t_seg + t_tumor, "remap_s": t_remap, "resize_s": t_nearest},
-             "ruijin_3d": {"decode_s": t_seg + t_tumor + t_img, "remap_s": t_remap,
-                           "resize_s": t_window + t_linear + t_nearest},
-             "ruijin_slices": {"decode_s": t_seg + t_tumor + t_img, "remap_s": t_remap, "crop_s": t_window + t_crop},
-             "nnunet": {"decode_s": t_img + t_seg, "crop_s": t_window + t_crop}}
-    for kind, dset in kinds.items():
-        parts[kind]["item_s"] = _seconds(dset.__getitem__, 0)[1]
-    print("real data: host seconds per train item (one thread calling): " + "; ".join(
-        f"{k} {v['item_s']:.3f} s ({', '.join(f'{p[:-2]} {t:.3f}' for p, t in v.items() if p != 'item_s')})"
-        for k, v in parts.items()) + f"; card {card}", flush=True)
-    for kind in ("ruijin", "ruijin_slices"):  # what each trainer's loader keeps up with: 2 threads, to the card
-        parts[kind]["loader_s_per_item"] = loader_seconds_per_item(kinds[kind])
-    print(f"real data: the trainers' DataLoader (2 threads, batch 1, to the card) over 8 items: "
-          f"{parts['ruijin']['loader_s_per_item']:.3f} s/item (ruijin), "
-          f"{parts['ruijin_slices']['loader_s_per_item']:.3f} s/item (ruijin slices); card {card}", flush=True)
-    return parts
+    routes = {"native": (native.read_nifti_native, native.remap_labels_native, native.window_norm_native),
+              "plain": (nifti.read_nifti, remap_totalseg_labels, window_norm)}
+    parts, outs, items = {}, {}, {}
+    for route, (read, remap, window) in routes.items():
+        native.reset_counts()
+        (seg, _), t_seg = _seconds(read, ds._resolve(case["totalseg"]))
+        (tumor, _), t_tumor = _seconds(read, ds._resolve(case["crcseg"]))
+        (img, _), t_img = _seconds(read, ds._resolve(case["image"]))
+        labels, t_remap = _seconds(remap, seg, tumor)
+        _, t_nearest = _seconds(resize_volume, labels, vshape, "nearest")
+        win, t_window = _seconds(window, img)
+        _, t_linear = _seconds(resize_volume, win, vshape, "linear")
+        _, t_crop = _seconds(crop_or_pad, win, (win.shape[0], *REAL_STAGE2["dataset"]["slice_shape"]))
+        outs[route] = {"totalseg": seg, "crcseg": tumor, "image": img, "remap": labels, "window": win}
+        parts[route] = {
+            "ruijin": {"decode_s": t_seg + t_tumor, "remap_s": t_remap, "resize_s": t_nearest},
+            "ruijin_3d": {"decode_s": t_seg + t_tumor + t_img, "remap_s": t_remap,
+                          "resize_s": t_window + t_linear + t_nearest},
+            "ruijin_slices": {"decode_s": t_seg + t_tumor + t_img, "remap_s": t_remap, "crop_s": t_window + t_crop},
+            "nnunet": {"decode_s": t_img + t_seg, "crop_s": t_window + t_crop},
+            "file_list": {"decode_s": t_img}}
+        with contextlib.nullcontext() if route == "native" else plain_route():
+            for kind, dset in kinds.items():
+                items[route, kind], parts[route][kind]["item_s"] = _seconds(dset.__getitem__, 0)
+        if route == "native":
+            c = native.counts()
+            # the parts' 3 files, then ruijin 2, ruijin_3d 3, slices 3, nnunet 2, file_list 1, each read twice
+            check(c["read"] == 2 * (3 + 2 + 3 + 3 + 2 + 1) and c["handed_over"] == 0,
+                  f"real data: native reads {c} (the int16 and uint8 files are all the C reader's)")
+        else:
+            check(native.counts()["read"] == 0, f"real data: the plain route read natively: {native.counts()}")
+    for what, arr in outs["native"].items():
+        check(_same(arr, outs["plain"][what]), f"real data: native {what} differs from its plain version")
+    for kind in kinds:
+        check(_same_items(items["native", kind], items["plain", kind]),
+              f"real data: the {kind} item on the native route differs from the numpy route's")
+    for route in routes:
+        print(f"real data: host seconds per train item (one thread calling), {route} route: " + "; ".join(
+            f"{k} {v['item_s']:.3f} s ({', '.join(f'{p[:-2]} {t:.3f}' for p, t in v.items() if p != 'item_s')})"
+            for k, v in parts[route].items()) + f"; card {card}", flush=True)
+    print("real data: every kind's item (ruijin, ruijin_3d, ruijin_slices, nnunet, file_list) and every part "
+          "(reads, remap, window) equal bit for bit on the native and numpy routes", flush=True)
+    loader = {}
+    for route in routes:
+        with contextlib.nullcontext() if route == "native" else plain_route():
+            for kind in ("ruijin", "ruijin_slices"):
+                for threads in LOADER_THREADS:  # what each trainer's loader keeps up with, to the card
+                    loader[route, kind, threads] = loader_seconds_per_item(kinds[kind], threads=threads)
+    print("real data: the trainers' DataLoader (batch 1, to the card) over 8 items, s/item: " + "; ".join(
+        f"{kind} {route} " + ", ".join(f"{t} threads {loader[route, kind, t]:.3f}" for t in LOADER_THREADS)
+        for kind in ("ruijin", "ruijin_slices") for route in routes) + f"; card {card}", flush=True)
+    out = {route: parts[route] for route in routes}
+    out["loader_s_per_item"] = {f"{kind} {route} {t}": v for (route, kind, t), v in loader.items()}
+    return out
 
 
 class _Repeated:
@@ -2966,12 +3042,13 @@ class _Repeated:
         return self.dataset[i % len(self.dataset)]
 
 
-def loader_seconds_per_item(dataset, n: int = 8) -> float:
-    """Wall seconds per item of one pass of `data.loader.DataLoader` (2 worker
-    threads, batch 1, to the card) over `n` items of `dataset`."""
+def loader_seconds_per_item(dataset, n: int = 8, threads: int = 2) -> float:
+    """Wall seconds per item of one pass of `data.loader.DataLoader`
+    (`threads` worker threads, batch 1, to the card) over `n` items of
+    `dataset`."""
     from jointimagegeneration_torch.data.loader import DataLoader
 
-    loader = DataLoader(_Repeated(dataset, n), 1, device="cuda", num_workers=2)
+    loader = DataLoader(_Repeated(dataset, n), 1, device="cuda", num_workers=threads)
     t0 = time.perf_counter()
     for _ in loader:
         pass
@@ -3012,6 +3089,40 @@ def _train_text(label: str, out: dict, what: str, card: str) -> None:
           f"{out['wall_s']:.2f} s; launches {out['launches']} = expected; card {card}", flush=True)
 
 
+class PlainReads:
+    """While installed, counts the reads that reach `data/nifti.read_nifti`
+    through its module attribute: the datasets' numpy route (the native
+    reader's own hand-overs call it by another name and are counted apart)."""
+
+    def __init__(self):
+        from jointimagegeneration_torch.data import nifti
+
+        self.nifti, self.reader, self.n, self.lock = nifti, nifti.read_nifti, 0, threading.Lock()
+
+    def __call__(self, path):
+        with self.lock:
+            self.n += 1
+        return self.reader(path)
+
+    def install(self) -> None:
+        self.nifti.read_nifti = self
+
+    def remove(self) -> None:
+        self.nifti.read_nifti = self.reader
+
+
+def _native_reads(label: str, plain: PlainReads, wanted: tuple) -> dict:
+    """The native counts since the last call: reads, and each of `wanted`,
+    at least one; none handed over to numpy; none through the numpy reader."""
+    from jointimagegeneration_torch.data import native
+
+    c = native.counts()
+    check(c["read"] > 0 and c["handed_over"] == 0 and plain.n == 0 and all(c[k] > 0 for k in wanted),
+          f"{label}: the data route's counts {c}, reads through the numpy reader {plain.n}")
+    native.reset_counts()
+    return c
+
+
 def real_data_phase(flash, card: str) -> dict:
     """Both trainers on an index of CT volumes at full width, and the sampler
     on the checkpoints they write (see REAL_SHAPE): stage 1 with `selfattn`
@@ -3020,22 +3131,26 @@ def real_data_phase(flash, card: str) -> dict:
     its `checkpoints/` on the val case (equal, bit for bit, to the same draws
     with the checkpoint's EMA weights loaded by hand), stage 2 on `ruijin`
     with a validation, `stage: ct` from its `checkpoints/` (2 slices of
-    DDIM-50, LPIPS against the case's CT), and stage 2 on `nnunet`.  Every
-    file it writes (the ~2.8 GB stage-2 checkpoints too) is deleted at the
-    end."""
+    DDIM-50, LPIPS against the case's CT), and stage 2 on `nnunet`; every
+    read of these runs through the native route.  Every file it writes (the
+    ~2.8 GB stage-2 checkpoints too) is deleted at the end."""
     from jointimagegeneration_torch.cli import sample, train_ldm, train_mask
     from jointimagegeneration_torch.core.checkpoint import CheckpointManager
+    from jointimagegeneration_torch.data import native
     from jointimagegeneration_torch.diffusion.noise import NoiseSource
 
     root = ROOT / "build" / "chip_smoke" / "real"
     zero = {"flash_fwd_merge": 0, "flash_bwd_reduce": 0, "conv3d": 0, "conv3d_splitk_reduce": 0,
             "conv3d_stats_reduce": 0}
-    out = {}
+    out, routed = {}, {}
+    plain = PlainReads()
     try:
         fixture = write_real_fixture(root)
         print(f"real data: 3 cases of {REAL_SHAPE} int16 HU + uint8 totalseg + crcseg ({fixture['gb']:.2f} GB of "
               f".nii.gz, the nnUNet tree's labels included) written in {fixture['seconds']:.2f} s", flush=True)
         out["item_seconds"] = real_item_seconds(fixture, card)
+        native.reset_counts()
+        plain.install()
 
         # stage 1, text-guided, on the index
         cfg = json.loads(json.dumps(REAL_STAGE1))
@@ -3045,6 +3160,7 @@ def real_data_phase(flash, card: str) -> dict:
         s1 = _real_train(flash, train_mask.run, cfg, "real stage 1",
                          {"flash_fwd": 2 * per_step + val_launches, "flash_bwd_dkv": 2 * per_step,
                           "flash_bwd_dq": 2 * per_step, **zero})
+        routed["stage 1"] = _native_reads("real stage 1", plain, ("remap", "one_hot"))
         dice = [r["val/dice"] for r in s1["recs"] if "val/dice" in r]
         check(len(dice) == 1 and 0.0 <= dice[0] <= 1.0, f"real stage 1: val/dice {dice}")
         ckdir = Path(cfg["output_path"]) / "smoke" / "checkpoints"
@@ -3087,6 +3203,7 @@ def real_data_phase(flash, card: str) -> dict:
                                        num_steps=scfg["mask_steps"])[0].cpu().numpy()
         check(np.array_equal(by_hand, labels), "real mask sampling: the labels differ from the same draws with "
               f"the EMA weights loaded by hand on {int((by_hand != labels).sum())} voxels")
+        routed["mask sampling"] = _native_reads("real mask sampling", plain, ("remap", "one_hot"))
         del ms, ema
         print(f"real mask sampling: stage: mask from {ckdir.relative_to(root)} (newest step's EMA weights) on the "
               f"val case {val_case.keys[0]}, {scfg['mask_steps']} steps: {res['seconds']['stage1']:.3f} s, run() "
@@ -3103,6 +3220,7 @@ def real_data_phase(flash, card: str) -> dict:
         s2 = _real_train(flash, train_ldm.run, cfg2, "real stage 2",
                          {"flash_fwd": sites * (2 + 1 + panel_calls), "flash_bwd_dkv": 2 * sites,
                           "flash_bwd_dq": 2 * sites, **zero})
+        routed["stage 2"] = _native_reads("real stage 2", plain, ("remap", "window"))
         val = [r["val/loss_simple"] for r in s2["recs"] if "val/loss_simple" in r]
         check(len(val) == 1 and math.isfinite(val[0]) and val[0] > 0, f"real stage 2: val/loss_simple {val}")
         ckdir2 = Path(cfg2["output_path"]) / "smoke" / "checkpoints"
@@ -3112,6 +3230,8 @@ def real_data_phase(flash, card: str) -> dict:
         _train_text("real stage 2", s2, f"ruijin {hw[0]}x{hw[1]}, base 128, bf16, AdamW + EMA, val/loss_simple {val[0]:.4f} "
                     f"(panels at b = 1 on the val case)", card)
         out["stage2"] = {k: v for k, v in s2.items() if k != "recs"} | {"val_loss_simple": val[0]}
+        print(f"real data: real stage 2's loader wait (train/data_seconds) per step {s2['data_s']} s against s/step "
+              f"{[round(t, 4) for t in s2['step_s']]}, the native route, 2 loader threads; card {card}", flush=True)
 
         ccfg = {"stage": "ct", "seed": 1024, "n_cases": 1, "ddim_steps": 50, "slices": 2, "split": "val",
                 "output_path": str(root / "ct"),
@@ -3128,6 +3248,7 @@ def real_data_phase(flash, card: str) -> dict:
         check(ct.shape == (1, 2, *hw) and bool(np.isfinite(ct).all()) and 0.0 <= ct.min() and ct.max() <= 1.0,
               f"real ct sampling: CT {ct.shape} in [{ct.min()}, {ct.max()}]")
         check(lp is not None and math.isfinite(lp), f"real ct sampling: LPIPS {res['metrics']}")
+        routed["ct sampling"] = _native_reads("real ct sampling", plain, ("remap", "window"))
         print(f"real ct sampling: stage: ct from {ckdir2.relative_to(root)} on the val case, 2 slices x DDIM-50 at "
               f"{hw[0]}x{hw[1]}: {res['seconds']['stage2'] / 2:.4f} s/slice, run() wall {wall:.2f} s; LPIPS (3 views, "
               f"uncalibrated VGG) {lp:.4f} against the case's CT; flash_fwd launches {expected} = expected; card "
@@ -3140,10 +3261,16 @@ def real_data_phase(flash, card: str) -> dict:
                 "validate": False, "save_freq": 1000, "output_path": str(root / "nnunet_run")}
         s3 = _real_train(flash, train_ldm.run, cfg3, "nnunet stage 2",
                          {"flash_fwd": 2 * sites, "flash_bwd_dkv": 2 * sites, "flash_bwd_dq": 2 * sites, **zero})
+        routed["nnunet stage 2"] = _native_reads("nnunet stage 2", plain, ("window",))
         _train_text("nnunet stage 2", s3, f"nnUNet tree, {hw[0]}x{hw[1]}, base 128, bf16, AdamW + EMA, no validation",
                     card)
         out["nnunet"] = {k: v for k, v in s3.items() if k != "recs"}
+        print("real data: the native route's counts under each run: " + "; ".join(
+            f"{run} " + ", ".join(f"{k} {v}" for k, v in c.items()) for run, c in routed.items())
+            + ": every read native, none handed over to numpy, none through the numpy reader", flush=True)
+        out["native_counts"] = routed
     finally:
+        plain.remove()
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4950,6 +5077,7 @@ def main() -> int:
     try:
         from jointimagegeneration_torch.ops import conv3d as conv
         from jointimagegeneration_torch.ops import flash_attention as flash
+        from jointimagegeneration_torch.data import native
         from jointimagegeneration_torch.ops.cuda import build
     except ImportError as e:
         print(f"chip_smoke: the jointimagegeneration_torch package is not here ({e}); run from "
@@ -4958,8 +5086,12 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    build_s = build.build_all([flash.FLASH_SOURCE, flash.FLASH_BWD_SOURCE, conv.CONV3D_SOURCE])
+    build_s = build.build_all([flash.FLASH_SOURCE, flash.FLASH_BWD_SOURCE, conv.CONV3D_SOURCE, native.SOURCE])
     print(f"build: {build_s} ({time.perf_counter() - t0:.2f} s wall)", flush=True)
+    check(native.native_available(), "the native data library did not load")
+    print(f"native data: csrc/{native.SOURCE}.cc built by {build.cxx_path()} in {build_s.get(native.SOURCE, 0.0):.2f} "
+          f"s (beside the CUDA sources) and loaded from {build._library_path(native.SOURCE).relative_to(ROOT)}",
+          flush=True)
 
     rows, merge_rows = flash_phase(flash)
     bwd_rows = bwd_phase(flash)

@@ -1,9 +1,10 @@
 """Datasets for both stages: the Ruijin and nnUNet layouts, and synthetic cases.
 
-The port's copies of `jointimagegeneration_tpu/data/datasets.py`, on its numpy
-route only (the JAX package takes `native/libjig_native.so` for the NIfTI
-decode, the label remap, `window_norm` and the one-hot when it is built; the
-port has no native library):
+The port's copies of `jointimagegeneration_tpu/data/datasets.py`.  As there,
+the NIfTI decode, the label remap, `window_norm` and the one-hot go through
+the native library (`data/native.py`, built at first use), whose every entry
+point returns what its numpy version returns, bit for bit; with
+`native_available` patched to False here they take the numpy versions:
 
   * `RuijinMaskDataset` (stage 1): a JSON index of {totalseg, crcseg, text,
     text_features} per case -> a 12-class one-hot (D, H, W, C) volume resized
@@ -37,13 +38,37 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import nifti, transforms
 from .classes import NUM_CLASSES, remap_totalseg_labels
-from .nifti import read_nifti
-from .transforms import crop_or_pad, one_hot_np, random_flip, resize_volume, window_norm
+from .native import (native_available, one_hot_native, read_nifti_native, remap_labels_native,
+                     window_norm_native)
+from .transforms import crop_or_pad, random_flip, resize_volume
 
-__all__ = ["NUM_CLASSES", "one_hot_np", "synthesize_case", "EpochSeededRNG", "train_val_split", "RuijinMaskDataset",
-           "RuijinSlicePairDataset", "RuijinVolumeDataset", "NNUNetLayoutDataset", "SyntheticMaskDataset",
-           "SyntheticSliceDataset"]
+__all__ = ["NUM_CLASSES", "read_nifti", "remap_labels", "window_norm", "one_hot_np", "synthesize_case",
+           "EpochSeededRNG", "train_val_split", "RuijinMaskDataset", "RuijinSlicePairDataset", "RuijinVolumeDataset",
+           "NNUNetLayoutDataset", "SyntheticMaskDataset", "SyntheticSliceDataset"]
+
+
+def read_nifti(path):
+    """`data/nifti.read_nifti` through the native reader."""
+    return read_nifti_native(path) if native_available() else nifti.read_nifti(path)
+
+
+def remap_labels(label: np.ndarray, tumor_mask: Optional[np.ndarray] = None) -> np.ndarray:
+    """`data/classes.remap_totalseg_labels` through the native remap."""
+    return remap_labels_native(label, tumor_mask) if native_available() else remap_totalseg_labels(label, tumor_mask)
+
+
+def window_norm(image: np.ndarray, window_pos: float = 60.0, window_width: float = 360.0) -> np.ndarray:
+    """`data/transforms.window_norm` through the native window."""
+    if native_available():
+        return window_norm_native(image, window_pos, window_width)
+    return transforms.window_norm(image, window_pos, window_width)
+
+
+def one_hot_np(labels: np.ndarray, num_classes: int) -> np.ndarray:
+    """`data/transforms.one_hot_np` (float32) through the native one-hot."""
+    return one_hot_native(labels, num_classes) if native_available() else transforms.one_hot_np(labels, num_classes)
 
 
 class EpochSeededRNG:
@@ -92,7 +117,7 @@ class _IndexedCases:
         crcseg tumour (when the index names one) as the last class."""
         seg, _ = read_nifti(self._resolve(case["totalseg"]))
         tumor = read_nifti(self._resolve(case["crcseg"]))[0] if case.get("crcseg") else None
-        return remap_totalseg_labels(seg, tumor)
+        return remap_labels(seg, tumor)
 
 
 def _slice_item(img: np.ndarray, labels: np.ndarray, z: int, name: str, num_classes: int,

@@ -8,9 +8,10 @@ reference's `ccdm/ddpm/dataset_utils.py:26-206` and `ldm/data/base.py`):
     loader's worker threads share the object and HDF5 handles are not
     thread-safe;
   * `FileListDataset`: files from a list file or a glob, read by
-    `_default_loader` (NIfTI, `.npy`, the first array of an `.npz`, else PIL);
+    `_default_loader` (NIfTI through the datasets' native route, `.npy`, the
+    first array of an `.npz`, else PIL);
   * `TransformedPairDataset`: a joint transform over (image, label) items and
-    an optional one-hot of "label" into "mask";
+    an optional one-hot of "label" into "mask" (the datasets' `one_hot_np`);
   * `ImageFolderDataset`: the images under a tree as [0, 1] float RGB,
     optionally centre-cropped and resized, and SR-degraded by
     `degradation_pipeline` into "lr".  The resize is the antialiased linear
@@ -30,7 +31,7 @@ from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 
-from .datasets import EpochSeededRNG
+from .datasets import EpochSeededRNG, one_hot_np, read_nifti
 from .stock import require_packages
 
 __all__ = ["H5Dataset", "FileListDataset", "TransformedPairDataset", "ImageFolderDataset"]
@@ -105,8 +106,6 @@ class FileListDataset:
 def _default_loader(path: str) -> np.ndarray:
     p = str(path)
     if p.endswith((".nii", ".nii.gz")):
-        from .nifti import read_nifti
-
         return read_nifti(p)[0]
     if p.endswith(".npy"):
         return np.load(p)
@@ -135,8 +134,6 @@ class TransformedPairDataset:
         if self.transform:
             item = self.transform(item)
         if self.num_classes and "label" in item:
-            from .transforms import one_hot_np
-
             item["mask"] = one_hot_np(np.asarray(item.pop("label")), self.num_classes)
         return item
 

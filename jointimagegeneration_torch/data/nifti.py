@@ -1,12 +1,17 @@
-"""NIfTI-1 reader and writer (pure numpy + gzip).
+"""NIfTI-1 reader and writer.
 
-A copy of the pure-Python codec of `jointimagegeneration_tpu/data/nifti.py`
-(without its native library).  The writer: a 348-byte header plus the 4-byte
-extension flag, voxel data at offset 352 in Fortran order, gzip level 1 for
-`.nii.gz`.  The reader: either byte order, the magics `n+1` and `ni1`, every
-datatype code of `_DTYPES`, `scl_slope` / `scl_inter` (the data then float32),
-the voxels returned in C order on the reversed header axes and in the
-machine's byte order (torch takes no other).
+A copy of the pure-Python codec of `jointimagegeneration_tpu/data/nifti.py`,
+and, as there, a write through the native library.  The writer: a 348-byte
+header plus the 4-byte extension flag, voxel data at offset 352 in Fortran
+order, gzip level 1 for `.nii.gz`.  `write_nifti` (and the two `save_*`
+helpers) write through `data/native.write_nifti_native`, C++ that releases the
+GIL, so a writer thread deflates while the device works; `write_nifti_plain`
+is the numpy + gzip version, the same header and voxel bytes.  The reader:
+either byte order, the magics `n+1` and `ni1`, every datatype code of
+`_DTYPES`, `scl_slope` / `scl_inter` (the data then float32), the voxels
+returned in C order on the reversed header axes and in the machine's byte
+order (torch takes no other).  `read_nifti` is the numpy version; the
+datasets read through its native counterpart (`data/datasets.read_nifti`).
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["read_nifti", "write_nifti", "save_label_volume", "save_image_volume"]
+__all__ = ["read_nifti", "write_nifti", "write_nifti_plain", "writable", "header_bytes", "save_label_volume",
+           "save_image_volume"]
 
 _DTYPES = {  # NIfTI-1 datatype codes
     2: np.uint8,
@@ -79,15 +85,20 @@ def read_nifti(path) -> Tuple[np.ndarray, dict]:
     return data, {"spacing": tuple(float(p) for p in pixdim[1:1 + min(dim[0], 3)]), "affine": affine}
 
 
-def write_nifti(path, data: np.ndarray, spacing: Optional[Tuple[float, ...]] = None, affine=None) -> None:
-    """Write a NIfTI-1 (.nii or .nii.gz) volume.  `data` is indexed
-    [..., z, y, x]; header dims are the reversed shape.  `spacing` is in world
-    order (dx, dy, dz)."""
+def writable(data) -> np.ndarray:
+    """`data` in the dtype it is written in: bool as uint8, a dtype outside
+    `_DTYPE_CODES` as float32."""
     data = np.asarray(data)
     if data.dtype == np.bool_:
         data = data.astype(np.uint8)
     if data.dtype not in _DTYPE_CODES:
         data = data.astype(np.float32)
+    return data
+
+
+def header_bytes(data: np.ndarray, spacing: Optional[Tuple[float, ...]] = None, affine=None) -> bytes:
+    """The 352 bytes before the voxels of `data` (a `writable` array): the
+    header, dims the reversed shape, and the zero extension flag."""
     ndim = data.ndim
     shape = data.shape
     spacing = tuple(spacing or (1.0,) * min(ndim, 3))
@@ -111,12 +122,27 @@ def write_nifti(path, data: np.ndarray, spacing: Optional[Tuple[float, ...]] = N
     struct.pack_into("<h", hdr, 254, 1)  # sform_code
     struct.pack_into("<12f", hdr, 280, *np.asarray(affine, np.float32)[:3].reshape(-1))
     hdr[344:348] = b"n+1\x00"
+    return bytes(hdr)
 
+
+def write_nifti_plain(path, data: np.ndarray, spacing: Optional[Tuple[float, ...]] = None, affine=None) -> None:
+    """Write a NIfTI-1 (.nii or .nii.gz) volume with numpy and gzip.  `data`
+    is indexed [..., z, y, x]; header dims are the reversed shape.
+    `spacing` is in world order (dx, dy, dz)."""
+    data = writable(data)
     # C-order ravel of (..., z, y, x) is Fortran order of the (x, y, z) dims
     payload = np.ascontiguousarray(data).reshape(-1)
     with _open(path, "wb") as f:
-        f.write(bytes(hdr))
+        f.write(header_bytes(data, spacing, affine))
         f.write(payload.tobytes())
+
+
+def write_nifti(path, data: np.ndarray, spacing: Optional[Tuple[float, ...]] = None, affine=None) -> None:
+    """`write_nifti_plain` through the native writer (GIL-free deflate): the
+    same header and voxel bytes; an error raises OSError."""
+    from .native import write_nifti_native
+
+    write_nifti_native(path, data, spacing, affine)
 
 
 def save_label_volume(path, labels: np.ndarray, spacing=None) -> None:

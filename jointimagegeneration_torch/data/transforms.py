@@ -2,9 +2,9 @@
 
 The port's copies of `jointimagegeneration_tpu/data/transforms.py`:
 `window_norm` (CT windowing), `resize_volume`, `crop_or_pad` (torchio's
-CropOrPad: a centred crop or pad), `random_flip` and `one_hot_np`.  The JAX
-package's datasets take a native C `window_norm` when
-`native/libjig_native.so` is built; the port always takes this numpy one.
+CropOrPad: a centred crop or pad), `random_flip` and `one_hot_np`.
+`window_norm` and `one_hot_np` are the plain versions of the native library's
+(`data/native.py`, the same bits), which the datasets call.
 
 `resize_volume` computes what `jax.image.resize` computes, without JAX: per
 resized axis a (in, out) weight matrix as `jax.image.scale_and_translate`

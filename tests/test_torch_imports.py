@@ -224,6 +224,42 @@ def test_spatial_sharding_modules_import_no_jax_and_yaml_lazily(name):
     assert not [m for m, top in found if m.split(".")[0] == "yaml" and top], found
 
 
+SLICE_19_MODULES = ["data/native.py", "data/datasets.py", "data/nifti.py", "data/generic.py", "ops/cuda/build.py",
+                    "cli/sample.py"]
+
+
+@pytest.mark.parametrize("name", SLICE_19_MODULES)
+def test_native_data_route_modules_import_no_jax_and_yaml_lazily(name):
+    """The native data route's bindings, the build module's host target and
+    the modules that route through them: no JAX, flax or JAX-package import
+    (not even of the JAX package's jax-free `data/native.py`), and `yaml`
+    only inside a function."""
+    path = PORT / name
+    assert path in _port_sources()
+    found = list(_imports(path))
+    assert not [m for m, _ in found if m.split(".")[0] in FORBIDDEN], found
+    assert not [m for m, top in found if m.split(".")[0] == "yaml" and top], found
+
+
+def test_native_bindings_import_only_ctypes_numpy_and_the_port():
+    """`data/native.py` imports ctypes, numpy and the standard library it
+    needs, and of the port only the build module and the plain versions it
+    stands for; it loads its library with JAX blocked."""
+    tree = ast.parse((PORT / "data" / "native.py").read_text())
+    absolute = sorted({m for m, _ in _imports(PORT / "data" / "native.py")})
+    relative = sorted({(n.level, n.module) for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.level})
+    assert absolute == ["__future__", "ctypes", "numpy", "os", "threading", "typing"], absolute
+    assert relative == [(1, "classes"), (1, "nifti"), (2, "ops.cuda")], relative
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'jointimagegeneration_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import jointimagegeneration_torch.data.native as n\n"
+            "n.native_available()\n"
+            "print('loaded')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and "loaded" in out.stdout, out.stderr
+
+
 def test_tensorboard_and_wandb_only_imported_where_asked_for():
     """`wandb` is imported only in `MetricLogger.__init__` when a project is
     given, TensorBoard's writers only by name inside `_tensorboard_writer`
