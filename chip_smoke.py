@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`jointimagegeneration_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the root of a checkout, on a machine with a CUDA card
+    python3 chip_smoke.py            # from the root of a checkout, on a machine with a CUDA card
+    python3 chip_smoke.py tracing    # the build and phase 23 alone
 
 Phases, in order (any failure exits non-zero and prints no result line):
   1. build: compiles every CUDA source of the main paths with nvcc
@@ -217,6 +218,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
      fp32 forward, a fused 'kernel' forward at 'model' = 2, and a batch of 2
      over a data axis of 2; s/step, peak GiB and the flash launches at each
      shard shape (the flash rows of phase 2 include those shapes).
+ 23. tracing: the span recorder (`core/logging.py`) under a CUDA-only
+     torch.profiler, as the benchmark's traced segment runs it: card spans
+     around `torch.cuda._sleep` within 50 us of the profiled kernels at both
+     ends (the median of 9), on the recorder's clock (`time.time_ns`, the profiler's: each
+     clock's offset printed); one stage-2 DDIM step (256x256, b = 4) and one
+     stage-1 step (64x128x128) with the recorder on and off, bit for bit; its
+     on-cost: `unet_host_ms` and the host ms a step off and on, alternating.
 Before each main path (6 per run and the latent path, 7 per variant, 9, each
 text path of 10, 12, each run of 14, 15, 17, 18, each request of 19 and each
 run of 20, each run, step and chain of 21, and each run of 22) every kernel launch counter (flash_fwd,
@@ -224,7 +232,7 @@ flash_fwd_merge, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reduce and the conv
 kernel's) is set to 0;
 after it the counts must equal what the path implies.  The last lines are
 the sampling, latent, fused, train, latent-train, text, real-data,
-dino / FVD, serve / SR / ddp, slice-17 and spatial summaries, a JSON line
+dino / FVD, serve / SR / ddp, slice-17, spatial and tracing summaries, a JSON line
 with the kernel numbers, the card's name and power limit, and `{"ok": true,
 "device": {...}}`.  Imports neither JAX nor PyYAML.
 """
@@ -5069,6 +5077,168 @@ def spatial_phase(flash, card: str, cards: int = 1) -> dict:
     return out
 
 
+SLEEP_CYCLES = 2_000_000  # the tracing phase's torch.cuda._sleep, ~1 ms at 1.98 GHz
+CLOCK_TOL_NS = 50_000  # a card span against the profiler's interval of the kernel it encloses, the median of
+CLOCK_SAMPLES = 9  # these spans (the profiler's conversion of a kernel's time to Unix time strays by itself)
+TRACE_COST_STEPS = 16  # sampler steps a block of the tracing phase's cost turns
+
+
+def _unet_host_ms(unet, fn) -> tuple:
+    """(mean host ms from the UNet's forward pre-hook to its post-hook, mean
+    host ms a `fn()` call) over one call of `fn`, the benchmark's reading."""
+    times, stack = [], []
+    hooks = [unet.register_forward_pre_hook(lambda *_: stack.append(time.perf_counter())),
+             unet.register_forward_hook(lambda *_: times.append(time.perf_counter() - stack.pop()))]
+    try:
+        t0 = time.perf_counter()
+        fn()
+        total = time.perf_counter() - t0
+    finally:
+        for h in hooks:
+            h.remove()
+    return 1e3 * sum(times) / len(times), 1e3 * total
+
+
+def tracing_phase(flash, card: str) -> dict:
+    """The span recorder (`core/logging.py`) on the card.  Clock: under a
+    CUDA-only `torch.profiler` (the benchmark's traced segment) the recorder
+    is on, and `card=True` spans around `torch.cuda._sleep` have their card
+    intervals within CLOCK_TOL_NS of the sleep kernels' profiled intervals at
+    both ends, in the median of CLOCK_SAMPLES spans read with this thread on
+    one core (the span opened while the card runs another sleep, so that
+    its open, that span's close event, and its kernel run back to back), the
+    recorder's host clock
+    `time.time_ns` being the one the profiler's kernel times carry (each
+    clock's offset is printed).  Outputs:
+    one stage-2 DDIM step at 256x256, b = 4, and one stage-1 step at
+    64x128x128 (TWO_STAGE_CFG's widths, fresh init) with the recorder on and
+    off, equal bit for bit.  Cost: the benchmark's `unet_host_ms` (the host
+    from the UNet's pre-hook to its post-hook) and the host ms a sampler step
+    with the recorder off and on, in alternating blocks of TRACE_COST_STEPS
+    steps (off, on, on, off, twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jointimagegeneration_torch.cli.sample import build_mask_sampler, build_slice_ldm, load_weights
+    from jointimagegeneration_torch.core import logging as spans
+    from jointimagegeneration_torch.diffusion.ddim import DDIMParams
+    from jointimagegeneration_torch.diffusion.noise import NoiseSource
+
+    t_start = time.perf_counter()
+    out = {}
+    torch.cuda.synchronize()
+    spans.reset_spans()
+    torch.cuda._sleep(SLEEP_CYCLES)  # its first launch outside the profiled window
+    torch.cuda.synchronize()
+    cpus = os.sched_getaffinity(0)
+    os.sched_setaffinity(0, {min(cpus)})  # this thread's clock reads on one core
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            on = torch._C._autograd._profiler_enabled()
+            with spans.span("warm-up", card=True):  # the session's start and the profiler's first launch
+                torch.cuda._sleep(SLEEP_CYCLES)
+            torch.cuda.synchronize()
+            clocks = []
+            for _ in range(CLOCK_SAMPLES):
+                torch.cuda.synchronize()
+                clocks.append({"time_ns": time.time_ns(), "monotonic_ns": time.monotonic_ns(),
+                               "perf_counter_ns": time.perf_counter_ns()})
+                with spans.span("before", card=True):  # the clock span's open, and its kernel, queue behind it
+                    torch.cuda._sleep(SLEEP_CYCLES)
+                with spans.span("clock", card=True):
+                    torch.cuda._sleep(SLEEP_CYCLES)
+                torch.cuda.synchronize()
+    finally:
+        os.sched_setaffinity(0, cpus)
+    check(on, "tracing: the recorder's profiler check reads off under a CUDA-only torch.profiler")
+    recs = [r for r in spans.records() if r.name == "clock"]
+    kernels = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA and ("spin_kernel" in e.name() or "sleep" in e.name()))[2::2]
+    check(len(recs) == len(kernels) == CLOCK_SAMPLES and all(r.card_open is not None for r in recs),
+          f"tracing: {len(recs)} clock spans with card times, {len(kernels)} profiled sleep kernels; "
+          f"{CLOCK_SAMPLES} each expected")
+    ends = [(r.card_open - k0, r.card_close - k1) for r, (k0, k1) in zip(recs, kernels)]
+    errs = [max(abs(a), abs(b)) for a, b in ends]
+    median = sorted(errs)[len(errs) // 2]
+    offsets = {name: [k0 - c[name] for c, (k0, _) in zip(clocks, kernels)] for name in clocks[0]}
+    clock = min(offsets, key=lambda name: sorted(abs(o) for o in offsets[name])[len(errs) // 2])
+    out["clock"] = {"span_vs_kernel_ns": errs, "median_ns": median, "open_close_minus_kernel_ns": ends,
+                    "kernel_after_host_read_ns": offsets, "profiler_clock": clock,
+                    "kernel_ns": [k1 - k0 for k0, k1 in kernels]}
+    print(f"tracing clock: card span against the profiled sleep kernel, median {median} ns, all {errs} ns (limit "
+          f"{CLOCK_TOL_NS} on the median; open and close less the kernel's start and end {ends} ns); the kernel "
+          f"started {offsets[clock]} ns after a {clock}() read, the profiler's clock; offsets from the others "
+          f"{ {k: v[0] for k, v in offsets.items() if k != clock} } ns", flush=True)
+    check(clock == "time_ns", f"tracing: the profiler's kernel times follow {clock}, not the recorder's time.time_ns")
+    check(median <= CLOCK_TOL_NS, f"tracing: the card spans are {median} ns (median) off their kernels' profiled "
+          "intervals")
+
+    s1, s2 = TWO_STAGE_CFG["stage1"], TWO_STAGE_CFG["stage2"]
+    noise_std = TWO_STAGE_CFG["fresh_init_noise"]
+    with torch.inference_mode():
+        ldm = build_slice_ldm(s2, "cuda")
+        load_weights(ldm.unet, None, noise_std, 2)
+        ddim = DDIMParams.create(ldm.diffusion, 50)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        cond = torch.rand((4, 256, 256, 2), generator=g, device="cuda")
+
+        def slice_steps(k: int):
+            return ldm.sample_slice(NoiseSource(11, "cuda"), cond, ddim, start_index=k)
+
+        ms = build_mask_sampler(s1, "cuda")
+        load_weights(ms.unet, None, noise_std, 1)
+        shape = (1, *s1["dataset"]["volume_shape"])
+        mcond = torch.zeros((*shape, 1), device="cuda")
+
+        def mask_steps(k: int):
+            return ms.sample(NoiseSource(12, "cuda"), shape, cond=mcond, num_steps=k)
+
+        for label, fn, model in (("slice", slice_steps, ldm.unet), ("mask", mask_steps, ms.unet)):
+            fn(2)  # warm
+            torch.cuda.synchronize()
+            spans.reset_spans()
+            off = fn(1)
+            spans.trace_spans(True)
+            try:
+                got = fn(1)
+                torch.cuda.synchronize()
+                n_steps = sum(r.name == "sampler.step" for r in spans.records())
+            finally:
+                spans.trace_spans(False)
+                spans.reset_spans()
+            check(n_steps == 1, f"tracing: one {label} step recorded {n_steps} sampler.step spans")
+            check(torch.equal(off, got), f"tracing: a {label} step with the recorder on differs from the step off")
+            blocks = {"off": [], "on": []}
+            for mode in ("off", "on", "on", "off") * 2:
+                torch.cuda.synchronize()
+                spans.trace_spans(mode == "on")
+                try:
+                    unet_ms, total_ms = _unet_host_ms(model, lambda: fn(TRACE_COST_STEPS))
+                    torch.cuda.synchronize()
+                finally:
+                    spans.trace_spans(False)
+                    spans.reset_spans()
+                blocks[mode].append((unet_ms, total_ms / TRACE_COST_STEPS))
+            row = {mode: {"unet_host_ms": [b[0] for b in v], "step_host_ms": [b[1] for b in v]}
+                   for mode, v in blocks.items()}
+            mean = {mode: {k: sum(v) / len(v) for k, v in r.items()} for mode, r in row.items()}
+            row["on_cost_ms"] = {k: mean["on"][k] - mean["off"][k] for k in mean["on"]}
+            row["on_cost_pct"] = {k: 100 * row["on_cost_ms"][k] / mean["off"][k] for k in mean["on"]}
+            out[label] = row
+            print(f"tracing {label}: on and off bit for bit; unet_host_ms off {mean['off']['unet_host_ms']:.3f} on "
+                  f"{mean['on']['unet_host_ms']:.3f} (+{row['on_cost_ms']['unet_host_ms']:.3f} ms, "
+                  f"{row['on_cost_pct']['unet_host_ms']:+.2f}%), host ms a step off "
+                  f"{mean['off']['step_host_ms']:.3f} on {mean['on']['step_host_ms']:.3f} "
+                  f"({row['on_cost_pct']['step_host_ms']:+.2f}%), blocks of {TRACE_COST_STEPS} steps; {card}",
+                  flush=True)
+        del ldm, ms
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"tracing phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a machine with an NVIDIA GPU",
@@ -5093,6 +5263,9 @@ def main() -> int:
           f"s (beside the CUDA sources) and loaded from {build._library_path(native.SOURCE).relative_to(ROOT)}",
           flush=True)
 
+    if sys.argv[1:] == ["tracing"]:  # the tracing phase alone
+        print(f"tracing: {json.dumps(tracing_phase(flash, card))}")
+        return 0
     rows, merge_rows = flash_phase(flash)
     bwd_rows = bwd_phase(flash)
     conv_rows, conv_edge = conv_phase(conv)
@@ -5143,6 +5316,7 @@ def main() -> int:
     cross = cross_attention_path_phase(flash, card)
     guided = classifier_guidance_phase(flash, card)
     spatial = spatial_phase(flash, card)
+    tracing = tracing_phase(flash, card)
 
     main_row = rows[1]  # (16, 1024, 32): the stage-2 site, most of the sampling path's launches
     fwd_launches = {"two_stage_sampling": ddim_path["launches"], "fast_sampling": fast["fast path"]["launches"],
@@ -5357,6 +5531,7 @@ def main() -> int:
                "classifier_guidance": guided}
     print(f"trainers and stage-2 conditioning: {json.dumps(slice17)}")
     print(f"spatial: {json.dumps(spatial)}")
+    print(f"tracing: {json.dumps(tracing)}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

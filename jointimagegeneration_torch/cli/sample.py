@@ -53,7 +53,11 @@ Keys beyond the JAX CLI's:
     dataset's volume;
   * `fresh_init_noise: s` fills the zero-initialised kernels of fresh-init
     weights (the UNets' and the AEs') with N(0, s^2), so that every layer of a
-    random network carries signal (smoke runs; checkpoints are unaffected).
+    random network carries signal (smoke runs; checkpoints are unaffected);
+  * `trace_spans: true` keeps the span recorder (`core.logging.span`) on for
+    the run: after each batch (each case under `stage: ct`) its records are
+    summed by span name, and at the end the table (count, mean host issue
+    ms, mean card ms) is printed and written to `spans.json`.
 
 `stage: mask` and `stage: ct` take their cases from the dataset of the stage's
 section (`dataset.kind` `synthetic`, `ruijin`, `ruijin_3d` or `nnunet`, see
@@ -99,6 +103,7 @@ import numpy as np
 import torch
 
 from ..core.config import load_yaml_config
+from ..core.logging import print_span_summary, records, reset_spans, span_summary, span_table, trace_spans
 from ..core.runtime import configure_precision, resolve_device, synchronize
 from ..data.nifti import save_image_volume, save_label_volume
 from ..diffusion.ddim import DDIMParams
@@ -300,6 +305,36 @@ def _write_case(cdir: Path, ct: np.ndarray, labels: Optional[np.ndarray], pred: 
         save_grid_png(cdir / "overlay.png", overlay_volume_to_grid(ct, labels))
 
 
+class _SpanTrace:
+    """The run's span table under `trace_spans: true` (a no-op without)."""
+
+    def __init__(self, on: bool):
+        self.on, self.totals = bool(on), {}
+
+    def __enter__(self):
+        if self.on:
+            reset_spans()
+            trace_spans(True)
+        return self
+
+    def fold(self) -> None:
+        """Sum what the recorder holds into the table and drop it."""
+        if self.on:
+            span_summary(records(), self.totals)
+            reset_spans()
+
+    def __exit__(self, exc_type, *_):
+        if self.on:
+            trace_spans(False)
+            self.fold()
+        return False
+
+    def write(self, outdir: Path) -> None:
+        if self.on:
+            print_span_summary(self.totals, "trace_spans")
+            (outdir / "spans.json").write_text(json.dumps(span_table(self.totals), indent=1))
+
+
 def run(cfg: dict, device=None) -> dict:
     """Sample `n_cases` volumes and write them.  `two_stage` returns {"ct":
     (n_cases, D, H, W) float32, "labels": (n_cases, D', H', W') int,
@@ -317,17 +352,24 @@ def run(cfg: dict, device=None) -> dict:
 
     outdir = Path(cfg.get("output_path", "samples"))
     outdir.mkdir(parents=True, exist_ok=True)
+    with _SpanTrace(cfg.get("trace_spans")) as spans:
+        out = _run(cfg, s1, s2, stage, device, outdir, spans)
+    spans.write(outdir)
+    return out
+
+
+def _run(cfg: dict, s1: dict, s2: dict, stage: str, device, outdir: Path, spans: _SpanTrace) -> dict:
     seed = int(cfg.get("seed", 1024))
     noise_std = float(cfg.get("fresh_init_noise", 0.0))
     if stage == "ct":
-        return _run_ct(cfg, s2, device, seed, noise_std, outdir)
+        return _run_ct(cfg, s2, device, seed, noise_std, outdir, spans)
     ms = build_mask_sampler(s1, device)
     spatial = tuple(s1.get("dataset", {}).get("volume_shape", (64, 128, 128)))
     features = build_dino_feature_fn(s1, spatial, device)[:2]  # (feat_fn, inject_idx), the trainer's seed rule
     load_mask_weights(ms, s1.get("checkpoint"), noise_std, seed + 1)
     context = load_text_context(cfg.get("text"), device)
     if stage == "mask":
-        return _run_mask(cfg, s1, ms, context, features, device, seed, outdir)
+        return _run_mask(cfg, s1, ms, context, features, device, seed, outdir, spans)
     n_cases = int(cfg.get("n_cases", 1))
     vshape = tuple(cfg.get("volume_shape", (128, 256, 256)))
     n_slices = int(cfg.get("slices", vshape[0]))
@@ -376,6 +418,7 @@ def run(cfg: dict, device=None) -> dict:
                                             pred=True))
             cts.append(ct)
             labels_all.append(labels)
+            spans.fold()
         for w in writes:
             w.result()  # a failed write raises here
     print(f"{n_cases} case(s): stage 1 {seconds['stage1']:.2f}s, stage 2 {seconds['stage2']:.2f}s "
@@ -386,7 +429,7 @@ def run(cfg: dict, device=None) -> dict:
 
 
 def _run_mask(cfg: dict, s1: dict, ms: MaskSampler, context: Optional[torch.Tensor], features: tuple, device,
-              seed: int, outdir: Path) -> dict:
+              seed: int, outdir: Path, spans: _SpanTrace) -> dict:
     """`stage: mask`: per batch of `batch_size` cases (the ragged last batch
     padded by repeating its last case) `samples` label volumes drawn in turn
     from one noise source, with the batch's dense features when `features` =
@@ -419,6 +462,7 @@ def _run_mask(cfg: dict, s1: dict, ms: MaskSampler, context: Optional[torch.Tens
             synchronize(device)
             seconds += time.perf_counter() - t0
             draws = np.stack([d.cpu().numpy() for d in draws], axis=1)  # (bs, samples, D, H, W)
+            spans.fold()
             for j, i in enumerate(cases):
                 cdir = outdir / f"case_{i:04d}"
                 cdir.mkdir(parents=True, exist_ok=True)
@@ -453,7 +497,7 @@ def _fvd_summary(cfg: dict, real, generated, device) -> dict:
     return {"fvd": float(value), "fvd_feature_extractor": extractor, "fvd_backbone": extractor}
 
 
-def _run_ct(cfg: dict, s2: dict, device, seed: int, noise_std: float, outdir: Path) -> dict:
+def _run_ct(cfg: dict, s2: dict, device, seed: int, noise_std: float, outdir: Path, spans: _SpanTrace) -> dict:
     """`stage: ct`: per case the dataset's mask volume -> a CT volume, its
     files, and the three-view LPIPS against the dataset's volume; over two or
     more such cases FVD (`_fvd_summary`)."""
@@ -485,6 +529,7 @@ def _run_ct(cfg: dict, s2: dict, device, seed: int, noise_std: float, outdir: Pa
                 vol = ldm.sample_volume(noise, mask, ddim, tile=tile, **sample_kw)
             vol = vol[0, ..., 0].float().cpu().numpy()
             seconds += time.perf_counter() - t0
+            spans.fold()
             labels = np.rint(item["wholemask"][:n, ..., 0] * (nc - 1)).astype(np.int64)
             _write_case(outdir / f"case_{i:04d}", vol, labels, pred=False)
             cts.append(vol)

@@ -11,7 +11,8 @@ D_i = (x - sigma_i eps(x, t_i)) / alpha_i:
 
 The nodes are DDIMParams' subset: abar runs down alphas[n-1..0] and the
 chain ends at alphas_prev[0], as the DDIM loop does.  The scalars are numpy
-float32, the sample a tensor on its device.
+float32, the sample a tensor on its device.  Each node is a `sampler.step`
+span (`core.logging.span`, with card events).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core.logging import span
 from .ddim import DDIMParams
 
 __all__ = ["dpm_solver_sample_loop"]
@@ -50,14 +52,15 @@ def dpm_solver_sample_loop(eps_fn: Callable[[torch.Tensor, torch.Tensor], torch.
     for index in range(k_run - 1, -1, -1):
         alpha_c, sigma_c, lam_c = _node(abar[index])
         alpha_n, sigma_n, lam_n = _node(abar_prev[index])
-        t = torch.full((x.shape[0],), int(ddim.timesteps[index]), dtype=torch.int64, device=x.device)
-        d = (x - float(sigma_c) * eps_fn(x, t)) / float(alpha_c)
-        h = lam_n - lam_c
-        if d_prev is None:
-            d_bar = d
-        else:
-            c = _ONE / (np.float32(2.0) * ((lam_c - lam_prev) / h))
-            d_bar = float(_ONE + c) * d - float(c) * d_prev
-        x = float(sigma_n / sigma_c) * x - float(alpha_n * np.expm1(-h)) * d_bar
+        with span("sampler.step", True):
+            t = torch.full((x.shape[0],), int(ddim.timesteps[index]), dtype=torch.int64, device=x.device)
+            d = (x - float(sigma_c) * eps_fn(x, t)) / float(alpha_c)
+            h = lam_n - lam_c
+            if d_prev is None:
+                d_bar = d
+            else:
+                c = _ONE / (np.float32(2.0) * ((lam_c - lam_prev) / h))
+                d_bar = float(_ONE + c) * d - float(c) * d_prev
+            x = float(sigma_n / sigma_c) * x - float(alpha_n * np.expm1(-h)) * d_bar
         d_prev, lam_prev = d, lam_c
     return x

@@ -7,6 +7,7 @@ ramps from the first executed step:
   step 1: (3 e_t - e_{t-1}) / 2
   step 2: (23 e_t - 16 e_{t-1} + 5 e_{t-2}) / 12
   step >= 3: (55 e_t - 59 e_{t-1} + 37 e_{t-2} - 9 e_{t-3}) / 24
+Each node is a `sampler.step` span (`core.logging.span`, with card events).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core.logging import span
 from .ddim import DDIMParams
 
 __all__ = ["plms_sample_loop"]
@@ -45,15 +47,16 @@ def plms_sample_loop(eps_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor
 
     x, hist = x_T, []  # hist[0] the most recent
     for step, index in enumerate(range(k_run - 1, -1, -1)):
-        e_t = eps_at(x, index)
-        if step == 0:
-            e_prime = (e_t + eps_at(_x_prev(ddim, x, e_t, index), max(index - 1, 0))) / 2
-        elif step == 1:
-            e_prime = (3 * e_t - hist[0]) / 2
-        elif step == 2:
-            e_prime = (23 * e_t - 16 * hist[0] + 5 * hist[1]) / 12
-        else:
-            e_prime = (55 * e_t - 59 * hist[0] + 37 * hist[1] - 9 * hist[2]) / 24
-        x = _x_prev(ddim, x, e_prime, index)
+        with span("sampler.step", True):
+            e_t = eps_at(x, index)
+            if step == 0:
+                e_prime = (e_t + eps_at(_x_prev(ddim, x, e_t, index), max(index - 1, 0))) / 2
+            elif step == 1:
+                e_prime = (3 * e_t - hist[0]) / 2
+            elif step == 2:
+                e_prime = (23 * e_t - 16 * hist[0] + 5 * hist[1]) / 12
+            else:
+                e_prime = (55 * e_t - 59 * hist[0] + 37 * hist[1] - 9 * hist[2]) / 24
+            x = _x_prev(ddim, x, e_prime, index)
         hist = [e_t] + hist[:2]
     return x

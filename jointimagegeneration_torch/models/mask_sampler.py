@@ -18,6 +18,9 @@ Dense feature conditioning (the 'dino' encoder): `feature_cond_channels`
 ({site: F}, JAX `init_params(feature_cond_shapes=...)`) widens the UNet at
 those encoder sites, and `feature_cond` ({site: (B, *spatial_at_site, F)})
 goes to every UNet call of `denoise_step`, `sample` and `sample_labels`.
+
+Spans (`core.logging.span`, with card events): `sampler.step` around each
+step of `sample`, `refiner` around the refinement of a context.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.logging import span
 from ..diffusion.categorical import CategoricalDiffusion, max_prob_one_hot, sample_one_hot
 from ..diffusion.noise import NoiseSource
 from ..nn.text import TextFeatureRefiner
@@ -143,7 +147,8 @@ class MaskSampler:
         refiner or a context); dropout only with a training `noise` source."""
         if self.refiner is None or context is None:
             return context
-        return self.refiner(context, noise)
+        with span("refiner", True):
+            return self.refiner(context, noise)
 
     @torch.no_grad()
     def denoise_step(self, noise: NoiseSource, xt: torch.Tensor, t: torch.Tensor,
@@ -178,9 +183,10 @@ class MaskSampler:
         uniform = torch.full((*shape, self.num_classes), 1.0 / self.num_classes, device=device)
         lab = torch.argmax(sample_one_hot(noise, uniform), dim=-1)
         for t in sampling_t_values(self.diffusion.time_steps, num_steps):
-            xt = F.one_hot(lab, self.num_classes).float()
-            t_b = torch.full((b,), int(t), dtype=torch.int64, device=device)
-            lab = torch.argmax(self._step(noise, xt, t_b, cond, context, guidance_fn, feature_cond), dim=-1)
+            with span("sampler.step", True):
+                xt = F.one_hot(lab, self.num_classes).float()
+                t_b = torch.full((b,), int(t), dtype=torch.int64, device=device)
+                lab = torch.argmax(self._step(noise, xt, t_b, cond, context, guidance_fn, feature_cond), dim=-1)
         return F.one_hot(lab, self.num_classes).float()
 
     def sample_labels(self, noise: NoiseSource, shape: Sequence[int], **kw) -> torch.Tensor:

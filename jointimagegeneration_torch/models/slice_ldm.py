@@ -26,6 +26,11 @@ t)` (classifier guidance, `models/classifier.py`) is subtracted from eps as
 sqrt(1 - alpha_index) * g; it draws nothing.  It takes autograd, so a
 sampler given one runs under `torch.no_grad` and enables grad inside the
 function, where inference-mode tensors could not enter autograd.
+
+Spans (`core.logging.span`, with card events): `sampler.step` around each
+node of the DDIM chain, of the PLMS and DPM loops and of the ancestral loop;
+`slice.post` around a volume step's [prev | mask] concat and around its
+min-max normalisation.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.logging import span
 from ..diffusion.ddim import DDIMParams, ddim_step
 from ..diffusion.dpm_solver import dpm_solver_sample_loop
 from ..diffusion.gaussian import GaussianDiffusion
@@ -235,20 +241,21 @@ class SliceLDM:
         inpaint = inpaint_mask is not None and inpaint_x0 is not None
         inter = []
         for index in range(n_run - 1, -1, -1):
-            t_b = torch.full((b,), int(ddim.timesteps[index]), dtype=torch.int64, device=x.device)
-            if inpaint:
-                x_orig = self.diffusion.q_sample(inpaint_x0, t_b, noise.normal(x.shape).to(x.dtype))
-                x = x_orig * inpaint_mask + (1.0 - inpaint_mask) * x
-            out = model(x, t_b, cond, context)
-            if guidance_scale != 1.0:
-                null = torch.zeros_like(cond) if uncond_cond is None else uncond_cond
-                out = _guided(out, model(x, t_b, null, uncond_context), guidance_scale)
-            e_t = self._to_eps(out, x, t_b)
-            if guidance_fn is not None:
-                with torch.enable_grad():
-                    g = guidance_fn(x, t_b)
-                e_t = e_t - float(np.sqrt(np.float32(1.0) - ddim.alphas[index])) * g.to(e_t.dtype)
-            x, pred_x0 = ddim_step(ddim, noise, x, e_t.to(x.dtype), index, temperature)
+            with span("sampler.step", True):
+                t_b = torch.full((b,), int(ddim.timesteps[index]), dtype=torch.int64, device=x.device)
+                if inpaint:
+                    x_orig = self.diffusion.q_sample(inpaint_x0, t_b, noise.normal(x.shape).to(x.dtype))
+                    x = x_orig * inpaint_mask + (1.0 - inpaint_mask) * x
+                out = model(x, t_b, cond, context)
+                if guidance_scale != 1.0:
+                    null = torch.zeros_like(cond) if uncond_cond is None else uncond_cond
+                    out = _guided(out, model(x, t_b, null, uncond_context), guidance_scale)
+                e_t = self._to_eps(out, x, t_b)
+                if guidance_fn is not None:
+                    with torch.enable_grad():
+                        g = guidance_fn(x, t_b)
+                    e_t = e_t - float(np.sqrt(np.float32(1.0) - ddim.alphas[index])) * g.to(e_t.dtype)
+                x, pred_x0 = ddim_step(ddim, noise, x, e_t.to(x.dtype), index, temperature)
             if return_intermediates:
                 inter.append(pred_x0)
         return (x, torch.stack(inter)) if return_intermediates else x
@@ -309,14 +316,15 @@ class SliceLDM:
         every = max(1, T // n_rows) if n_rows else T + 1
         rows = []
         for t in range(T - 1, -1, -1):
-            t_b = torch.full((b,), t, dtype=torch.int64, device=x.device)
-            out = self.apply_model(x, t_b, cond=cond, context=context, y=y)
-            x0 = self.diffusion.predict_x0(out.to(x.dtype), x, t_b, clip_denoised)
-            if quantize_fn is not None:
-                x0 = quantize_fn(x0)
-            mean, _, log_var = self.diffusion.q_posterior(x0, x, t_b)
-            eps = noise.normal(x.shape).to(x.dtype)
-            x_next = mean + float(t > 0) * torch.exp(0.5 * log_var) * eps
+            with span("sampler.step", True):
+                t_b = torch.full((b,), t, dtype=torch.int64, device=x.device)
+                out = self.apply_model(x, t_b, cond=cond, context=context, y=y)
+                x0 = self.diffusion.predict_x0(out.to(x.dtype), x, t_b, clip_denoised)
+                if quantize_fn is not None:
+                    x0 = quantize_fn(x0)
+                mean, _, log_var = self.diffusion.q_posterior(x0, x, t_b)
+                eps = noise.normal(x.shape).to(x.dtype)
+                x_next = mean + float(t > 0) * torch.exp(0.5 * log_var) * eps
             if n_rows and t % every == 0:
                 rows.append(x0 if collect == "x0" else x_next)
             x = x_next
@@ -393,7 +401,8 @@ class SliceLDM:
         chain, then min-max normalisation.  Returns (normalised, raw).  With
         `warm_index=k` and `prev_raw`, the previous raw slice is q-noised to
         node k-1 (a = ddim.alphas[k-1]) and only the last k nodes run."""
-        cond = torch.cat([prev, mask_slice], dim=-1)
+        with span("slice.post", True):
+            cond = torch.cat([prev, mask_slice], dim=-1)
         x_T = start = None
         if warm_index is not None and prev_raw is not None:
             a = ddim.alphas[warm_index - 1]
@@ -406,7 +415,8 @@ class SliceLDM:
         else:
             s = self.sample_slice(noise, cond, ddim, context=context, y=y, tile=tile, guidance_scale=guidance_scale,
                                   x_T=x_T, start_index=start)
-        return _minmax_slice(s), s
+        with span("slice.post", True):
+            return _minmax_slice(s), s
 
     @torch.no_grad()
     def stream_volume(self, noise: NoiseSource, mask_volume: torch.Tensor, ddim: DDIMParams,

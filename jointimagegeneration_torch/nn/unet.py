@@ -75,6 +75,13 @@ wider than 1 without `spatial_axis`.
 `use_fused_resblock` (False | 'xla' | 'kernel' | True) and `use_pallas_conv`
 are the JAX UNet's opt-in kernel paths (nn/unet.py:91-94 there), passed to
 every ResBlock in 3D and ignored in 2D, as there; no config key turns them on.
+
+Spans (`core.logging.span`, recorded only while the recorder is on): `unet`
+around a call, `unet.head` (the time embedding and `in_conv`), one
+`unet.<block>` per block in calling order (`unet.down_0_0_res`, ...,
+`unet.mid_res1`, `unet.mid_attn`, `unet.mid_res2`, ..., `unet.up_0_2_res`),
+and `unet.tail` (`out_norm`, SiLU, `out_conv`, the softmax); card events
+except on a sharded 'model' axis.
 """
 
 from __future__ import annotations
@@ -86,6 +93,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.logging import span
 from ..core.runtime import resolve_device
 from ..parallel import spatial
 from ..parallel.mesh import Mesh, replicate, shard_batch
@@ -222,6 +230,7 @@ class UNet(nn.Module):
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
         init_weights(self, generator)
+        self._span_names = {name: f"unet.{name}" for name, _ in self.named_children()}
         self._replicas, self._replica_version = {}, None
         self.set_mesh(mesh, spatial_axis)
 
@@ -261,11 +270,12 @@ class UNet(nn.Module):
         return out
 
     def _block(self, name: str, h: torch.Tensor, emb: torch.Tensor,
-               context: Optional[torch.Tensor] = None) -> torch.Tensor:
+               context: Optional[torch.Tensor] = None, card: bool = True) -> torch.Tensor:
         block = getattr(self, name)
-        if isinstance(block, ResBlock):
-            return block(h, emb)
-        return block(h, context) if isinstance(block, SequenceTransformer) else block(h)
+        with span(self._span_names[name], card):
+            if isinstance(block, ResBlock):
+                return block(h, emb)
+            return block(h, context) if isinstance(block, SequenceTransformer) else block(h)
 
     def forward(
         self,
@@ -281,6 +291,10 @@ class UNet(nn.Module):
         if set(feature_cond or {}) != set(self.feature_cond_channels):
             raise ValueError(f"UNet built for feature_cond sites {sorted(self.feature_cond_channels)}, given "
                              f"{sorted(feature_cond or {})}")
+        with span("unet", self.spatial_axis is None):
+            return self._call(x, timesteps, cond, context, y, feature_cond)
+
+    def _call(self, x, timesteps, cond, context, y, feature_cond) -> torch.Tensor:
         mesh = self.mesh
         if mesh is None or mesh.devices == [[self.time_embed_0.weight.device]]:
             return self._run(x, timesteps, cond, context, y, feature_cond, None)
@@ -302,6 +316,7 @@ class UNet(nn.Module):
         """The forward on x's device, sharded over `devices` (a mesh row's
         'model' devices) where the levels allow."""
         levels = self._sharded_levels(x.shape[1], len(devices) if devices else 1)
+        card = devices is None
 
         def at(level: int, h):
             """h as `level` runs: split over the row, or whole on x's device."""
@@ -318,45 +333,49 @@ class UNet(nn.Module):
                 h = each(lambda a, f: torch.cat([a, f.to(a.dtype)], dim=-1), h, fc)
             return h
 
-        context = None if context is None or self.context_dim is None else context.to(self.dtype)
-        emb = timestep_embedding(timesteps, self.model_channels)
-        emb = self.time_embed_1(F.silu(self.time_embed_0(emb)))
-        if self.adm_classes is not None:
-            emb = emb + self.label_emb(y.to(device=emb.device, dtype=torch.long))
-        emb = emb.to(self.dtype)
-        if cond is not None:
-            x = torch.cat([x, cond.to(x.dtype)], dim=-1)
-        in_dtype = x.dtype
-        h = self.in_conv(inject(at(0, x.to(self.dtype)), 0))
+        with span("unet.head", card):
+            context = None if context is None or self.context_dim is None else context.to(self.dtype)
+            emb = timestep_embedding(timesteps, self.model_channels)
+            emb = self.time_embed_1(F.silu(self.time_embed_0(emb)))
+            if self.adm_classes is not None:
+                emb = emb + self.label_emb(y.to(device=emb.device, dtype=torch.long))
+            emb = emb.to(self.dtype)
+            if cond is not None:
+                x = torch.cat([x, cond.to(x.dtype)], dim=-1)
+            in_dtype = x.dtype
+            h = self.in_conv(inject(at(0, x.to(self.dtype)), 0))
         hs = [h]
         ds, block_idx = 1, 1
         n_levels = len(self.channel_mult)
         for level in range(n_levels):
             for i in range(self.num_res_blocks):
-                h = self._block(f"down_{level}_{i}_res", inject(h, block_idx), emb)
+                h = self._block(f"down_{level}_{i}_res", inject(h, block_idx), emb, card=card)
                 if ds in self.attention_resolutions:
-                    h = self._block(f"down_{level}_{i}_attn", h, emb, context)
+                    h = self._block(f"down_{level}_{i}_attn", h, emb, context, card)
                 hs.append(h)
                 block_idx += 1
             if level != n_levels - 1:
-                h = at(level + 1, self._block(f"down_{level}_ds", inject(h, block_idx), emb))
+                h = at(level + 1, self._block(f"down_{level}_ds", inject(h, block_idx), emb, card=card))
                 hs.append(h)
                 ds *= 2
                 block_idx += 1
-        h = self.mid_res2(self._block("mid_attn", self.mid_res1(h, emb), emb, context), emb)
+        h = self._block("mid_res1", h, emb, card=card)
+        h = self._block("mid_attn", h, emb, context, card)
+        h = self._block("mid_res2", h, emb, card=card)
         for level in reversed(range(n_levels)):
             for i in range(self.num_res_blocks + 1):
                 h = self._block(f"up_{level}_{i}_res", each(lambda a, b: torch.cat([a, b], dim=-1), h, hs.pop()),
-                                emb)
+                                emb, card=card)
                 if ds in self.attention_resolutions:
-                    h = self._block(f"up_{level}_{i}_attn", h, emb, context)
+                    h = self._block(f"up_{level}_{i}_attn", h, emb, context, card)
                 if level and i == self.num_res_blocks:
-                    h = at(level - 1, self._block(f"up_{level}_us", h, emb))
+                    h = at(level - 1, self._block(f"up_{level}_us", h, emb, card=card))
                     ds //= 2
-        h = each(F.silu, self.out_norm(each(lambda p: p.float(), h)))
-        h = self.out_conv(h)
-        if self.softmax_output:
-            h = each(lambda p: torch.softmax(p, dim=-1), h)
-        if isinstance(h, Sharded):
-            h = spatial.gather(h, x.device)
-        return h.to(in_dtype) if in_dtype != torch.float32 else h
+        with span("unet.tail", card):
+            h = each(F.silu, self.out_norm(each(lambda p: p.float(), h)))
+            h = self.out_conv(h)
+            if self.softmax_output:
+                h = each(lambda p: torch.softmax(p, dim=-1), h)
+            if isinstance(h, Sharded):
+                h = spatial.gather(h, x.device)
+            return h.to(in_dtype) if in_dtype != torch.float32 else h

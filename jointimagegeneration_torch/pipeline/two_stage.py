@@ -19,7 +19,8 @@ autoregressive semantics exactly, except that under `warm_start` each chunk's
 first slice runs the full chain (a chunk carries only `init_slice`, as the JAX
 chunked programs do).  With one chunk over all the slices (`cli.sample`'s
 default), the chunked programs give the JAX CLI's unchunked
-`TwoStagePipeline`.
+`TwoStagePipeline`.  `upsample_labels` and `normalize_mask_channel` are each
+a `handoff` span (`core.logging.span`, with card events).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..core.logging import span
 from ..diffusion.ddim import DDIMParams
 from ..diffusion.noise import NoiseSource
 from ..models.latent_ldm import LatentSliceLDM
@@ -46,13 +48,15 @@ def upsample_labels(labels: torch.Tensor, target_shape: Sequence[int]) -> torch.
     'nearest-exact' (source index floor((i + 0.5) * in / out)) is what
     jax.image.resize(..., 'nearest') computes; torch's 'nearest' differs at
     non-integer ratios."""
-    up = F.interpolate(labels[:, None].float(), size=tuple(target_shape), mode="nearest-exact")
-    return up[:, 0].to(labels.dtype)
+    with span("handoff", True):
+        up = F.interpolate(labels[:, None].float(), size=tuple(target_shape), mode="nearest-exact")
+        return up[:, 0].to(labels.dtype)
 
 
 def normalize_mask_channel(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     """Integer labels -> the [0, 1] stage-2 mask condition channel (..., 1)."""
-    return labels.float()[..., None] / max(num_classes - 1, 1)
+    with span("handoff", True):
+        return labels.float()[..., None] / max(num_classes - 1, 1)
 
 
 def _check_stage2(slice_ldm) -> None:

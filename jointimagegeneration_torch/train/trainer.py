@@ -30,7 +30,10 @@ activity, and CUDA on the card), from the third step after the start, or
 from the first when the run has no more than N + 3 steps left, as the JAX
 trainer decides; the chrome trace goes to `<logdir>/profile/` and the top
 kernel kinds of its device time are printed (`core.logging.summarize_trace`;
-a CPU run's top-level ops where no device kernel ran).  `resume` restores the
+a CPU run's top-level ops where no device kernel ran), and beside them the
+span recorder's table of the window (`core.logging.span`, on while the
+profiler records: count, mean host issue ms and mean card ms of the UNet's
+call, head, blocks and tail, and the refiner's).  `resume` restores the
 latest checkpoint, and the noise stream is seeded from (seed, restored step),
 so a resumed run continues the random draws instead of replaying them.
 """
@@ -153,6 +156,11 @@ class Trainer:
         trace = out / f"trace_step{step}.json"
         prof.export_chrome_trace(str(trace))
         self._print_trace_summary(trace)
+        from ..core.logging import print_span_summary, records, span_summary
+
+        totals = span_summary(records())
+        if totals:
+            print_span_summary(totals, f"profiler: {self.cfg.profile_steps}-step spans")
 
     def _print_trace_summary(self, trace, top_k: int = 10) -> None:
         from ..core.logging import summarize_trace

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the PyTorch port's main path, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_path.py [--steps N] [--out build/profile_torch_path.json]
+    python3 scripts/profile_torch_path.py [--steps N] [--cells] [--out build/profile_torch_path.json]
 
 At the full widths that `chip_smoke.py` drives (its `TWO_STAGE_CFG`, from
 `configs/sample_two_stage.yml`, its `STAGE1_TRAIN_CFG`, from
@@ -18,15 +18,32 @@ LitEma warmup EMA; the trainer's fresh init) at 512x512 with CUDA events,
 then traces a few steps of each with torch.profiler and sums the kernels'
 device time by kind (convolution by cuDNN, the port's conv3d kernel,
 flash_fwd, flash_bwd, GroupNorm/elementwise,
-optimizer, matmul, ...).  Prints one JSON line per step kind and writes them
-all to `--out`.  The device's idle share is 1 - (kernel time / step wall
-time); the train step's peak memory is torch.cuda.max_memory_allocated.
+optimizer, matmul, ...).  Before those, the two sampling cells of the
+benchmark (`perfbench/configs`, `perfbench/workloads`, seeded weights):
+`ldm_unet2d.sample_256_b4`, chains of 10 DDIM-50 nodes at 256x256, b = 4,
+and `ccdm_unet3d.sample_b1`, 10-step mask samples at 64x128x128 with the
+text refiner over a 512-token report; `--cells` runs those two alone.
+Prints one JSON line per step kind and writes them all to `--out`.
+
+The trace records the card alone (host operators' recording would slow the
+host and read as idle), with the program's span recorder on
+(`core.logging.span`).  The device's idle share is 1 - the union of the
+card's kernel and copy intervals over the traced steps' wall time, as
+`perfbench/trace.py` reckons it, and each idle gap goes to the innermost span
+open on the host when it began (`perfbench.trace.reduce_events` fed
+`core.logging.intervals()`): `idle_ms_by_span`, and by UNet level
+(`levels`: head, L0..L4 for the down and up blocks of a level, mid, tail)
+beside the level's host issue ms and card ms, all per UNet call; with a
+sampler loop, `card_backlog_ms` is the median over its steps of the card's
+open less the host's.  The train step's peak memory is
+torch.cuda.max_memory_allocated.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -40,7 +57,7 @@ from chip_smoke import (STAGE1_TRAIN_CFG, STAGE2_TRAIN_CFG, TEXT_TRAIN_CFG, TWO_
                         fused_conv_calls)
 from jointimagegeneration_torch.cli.common import build_mask_dataset  # noqa: E402
 from jointimagegeneration_torch.cli.sample import build_mask_sampler, build_slice_ldm, load_weights  # noqa: E402
-from jointimagegeneration_torch.core.logging import kind_of  # noqa: E402
+from jointimagegeneration_torch.core import logging as spans  # noqa: E402
 from jointimagegeneration_torch.core.runtime import configure_precision  # noqa: E402
 from jointimagegeneration_torch.data.datasets import SyntheticSliceDataset  # noqa: E402
 from jointimagegeneration_torch.diffusion.ddim import DDIMParams, ddim_step  # noqa: E402
@@ -51,12 +68,16 @@ from jointimagegeneration_torch.ops.cuda.build import build_all  # noqa: E402
 from jointimagegeneration_torch.train.optim import build_optimizer  # noqa: E402
 from jointimagegeneration_torch.train.state import EMATrainState  # noqa: E402
 from jointimagegeneration_torch.train.steps import make_ldm_train_step, make_mask_train_step  # noqa: E402
+from perfbench import program  # noqa: E402
+from perfbench.harness import load_json  # noqa: E402
+from perfbench.kinds import kind_of  # noqa: E402
+from perfbench.trace import reduce_events  # noqa: E402
 
 S1, S2 = TWO_STAGE_CFG["stage1"], TWO_STAGE_CFG["stage2"]  # the widths chip_smoke.py drives
 NOISE = TWO_STAGE_CFG["fresh_init_noise"]
 
 
-def conv_ms_by_level(prof, steps: int) -> dict:
+def conv_ms_by_level(device: list, steps: int) -> dict:
     """Device ms per fused 'kernel' step of the conv kernels (conv, split-K
     reduce, stats reduce) by UNet level: the trace's conv3d kernels in launch
     order, matched to the launch planner's sequence for the forward's calls
@@ -67,15 +88,43 @@ def conv_ms_by_level(prof, steps: int) -> dict:
     for shape, cout, opts in fused_conv_calls(S1["unet_openai"], spatial, "kernel"):
         level = (spatial[0] // shape[1]).bit_length() - 1
         seq += [level] * conv.plan_conv3d(*shape, cout, torch.bfloat16, conv_flags(opts)).n_launches
-    evs = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                  and kind_of(e.name) == "conv3d_kernel"), key=lambda e: e.time_range.start)
+    evs = [(s, e) for s, e, name in sorted(device) if kind_of(name) == "conv3d_kernel"]
     if len(evs) != steps * len(seq):
         return {}
     by_level = {}
-    for i, e in enumerate(evs):
+    for i, (s, e) in enumerate(evs):
         lv = f"L{seq[i % len(seq)]}"
-        by_level[lv] = by_level.get(lv, 0.0) + e.time_range.elapsed_us() / steps / 1e3
+        by_level[lv] = by_level.get(lv, 0.0) + (e - s) / steps / 1e6
     return by_level
+
+
+def level_of(name: str) -> str:
+    """A UNet span's level: 'unet.down_2_1_res' -> 'L2', 'unet.mid_attn' ->
+    'mid', 'unet.head' -> 'head'."""
+    part = name.split(".", 1)[1]
+    if part.startswith(("down_", "up_")):
+        return f"L{part.split('_')[1]}"
+    return "mid" if part.startswith("mid_") else part
+
+
+def level_table(recs: list, idle_by_span: dict) -> dict:
+    """{level: {issue_ms, card_ms, idle_ms}} per UNet call of the UNet's
+    block spans: host issue, card time and the card's idle time while the
+    host was in them."""
+    calls = sum(r.name == "unet" for r in recs)
+    if not calls:
+        return {}
+    out = {}
+    for r in recs:
+        if r.name.startswith("unet."):
+            row = out.setdefault(level_of(r.name), {"issue_ms": 0.0, "card_ms": None, "idle_ms": 0.0})
+            row["issue_ms"] += (r.host_close - r.host_open) / 1e6 / calls
+            if r.card_open is not None:
+                row["card_ms"] = (row["card_ms"] or 0.0) + (r.card_close - r.card_open) / 1e6 / calls
+    for name, seconds in idle_by_span.items():
+        if name.startswith("unet.") and level_of(name) in out:
+            out[level_of(name)]["idle_ms"] += 1e3 * seconds / calls
+    return out
 
 
 def measure(label: str, step, steps: int, per_level: bool = False) -> dict:
@@ -99,34 +148,72 @@ def measure(label: str, step, steps: int, per_level: bool = False) -> dict:
     launches["conv3d_splitk_reduce"] = conv.conv3d_igemm.splitk_launches / steps
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    spans.reset_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        w0 = time.time_ns()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    by_kind, kernels = {}, []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
-            continue  # operator and annotated-range rows (Optimizer.step) repeat their kernels' time
-        ms = e.self_device_time_total / steps / 1e3
-        kernels.append((ms, e.count // steps, e.key))
-        by_kind[kind_of(e.key)] = by_kind.get(kind_of(e.key), 0.0) + ms
-    kernel_ms = sum(by_kind.values())
-    kernels.sort(reverse=True)
-    row = {"step": label, "step_ms": step_ms, "kernel_ms": kernel_ms,
-           "device_idle_share": (1 - kernel_ms / step_ms) if kernel_ms else None,
+        w1 = time.time_ns()
+    recs = spans.records()
+    spans.reset_spans()
+    device = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()]
+    traced = reduce_events(device, spans.intervals(recs), (w0, w1))
+    counts = {}
+    for _, _, name in device:
+        counts[name] = counts.get(name, 0) + 1
+    kernels = sorted(((1e3 * s / steps, counts[name] // steps, name) for name, s in traced.by_name.items()),
+                     reverse=True)
+    waits = [(r.card_open - r.host_open) / 1e6 for r in recs if r.name == "sampler.step" and r.card_open is not None]
+    row = {"step": label, "step_ms": step_ms, "kernel_ms": 1e3 * sum(traced.by_kind.values()) / steps,
+           "traced_step_ms": 1e3 * traced.window_s / steps, "busy_ms": 1e3 * traced.busy_s / steps,
+           "device_idle_share": 1 - traced.busy_s / traced.window_s if traced.window_s > 0 else None,
            "launches_per_step": launches, "peak_gib": peak_gib,
-           "kernel_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-           "top_kernels": [{"ms": ms, "calls": n, "name": name[:120]} for ms, n, name in kernels[:12]]}
+           "kernel_ms_by_kind": {k: 1e3 * s / steps for k, s in sorted(traced.by_kind.items(), key=lambda kv: -kv[1])},
+           "top_kernels": [{"ms": ms, "calls": n, "name": name[:120]} for ms, n, name in kernels[:12]],
+           "idle_ms_by_span": {k: 1e3 * s / steps
+                               for k, s in sorted(traced.idle_by_span.items(), key=lambda kv: -kv[1])},
+           "levels": level_table(recs, traced.idle_by_span),
+           "card_backlog_ms": statistics.median(waits) if waits else None}
     if per_level:
-        row["conv3d_kernel_ms_by_level"] = conv_ms_by_level(prof, steps)
+        row["conv3d_kernel_ms_by_level"] = conv_ms_by_level(device, steps)
     print(json.dumps(row), flush=True)
     return row
+
+
+def cell_rows(steps: int) -> list:
+    """The benchmark's two sampling cells, built as its drivers build them."""
+    rows = []
+    with torch.inference_mode():
+        cfg, p = load_json("configs", "ldm_unet2d"), load_json("workloads", "ldm_unet2d.sample_256_b4")
+        ldm = program.slice_ldm(cfg, "cuda")
+        program.load_seeded(ldm.unet, 1, "cuda")
+        ddim = DDIMParams.create(ldm.diffusion, p["ddim_steps"], "uniform", p["ddim_eta"])
+        cond = torch.rand((p["batch"], p["slice_size"], p["slice_size"], 2), device="cuda")
+        noise = NoiseSource(0, "cuda")
+        rows.append(measure("cell ldm_unet2d.sample_256_b4: 10 DDIM nodes", lambda: ldm.sample_slice(
+            noise, cond, ddim, start_index=10), steps))
+        del ldm
+        torch.cuda.empty_cache()
+        cfg, p = load_json("configs", "ccdm_unet3d"), load_json("workloads", "ccdm_unet3d.sample_b1")
+        ms = program.mask_sampler(cfg, "cuda")
+        program.load_seeded(ms.unet, 1, "cuda")
+        program.load_seeded(ms.refiner, 2, "cuda")
+        shape = (p["batch"], *p["mask_shape"])
+        mcond = torch.zeros((*shape, cfg["cond_channels"]), device="cuda")
+        ctx = torch.randn((p["batch"], p["context_tokens"], cfg["feature_cond_encoder"]["embed_dim"]), device="cuda")
+        rows.append(measure("cell ccdm_unet3d.sample_b1: refiner + 10 steps", lambda: ms.sample(
+            noise, shape, cond=mcond, num_steps=10, context=ctx), steps))
+        del ms
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--cells", action="store_true", help="the benchmark's two sampling cells alone")
     ap.add_argument("--out", default="build/profile_torch_path.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -137,7 +224,9 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     configure_precision()
     build_all([flash.FLASH_SOURCE, flash.FLASH_BWD_SOURCE, conv.CONV3D_SOURCE])
-    rows = []
+    rows = cell_rows(args.steps)
+    if args.cells:
+        return write(rows, card, args.out)
     with torch.inference_mode():
         t0 = time.perf_counter()
         ms = build_mask_sampler(S1, "cuda")
@@ -196,9 +285,13 @@ def main() -> int:
     batch = {k: torch.from_numpy(item[k])[None].cuda() for k in ("image", "cond")}
     ldm_step = make_ldm_train_step(ldm)
     rows.append(measure("stage2_train_step_512x512", lambda: ldm_step(state, batch, noise), args.steps))
+    return write(rows, card, args.out)
+
+
+def write(rows: list, card: str, path: str) -> int:
     for r in rows:
         r["card"] = card
-    out = Path(args.out)
+    out = Path(path)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(rows, indent=1))
     return 0

@@ -8,8 +8,10 @@ through `serve.request_noise`.  Each request's response keys, labels (equal)
 and CT (within 1e-4: the [0, 1] min-max normalised slices; the fp32 UNets sum
 in another order at each node) are held to the JAX server's; the NDJSON
 stream's line keys, shapes and dtypes too, and its slices equal the port's
-unstreamed volume bit for bit.  Then the error statuses (404, 400, 500) and
-a mid-stream error line, and the start-up rules (no CUDA, no start)."""
+unstreamed volume bit for bit.  The port's responses and the stream's done
+line add `timings` (its phases' seconds), which the JAX server does not
+have.  Then the error statuses (404, 400, 500) and a mid-stream error line,
+the start-up rules (no CUDA, no start) and `trace_spans=1`'s span table."""
 
 import base64
 import contextlib
@@ -179,6 +181,7 @@ def _compare(jstate, tstate, reqs, latent, replayed):
             assert jcode == tcode == 200, (req, jbody[:300], tbody[:300])
             assert not replayed.left(), f"{replayed.left()} JAX draws left unused for {req}"
             j, t = json.loads(jbody), json.loads(tbody)
+            assert sorted(t.pop("timings")) == TIMINGS[req["kind"]]
             assert sorted(j) == sorted(t), (req, sorted(j), sorted(t))
             for k in j:
                 if k.endswith("nifti_b64"):
@@ -195,6 +198,9 @@ def _compare(jstate, tstate, reqs, latent, replayed):
                     {int(c): n for c, n in t["class_counts"].items()}
             out.append(t)
     return out
+
+
+TIMINGS = {"mask": ["encode_s", "mask_s"], "two_stage": ["encode_s", "first_slice_s", "mask_s", "stage2_s"]}
 
 
 def _stream_lines(port: int, req: dict):
@@ -225,6 +231,9 @@ def test_pixel_server_matches_jax(tmp_path, replayed):
         replayed[0] = _jax_draws(req, False)
         tcode, tlines = _stream_lines(tport, req)
     assert jcode == tcode == 200 and not replayed.left()
+    timings = tlines[-1].pop("timings")
+    assert sorted(timings) == TIMINGS["two_stage"] and all(v >= 0 for v in timings.values())
+    assert timings["first_slice_s"] <= tlines[-1]["elapsed_s"] + 0.01
     assert [sorted(x) for x in jlines] == [sorted(x) for x in tlines]
     assert [x.get("shape") for x in jlines] == [x.get("shape") for x in tlines] == [None, *[[1, 16, 16, 1]] * 4, None]
     assert {x["dtype"] for x in tlines if "slice" in x} == {"float16"}
@@ -265,6 +274,28 @@ def test_server_errors_and_health(tmp_path):
         code, body = _request(port, "POST", "/generate", {"kind": "two_stage"})
         assert code == 500 and "stage2" in json.loads(body)["error"]
         assert _request(port, "POST", "/generate", {"kind": "mask", "mask_steps": 2})[0] == 200
+
+
+def test_server_trace_spans(tmp_path):
+    """`trace_spans=1`: each response's timings hold the request's span
+    table, and the recorder holds nothing after it."""
+    from jointimagegeneration_torch.core import logging as spans
+
+    state = tserve.build_state({**_config(False), "trace_spans": 1})
+    try:
+        with _serving(tserve.make_handler(state)) as port:
+            code, body = _request(port, "POST", "/generate", {"kind": "two_stage", "seed": 2})
+            assert code == 200
+            timings = json.loads(body)["timings"]
+            assert sorted(timings) == sorted(TIMINGS["two_stage"] + ["spans"])
+            table = timings["spans"]
+            assert table["sampler.step"]["count"] == STEPS + 3 * VOLUME[0]  # 3 nodes a slice
+            assert table["handoff"]["count"] == 2 and table["unet"]["count"] == table["sampler.step"]["count"]
+            assert {"request.mask", "request.stage2", "request.encode", "unet", "unet.tail"} <= set(table)
+            assert all(row["card_ms"] is None for row in table.values())  # the CPU
+            assert spans.records() == []
+    finally:
+        spans.trace_spans(False)
 
 
 def test_server_needs_cuda_or_device_cpu(tmp_path):
