@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py            # from the root of a checkout, on a machine with a CUDA card
     python3 chip_smoke.py tracing    # the build and phase 23 alone
+    python3 chip_smoke.py groupnorm  # the build and phase 24 alone
 
 Phases, in order (any failure exits non-zero and prints no result line):
   1. build: compiles every CUDA source of the main paths with nvcc
-     (flash_fwd.cu, flash_bwd.cu, conv3d.cu), one nvcc per source, all
+     (flash_fwd.cu, flash_bwd.cu, conv3d.cu, group_norm.cu), one nvcc per source, all
      started together;
   2. kernels: each kernel against its plain PyTorch version on the card at the
      main paths' shapes (max abs error against a stated tolerance), timed as
@@ -225,6 +226,16 @@ Phases, in order (any failure exits non-zero and prints no result line):
      clock's offset printed); one stage-2 DDIM step (256x256, b = 4) and one
      stage-1 step (64x128x128) with the recorder on and off, bit for bit; its
      on-cost: `unet_host_ms` and the host ms a step off and on, alternating.
+ 24. groupnorm: the GroupNorm kernel pair (csrc/group_norm.cu, built with the
+     other CUDA sources) at every distinct GroupNorm shape of the benchmark's
+     two cells, without and with SiLU, the embedding's add and FiLM, against
+     the fp32 composite (2^-7 of max |y| in bf16, 1e-5 in fp32), graph-timed
+     against two reads and one write of x at 3.35 TB/s beside the composite;
+     then at the cells' published widths: 132 launches a UNet call in each
+     and no composite GroupNorm on the card, one DDIM step (256x256, b = 4)
+     and one mask step against the composite within the benchmark's limits,
+     one stage-1 train step's gradients against the composite's
+     (`python3 chip_smoke.py groupnorm` runs the build and this phase alone).
 Before each main path (6 per run and the latent path, 7 per variant, 9, each
 text path of 10, 12, each run of 14, 15, 17, 18, each request of 19 and each
 run of 20, each run, step and chain of 21, and each run of 22) every kernel launch counter (flash_fwd,
@@ -5239,6 +5250,206 @@ def tracing_phase(flash, card: str) -> dict:
     return out
 
 
+GN_CELLS = {  # cell -> (batch, [(rows a sample, channels, dtype)]): every distinct GroupNorm of one UNet call
+    "ldm_unet2d.sample_256_b4": (4, [
+        (65536, 128, torch.bfloat16), (65536, 128, torch.float32), (65536, 256, torch.bfloat16),
+        (65536, 384, torch.bfloat16), (16384, 128, torch.bfloat16), (16384, 256, torch.bfloat16),
+        (16384, 384, torch.bfloat16), (16384, 512, torch.bfloat16), (16384, 768, torch.bfloat16),
+        (4096, 256, torch.bfloat16), (4096, 512, torch.bfloat16), (4096, 768, torch.bfloat16),
+        (4096, 1024, torch.bfloat16), (1024, 512, torch.bfloat16), (1024, 1024, torch.bfloat16),
+        (1024, 1152, torch.bfloat16), (256, 512, torch.bfloat16), (256, 640, torch.bfloat16),
+        (256, 1152, torch.bfloat16), (256, 1280, torch.bfloat16)]),
+    "ccdm_unet3d.sample_b1": (1, [
+        (1048576, 64, torch.bfloat16), (1048576, 64, torch.float32), (1048576, 128, torch.bfloat16),
+        (1048576, 192, torch.bfloat16), (131072, 64, torch.bfloat16), (131072, 128, torch.bfloat16),
+        (131072, 192, torch.bfloat16), (131072, 256, torch.bfloat16), (16384, 128, torch.bfloat16),
+        (16384, 256, torch.bfloat16), (16384, 384, torch.bfloat16), (2048, 128, torch.bfloat16),
+        (2048, 256, torch.bfloat16), (2048, 384, torch.bfloat16), (2048, 512, torch.bfloat16),
+        (2048, 576, torch.bfloat16), (256, 256, torch.bfloat16), (256, 320, torch.bfloat16),
+        (256, 576, torch.bfloat16), (256, 640, torch.bfloat16)]),
+}
+GN_TOL = {torch.bfloat16: 2**-7, torch.float32: 1e-5}  # of max |y| of the fp32 composite
+GN_SITES = 66  # GroupNorm sites of a UNet call in both cells
+GN_STEP_LIMITS = {"slice_rms": 2.5e-3, "slice_max_abs": 1.2e-2, "label_gap": 0.3}  # the benchmark's `correct`
+GN_GRAD_TOL = 0.05  # a stage-1 train step's gradients, kernel against composite: relative L2 of all of them
+
+
+def _gn_variants(emb: torch.Tensor, c: int) -> dict:
+    return {"plain": {}, "silu": {"silu": True}, "silu+add": {"silu": True, "add": emb[:, :c]},
+            "silu+film": {"silu": True, "film_scale": 0.2 * emb[:, :c], "film_shift": emb[:, c:]}}
+
+
+@contextlib.contextmanager
+def _composite_everywhere():
+    """Routes nn.blocks' CUDA GroupNorm sites to the plain composite (the
+    port before the kernel pair), for comparisons."""
+    from jointimagegeneration_torch.nn import blocks
+    from jointimagegeneration_torch.ops import group_norm as gn
+
+    blocks.group_norm_act = gn.group_norm_plain
+    try:
+        yield
+    finally:
+        blocks.group_norm_act = gn.group_norm_act
+
+
+def groupnorm_phase(card: str) -> dict:
+    """The GroupNorm kernel pair (`ops/group_norm.py`, csrc/group_norm.cu) on
+    the card.  At every distinct GroupNorm shape of the benchmark's two cells
+    (GN_CELLS, bf16 and the fp32 out_norm), without and with SiLU, the
+    embedding's add and FiLM: max |kernel - fp32 composite| within GN_TOL of
+    max |composite|, bit for bit on a repeat; graph-timed ms of the ResBlock
+    form (SiLU and add) against the bound of two reads and one write of x at
+    3.35 TB/s, beside the composite's ms (the port before the pair).  Then at
+    the cells' published widths with seeded weights: `group_norm_act.launches`
+    per UNet call (2 x GN_SITES) and no composite on a CUDA tensor; one DDIM
+    step at 256x256, b = 4, and one mask step (64x128x128, the 512-token
+    report) against the composite within the benchmark's limits
+    (GN_STEP_LIMITS: the step's x in [0, 1] units; the chosen labels' gap
+    under a shared Gumbel draw); one stage-1 train step's gradients against
+    the composite's (GN_GRAD_TOL)."""
+    from jointimagegeneration_torch.diffusion.ddim import DDIMParams, ddim_step
+    from jointimagegeneration_torch.diffusion.noise import NoiseSource
+    from jointimagegeneration_torch.nn import blocks
+    from jointimagegeneration_torch.ops import group_norm as gn
+    from jointimagegeneration_torch.train.steps import mask_loss
+    from perfbench import program
+    from perfbench.harness import load_json
+
+    t_start = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rows = []
+    for cell, (b, shapes) in GN_CELLS.items():
+        for s, c, dtype in shapes:
+            x = (2 * torch.randn((b, s, c), generator=g, device="cuda") + 0.5).to(dtype)
+            gamma = 1 + 0.2 * torch.randn(c, generator=g, device="cuda")
+            beta = 0.2 * torch.randn(c, generator=g, device="cuda")
+            emb = torch.randn((b, 2 * c), generator=g, device="cuda")
+            errs = {}
+            for label, kw in _gn_variants(emb, c).items():
+                y = gn.group_norm_act(x, gamma, beta, 32, 1e-5, **kw)
+                want = gn.group_norm_plain(x.float(), gamma, beta, 32, 1e-5, **kw)
+                errs[label] = ((y.float() - want).abs().max() / want.abs().max()).item()
+                check(torch.equal(y, gn.group_norm_act(x, gamma, beta, 32, 1e-5, **kw)),
+                      f"groupnorm {cell} ({b}, {s}, {c}) {dtype} {label}: a repeat differs")
+                check(errs[label] <= GN_TOL[dtype], f"groupnorm {cell} ({b}, {s}, {c}) {dtype} {label}: error "
+                      f"{errs[label]:.3e} of max |y| over {GN_TOL[dtype]}")
+            kw = _gn_variants(emb, c)["silu+add"]
+            iters = max(10, min(200, int(2e9 / (3 * x.numel() * x.element_size()))))
+            ms, eager_ms = time_ms(lambda: gn.group_norm_act(x, gamma, beta, 32, 1e-5, **kw), iters)
+            plain_ms, _ = time_ms(lambda: gn.group_norm_plain(x, gamma, beta, 32, 1e-5, **kw), max(5, iters // 4))
+            bound_ms = 3 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
+            plan = gn.plan_group_norm(b, s, c, 32, dtype)
+            row = {"cell": cell, "shape": [b, s, c], "dtype": str(dtype).split(".")[-1], "err": errs, "ms": ms,
+                   "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "share": bound_ms / ms,
+                   "plan": {"tiles": plan.tiles, "rows": plan.rows, "threads": plan.threads, "vec": plan.vec}}
+            rows.append(row)
+            print(f"groupnorm ({b}, {s}, {c}) {row['dtype']}: max err {max(errs.values()):.2e} of max |y|; "
+                  f"{ms:.4f} ms ({eager_ms:.4f} eager) against the bound {bound_ms:.4f} ({100 * row['share']:.1f}%), "
+                  f"composite {plain_ms:.4f} ms; {plan.tiles} x {b} blocks of {plan.threads}", flush=True)
+            del x, gamma, beta, emb
+    torch.cuda.empty_cache()
+
+    plain_calls = []
+    plain = blocks.group_norm_plain
+    blocks.group_norm_plain = lambda x, *a: plain_calls.append(x.device.type) or plain(x, *a)
+    out = {"shapes": rows}
+    try:
+        with torch.inference_mode():
+            cfg, p = load_json("configs", "ldm_unet2d"), load_json("workloads", "ldm_unet2d.sample_256_b4")
+            ldm = program.slice_ldm(cfg, "cuda")
+            program.load_seeded(ldm.unet, 5, "cuda")
+            ddim = DDIMParams.create(ldm.diffusion, p["ddim_steps"], "uniform", p["ddim_eta"])
+            size, b = p["slice_size"], p["batch"]
+            x = torch.randn((b, size, size, 1), generator=g, device="cuda")
+            cond = torch.rand((b, size, size, 2), generator=g, device="cuda")
+            tb = torch.full((b,), int(ddim.timesteps[25]), device="cuda")
+
+            def slice_step():
+                return ddim_step(ddim, NoiseSource(3, "cuda"), x, ldm.apply_model(x, tb, cond=cond).float(), 25)[0]
+
+            slice_step()
+            torch.cuda.synchronize()
+            gn.group_norm_act.launches = 0
+            got = slice_step()
+            torch.cuda.synchronize()
+            out["slice_launches"] = gn.group_norm_act.launches
+            with _composite_everywhere():
+                want = slice_step()
+            gap = (got.float() - want.float()) / 2  # [-1, 1] -> [0, 1] units
+            out["slice"] = {"rms": gap.pow(2).mean(dim=(1, 2, 3)).sqrt().max().item(),
+                            "max_abs": gap.abs().max().item()}
+            del ldm
+            torch.cuda.empty_cache()
+
+        # built outside inference mode: the train step below takes its gradients
+        cfg, p = load_json("configs", "ccdm_unet3d"), load_json("workloads", "ccdm_unet3d.sample_b1")
+        ms = program.mask_sampler(cfg, "cuda")
+        program.load_seeded(ms.unet, 6, "cuda")
+        program.load_seeded(ms.refiner, 7, "cuda")
+        shape = (p["batch"], *p["mask_shape"])
+        k = cfg["num_classes"]
+        xt = torch.nn.functional.one_hot(torch.randint(0, k, shape, generator=g, device="cuda"), k).float()
+        mcond = torch.zeros((*shape, cfg["cond_channels"]), device="cuda")
+        report = torch.randn((p["batch"], p["context_tokens"], cfg["feature_cond_encoder"]["embed_dim"]),
+                             generator=g, device="cuda")
+        with torch.no_grad():
+            ctx = ms.refine_context(report)
+            t = torch.full((p["batch"],), 500, device="cuda")
+
+            def log_post():
+                x0 = ms.unet(xt, t.float(), cond=mcond, context=ctx)
+                return ms.diffusion.theta_post_prob(xt, x0, t).clamp_min(1e-12).log()
+
+            log_post()
+            torch.cuda.synchronize()
+            gn.group_norm_act.launches = 0
+            lp = log_post()
+            torch.cuda.synchronize()
+            out["mask_launches"] = gn.group_norm_act.launches
+            with _composite_everywhere():
+                lp_plain = log_post()
+            gumbel = -torch.log(-torch.log(torch.rand(lp.shape, generator=g, device="cuda").clamp(1e-20, 1.0)))
+            chosen = (lp + gumbel).argmax(dim=-1, keepdim=True)
+            score = lp_plain + gumbel
+            out["mask"] = {"label_gap": (score.max(dim=-1).values - score.gather(-1, chosen)[..., 0]).max().item(),
+                           "labels_differ": (chosen[..., 0] != score.argmax(dim=-1)).sum().item()}
+    finally:
+        blocks.group_norm_plain = plain
+    out["plain_calls_on_card"] = sum(d == "cuda" for d in plain_calls)
+    check(out["slice_launches"] == out["mask_launches"] == 2 * GN_SITES,
+          f"groupnorm: {out['slice_launches']} and {out['mask_launches']} launches a UNet call, "
+          f"{2 * GN_SITES} expected")
+    check(out["plain_calls_on_card"] == 0, f"groupnorm: {out['plain_calls_on_card']} composite GroupNorms on the card")
+    check(out["slice"]["rms"] <= GN_STEP_LIMITS["slice_rms"]
+          and out["slice"]["max_abs"] <= GN_STEP_LIMITS["slice_max_abs"],
+          f"groupnorm: a DDIM step against the composite {out['slice']}")
+    check(out["mask"]["label_gap"] <= GN_STEP_LIMITS["label_gap"], f"groupnorm: a mask step {out['mask']}")
+
+    batch = {"mask": xt, "image": mcond, "context": report}
+    params = [q for _, q in ms.named_parameters()]
+
+    def grads():
+        loss, _ = mask_loss(ms, NoiseSource(8, "cuda"), batch)
+        return torch.cat([d.float().flatten() for d in torch.autograd.grad(loss, params)])
+
+    got = grads()
+    with _composite_everywhere():
+        want = grads()
+    out["train_grad_rel_l2"] = ((got - want).norm() / want.norm()).item()
+    check(out["train_grad_rel_l2"] <= GN_GRAD_TOL, f"groupnorm: a train step's gradients differ from the "
+          f"composite's by {out['train_grad_rel_l2']:.3e} (relative L2)")
+    del ms, batch, params, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"groupnorm: {out['slice_launches']} and {out['mask_launches']} launches a UNet call, "
+          f"{out['plain_calls_on_card']} composite GroupNorms on the card; a DDIM step against the composite "
+          f"{out['slice']}, a mask step {out['mask']}; a stage-1 train step's gradients {out['train_grad_rel_l2']:.3e} "
+          f"(relative L2); {out['seconds']:.1f} s; {card}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a machine with an NVIDIA GPU",
@@ -5247,6 +5458,7 @@ def main() -> int:
     try:
         from jointimagegeneration_torch.ops import conv3d as conv
         from jointimagegeneration_torch.ops import flash_attention as flash
+        from jointimagegeneration_torch.ops import group_norm as gnorm
         from jointimagegeneration_torch.data import native
         from jointimagegeneration_torch.ops.cuda import build
     except ImportError as e:
@@ -5256,7 +5468,8 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    build_s = build.build_all([flash.FLASH_SOURCE, flash.FLASH_BWD_SOURCE, conv.CONV3D_SOURCE, native.SOURCE])
+    build_s = build.build_all([flash.FLASH_SOURCE, flash.FLASH_BWD_SOURCE, conv.CONV3D_SOURCE, gnorm.GROUP_NORM_SOURCE,
+                               native.SOURCE])
     print(f"build: {build_s} ({time.perf_counter() - t0:.2f} s wall)", flush=True)
     check(native.native_available(), "the native data library did not load")
     print(f"native data: csrc/{native.SOURCE}.cc built by {build.cxx_path()} in {build_s.get(native.SOURCE, 0.0):.2f} "
@@ -5265,6 +5478,9 @@ def main() -> int:
 
     if sys.argv[1:] == ["tracing"]:  # the tracing phase alone
         print(f"tracing: {json.dumps(tracing_phase(flash, card))}")
+        return 0
+    if sys.argv[1:] == ["groupnorm"]:  # the GroupNorm phase alone
+        print(f"groupnorm: {json.dumps(groupnorm_phase(card))}")
         return 0
     rows, merge_rows = flash_phase(flash)
     bwd_rows = bwd_phase(flash)
@@ -5317,6 +5533,7 @@ def main() -> int:
     guided = classifier_guidance_phase(flash, card)
     spatial = spatial_phase(flash, card)
     tracing = tracing_phase(flash, card)
+    groupnorm = groupnorm_phase(card)
 
     main_row = rows[1]  # (16, 1024, 32): the stage-2 site, most of the sampling path's launches
     fwd_launches = {"two_stage_sampling": ddim_path["launches"], "fast_sampling": fast["fast path"]["launches"],
@@ -5532,6 +5749,23 @@ def main() -> int:
     print(f"trainers and stage-2 conditioning: {json.dumps(slice17)}")
     print(f"spatial: {json.dumps(spatial)}")
     print(f"tracing: {json.dumps(tracing)}")
+    print(f"groupnorm: {json.dumps(groupnorm)}")
+    gn_row = max(groupnorm["shapes"], key=lambda r: r["bound_ms"])
+    kernels.append({
+        "name": "group_norm_act",
+        "route": "cuda",
+        "source": "jointimagegeneration_torch/csrc/group_norm.cu",
+        "replaces": None,
+        "note": ("not a TPU kernel (XLA fuses GroupNorm in the JAX package): gn_welford_reduce_kernel + "
+                 "gn_affine_silu_elementwise_kernel at every GroupNorm site on the card; the numbers are the "
+                 "largest shape's, the ResBlock form (SiLU and the embedding's add), its bound two reads and one "
+                 "write of x at HBM's rate"),
+        "launches_per_unet_call": {"ldm_unet2d.sample_256_b4": groupnorm["slice_launches"],
+                                   "ccdm_unet3d.sample_b1": groupnorm["mask_launches"]},
+        "max_abs_err": max(max(r["err"].values()) for r in groupnorm["shapes"]),
+        **{k: gn_row[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms")},
+        "shapes": groupnorm["shapes"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,7 +71,7 @@ class EncoderUNet(nn.Module):
                 h = getattr(self, f"down_{level}_{i}")(h, emb)
             if level != len(self.channel_mult) - 1:
                 h = getattr(self, f"down_{level}_ds")(h)
-        h = F.silu(self.out_norm(h))
+        h = self.out_norm(h, silu=True)
         h = h.mean(dim=tuple(range(1, h.ndim - 1)))  # adaptive average pool
         return self.head(h)
 

@@ -33,7 +33,7 @@ call that it cannot partition.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +44,7 @@ from ..ops.attention import multi_head_cross_attention
 from ..ops.conv3d import conv3d_3x3_v2
 from ..ops.fused_resblock import (fused_affine_silu_conv3d, fused_conv3d, gn_affine_from_moments,
                                   group_moments, moments_from_channel_sums)
+from ..ops.group_norm import _per_sample, group_norm_act, group_norm_plain
 from ..parallel import spatial
 from ..parallel.spatial import Sharded, each
 
@@ -78,21 +79,34 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10
     return emb
 
 
-def group_norm(x, scale: torch.Tensor, bias: torch.Tensor, groups: int, eps: float = 1e-5):
+def group_norm(x, scale: torch.Tensor, bias: torch.Tensor, groups: int, eps: float = 1e-5, silu: bool = False,
+               add: Optional[torch.Tensor] = None, film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Per-sample GroupNorm of a channels-last tensor, computed in fp32 and
     cast back to x's dtype; of a `Sharded` one with every shard's
-    statistics."""
+    statistics.  `add` (B, C) fp32 is added to x before the statistics,
+    `film` = (scale, shift), each (B, C) fp32, maps the result y to
+    y * (1 + scale) + shift, and `silu` applies SiLU last.
+
+    A CUDA tensor takes the kernel pair (`ops.group_norm.group_norm_act`:
+    the add, the affine, FiLM and SiLU in fp32, one rounding); a CPU tensor
+    the plain composite (`group_norm_plain`: the add and FiLM in x's dtype),
+    and a `Sharded` one the same composite around `spatial.group_stats`."""
+    film_scale, film_shift = film if film is not None else (None, None)
+    if not isinstance(x, Sharded):
+        if x.device.type == "cuda":
+            return group_norm_act(x, scale, bias, groups, eps, silu, add, film_scale, film_shift)
+        return group_norm_plain(x, scale, bias, groups, eps, silu, add, film_scale, film_shift)
+    if add is not None:
+        x = each(lambda p, a: p + _per_sample(a, p), x, add)
     b, c = x.shape[0], x.shape[-1]
-    if isinstance(x, Sharded):
-        xs = [p.float().reshape(b, -1, groups, c // groups) for p in x.parts]
-        means, variances = spatial.group_stats(xs)
-        return each(lambda p, xf, mean, var, g, h: (((xf - mean) * torch.rsqrt(var + eps)).reshape(p.shape)
-                                                      * g.float() + h.float()).to(p.dtype),
-                    x, xs, means, variances, scale, bias)
-    xf = x.float().reshape(b, -1, groups, c // groups)
-    var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, correction=0)
-    xn = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
-    return (xn * scale.float() + bias.float()).to(x.dtype)
+    xs = [p.float().reshape(b, -1, groups, c // groups) for p in x.parts]
+    means, variances = spatial.group_stats(xs)
+    y = each(lambda p, xf, mean, var, g, h: (((xf - mean) * torch.rsqrt(var + eps)).reshape(p.shape)
+                                             * g.float() + h.float()).to(p.dtype),
+             x, xs, means, variances, scale, bias)
+    if film is not None:
+        y = each(lambda p, a, h: p * (1 + _per_sample(a, p)) + _per_sample(h, p), y, film_scale, film_shift)
+    return each(F.silu, y) if silu else y
 
 
 def conv_nd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -162,8 +176,8 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, self.groups, self.eps)
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, self.groups, self.eps, silu)
 
 
 class Conv(nn.Module):
@@ -300,18 +314,14 @@ class ResBlock(nn.Module):
         return gn_affine_from_moments(mean1, var1, self.norm1_scale, self.norm1_bias, self.g1)
 
     def _glue1(self, x):
-        return each(F.silu, group_norm(x, self.norm1_scale, self.norm1_bias, self.g1))
+        return group_norm(x, self.norm1_scale, self.norm1_bias, self.g1, silu=True)
 
     def _glue2(self, h, emb_out: torch.Tensor, keep):
         """silu(GN2(h + emb)) (or GN2 with FiLM), then the drawn dropout mask."""
-        eo = emb_out.to(h.dtype).reshape(emb_out.shape[:1] + (1,) * (h.ndim - 2) + emb_out.shape[1:])
         if self.use_scale_shift_norm:
-            scale, shift = eo.chunk(2, dim=-1)
-            h = each(lambda g, a, b: g * (1 + a) + b, group_norm(h, self.norm2_scale, self.norm2_bias, self.g2),
-                     scale, shift)
+            h = group_norm(h, self.norm2_scale, self.norm2_bias, self.g2, silu=True, film=emb_out.chunk(2, dim=-1))
         else:
-            h = group_norm(each(torch.add, h, eo), self.norm2_scale, self.norm2_bias, self.g2)
-        h = each(F.silu, h)
+            h = group_norm(h, self.norm2_scale, self.norm2_bias, self.g2, silu=True, add=emb_out)
         if keep is not None:
             h = each(lambda a, k: torch.where(k, a / (1.0 - self.dropout), torch.zeros_like(a)), h, keep)
         return h

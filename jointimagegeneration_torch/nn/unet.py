@@ -372,7 +372,7 @@ class UNet(nn.Module):
                     h = at(level - 1, self._block(f"up_{level}_us", h, emb, card=card))
                     ds //= 2
         with span("unet.tail", card):
-            h = each(F.silu, self.out_norm(each(lambda p: p.float(), h)))
+            h = self.out_norm(each(lambda p: p.float(), h), silu=True)
             h = self.out_conv(h)
             if self.softmax_output:
                 h = each(lambda p: torch.softmax(p, dim=-1), h)

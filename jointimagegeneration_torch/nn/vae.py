@@ -93,8 +93,8 @@ class VAEResBlock(nn.Module):
         self.nin_shortcut = Conv(in_ch, out_ch, 1, dims, device=device) if in_ch != out_ch else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x, silu=True))
+        h = self.conv2(self.norm2(h, silu=True))
         return (x if self.nin_shortcut is None else self.nin_shortcut(x)) + h
 
 
@@ -149,7 +149,7 @@ class Encoder(_Stack):
         self.conv_out = Conv(cur, 2 * z_channels if double_z else z_channels, 3, dims, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv_out(F.silu(self.norm_out(self._run(x))))
+        return self.conv_out(self.norm_out(self._run(x), silu=True))
 
 
 class Decoder(_Stack):
@@ -180,7 +180,7 @@ class Decoder(_Stack):
         self.conv_out = Conv(cur, out_ch, 3, dims, device=device)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        return self.conv_out(F.silu(self.norm_out(self._run(z))))
+        return self.conv_out(self.norm_out(self._run(z), silu=True))
 
 
 class VectorQuantizer(nn.Module):
@@ -206,7 +206,7 @@ class VectorQuantizer(nn.Module):
 
 
 def _out_head(h: torch.Tensor, norm_out: GroupNorm32, conv_out: Conv) -> torch.Tensor:
-    return conv_out(F.silu(norm_out(h)))
+    return conv_out(norm_out(h, silu=True))
 
 
 class SimpleDecoder(nn.Module):

@@ -18,7 +18,8 @@ LitEma warmup EMA; the trainer's fresh init) at 512x512 with CUDA events,
 then traces a few steps of each with torch.profiler and sums the kernels'
 device time by kind (convolution by cuDNN, the port's conv3d kernel,
 flash_fwd, flash_bwd, GroupNorm/elementwise,
-optimizer, matmul, ...).  Before those, the two sampling cells of the
+optimizer, matmul, ...) and counts each kernel's launches per step (the
+GroupNorm pair's, `group_norm_act`, also per UNet call in the two cells).  Before those, the two sampling cells of the
 benchmark (`perfbench/configs`, `perfbench/workloads`, seeded weights):
 `ldm_unet2d.sample_256_b4`, chains of 10 DDIM-50 nodes at 256x256, b = 4,
 and `ccdm_unet3d.sample_b1`, 10-step mask samples at 64x128x128 with the
@@ -64,6 +65,7 @@ from jointimagegeneration_torch.diffusion.ddim import DDIMParams, ddim_step  # n
 from jointimagegeneration_torch.diffusion.noise import NoiseSource  # noqa: E402
 from jointimagegeneration_torch.ops import conv3d as conv  # noqa: E402
 from jointimagegeneration_torch.ops import flash_attention as flash  # noqa: E402
+from jointimagegeneration_torch.ops import group_norm as gn  # noqa: E402
 from jointimagegeneration_torch.ops.cuda.build import build_all  # noqa: E402
 from jointimagegeneration_torch.train.optim import build_optimizer  # noqa: E402
 from jointimagegeneration_torch.train.state import EMATrainState  # noqa: E402
@@ -127,22 +129,26 @@ def level_table(recs: list, idle_by_span: dict) -> dict:
     return out
 
 
-def measure(label: str, step, steps: int, per_level: bool = False) -> dict:
+def measure(label: str, step, steps: int, per_level: bool = False, unet=None) -> dict:
     for _ in range(2):
         step()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     counters = (flash.flash_forward, flash.flash_bwd_dkv, flash.flash_bwd_dq, flash.flash_bwd_reduce,
-                conv.conv3d_igemm, conv.channel_stats_reduce)
+                conv.conv3d_igemm, conv.channel_stats_reduce, gn.group_norm_act)
     for c in counters:
         c.launches = 0
     conv.conv3d_igemm.splitk_launches = 0
+    calls = []
+    hook = unet.register_forward_pre_hook(lambda *_: calls.append(1)) if unet is not None else None
     torch.cuda.reset_peak_memory_stats()
     start.record()
     for _ in range(steps):
         step()
     end.record()
     torch.cuda.synchronize()
+    if hook is not None:
+        hook.remove()
     step_ms = start.elapsed_time(end) / steps
     launches = {c.__name__: c.launches / steps for c in counters}
     launches["conv3d_splitk_reduce"] = conv.conv3d_igemm.splitk_launches / steps
@@ -176,6 +182,8 @@ def measure(label: str, step, steps: int, per_level: bool = False) -> dict:
                                for k, s in sorted(traced.idle_by_span.items(), key=lambda kv: -kv[1])},
            "levels": level_table(recs, traced.idle_by_span),
            "card_backlog_ms": statistics.median(waits) if waits else None}
+    if calls:
+        row["group_norm_act_per_unet_call"] = gn.group_norm_act.launches / len(calls)
     if per_level:
         row["conv3d_kernel_ms_by_level"] = conv_ms_by_level(device, steps)
     print(json.dumps(row), flush=True)
@@ -193,7 +201,7 @@ def cell_rows(steps: int) -> list:
         cond = torch.rand((p["batch"], p["slice_size"], p["slice_size"], 2), device="cuda")
         noise = NoiseSource(0, "cuda")
         rows.append(measure("cell ldm_unet2d.sample_256_b4: 10 DDIM nodes", lambda: ldm.sample_slice(
-            noise, cond, ddim, start_index=10), steps))
+            noise, cond, ddim, start_index=10), steps, unet=ldm.unet))
         del ldm
         torch.cuda.empty_cache()
         cfg, p = load_json("configs", "ccdm_unet3d"), load_json("workloads", "ccdm_unet3d.sample_b1")
@@ -204,7 +212,7 @@ def cell_rows(steps: int) -> list:
         mcond = torch.zeros((*shape, cfg["cond_channels"]), device="cuda")
         ctx = torch.randn((p["batch"], p["context_tokens"], cfg["feature_cond_encoder"]["embed_dim"]), device="cuda")
         rows.append(measure("cell ccdm_unet3d.sample_b1: refiner + 10 steps", lambda: ms.sample(
-            noise, shape, cond=mcond, num_steps=10, context=ctx), steps))
+            noise, shape, cond=mcond, num_steps=10, context=ctx), steps, unet=ms.unet))
         del ms
         torch.cuda.empty_cache()
     return rows
@@ -223,7 +231,7 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     configure_precision()
-    build_all([flash.FLASH_SOURCE, flash.FLASH_BWD_SOURCE, conv.CONV3D_SOURCE])
+    build_all([flash.FLASH_SOURCE, flash.FLASH_BWD_SOURCE, conv.CONV3D_SOURCE, gn.GROUP_NORM_SOURCE])
     rows = cell_rows(args.steps)
     if args.cells:
         return write(rows, card, args.out)
