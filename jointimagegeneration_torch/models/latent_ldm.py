@@ -19,6 +19,14 @@ A VQ first stage diffuses in the pre-quantization latent and decodes through
 the codebook.  `scale_factor` multiplies the diffusion latent only (fixed, or
 1/std of an encoded batch by `calibrate_scale_factor`).
 
+Spans (`core.logging.span`, with card events) and counters: every call of a
+stage, `ae_encode` or `ae_decode` (the cond encode, the uncond encode under
+guidance, the first stage's decode, each tile of the tiled routes, the
+training encodes), is an `ae.encode` or `ae.decode` span and counts one in
+`ae_encode.launches` or `ae_decode.launches`; a volume's min-max is
+`slice.post`, as on the pixel route.  So a latent slice step records
+`ae.encode`, the chain's `sampler.step` nodes, `ae.decode`, `slice.post`.
+
 Training (`train_loss_inputs`): the image goes through the first stage's
 sampled posterior (one normal of the latent's shape from the noise source),
 scaled by `scale_factor`; the condition through `encode_cond` (the cond
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.logging import span
 from ..diffusion.ddim import DDIMParams
 from ..diffusion.gaussian import GaussianDiffusion
 from ..diffusion.noise import NoiseSource
@@ -42,21 +51,31 @@ from ..ops.tiling import tiled_apply
 from .autoencoder import VQModel
 from .slice_ldm import SliceLDM, _minmax_slice
 
-__all__ = ["LatentSliceLDM"]
+__all__ = ["LatentSliceLDM", "ae_encode", "ae_decode"]
 
 
-def _stage_encode(stage: nn.Module, x: torch.Tensor, noise: Optional[NoiseSource] = None) -> torch.Tensor:
+def ae_encode(stage: nn.Module, x: torch.Tensor, noise: Optional[NoiseSource] = None) -> torch.Tensor:
     """KL: the posterior's mode, or a sample when a noise source is given;
-    VQ: the pre-quant latent."""
-    if isinstance(stage, VQModel):
-        return stage.encode_prequant(x)
-    posterior = stage.encode(x)
-    return posterior.mode() if noise is None else posterior.sample(noise)
+    VQ: the pre-quant latent.  An `ae.encode` span; counts one in
+    `ae_encode.launches`."""
+    ae_encode.launches += 1
+    with span("ae.encode", True):
+        if isinstance(stage, VQModel):
+            return stage.encode_prequant(x)
+        posterior = stage.encode(x)
+        return posterior.mode() if noise is None else posterior.sample(noise)
 
 
-def _stage_decode(stage: nn.Module, z: torch.Tensor) -> torch.Tensor:
-    """KL: plain; VQ: through the codebook."""
-    return stage.decode_prequant(z) if isinstance(stage, VQModel) else stage.decode(z)
+def ae_decode(stage: nn.Module, z: torch.Tensor) -> torch.Tensor:
+    """KL: plain; VQ: through the codebook.  An `ae.decode` span; counts one
+    in `ae_decode.launches`."""
+    ae_decode.launches += 1
+    with span("ae.decode", True):
+        return stage.decode_prequant(z) if isinstance(stage, VQModel) else stage.decode(z)
+
+
+ae_encode.launches = 0
+ae_decode.launches = 0
 
 
 @dataclass(frozen=True)
@@ -89,23 +108,23 @@ class LatentSliceLDM:
     @torch.no_grad()
     def encode(self, x: torch.Tensor, noise: Optional[NoiseSource] = None) -> torch.Tensor:
         """x -> the scaled latent (KL: the mode unless a noise source is given)."""
-        return self.scale_factor * _stage_encode(self.first_stage, x.float(), noise)
+        return self.scale_factor * ae_encode(self.first_stage, x.float(), noise)
 
     @torch.no_grad()
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return _stage_decode(self.first_stage, z.float() / self.scale_factor)
+        return ae_decode(self.first_stage, z.float() / self.scale_factor)
 
     @torch.no_grad()
     def encode_cond(self, cond: torch.Tensor) -> torch.Tensor:
         """Pixel condition -> cond latent by the cond stage (or the first
         stage), its mode, not rescaled."""
-        return _stage_encode(self.cond_stage or self.first_stage, cond.float())
+        return ae_encode(self.cond_stage or self.first_stage, cond.float())
 
     @torch.no_grad()
     def encode_tiled(self, x: torch.Tensor, patch: Tuple[int, int], stride: Tuple[int, int]) -> torch.Tensor:
         """Patch-tiled encode with border-weighted stitching in latent space."""
         f = self.first_stage.downsample_factor
-        z = tiled_apply(lambda tile: _stage_encode(self.first_stage, tile), x.float(), patch, stride,
+        z = tiled_apply(lambda tile: ae_encode(self.first_stage, tile), x.float(), patch, stride,
                         out_channels=self.first_stage.embed_dim, out_scale=1.0 / f)
         return self.scale_factor * z
 
@@ -113,7 +132,7 @@ class LatentSliceLDM:
     def decode_tiled(self, z: torch.Tensor, patch: Tuple[int, int], stride: Tuple[int, int]) -> torch.Tensor:
         """Patch-tiled decode; patch and stride in latent pixels."""
         f = self.first_stage.downsample_factor
-        return tiled_apply(lambda tile: _stage_decode(self.first_stage, tile), z.float() / self.scale_factor,
+        return tiled_apply(lambda tile: ae_decode(self.first_stage, tile), z.float() / self.scale_factor,
                            patch, stride, out_channels=self.first_stage.out_ch, out_scale=float(f))
 
     def make_quantize_fn(self):
@@ -130,7 +149,7 @@ class LatentSliceLDM:
     @torch.no_grad()
     def calibrate_scale_factor(self, batch_x: torch.Tensor) -> "LatentSliceLDM":
         """scale_by_std: a copy with scale_factor = 1 / std of the encoded batch."""
-        z = _stage_encode(self.first_stage, batch_x.float())
+        z = ae_encode(self.first_stage, batch_x.float())
         return replace(self, scale_factor=float(1.0 / torch.std(z, correction=0)))
 
     # -- training ------------------------------------------------------------------
@@ -184,7 +203,9 @@ class LatentSliceLDM:
         else:
             z = self.inner.sample_slice(noise, cond_z, ddim, context=context, y=y, guidance_scale=guidance_scale,
                                         uncond_cond=uncond_z, x_T=x_T, start_index=start)
-        return _minmax_slice(self.decode(z)), z
+        s = self.decode(z)
+        with span("slice.post", True):
+            return _minmax_slice(s), z
 
     @torch.no_grad()
     def stream_volume(self, noise: NoiseSource, mask_volume: torch.Tensor, ddim: DDIMParams,

@@ -6,7 +6,8 @@ Sites with Tq >= 512 query tokens whose shape the flash rule accepts go to
 `ops.flash_attention.flash_attention` (the Hopper kernels, forward and
 backward, on CUDA tensors; their plain versions on CPU tensors); the rest take
 the plain path, which scales q and k by d^-1/4 each and takes an fp32
-softmax, as the reference does.  Both differentiate on either device.
+softmax, as the reference does (counted in `plain_attention.launches`, as
+the flash kernels count theirs).  Both differentiate on either device.
 
 Under spatial sharding (`parallel/spatial.py`) a shard attends with its own
 queries against every key; the rule then reads the site's whole query count
@@ -39,8 +40,13 @@ def plain_attention_weights(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(B, H, Tq, D) x (B, H, Tk, D) -> (B, H, Tq, D); fp32 logits and softmax,
-    weights cast to v's dtype for the second product."""
+    weights cast to v's dtype for the second product.  Each call counts one
+    in `plain_attention.launches`."""
+    plain_attention.launches += 1
     return torch.matmul(plain_attention_weights(q, k).to(v.dtype), v)
+
+
+plain_attention.launches = 0
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tq: Optional[int] = None) -> torch.Tensor:
