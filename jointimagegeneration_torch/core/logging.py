@@ -44,7 +44,8 @@ record is (name, depth, host_open, host_close, card_open, card_close); the
 card times are None on a CPU run and where the caller passes `card=False`
 (the UNet on a sharded 'model' axis).  What a session recorded
 stays readable until the next one begins or `reset_spans()`.
-`intervals()` flattens the records into the innermost span open at each
+Inside `spans_paused()` (a CUDA graph's capture, `nn/graphed.py`) no span
+records.  `intervals()` flattens the records into the innermost span open at each
 instant, (start ns, end ns, name), the form `perfbench.trace.reduce_events`
 attributes the card's idle gaps to.  `timed_span` is a span whose handle also
 keeps its host seconds when the recorder is off (a served request's
@@ -53,6 +54,7 @@ timings); `span_summary` sums records by name (count, mean issue and card ms).
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import gzip
 import json
@@ -68,7 +70,7 @@ from ..eval.writers import save_grid_png
 
 __all__ = ["MetricLogger", "Throughput", "hbm_stats", "summarize_trace", "TRACE_KINDS", "kind_of", "span",
            "timed_span", "records", "intervals", "trace_spans", "reset_spans", "span_summary", "span_table",
-           "print_span_summary", "SpanRecord"]
+           "print_span_summary", "SpanRecord", "spans_paused"]
 
 TRACE_KINDS = [  # (kind, pattern on the kernel name), first match wins
     ("conv3d_kernel", r"conv3d_wgmma_kernel|conv3d_ffma_kernel|splitk_reduce_kernel|stats_reduce_kernel"),
@@ -244,6 +246,7 @@ class _Recorder:
     def __init__(self):
         self.forced = False
         self.live = False
+        self.paused = 0
         self.session = 0
         self.cuda = False
         self.stream = None
@@ -387,7 +390,7 @@ def span(name: str, card: bool = False):
     if not (_REC.forced or _profiler_enabled()):
         _REC.live = False
         return _OFF
-    return _Span(name, card)
+    return _OFF if _REC.paused else _Span(name, card)
 
 
 def timed_span(name: str, card: bool = False):
@@ -395,7 +398,18 @@ def timed_span(name: str, card: bool = False):
     if not (_REC.forced or _profiler_enabled()):
         _REC.live = False
         return _Clock()
-    return _Span(name, card)
+    return _Clock() if _REC.paused else _Span(name, card)
+
+
+@contextlib.contextmanager
+def spans_paused():
+    """No span records inside: a CUDA graph's capture, whose calls run no
+    kernels and may place no event on the capturing stream."""
+    _REC.paused += 1
+    try:
+        yield
+    finally:
+        _REC.paused -= 1
 
 
 def trace_spans(on: bool) -> None:

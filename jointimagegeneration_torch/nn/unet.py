@@ -81,7 +81,13 @@ around a call, `unet.head` (the time embedding and `in_conv`), one
 `unet.<block>` per block in calling order (`unet.down_0_0_res`, ...,
 `unet.mid_res1`, `unet.mid_attn`, `unet.mid_res2`, ..., `unet.up_0_2_res`),
 and `unet.tail` (`out_norm`, SiLU, `out_conv`, the softmax); card events
-except on a sharded 'model' axis.
+except on a sharded 'model' axis.  The block spans are recorded on eager
+calls only: a replayed call is one `unet` span.
+
+A call without autograd whose inputs are all on this module's CUDA device,
+with no mesh (or a mesh of that one device) and no `spatial_axis`, replays
+a CUDA graph of the forward from its key's third call on (`nn/graphed.py`:
+the first runs eager, the second captures); any other call runs eager.
 """
 
 from __future__ import annotations
@@ -98,6 +104,7 @@ from ..core.runtime import resolve_device
 from ..parallel import spatial
 from ..parallel.mesh import Mesh, replicate, shard_batch
 from ..parallel.spatial import Sharded, each
+from .graphed import GraphCache
 from .blocks import AttentionBlock, Conv, Downsample, GroupNorm32, Linear, ResBlock, Upsample, timestep_embedding
 from .transformer import SequenceTransformer
 
@@ -232,6 +239,7 @@ class UNet(nn.Module):
         init_weights(self, generator)
         self._span_names = {name: f"unet.{name}" for name, _ in self.named_children()}
         self._replicas, self._replica_version = {}, None
+        self._graphs = GraphCache()
         self.set_mesh(mesh, spatial_axis)
 
     def set_mesh(self, mesh: Optional[Mesh] = None, spatial_axis: Optional[str] = None) -> None:
@@ -297,6 +305,11 @@ class UNet(nn.Module):
     def _call(self, x, timesteps, cond, context, y, feature_cond) -> torch.Tensor:
         mesh = self.mesh
         if mesh is None or mesh.devices == [[self.time_embed_0.weight.device]]:
+            sites = tuple(sorted(feature_cond or {}))
+            inputs = (x, timesteps, cond, context, y, *(feature_cond[i] for i in sites))
+            if self.spatial_axis is None and self._graphs.eligible(self, inputs):
+                return self._graphs.run(self, lambda x, t, c, ctx, y, *fc: self._run(
+                    x, t, c, ctx, y, dict(zip(sites, fc)) or None, None), inputs, sites)
             return self._run(x, timesteps, cond, context, y, feature_cond, None)
         if torch.is_grad_enabled() and any(row[0] != self.time_embed_0.weight.device for row in mesh.devices):
             raise ValueError(f"UNet: the rows of {mesh} on other devices run weight copies, which no gradient "

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from .flash_attention import flash_attention, flash_eligible
+from .launch_counters import counted
 
 __all__ = ["plain_attention", "plain_attention_weights", "attention", "multi_head_self_attention", "multi_head_cross_attention",
            "FLASH_MIN_SEQ"]
@@ -46,7 +47,7 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return torch.matmul(plain_attention_weights(q, k).to(v.dtype), v)
 
 
-plain_attention.launches = 0
+counted(plain_attention, launches=0)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tq: Optional[int] = None) -> torch.Tensor:

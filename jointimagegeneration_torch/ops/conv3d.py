@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda.build import load_library
+from .launch_counters import counted
 
 __all__ = ["CONV3D_SOURCE", "ConvPlan", "plan_conv3d", "conv3d_plain", "conv3d_igemm", "channel_stats_reduce", "conv3d_fused", "conv3d_3x3", "conv3d_3x3_v2", "conv_flops"]
 
@@ -307,8 +308,7 @@ def conv3d_igemm(x: torch.Tensor, kernel: torch.Tensor, scale: Optional[torch.Te
     return (out, stats) if want_stats else out
 
 
-conv3d_igemm.launches = 0
-conv3d_igemm.splitk_launches = 0
+counted(conv3d_igemm, launches=0, splitk_launches=0)
 
 
 def _stats_reduce(fn, partial: int, stats: int, rows: int, cols: int, stream: int) -> None:
@@ -333,7 +333,7 @@ def channel_stats_reduce(partial: torch.Tensor) -> torch.Tensor:
     return stats
 
 
-channel_stats_reduce.launches = 0
+counted(channel_stats_reduce, launches=0)
 
 
 def _forward(x, kernel, scale, shift, bias, residual, want_stats, activate) -> Out:

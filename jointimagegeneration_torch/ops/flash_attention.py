@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from .cuda.build import load_library
+from .launch_counters import counted
 
 __all__ = ["flash_forward", "flash_attention_plain", "flash_backward", "flash_backward_plain",
            "flash_bwd_dkv", "flash_bwd_dq", "FlashAttention", "flash_attention", "flash_eligible",
@@ -463,7 +464,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return _tma_padded(_forward_kernel, q, k, v)
 
 
-flash_forward.launches = 0
+counted(flash_forward, launches=0)
 
 
 def flash_fwd_merge_plain(o_parts: torch.Tensor, ml_parts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -508,7 +509,7 @@ def flash_fwd_merge(o_parts: torch.Tensor, ml_parts: torch.Tensor, o: torch.Tens
     return o, lse
 
 
-flash_fwd_merge.launches = 0
+counted(flash_fwd_merge, launches=0)
 
 
 def _bwd_plan(q: torch.Tensor, k: torch.Tensor, plan: Optional[FlashBwdPlan]) -> FlashBwdPlan:
@@ -557,7 +558,7 @@ def flash_bwd_reduce(ws: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-flash_bwd_reduce.launches = 0
+counted(flash_bwd_reduce, launches=0)
 
 
 def _split_workspace(kp: BwdKernelPlan, out: torch.Tensor) -> Optional[torch.Tensor]:
@@ -585,7 +586,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Ten
     return dq, delta
 
 
-flash_bwd_dq.launches = 0
+counted(flash_bwd_dq, launches=0)
 
 
 def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
@@ -612,7 +613,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
     return dk, dv
 
 
-flash_bwd_dkv.launches = 0
+counted(flash_bwd_dkv, launches=0)
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,

@@ -38,8 +38,10 @@ import torch.nn.functional as F
 
 from .cuda.build import load_library
 from .flash_attention import _cuda_bindings
+from .launch_counters import counted
 
-__all__ = ["GROUP_NORM_SOURCE", "GroupNormPlan", "plan_group_norm", "group_norm_plain", "group_norm_act"]
+__all__ = ["GROUP_NORM_SOURCE", "GroupNormPlan", "plan_group_norm", "group_norm_plain", "group_norm_act",
+           "live_buffers"]
 
 GROUP_NORM_SOURCE = "group_norm"
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
@@ -197,6 +199,13 @@ def _buffer(device: torch.device, b: int, floats: int) -> Tuple[int, int]:
     return base, base + 4 * counters
 
 
+def live_buffers() -> Tuple[torch.Tensor, ...]:
+    """The buffers that calls use now, one a device.  A CUDA graph that
+    captured calls keeps them (`nn/graphed.py`): a later call that grows a
+    buffer drops it here, and the graph's replays still read it."""
+    return tuple(t for t, _ in _buffers.values())
+
+
 def _launch_pair(fn, ptrs: Dict[str, Optional[int]], shape, stream: int) -> None:
     """Issues a call's two kernels in order through `fn` (name -> C entry
     point; `_kernel_fn` on the card): the statistics, then the apply.  `ptrs`
@@ -311,4 +320,4 @@ def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, gro
     return _forward_kernel(x, gamma, beta, groups, eps, silu, add, film_scale, film_shift)
 
 
-group_norm_act.launches = 0
+counted(group_norm_act, launches=0)

@@ -34,7 +34,10 @@ card's kernel and copy intervals over the traced steps' wall time, as
 open on the host when it began (`perfbench.trace.reduce_events` fed
 `core.logging.intervals()`): `idle_ms_by_span`, and by UNet level
 (`levels`: head, L0..L4 for the down and up blocks of a level, mid, tail)
-beside the level's host issue ms and card ms, all per UNet call; with a
+beside the level's host issue ms and card ms, all per UNet call (from a
+second profile with the UNet calls eager, since a replayed CUDA graph records
+no block span; the rest with the calls as the program runs them, its
+`unet_graph` the captures, replays and share of calls replayed); with a
 sampler loop, `card_backlog_ms` is the median over its steps of the card's
 open less the host's.  The train step's peak memory is
 torch.cuda.max_memory_allocated.
@@ -44,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -53,6 +57,10 @@ from pathlib import Path
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+# Each cell is profiled again after its own and the earlier cells' CUDA graph
+# captures: keep CUPTI up between the profiles (`torch.profiler` does so where it
+# knows of graphs); so set, every cell's kernels were seen.
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
 
 from chip_smoke import (STAGE1_TRAIN_CFG, STAGE2_TRAIN_CFG, TEXT_TRAIN_CFG, TWO_STAGE_CFG, conv_flags,  # noqa: E402
                         fused_conv_calls)
@@ -63,6 +71,7 @@ from jointimagegeneration_torch.core.runtime import configure_precision  # noqa:
 from jointimagegeneration_torch.data.datasets import SyntheticSliceDataset  # noqa: E402
 from jointimagegeneration_torch.diffusion.ddim import DDIMParams, ddim_step  # noqa: E402
 from jointimagegeneration_torch.diffusion.noise import NoiseSource  # noqa: E402
+from jointimagegeneration_torch.nn.graphed import eager_unet, unet_graph  # noqa: E402
 from jointimagegeneration_torch.ops import conv3d as conv  # noqa: E402
 from jointimagegeneration_torch.ops import flash_attention as flash  # noqa: E402
 from jointimagegeneration_torch.ops import group_norm as gn  # noqa: E402
@@ -129,7 +138,28 @@ def level_table(recs: list, idle_by_span: dict) -> dict:
     return out
 
 
+def profiled(step, steps: int) -> tuple:
+    """(span records, the reduced trace, the card's (start, end, name) events)
+    of `steps` calls of `step` under a CUDA-only profile."""
+    spans.reset_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        w0 = time.time_ns()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        w1 = time.time_ns()
+    recs = spans.records()
+    spans.reset_spans()
+    device = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()]
+    return recs, reduce_events(device, spans.intervals(recs), (w0, w1)), device
+
+
 def measure(label: str, step, steps: int, per_level: bool = False, unet=None) -> dict:
+    """With `unet`, its calls replay CUDA graphs where they are eligible
+    (`nn/graphed.py`; the row's `unet_graph`), and the per-level table comes
+    from a second profile with the calls eager: only eager calls record the
+    block spans it reads."""
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -141,6 +171,7 @@ def measure(label: str, step, steps: int, per_level: bool = False, unet=None) ->
     conv.conv3d_igemm.splitk_launches = 0
     calls = []
     hook = unet.register_forward_pre_hook(lambda *_: calls.append(1)) if unet is not None else None
+    graph0 = (unet_graph.captures, unet_graph.replays)
     torch.cuda.reset_peak_memory_stats()
     start.record()
     for _ in range(steps):
@@ -153,19 +184,14 @@ def measure(label: str, step, steps: int, per_level: bool = False, unet=None) ->
     launches = {c.__name__: c.launches / steps for c in counters}
     launches["conv3d_splitk_reduce"] = conv.conv3d_igemm.splitk_launches / steps
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    graph = {"captures": unet_graph.captures - graph0[0], "replays": unet_graph.replays - graph0[1]}
 
-    spans.reset_spans()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        w0 = time.time_ns()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        w1 = time.time_ns()
-    recs = spans.records()
-    spans.reset_spans()
-    device = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in prof.profiler.kineto_results.events()
-              if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()]
-    traced = reduce_events(device, spans.intervals(recs), (w0, w1))
+    recs, traced, device = profiled(step, steps)
+    levels = level_table(recs, traced.idle_by_span)
+    if unet is not None:
+        with eager_unet():
+            eager_recs, eager_traced, _ = profiled(step, steps)
+        levels = level_table(eager_recs, eager_traced.idle_by_span)
     counts = {}
     for _, _, name in device:
         counts[name] = counts.get(name, 0) + 1
@@ -180,10 +206,11 @@ def measure(label: str, step, steps: int, per_level: bool = False, unet=None) ->
            "top_kernels": [{"ms": ms, "calls": n, "name": name[:120]} for ms, n, name in kernels[:12]],
            "idle_ms_by_span": {k: 1e3 * s / steps
                                for k, s in sorted(traced.idle_by_span.items(), key=lambda kv: -kv[1])},
-           "levels": level_table(recs, traced.idle_by_span),
+           "levels": levels,
            "card_backlog_ms": statistics.median(waits) if waits else None}
     if calls:
-        row["group_norm_act_per_unet_call"] = gn.group_norm_act.launches / len(calls)
+        row["group_norm_act_per_unet_call"] = launches["group_norm_act"] * steps / len(calls)  # the window's calls
+        row["unet_graph"] = dict(graph, replayed_share=graph["replays"] / len(calls))
     if per_level:
         row["conv3d_kernel_ms_by_level"] = conv_ms_by_level(device, steps)
     print(json.dumps(row), flush=True)
